@@ -1,0 +1,591 @@
+"""Banded forward-backward for the port: the host problem build (numpy,
+field for field with ``signalalign_tpu.ops.banded_fb``) and the plain
+PyTorch DP of the canonical slice.
+
+The DP is the P=1 ``MODE_MEAN_ONLY`` specialisation of the JAX
+``_banded_sweeps_core``: a Python loop over anti-diagonals, vectorised
+over problems x band offsets, in the band-offset frame (cell (d, o) is
+x = x0[d] + o, y = d - x). Every stored diagonal is max-normalised and
+the per-diagonal offsets are returned as increments whose float64 prefix
+sums restore absolute log-probabilities. It is the CPU path of the port
+and the plain version each Hopper kernel (``banded_fb_hopper``) is held
+against on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from signalalign_tpu.models.pore_model import (GAP_X, GAP_Y, MATCH, PoreModel,
+                                               ScalingParams, T_MM, T_MX,
+                                               T_MY, T_XM, T_XX, T_YM, T_YY)
+from signalalign_tpu.ops.band_geometry import band_widths, build_band
+from signalalign_tpu.ops.fb_oracle import (LOG_GAPX_EMISSION, end_state_logs,
+                                           start_state_logs)
+from signalalign_tpu.utils.alphabet import expand_kmer_paths
+
+NEG = -1.0e30  # finite log-zero: no inf - inf NaNs
+DTYPE = np.float32
+
+# emission modes
+MODE_MEAN_ONLY = 0      # log(1/var) + N(descaled mean; mu, sd)     [production]
+MODE_FULL = 1           # N(mean; mu, sd) + invGauss(noise; nm, lam) [no descale]
+MODE_FULL_DESCALED = 2  # N(descaled) + invGauss(noise)
+MODE_HDP = 3            # log((1/var) * hdp_spline(descaled mean))
+
+# per-position match/stay parameter layout (NPAR, P, LX):
+#   0: m_hat   = scale*mu + shift          (expected scaled level mean)
+#   1: inv_m   = 1/(var*sd_match)
+#   2: c_m     = -log sqrt(2pi) - log sd_match - log var   (match const)
+#   3: inv_y   = 1/(var*sd_stay)
+#   4: c_y     = const for stay (sd*1.75 table)
+#   5: nm      = noise mean (possibly rescaled)
+#   6: nlam    = noise lambda
+#   7: mu      = unscaled level mean (descaling ref, full modes)
+#   8: sd_m    = level sd
+#   9: sd_y    = stay level sd
+NPAR = 10
+# event parameter layout (NEVP, LE) in REVERSED order (see prepare):
+#   0: mean (drift-adjusted)   1: noise (sd)   2: log(noise)   3: valid(0/1)
+NEVP = 4
+
+# ---- device layout of one bucket (ProblemTensors), read by the kernels
+NREF = 5    # ref rows: m_hat, inv_m, c_m, inv_y, c_y (ref_params rows 0-4)
+NEV = 2     # ev rows: reversed event mean, valid flag (ev_params rows 0, 3)
+# meta columns (int32)
+M_LX, M_LY, M_NDIAG, M_EVPAD, M_REFLEN, M_EVLEN = range(6)
+NMETA = 8
+# par columns (float32)
+PACK_TRANS = 0    # 9 log transitions
+PACK_START = 9    # 3 start-state logs
+PACK_END = 12     # 3 end-state logs
+PACK_GAPX = 15    # gapX log emission
+NPACK = 16
+
+
+@dataclasses.dataclass
+class BandedProblem:
+    """Host-side arrays describing one read segment's banded DP."""
+    # static-ish metadata
+    lX: int
+    lY: int
+    n_diag: int                    # lX + lY (index of final diagonal)
+    mode: int
+    log_trans: np.ndarray          # (9,) f32
+    start_logs: np.ndarray         # (3,) f32
+    end_logs: np.ndarray           # (3,) f32
+    var: float
+    # per-diagonal geometry (length Dpad+1)
+    x0: np.ndarray                 # i32
+    width: np.ndarray              # i32
+    # per-position tables
+    ref_params: np.ndarray         # (NPAR, P, LXpad) f32
+    kmer_ids: np.ndarray           # (P, LXpad) i32  (for HDP / outputs)
+    path_valid: np.ndarray         # (P, LXpad) bool
+    legal: np.ndarray              # (P, P, LXpad) bool  legal[p_to, q_from, x]
+    n_paths: np.ndarray            # (LXpad,) i32
+    # reversed event tables
+    ev_params: np.ndarray          # (NEVP, LEpad) f32
+    ev_front_pad: int              # index offset of j=0 in ev arrays
+    # HDP density tables (MODE_HDP): (num_kmers, grid), (num_kmers, grid),
+    # (2,)=[grid_start, grid_step]
+    hdp_dens: Optional[np.ndarray] = None
+    hdp_slopes: Optional[np.ndarray] = None
+    hdp_grid: Optional[np.ndarray] = None
+    # per-event best-case match log-emission + its sum over valid events
+    ev_best: Optional[np.ndarray] = None
+    ev_norm_total: float = 0.0
+    # bookkeeping for output decoding
+    num_kmers: int = 0             # model alphabet size**k (emission EM)
+    seq: str = ""                  # segment nucleotide sequence
+    kmer_len: int = 0
+    path_kmers: Optional[List[List[str]]] = None  # per position path kmers
+                                                  # (None for canonical P==1)
+    # lane packing: per packed sub-segment (orig_problem, ox, oy, d_start,
+    # d_end); None for ordinary problems
+    segments: Optional[List[Tuple]] = None
+    # per-x 1/var (cross-read packing; scalar ``var`` otherwise)
+    ivar_by_x: Optional[np.ndarray] = None
+
+    def path_kmer_at(self, x: int, p: int) -> Optional[str]:
+        """Path k-mer string for cell x (1-based), path slot p."""
+        if self.path_kmers is not None:
+            row = self.path_kmers[x - 1]
+            return row[p] if p < len(row) else None
+        return self.seq[x - 1:x - 1 + self.kmer_len] if p == 0 else None
+
+
+def _gauss_const(sd):
+    return -0.91893853320467267 - np.log(sd)
+
+
+def prepare_problem(
+    seq: str,
+    events: np.ndarray,            # (lY, >=3): mean, noise, [duration, start]
+    model: PoreModel,
+    params: ScalingParams,
+    ambig_map: Dict[str, str],
+    W: int,
+    Dpad: int,
+    P: int,
+    mode: int = MODE_MEAN_ONLY,
+    anchor_pairs: Sequence[Tuple[int, int]] = (),
+    expansion: int = 20,
+    ragged_start: bool = True,
+    ragged_end: bool = True,
+    scale_noise: bool = False,
+    drift_deltas: Optional[np.ndarray] = None,
+    hdp=None,
+) -> BandedProblem:
+    """Precompute all device arrays for one segment.
+
+    ``W`` must be >= the maximum band width; ``Dpad`` >= lX+lY; ``P`` >= the
+    maximum paths per cell. ``drift_deltas`` optionally supplies per-event
+    delta-times for drift correction of event means (nanopore.c:633-653).
+    """
+    k = model.kmer_length
+    lX = len(seq) - k + 1
+    lY = len(events)
+    if lX < 1 or lY < 1:
+        raise ValueError("empty sequence or events")
+
+    xmyL, xmyR = build_band(anchor_pairs, lX, lY, expansion)
+    widths = band_widths(xmyL, xmyR)
+    if widths.max() > W:
+        raise ValueError(f"band width {widths.max()} exceeds W={W}")
+    D = lX + lY
+    if D > Dpad:
+        raise ValueError(f"diagonal count {D} exceeds Dpad={Dpad}")
+
+    x0 = np.zeros(Dpad + 1, dtype=np.int32)
+    width = np.zeros(Dpad + 1, dtype=np.int32)
+    x0[:D + 1] = (np.arange(D + 1) + xmyL) // 2
+    width[:D + 1] = widths
+    # pad diagonals: keep slice starts in range (masked anyway)
+    if Dpad > D:
+        x0[D + 1:] = x0[D]
+
+    # ---- per-position path expansion
+    LXpad = lX + 1 + W
+    kmer_ids = np.zeros((P, LXpad), dtype=np.int32)
+    path_valid = np.zeros((P, LXpad), dtype=bool)
+    n_paths = np.zeros(LXpad, dtype=np.int32)
+    n_paths[0] = 1  # null boundary cell
+    legal = np.zeros((P, P, LXpad), dtype=bool)
+    has_ambig = any(c in ambig_map for c in set(seq))
+
+    if P == 1 and not has_ambig:
+        # canonical fast path: fully vectorized, k-mer strings decoded lazily
+        path_kmers = None
+        kmer_ids[0, 1:lX + 1] = model.alphabet.seq_to_kmer_ids(seq)
+        path_valid[0, 1:lX + 1] = True
+        n_paths[1:lX + 1] = 1
+        legal[0, 0, 1:lX + 1] = True
+    else:
+        path_kmers = []
+        for i in range(lX):
+            paths = expand_kmer_paths(seq[i:i + k], ambig_map)
+            if len(paths) > P:
+                raise ValueError(
+                    f"position {i} expands to {len(paths)} paths > P={P}")
+            path_kmers.append(paths)
+            x = i + 1
+            n_paths[x] = len(paths)
+            for p, pk in enumerate(paths):
+                kmer_ids[p, x] = model.alphabet.kmer_index(pk)
+                path_valid[p, x] = True
+        # legality masks: legal[p, q, x] == transition from path q of cell
+        # x-1 into path p of cell x is legal (path_checkLegal semantics)
+        for x in range(1, lX + 1):
+            if x == 1:
+                for p in range(int(n_paths[1])):
+                    legal[p, 0, 1] = True  # from the null boundary path
+            else:
+                prev = path_kmers[x - 2]
+                cur = path_kmers[x - 1]
+                for p, pk in enumerate(cur):
+                    for q, qk in enumerate(prev):
+                        legal[p, q, x] = qk[1:] == pk[:-1]
+
+    # ---- per-position emission parameters
+    if scale_noise:
+        nm_t, ns_t, nl_t = model.scaled_noise_tables(params)
+    else:
+        nm_t, ns_t, nl_t = model.noise_mean, model.noise_sd, model.noise_lambda
+
+    ref_params = np.zeros((NPAR, P, LXpad), dtype=np.float64)
+    ids = kmer_ids[path_valid]
+    mu = model.level_mean
+    sd_m = model.level_sd
+    sd_y = model.gap_y_level_sd
+
+    def fill(slot, values_per_kmer):
+        buf = np.zeros((P, LXpad))
+        buf[path_valid] = values_per_kmer[ids]
+        ref_params[slot] = buf
+
+    fill(0, params.scale * mu + params.shift)
+    with np.errstate(divide="ignore"):
+        fill(1, 1.0 / (params.var * sd_m))
+        fill(2, _gauss_const(sd_m) - math.log(params.var))
+        fill(3, 1.0 / (params.var * sd_y))
+        fill(4, _gauss_const(sd_y) - math.log(params.var))
+    fill(5, nm_t)
+    fill(6, nl_t)
+    fill(7, mu)
+    fill(8, sd_m)
+    fill(9, sd_y)
+
+    # ---- reversed event arrays
+    ev_front_pad = 2
+    LEpad = lY + ev_front_pad + W + 4
+    ev_params = np.zeros((NEVP, LEpad), dtype=np.float64)
+    means = events[:, 0].astype(np.float64).copy()
+    if drift_deltas is not None and params.drift != 0.0:
+        means = means - params.drift * np.asarray(drift_deltas, dtype=np.float64)
+    noise = events[:, 1].astype(np.float64)
+    noise = np.where(noise == 0.0, 1e-9, noise)
+    # j = lY - y for y in 1..lY  ->  reversed order
+    rev = slice(ev_front_pad, ev_front_pad + lY)
+    ev_params[0, rev] = means[::-1]
+    ev_params[1, rev] = noise[::-1]
+    ev_params[2, rev] = np.log(noise[::-1])
+    ev_params[3, rev] = 1.0
+
+    hdp_dens = hdp_slopes = hdp_grid = None
+    if mode == MODE_HDP:
+        if hdp is None:
+            raise ValueError("MODE_HDP requires an hdp model")
+        hdp_dens, hdp_slopes, g0, dx = hdp.density_arrays()
+        hdp_grid = np.array([g0, dx], dtype=np.float32)
+
+    # per-event best-case match log-emission over ALL model kmers (the
+    # JAX package's probability-space kernels subtract it; kept so the
+    # problem carries the same fields)
+    ev_best = None
+    ev_norm_total = 0.0
+    if mode == MODE_MEAN_ONLY:
+        mu_hat_all = params.scale * mu + params.shift
+        with np.errstate(divide="ignore"):
+            inv_all = 1.0 / (params.var * sd_m)
+            cst_all = _gauss_const(sd_m) - math.log(params.var)
+        best = np.full(lY, -1e30)
+        for k0 in range(0, len(mu_hat_all), 512):
+            z = (means[:, None] - mu_hat_all[None, k0:k0 + 512]) \
+                * inv_all[None, k0:k0 + 512]
+            cand = cst_all[None, k0:k0 + 512] - 0.5 * z * z
+            best = np.maximum(best, cand.max(axis=1))
+        ev_best = np.zeros(LEpad, dtype=DTYPE)
+        ev_best[rev] = best[::-1]
+        ev_norm_total = float(best.sum())
+
+    start = start_state_logs(model, ragged_start)
+    end = end_state_logs(model, ragged_end)
+    return BandedProblem(
+        lX=lX, lY=lY, n_diag=D, mode=mode,
+        log_trans=np.where(np.isfinite(model.log_transitions),
+                           model.log_transitions, NEG).astype(DTYPE),
+        start_logs=np.where(np.isfinite(start), start, NEG).astype(DTYPE),
+        end_logs=np.where(np.isfinite(end), end, NEG).astype(DTYPE),
+        var=float(params.var),
+        x0=x0, width=width,
+        ref_params=ref_params.astype(DTYPE),
+        kmer_ids=kmer_ids, path_valid=path_valid, legal=legal, n_paths=n_paths,
+        ev_params=ev_params.astype(DTYPE), ev_front_pad=ev_front_pad,
+        ev_best=ev_best, ev_norm_total=ev_norm_total,
+        hdp_dens=hdp_dens, hdp_slopes=hdp_slopes, hdp_grid=hdp_grid,
+        num_kmers=model.alphabet.num_kmers,
+        seq=seq, kmer_len=k, path_kmers=path_kmers,
+    )
+
+
+def extract_aligned_pairs(problem: BandedProblem, post: np.ndarray,
+                          threshold: float = 0.01) -> List[Tuple[int, int, int, str]]:
+    """Threshold the posterior band tensor into (prob_int, x, y, kmer) pairs.
+
+    Output matches diagonalCalculationPosteriorMatchProbs
+    (pairwiseAligner.c:1355-1420): coordinates are 0-based sequence indices,
+    probability is floor(p * 1e7).
+    """
+    D = problem.n_diag
+    out = []
+    hits = np.argwhere(post[:D + 1] >= threshold)
+    for d, p, o in hits:
+        x = int(problem.x0[d]) + int(o)
+        y = int(d) - x
+        if x <= 0 or y <= 0 or x > problem.lX or y > problem.lY:
+            continue
+        kmer = problem.path_kmer_at(x, p)
+        if kmer is None:
+            continue
+        prob = min(float(post[d, p, o]), 1.0)
+        out.append((int(prob * 10000000), x - 1, y - 1, kmer))
+    out.sort(key=lambda r: (r[1] + r[2], r[1]))
+    return out
+
+
+# --------------------------------------------------------------------------
+# device layout of one bucket
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ProblemTensors:
+    """The problems of one bucket as padded tensors on one device: the
+    layout both the plain DP below and the Hopper kernels read.
+
+    ``D1`` = max(n_diag) + 1 diagonals; ``ref``/``ev`` are padded along
+    their last axis to the bucket's longest problem, and each problem's
+    own lengths sit in ``meta`` (M_REFLEN, M_EVLEN) so windows clamp
+    exactly as the JAX package's per-problem dynamic slices do.
+    """
+    W: int
+    n_diag: List[int]      # host copy of meta[:, M_NDIAG]
+    x0: torch.Tensor       # (B, D1) int32 band origin per diagonal
+    width: torch.Tensor    # (B, D1) int32 band width per diagonal
+    ref: torch.Tensor      # (B, NREF, LX) f32
+    ev: torch.Tensor       # (B, NEV, LE) f32
+    meta: torch.Tensor     # (B, NMETA) int32
+    par: torch.Tensor      # (B, NPACK) f32
+
+    @property
+    def device(self) -> torch.device:
+        return self.x0.device
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch DP (P=1, MODE_MEAN_ONLY)
+# --------------------------------------------------------------------------
+
+def _lae(a, b):
+    return torch.logaddexp(a, b)
+
+
+def _cols(table, start, length, W: int):
+    """(B, R, L) table -> (B, R, W) columns [s, s+W) per problem, with
+    s = start clamped to [0, length - W] (jax.lax.dynamic_slice's clamp);
+    returns the window and its (B, W) column indices."""
+    s = torch.minimum(torch.clamp(start, min=0), length - W)
+    idx = s[:, None] + torch.arange(W, device=table.device)
+    win = torch.gather(table, 2, idx[:, None, :].expand(-1, table.shape[1], -1))
+    return win, idx
+
+
+def _window(prev, shift, W: int):
+    """(B, S, W) diagonal -> (B, S, W+1) with out[..., i] = prev[..., i+shift]
+    where 0 <= i+shift < W and NEG elsewhere (the JAX ``_window2``)."""
+    idx = shift[:, None] + torch.arange(W + 1, device=prev.device)
+    ok = (idx >= 0) & (idx < W)
+    g = torch.gather(prev, 2, idx.clamp(0, W - 1)[:, None, :]
+                     .expand(-1, prev.shape[1], -1))
+    return torch.where(ok[:, None, :], g, NEG)
+
+
+def _emissions(refw, evw, gapx):
+    """Mean-only match / stay / gapX log emissions, (B, W) each."""
+    m_hat, inv_m, c_m, inv_y, c_y = refw.unbind(1)
+    ev_mean = evw[:, 0]
+    am = (ev_mean - m_hat) * inv_m
+    ay = (ev_mean - m_hat) * inv_y
+    e_match = c_m - 0.5 * am * am
+    e_stay = c_y - 0.5 * ay * ay
+    kvalid = inv_m > 0.0
+    ok = kvalid & (evw[:, 1] > 0.5)
+    return (torch.where(ok, e_match, NEG), torch.where(ok, e_stay, NEG),
+            torch.where(kvalid, gapx, NEG))
+
+
+def _diag_max(cur):
+    """Per-problem max over a (B, 3, W) diagonal; 0 for an empty one."""
+    m = cur.amax(dim=(1, 2))
+    return torch.where(m > NEG * 0.5, m, 0.0)
+
+
+def _lse(cur, logs):
+    """Per-problem logsumexp of a (B, 3, W) diagonal weighted by (B, 3)."""
+    v = torch.clamp(cur + logs[:, :, None], min=NEG)
+    return torch.logsumexp(v.reshape(v.shape[0], -1), dim=1)
+
+
+def _unpack(pt: ProblemTensors):
+    meta = pt.meta.long()
+    t = pt.par[:, PACK_TRANS:PACK_TRANS + 9, None]    # t[:, T_xx] is (B, 1)
+    return (meta[:, M_LX], meta[:, M_LY], meta[:, M_NDIAG], meta[:, M_EVPAD],
+            meta[:, M_REFLEN], meta[:, M_EVLEN], t,
+            pt.par[:, PACK_START:PACK_START + 3],
+            pt.par[:, PACK_END:PACK_END + 3], pt.par[:, PACK_GAPX, None])
+
+
+def sweep_forward(pt: ProblemTensors):
+    """Forward sweep over diagonals 0..D1-1.
+
+    Returns (fstack (B, D1, W) f32 normalised match rows, f_incr (B, D1)
+    per-diagonal offsets, lse_f (B,) end-weighted logsumexp at n_diag).
+    """
+    B, D1 = pt.x0.shape
+    W = pt.W
+    dev = pt.device
+    lX, lY, nd, efp, reflen, evlen, t, start, end, gapx = _unpack(pt)
+    x0 = pt.x0.long()
+    width = pt.width.long()
+    o = torch.arange(W, device=dev)
+    no_diag = torch.full((B,), W + 5, dtype=torch.long, device=dev)
+
+    fstack = torch.full((B, D1, W), NEG, device=dev)
+    f_incr = torch.zeros(B, D1, device=dev)
+    lse_f = torch.zeros(B, device=dev)
+    prev1 = torch.full((B, 3, W), NEG, device=dev)
+    prev1[:, :, 0] = start
+    fstack[:, 0] = prev1[:, MATCH]
+    prev2 = torch.full((B, 3, W), NEG, device=dev)
+    m_prev = torch.zeros(B, device=dev)
+    finals = set(pt.n_diag)
+    for d in range(1, D1):
+        xd = x0[:, d]
+        refw, xc = _cols(pt.ref, xd, reflen, W)
+        legw = (xc >= 1) & (xc <= lX[:, None])
+        evw, _ = _cols(pt.ev, lY - d + xd + efp, evlen, W)
+        e_match, e_stay, e_gapx = _emissions(refw, evw, gapx)
+
+        shift1 = xd - x0[:, d - 1] - 1
+        shift2 = xd - x0[:, d - 2] - 1 if d >= 2 else no_diag
+        w1 = _window(prev1, shift1, W)    # [..., :W] lower, [..., 1:] upper
+        w2 = _window(prev2, shift2, W)    # relative to offset(prev1) + m_prev
+
+        # gapX from (x-1, y); match from (x-1, y-1); gapY from (x, y-1)
+        src_x = _lae(w1[:, MATCH, :W] + t[:, T_MX], w1[:, GAP_X, :W] + t[:, T_XX])
+        gx = torch.where(legw, src_x, NEG) + e_gapx
+        src_m = _lae(_lae(w2[:, MATCH, :W] + t[:, T_MM],
+                          w2[:, GAP_X, :W] + t[:, T_XM]),
+                     w2[:, GAP_Y, :W] + t[:, T_YM]) - m_prev[:, None]
+        mm = torch.where(legw, src_m, NEG) + e_match
+        gy = _lae(w1[:, MATCH, 1:] + t[:, T_MY],
+                  w1[:, GAP_Y, 1:] + t[:, T_YY]) + e_stay
+
+        cur = torch.stack([mm, gx, gy], dim=1)
+        inband = (o < width[:, d, None]) & (d <= nd)[:, None]
+        cur = torch.where(inband[:, None, :], cur, NEG)
+        m = _diag_max(cur)
+        cur = torch.clamp(cur - m[:, None, None], min=NEG)
+        fstack[:, d] = cur[:, MATCH]
+        f_incr[:, d] = m
+        if d in finals:
+            lse_f = torch.where(nd == d, _lse(cur, end), lse_f)
+        prev2, prev1, m_prev = prev1, cur, m
+    return fstack, f_incr, lse_f
+
+
+def sweep_backward(pt: ProblemTensors):
+    """Backward sweep over diagonals D1-1..0.
+
+    Returns (bstack (B, D1, W) f32 normalised match rows, b_incr (B, D1)
+    per-diagonal offsets, lse_b (B,) start-weighted logsumexp at d = 0).
+    """
+    B, D1 = pt.x0.shape
+    W = pt.W
+    dev = pt.device
+    lX, lY, nd, efp, reflen, evlen, t, start, end, gapx = _unpack(pt)
+    x0 = pt.x0.long()
+    width = pt.width.long()
+    o = torch.arange(W, device=dev)
+    no_diag = torch.full((B,), W + 5, dtype=torch.long, device=dev)
+
+    bstack = torch.full((B, D1, W), NEG, device=dev)
+    b_incr = torch.zeros(B, D1, device=dev)
+    b1 = torch.full((B, 3, W), NEG, device=dev)
+    b2 = torch.full((B, 3, W), NEG, device=dev)
+    m_prev = torch.zeros(B, device=dev)
+    cur = b1
+    for d in range(D1 - 1, -1, -1):
+        xd = x0[:, d]
+        # TO-cell windows: match/gapX targets at x+1, gapY target at x,
+        # all consuming event y+1
+        refx1, xc1 = _cols(pt.ref, xd + 1, reflen, W)
+        refx0, _ = _cols(pt.ref, xd, reflen, W)
+        legx1 = (xc1 >= 1) & (xc1 <= lX[:, None])
+        evy1, _ = _cols(pt.ev, lY - d + xd + efp - 1, evlen, W)
+        e_match_to = _emissions(refx1, evy1, gapx)[0]
+        e_stay_same = _emissions(refx0, evy1, gapx)[1]
+        gapx_valid = torch.where(refx1[:, 1] > 0.0, gapx, NEG)
+
+        u1 = xd - x0[:, d + 1] if d + 1 < D1 else no_diag
+        u2 = xd + 1 - x0[:, d + 2] if d + 2 < D1 else no_diag
+        wb1 = _window(b1, u1, W)   # [..., :W] gapY target, [..., 1:] gapX target
+        wb2 = _window(b2, u2, W)   # [..., :W] match target, offset -m_prev
+
+        gx_red = torch.where(legx1, wb1[:, GAP_X, 1:] + gapx_valid, NEG)
+        mm_red = torch.where(legx1, wb2[:, MATCH, :W] + e_match_to
+                             - m_prev[:, None], NEG)
+        gy_term = wb1[:, GAP_Y, :W] + e_stay_same
+
+        b_match = _lae(_lae(gx_red + t[:, T_MX], mm_red + t[:, T_MM]),
+                       gy_term + t[:, T_MY])
+        b_gapx = _lae(gx_red + t[:, T_XX], mm_red + t[:, T_XM])
+        b_gapy = _lae(mm_red + t[:, T_YM], gy_term + t[:, T_YY])
+
+        cur = torch.stack([b_match, b_gapx, b_gapy], dim=1)
+        inband = (o < width[:, d, None]) & (d <= nd)[:, None]
+        cur = torch.where(inband[:, None, :], cur, NEG)
+        fin = nd == d
+        bfin = torch.where(inband[:, None, :], end[:, :, None], NEG)
+        cur = torch.where(fin[:, None, None], bfin, cur)
+        m = torch.where(fin, 0.0, _diag_max(cur))
+        cur = torch.clamp(cur - m[:, None, None], min=NEG)
+        bstack[:, d] = cur[:, MATCH]
+        b_incr[:, d] = m
+        b2, b1, m_prev = b1, cur, m
+    return bstack, b_incr, _lse(cur, start)
+
+
+def forward_offsets(f_incr, lse_f, n_diag):
+    """Float64 prefix offsets Fo (B, D1) and total_f (B,)."""
+    fo = torch.cumsum(f_incr, dim=1, dtype=torch.float64)
+    total_f = lse_f.double() + fo.gather(1, n_diag.long()[:, None])[:, 0]
+    return fo, total_f
+
+
+def backward_offsets(b_incr, lse_b):
+    """Float64 suffix offsets Bo (B, D1) and total_b (B,)."""
+    bo = torch.cumsum(b_incr.flip(1), dim=1, dtype=torch.float64).flip(1)
+    return bo, lse_b.double() + bo[:, 0]
+
+
+def cell_mask(pt: ProblemTensors):
+    """(B, D1, W) cells that may report a pair: in band, 1 <= x <= lX,
+    1 <= y <= lY and d <= n_diag."""
+    B, D1 = pt.x0.shape
+    dev = pt.device
+    meta = pt.meta.long()
+    d = torch.arange(D1, device=dev)[None, :, None]
+    o = torch.arange(pt.W, device=dev)[None, None, :]
+    x = pt.x0.long()[:, :, None] + o
+    y = d - x
+    return ((o < pt.width.long()[:, :, None]) & (x > 0) & (y > 0)
+            & (x <= meta[:, M_LX, None, None]) & (y <= meta[:, M_LY, None, None])
+            & (d <= meta[:, M_NDIAG, None, None]))
+
+
+def posterior(fstack, bstack, cvec, pt: ProblemTensors):
+    """Posterior match probabilities (B, D1, W) from normalised stacks and
+    cvec[d] = Fo[d] + Bo[d] - total (float32)."""
+    logp = fstack + bstack + cvec[:, :, None]
+    post = torch.exp(torch.clamp(logp, min=NEG))
+    post = torch.where(cell_mask(pt), post, 0.0)
+    return torch.clamp(post, max=1.0)
+
+
+def run_banded_fb(problem: BandedProblem, W: int, P: int,
+                  with_expectations: bool = False,
+                  device: torch.device = torch.device("cpu")) -> Dict:
+    """Sweeps, float64 offsets and the posterior for one problem.
+
+    Returns {"post": (Dpad+1, 1, W) numpy, "total_f", "total_b"} like the
+    JAX ``run_banded_fb``.
+    """
+    from signalalign_tpu_torch.ops.batch import run_banded_fb_batch
+    return run_banded_fb_batch([problem], W, P, with_expectations,
+                               device=device)[0]

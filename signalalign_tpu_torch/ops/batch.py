@@ -1,0 +1,43 @@
+"""Batched plain-PyTorch banded forward-backward over one bucket: the
+counterpart of ``signalalign_tpu.ops.batch.run_banded_fb_batch`` (the
+JAX XLA path), which the port's tests hold both packages to."""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from signalalign_tpu_torch.convert import problem_tensors
+from signalalign_tpu_torch.ops import banded_fb as bfb
+
+
+def run_banded_fb_batch(problems: Sequence[bfb.BandedProblem], W: int, P: int,
+                        with_expectations: bool = False, *,
+                        device: torch.device) -> List[Dict]:
+    """Run a same-bucket batch; returns per-problem result dicts with the
+    full posterior "post" ((Dpad+1, 1, W) numpy), "total_f" and "total_b"."""
+    if with_expectations:
+        raise NotImplementedError(
+            "EM expectations come with ROADMAP slice 3 (EM training)")
+    if P != 1:
+        raise NotImplementedError(
+            f"P={P}: paths-in-lanes come with ROADMAP slice 2")
+    if not problems:
+        return []
+    pt = problem_tensors(problems, W, device)
+    fstack, f_incr, lse_f = bfb.sweep_forward(pt)
+    bstack, b_incr, lse_b = bfb.sweep_backward(pt)
+    fo, total_f = bfb.forward_offsets(f_incr, lse_f, pt.meta[:, bfb.M_NDIAG])
+    bo, total_b = bfb.backward_offsets(b_incr, lse_b)
+    cvec = (fo + bo - total_f[:, None]).float()
+    post = bfb.posterior(fstack, bstack, cvec, pt).cpu().numpy()
+    D1 = post.shape[1]
+    results = []
+    for i, p in enumerate(problems):
+        full = np.zeros((p.x0.shape[0], 1, W), np.float32)
+        full[:D1, 0] = post[i]
+        results.append({"post": full, "total_f": float(total_f[i]),
+                        "total_b": float(total_b[i])})
+    return results

@@ -1,0 +1,103 @@
+"""Per-read alignment records and configuration for the port: the
+counterparts of ``AlignmentConfig``, ``ReadAlignment``, the shape
+buckets and ``align_read`` in ``signalalign_tpu.pipeline.signal_align``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from signalalign_tpu.io.guide import GuideAlignment
+from signalalign_tpu.io.output import build_full_rows, build_vc_rows
+from signalalign_tpu.io.read import NanoporeReadData
+from signalalign_tpu.io.reference import ProcessedReference
+from signalalign_tpu.models.pore_model import PoreModel, ScalingParams
+from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
+from signalalign_tpu_torch.ops import banded_fb as bfb
+
+
+@dataclasses.dataclass
+class AlignmentConfig:
+    threshold: float = 0.01
+    diagonal_expansion: int = 50       # signalMachine.c:487 default
+    constraint_trim: int = 14
+    split_bigger_than: int = 3000 * 3000
+    # split segments whose band bulges past this width at the bulge's
+    # flanking anchors, and cap segment diagonal counts, so shape buckets
+    # stay homogeneous (band_geometry.split_segment_by_width)
+    max_band_width: int = 768
+    max_segment_diagonals: int = 11800
+    estimate_params: bool = True       # signalMachine ESTIMATE_PARAMS
+    emission_mode: int = bfb.MODE_MEAN_ONLY
+    ambig_map: Dict[str, str] = dataclasses.field(
+        default_factory=lambda: dict(DEFAULT_AMBIG_BASES))
+    compute_expectations: bool = False
+
+
+@dataclasses.dataclass
+class ReadAlignment:
+    read_label: str
+    contig: str
+    forward: bool
+    strand_template: bool
+    aligned_pairs: List[Tuple[int, int, int, str]]  # (prob_int, x, y, kmer)
+    score: float
+    target: str
+    event_offset: int
+    ref_offset: int
+    params: ScalingParams
+    events: np.ndarray            # drift-adjusted full event table
+    total_log_prob: float
+    rna: bool = False
+    # max over the read's segments of |total_f - total_b|: a nat or more
+    # means the DP lost precision
+    max_total_gap: float = 0.0
+
+    def full_rows(self, model: PoreModel):
+        return build_full_rows(
+            self.aligned_pairs, self.target, self.events, model, self.params,
+            self.contig, self.read_label, self.strand_template, self.forward,
+            self.event_offset, self.ref_offset, self.rna)
+
+    def vc_rows(self, model: PoreModel, ambig_map=None):
+        return build_vc_rows(
+            self.aligned_pairs, self.target, model,
+            ambig_map or DEFAULT_AMBIG_BASES, self.contig, self.read_label,
+            self.strand_template, self.forward, self.event_offset,
+            self.ref_offset, self.score, self.rna)
+
+
+def _bucket_w(w: int) -> int:
+    # coarse buckets: padded band compute is cheap next to more buckets
+    for b in (64, 128, 256, 512, 768, 1024):
+        if w <= b:
+            return b
+    return ((w + 255) // 256) * 256
+
+
+def _bucket_d(d: int) -> int:
+    # pow2 up to 8192, then 4096-granular (the segment splitter targets
+    # max_segment_diagonals so long reads fill the 12288 bucket)
+    for b in (2048, 4096, 8192, 12288, 16384):
+        if d + 1 <= b:
+            return b
+    return ((d + 4096) // 4096) * 4096
+
+
+def align_read(read: NanoporeReadData, guide: GuideAlignment,
+               reference: ProcessedReference, model: PoreModel,
+               config: Optional[AlignmentConfig] = None, *,
+               device: torch.device,
+               strand_template: bool = True) -> ReadAlignment:
+    """Align one read strand against its guide window (a batch of one)."""
+    from signalalign_tpu_torch.pipeline.runner import run_alignment_batch
+    out = run_alignment_batch([(read, guide)], reference, model, config,
+                              device=device, strand_template=strand_template,
+                              verbose=True)
+    if not out:
+        raise ValueError(f"{read.read_label}: alignment failed")
+    return out[0]

@@ -1,0 +1,127 @@
+"""Each Hopper kernel of the port against its plain PyTorch twin on the
+card. Needs a CUDA GPU and nvcc; skipped without a GPU. On a GPU host:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q
+
+Tolerances (same formulas, built without multiply-add contraction; only
+the final logsumexp reductions sum in another order): totals within
+1e-2 nats, posteriors within 1e-4, survivor sets equal except cells
+within 1e-4 of the threshold.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from signalalign_tpu.models.pore_model import ScalingParams
+from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
+from signalalign_tpu_torch.convert import problem_tensors
+from signalalign_tpu_torch.ops import banded_fb as bfb
+from signalalign_tpu_torch.ops import banded_fb_hopper as hk
+from signalalign_tpu_torch.utils.synthetic import synthetic_pore_model
+
+pytestmark = pytest.mark.cuda
+THR = 0.01
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+def _problems(n, sizes, gap, W, Dpad, seed):
+    """n problems with random lengths in ``sizes`` whose anchors (every 20
+    events) leave out ``gap``, so the band bulges there."""
+    model = synthetic_pore_model(0)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        seq = "".join(rng.choice(list("ACGT"), size=int(rng.integers(*sizes))))
+        ids = model.alphabet.seq_to_kmer_ids(seq)
+        ev = np.stack([model.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
+                       np.ones(len(ids)), np.full(len(ids), .005),
+                       np.arange(len(ids)) * .005], 1)
+        anchors = [(j, j) for j in range(8, len(ids) - 8, 20)
+                   if not gap[0] < j < gap[1]]
+        out.append(bfb.prepare_problem(
+            seq, ev, model, ScalingParams(shift=0.1 * i), DEFAULT_AMBIG_BASES,
+            W=W, Dpad=Dpad, P=1, anchor_pairs=anchors, expansion=10))
+    return out
+
+
+@pytest.fixture(scope="module", params=["narrow", "wide"])
+def bucket(request):
+    """(problems, W): six W=256 problems as on the main path, or two whose
+    bands pass 1024 offsets (W=1280: strided offsets in the forward
+    kernel, two chunks per thread in the backward one)."""
+    if request.param == "narrow":
+        return _problems(6, (200, 600), (100, 160), 256, 2048, 4), 256
+    probs = _problems(2, (1450, 1550), (200, 1300), 1280, 4096, 5)
+    assert max(int(p.width.max()) for p in probs) > 1024
+    return probs, 1280
+
+
+def _forward_both(pt):
+    nds = pt.meta[:, bfb.M_NDIAG]
+    fk = hk.forward_sweep(pt)
+    fr = hk.forward_sweep_ref(pt)
+    torch.cuda.synchronize()
+    return nds, fk, fr
+
+
+def test_forward_kernel_matches_twin(dev, bucket):
+    pt = problem_tensors(*bucket, dev)
+    n0 = hk.forward_sweep.launches
+    nds, (f_k, fi_k, lf_k), (f_r, fi_r, lf_r) = _forward_both(pt)
+    assert hk.forward_sweep.launches == n0 + 1
+    _, tf_k = bfb.forward_offsets(fi_k, lf_k, nds)
+    _, tf_r = bfb.forward_offsets(fi_r, lf_r, nds)
+    assert (tf_k - tf_r).abs().max().item() <= 1e-2
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    assert (f_k.exp() - f_r.exp()).abs().amax(dim=2)[rows].max().item() <= 1e-4
+
+
+def test_backward_kernel_matches_twin(dev, bucket):
+    pt = problem_tensors(*bucket, dev)
+    nds, _, (f_r, fi_r, lf_r) = _forward_both(pt)
+    fo, tf = bfb.forward_offsets(fi_r, lf_r, nds)
+    cvecf = (fo - tf[:, None]).contiguous()
+    R = hk.survivor_slots(THR)
+    n0 = hk.backward_sweep_compact.launches
+    bk = hk.backward_sweep_compact(pt, f_r, cvecf, THR, R)
+    br = hk.backward_sweep_compact_ref(pt, f_r, cvecf, THR, R)
+    torch.cuda.synchronize()
+    assert hk.backward_sweep_compact.launches == n0 + 1
+    _, tb_k = bfb.backward_offsets(bk[0], bk[1])
+    _, tb_r = bfb.backward_offsets(br[0], br[1])
+    assert (tb_k - tb_r).abs().max().item() <= 1e-2
+    assert int(bk[4].max()) <= R
+
+    def surv(off, val, cnt):
+        keep = torch.arange(R, device=dev) < cnt[:, :, None]
+        b, d, _ = keep.nonzero(as_tuple=True)
+        return {(int(x), int(y), int(o)): float(v) for x, y, o, v in zip(
+            b.tolist(), d.tolist(), off[keep].tolist(), val[keep].tolist())}
+
+    sk, sr = surv(*bk[2:]), surv(*br[2:])
+    for key in set(sk) ^ set(sr):
+        assert abs(sk.get(key, sr.get(key)) - THR) <= 1e-4
+    assert max(abs(sk[k] - sr[k]) for k in set(sk) & set(sr)) <= 1e-4
+
+
+def test_aligner_on_gpu_matches_cpu(dev, bucket):
+    """The whole bucket path (kernels, float64 scans, flattening, decode)
+    on the card against the same path on the CPU (twins). The CPU's
+    exp/log round otherwise, and a posterior's log terms reach hundreds
+    of nats, where f32 resolves ~1e-4: pairs within 1e-3."""
+    gpu = hk.HopperAligner(*bucket, dev).execute(THR)
+    cpu = hk.HopperAligner(*bucket, torch.device("cpu")).execute(THR)
+    for g, c in zip(gpu, cpu):
+        assert abs(g["total_f"] - c["total_f"]) <= 1e-2
+        dg = {(x, y): p for p, x, y, _ in g["pairs"]}
+        dc = {(x, y): p for p, x, y, _ in c["pairs"]}
+        for key in set(dg) ^ set(dc):
+            assert abs(dg.get(key, dc.get(key)) / 1e7 - THR) <= 1e-3
+        assert all(abs(dg[k] - dc[k]) <= 1e-3 * 1e7 for k in set(dg) & set(dc))

@@ -1,0 +1,158 @@
+"""The port's batch runner against the JAX runner on the CPU, on seeded
+synthetic reads: the XLA path and the Pallas interpret path, the TSVs
+written by write_outputs, output properties, and the features outside
+the port's slice."""
+
+import pytest
+import torch
+
+from signalalign_tpu.pipeline.runner import \
+    run_alignment_batch as jax_run_alignment_batch
+from signalalign_tpu.pipeline.signal_align import \
+    AlignmentConfig as JaxAlignmentConfig
+from signalalign_tpu_torch.pipeline.runner import (run_alignment_batch,
+                                                   write_outputs)
+from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
+from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                   synthetic_pore_model)
+
+CPU = torch.device("cpu")
+THR = 0.01
+# Posterior tolerance against the JAX package on these reads. Both are f32,
+# and at the cells that carry the alignment the normalised forward and
+# backward logs and the offset constant reach ~2^10 nats (measured: f -614,
+# b -326, cvec +940), where one f32 ulp is 1.2e-4: each package's posterior
+# carries a few such ulps of its own (measured 2.4e-4 apart, and each
+# 0.5e-3 to 1.3e-3 from the float64 oracle on these segments), so 1e-4
+# cannot hold; 1e-3 is 8 ulps at 2^10.
+TOL_POST = 1e-3
+
+
+@pytest.fixture(scope="module")
+def batch(tmp_path_factory):
+    model = synthetic_pore_model(0)
+    fasta = tmp_path_factory.mktemp("ref") / "genome.fa"
+    rgs, reference, _, _, _ = build_synthetic_batch(
+        model, n_reads=4, ev_min=300, ev_max=900, seed=5, genome_len=20_000,
+        fasta_path=str(fasta))
+    return model, rgs, reference
+
+
+@pytest.fixture(scope="module")
+def port(batch):
+    model, rgs, reference = batch
+    return run_alignment_batch(rgs, reference, model, device=CPU)
+
+
+@pytest.fixture(scope="module")
+def xla(batch):
+    model, rgs, reference = batch
+    return jax_run_alignment_batch(rgs, reference, model, JaxAlignmentConfig(),
+                                   use_pallas=False)
+
+
+def _pairs_close(want, got, tol_int):
+    dw = {(x, y, k): p for p, x, y, k in want}
+    dg = {(x, y, k): p for p, x, y, k in got}
+    for key in set(dw) ^ set(dg):
+        p = dw.get(key, dg.get(key))
+        assert abs(p / 1e7 - THR) <= TOL_POST, (key, p)
+    return max(abs(dw[k] - dg[k]) for k in set(dw) & set(dg)) <= tol_int
+
+
+def test_matches_jax_xla_runner(port, xla):
+    """Totals within 5e-3 nats, pairs identical except threshold-edge
+    cells, posteriors within TOL_POST."""
+    assert len(port) == len(xla) == 4
+    for p, x in zip(port, xla):
+        assert p.read_label == x.read_label
+        assert abs(p.total_log_prob - x.total_log_prob) <= 5e-3
+        assert _pairs_close(x.aligned_pairs, p.aligned_pairs, TOL_POST * 1e7)
+        assert p.event_offset == x.event_offset
+        assert p.ref_offset == x.ref_offset and p.forward == x.forward
+        assert p.target == x.target
+
+
+def test_matches_jax_pallas_interpret_runner(batch, port):
+    """Against the Pallas kernels in interpret mode (the per-read-row
+    PallasAligner): totals within 0.05 nats, pairs within TOL_POST."""
+    model, rgs, reference = batch
+    pal = jax_run_alignment_batch(rgs, reference, model, JaxAlignmentConfig(),
+                                  use_pallas=True, pallas_interpret=True)
+    for p, j in zip(port, pal):
+        assert abs(p.total_log_prob - j.total_log_prob) <= 0.05
+        assert _pairs_close(j.aligned_pairs, p.aligned_pairs, TOL_POST * 1e7)
+
+
+@pytest.mark.parametrize("fmt", ["full", "variantCaller"])
+def test_tsv_rows_match_jax(batch, port, xla, tmp_path, fmt):
+    """write_outputs TSVs against the JAX results' rows: every column but
+    the posterior identical, posteriors within TOL_POST."""
+    model = batch[0]
+    written = write_outputs(port, model, str(tmp_path), fmt)
+    assert len(written) == len(port)
+    prob_col = 12 if fmt == "full" else 3
+    for path, x in zip(written, xla):
+        rows = x.full_rows(model) if fmt == "full" else x.vc_rows(model)
+        want = {}
+        for r in rows:
+            line = r.tsv() if fmt == "full" else \
+                "\t".join(f"{v:f}" if isinstance(v, float) else str(v)
+                          for v in r) + "\n"
+            cols = line.rstrip("\n").split("\t")
+            want[tuple(cols[:prob_col])] = cols
+        got = {}
+        with open(path) as fh:
+            for line in fh:
+                cols = line.rstrip("\n").split("\t")
+                got[tuple(cols[:prob_col])] = cols
+        assert len(set(want) ^ set(got)) <= 2        # threshold-edge cells
+        for key in set(want) & set(got):
+            w, g = want[key], got[key]
+            assert abs(float(w[prob_col]) - float(g[prob_col])) <= TOL_POST + 1e-6
+            skip = {prob_col} if fmt == "full" else {prob_col, 7}  # vc: score
+            assert [c for i, c in enumerate(w) if i not in skip] == \
+                [c for i, c in enumerate(g) if i not in skip]
+
+
+def test_output_properties(batch, port, tmp_path):
+    """Pair counts within [n/2, 3n] events (the upstream upper bound; these
+    reads carry ~1.39 events per k-mer and only match events report a
+    pair), every output k-mer equals the reference, totals agree."""
+    model, rgs, reference = batch
+    genome = reference.forward["synth"]
+    k = model.kmer_length
+    for (read, _), r in zip(rgs, port):
+        n = read.n_events
+        assert n // 2 <= len(r.aligned_pairs) <= 3 * n
+        assert r.max_total_gap < 1e-2
+        for row in r.full_rows(model):
+            i = row.reference_index
+            assert genome[i:i + k] == row.reference_kmer
+    written = write_outputs(port, model, str(tmp_path), "both")
+    assert len(written) == 2 * len(port)
+
+
+def test_outside_the_slice_raises(batch, tmp_path):
+    model, rgs, reference = batch
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        run_alignment_batch(rgs, reference, model, device=CPU,
+                            call_variants="CE")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        run_alignment_batch(rgs, reference, model,
+                            AlignmentConfig(compute_expectations=True),
+                            device=CPU)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        write_outputs([], model, str(tmp_path), "variants")
+
+
+def test_p_greater_than_one_raises(tmp_path):
+    """A CpG-ambiguous reference edition gives P>1 segments."""
+    model = synthetic_pore_model(1)
+    _, _, amb_rgs, amb_ref, _ = build_synthetic_batch(
+        model, n_reads=1, ev_min=300, ev_max=400, seed=2, genome_len=5000,
+        fasta_path=str(tmp_path / "g.fa"), ambig_frac=1.0)
+    with pytest.raises(NotImplementedError, match="P="):
+        run_alignment_batch(amb_rgs, amb_ref, model,
+                            AlignmentConfig(ambig_map={"Y": "CT"}),
+                            device=CPU)
