@@ -9,10 +9,26 @@ Phases (any failure stops the run with a non-zero exit):
      of the phase-4 batch (W=256, about 4k diagonals), with its time;
      then the whole main path on the GPU against the CPU (twins) on the
      batch's two shortest reads;
+  3c. the kernels with P = 2, 4 and 8 paths per cell against their twins
+     on the card, at the shapes phase 5 gives them: phase 5's own host
+     prep, one bucket per (W, P) class it makes (the class's three shortest
+     problems), so that every kernel instance (cells per thread K = 1, 2,
+     4, 8) is held; with totals, |d exp(fstack)|, the survivor sets with
+     their paths, |d posterior| and the times;
+  3d. site-mode calling ("CT") and P > 1 pair output on the GPU against
+     the CPU (twins) on the two shortest reads of the phase-5 batch;
   4. the main path at a realistic size: 64 synthetic reads (about 1M
      events, 5-mer ACGT model) through run_alignment_batch on the GPU and
      write_outputs("both"), with the output checks, stage times, events/s
-     and peak device memory, and the kernels' launch counts in that run.
+     and peak device memory, and the kernels' launch counts in that run;
+  5. site-mode methylation calling at a realistic size: the same 64 reads
+     against the CpG edition of the genome (Y at every C of a CG) through
+     run_alignment_batch(call_variants="CT") and write_outputs("variants"),
+     with the call checks, stage times, events/s, site rows, the bucket mix
+     by (W, P), peak device memory and the launch counts of that run;
+  5b. both kernels on each phase-5 bucket again, in the runner's chunks,
+     timed by CUDA events and summed by (W, P), with their share of
+     phase 5's wall time.
 The last two lines are a JSON object per kernel and the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
@@ -23,6 +39,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,6 +54,12 @@ TOL_EDGE = 1e-4         # survivors may differ only this close to threshold
 # reads, where an f32 ulp is 1.2e-4; 1e-3 is 8 such ulps
 TOL_PATH = 1e-3
 SEED_MODEL, SEED_READS = 0, 1
+AMB = {"Y": "CT"}
+# least share of sites called C (p_C > 0.5): the reads come from the
+# unedited genome, so C is the truth at every site but for read
+# substitutions; measured 0.79-0.88 on small batches of these reads on
+# the CPU
+MIN_SHARE_C = 0.7
 
 
 def log(msg=""):
@@ -65,14 +88,90 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-def survivors(slot_off, slot_val, cnt, R):
-    """{(problem, diagonal, offset): posterior} of the first cnt slots."""
+def survivors(slot_cell, slot_val, cnt, R):
+    """{(problem, diagonal, cell o*P + p): posterior} of the first cnt
+    slots."""
     keep = torch.arange(R, device=cnt.device) < cnt[:, :, None]
     b, d, _ = keep.nonzero(as_tuple=True)
-    o = slot_off[keep]
+    o = slot_cell[keep]
     v = slot_val[keep]
     return {(int(bi), int(di), int(oi)): float(vi) for bi, di, oi, vi in
             zip(b.tolist(), d.tolist(), o.tolist(), v.tolist())}
+
+
+def compare_calls(a, b):
+    """Max |dp_C| of two variant-call tables with the same rows in order."""
+    check(list(zip(a["strand"], a["position"]))
+          == list(zip(b["strand"], b["position"])), "site rows differ")
+    return float(np.abs(a["C"].to_numpy() - b["C"].to_numpy()).max()) \
+        if len(a) else 0.0
+
+
+def kernels_vs_twins(hk, bfb, pt, threshold, R, reps=5):
+    """Both kernels against their twins on one bucket; fails beyond the
+    tolerances. Returns the kernels' mean CUDA-event times over ``reps``
+    launches after a warm-up, the twins' times, the errors and the
+    survivor counts."""
+    dev = pt.device
+    nds = pt.meta[:, bfb.M_NDIAG]
+    t0 = time.perf_counter()
+    f_ref, fi_ref, lf_ref = hk.forward_sweep_ref(pt)
+    torch.cuda.synchronize()
+    fwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    hk.forward_sweep(pt)                                         # warm-up
+    fwd_ms, (f_k, fi_k, lf_k) = cuda_ms(lambda: hk.forward_sweep(pt), reps)
+    _, tf_k = bfb.forward_offsets(fi_k, lf_k, nds)
+    fo_ref, tf_ref = bfb.forward_offsets(fi_ref, lf_ref, nds)
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    fdiff = (f_k.exp() - f_ref.exp()).abs().amax(dim=(2, 3))[rows].max().item()
+    tf_err = (tf_k - tf_ref).abs().max().item()
+    check(tf_err <= TOL_TOTAL and fdiff <= TOL_POST,
+          f"sa_fwd_sweep (P={pt.P}) disagrees with forward_sweep_ref: "
+          f"|d total_f| {tf_err}, |d exp(fstack)| {fdiff}")
+    cvecf = (fo_ref - tf_ref[:, None]).contiguous()
+    t0 = time.perf_counter()
+    bref = hk.backward_sweep_compact_ref(pt, f_ref, cvecf, threshold, R)
+    torch.cuda.synchronize()
+    bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    hk.backward_sweep_compact(pt, f_ref, cvecf, threshold, R)   # warm-up
+    bwd_ms, bk = cuda_ms(lambda: hk.backward_sweep_compact(
+        pt, f_ref, cvecf, threshold, R), reps)
+    _, tb_k = bfb.backward_offsets(bk[0], bk[1])
+    _, tb_ref = bfb.backward_offsets(bref[0], bref[1])
+    tb_err = (tb_k - tb_ref).abs().max().item()
+    check(int(bk[4].max()) <= R, "survivor slots overflowed")
+    sk = survivors(*bk[2:], R)
+    sr = survivors(*bref[2:], R)
+    for key in set(sk) ^ set(sr):
+        p = sk.get(key, sr.get(key))
+        check(abs(p - threshold) <= TOL_EDGE, f"survivor {key} p={p} on one side only")
+    pdiff = max(abs(sk[k] - sr[k]) for k in set(sk) & set(sr))
+    check(tb_err <= TOL_TOTAL and pdiff <= TOL_POST,
+          f"sa_bwd_sweep_compact (P={pt.P}) disagrees with its twin: "
+          f"|d total_b| {tb_err}, |d posterior| {pdiff}")
+    return {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "bwd_ms": bwd_ms,
+            "bwd_plain_ms": bwd_plain_ms, "tf_err": tf_err, "tb_err": tb_err,
+            "fdiff": fdiff, "pdiff": pdiff, "n_kernel": len(sk),
+            "n_twin": len(sr), "paths": sorted({c % pt.P for _, _, c in sk})}
+
+
+def cells_per_thread(n):
+    """The kernel instance K (cells per thread) that csrc/banded_fb.cu
+    launches for n = P * W cells."""
+    k = -(-n // 1024)
+    return next(i for i in (1, 2, 4, 8) if k <= i)
+
+
+def prepare_all(rgs, reference, model, config):
+    """[(W, Dpad, P, problem)] of every segment of every read, in read
+    order: the host prep of run_alignment_batch, on as many threads."""
+    from signalalign_tpu_torch.pipeline.runner import prepare_read
+    nw = min(8, max(2, (os.cpu_count() or 4) - 2))
+    with ThreadPoolExecutor(max_workers=nw) as ex:
+        preps = list(ex.map(lambda rg: prepare_read(
+            rg[0], rg[1], reference, model, config), rgs))
+    return [(W, Dpad, P, prob) for prep in preps
+            for _, prob, W, Dpad, P in prep[4]]
 
 
 def compare_pairs(a, b, threshold):
@@ -101,7 +200,8 @@ def main():
     from signalalign_tpu_torch.convert import problem_tensors
     from signalalign_tpu_torch.ops import banded_fb as bfb
     from signalalign_tpu_torch.ops import banded_fb_hopper as hk
-    from signalalign_tpu_torch.pipeline.runner import (prepare_read,
+    from signalalign_tpu_torch.pipeline.runner import (_stack_chunks,
+                                                       prepare_read,
                                                        run_alignment_batch,
                                                        write_outputs)
     from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
@@ -120,9 +220,13 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         model = synthetic_pore_model(SEED_MODEL)
-        rgs, reference, _, _, _ = build_synthetic_batch(
+        # ambig_frac only routes the reads: the 64 reads are the same, and
+        # come with both editions of the genome (phase 4: plain, phase 5:
+        # Y at every C of a CG)
+        _, reference, rgs, amb_ref, _ = build_synthetic_batch(
             model, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
-            genome_len=400_000, fasta_path=os.path.join(tmp, "genome.fa"))
+            genome_len=400_000, fasta_path=os.path.join(tmp, "genome.fa"),
+            ambig_frac=1.0)
         config = AlignmentConfig()
         threshold = config.threshold
         R = hk.survivor_slots(threshold)
@@ -138,50 +242,15 @@ def main():
         check(len(picked) >= 8, "batch has fewer than 8 W=256 ~4k-diagonal problems")
         picked = picked[:8]
         pt = problem_tensors(picked, 256, dev)
-        nds = torch.tensor([p.n_diag for p in picked], device=dev)
         log(f"[kernels] 8 problems W=256 n_diag {min(pt.n_diag)}..{max(pt.n_diag)}")
-
-        t0 = time.perf_counter()
-        f_ref, fi_ref, lf_ref = hk.forward_sweep_ref(pt)
-        torch.cuda.synchronize()
-        fwd_plain_ms = (time.perf_counter() - t0) * 1e3
-        hk.forward_sweep(pt)                                     # warm-up
-        fwd_ms, (f_k, fi_k, lf_k) = cuda_ms(lambda: hk.forward_sweep(pt), 5)
-        _, tf_k = bfb.forward_offsets(fi_k, lf_k, nds)
-        fo_ref, tf_ref = bfb.forward_offsets(fi_ref, lf_ref, nds)
-        rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
-        fdiff = (f_k.exp() - f_ref.exp()).abs().amax(dim=2)[rows].max().item()
-        tf_err = (tf_k - tf_ref).abs().max().item()
-        log(f"[kernels] sa_fwd_sweep {fwd_ms:.3f} ms, twin {fwd_plain_ms:.1f} ms; "
-            f"|d total_f| {tf_err:.3e} nats (tol {TOL_TOTAL}), "
-            f"|d exp(fstack)| {fdiff:.3e} (tol {TOL_POST})")
-        check(tf_err <= TOL_TOTAL and fdiff <= TOL_POST,
-              "sa_fwd_sweep disagrees with forward_sweep_ref")
-
-        cvecf = (fo_ref - tf_ref[:, None]).contiguous()
-        t0 = time.perf_counter()
-        bref = hk.backward_sweep_compact_ref(pt, f_ref, cvecf, threshold, R)
-        torch.cuda.synchronize()
-        bwd_plain_ms = (time.perf_counter() - t0) * 1e3
-        hk.backward_sweep_compact(pt, f_ref, cvecf, threshold, R)   # warm-up
-        bwd_ms, bk = cuda_ms(lambda: hk.backward_sweep_compact(
-            pt, f_ref, cvecf, threshold, R), 5)
-        _, tb_k = bfb.backward_offsets(bk[0], bk[1])
-        _, tb_ref = bfb.backward_offsets(bref[0], bref[1])
-        tb_err = (tb_k - tb_ref).abs().max().item()
-        check(int(bk[4].max()) <= R, "survivor slots overflowed")
-        sk = survivors(*bk[2:], R)
-        sr = survivors(*bref[2:], R)
-        for key in set(sk) ^ set(sr):
-            p = sk.get(key, sr.get(key))
-            check(abs(p - threshold) <= TOL_EDGE, f"survivor {key} p={p} on one side only")
-        pdiff = max(abs(sk[k] - sr[k]) for k in set(sk) & set(sr))
-        log(f"[kernels] sa_bwd_sweep_compact {bwd_ms:.3f} ms, twin {bwd_plain_ms:.1f} ms; "
-            f"|d total_b| {tb_err:.3e} nats, survivors {len(sk)} vs {len(sr)}, "
-            f"|d posterior| {pdiff:.3e} (tol {TOL_POST})")
-        check(tb_err <= TOL_TOTAL and pdiff <= TOL_POST,
-              "sa_bwd_sweep_compact disagrees with backward_sweep_compact_ref")
-        del f_ref, f_k, bref, bk
+        p1 = kernels_vs_twins(hk, bfb, pt, threshold, R)
+        log(f"[kernels] sa_fwd_sweep {p1['fwd_ms']:.3f} ms, twin "
+            f"{p1['fwd_plain_ms']:.1f} ms; |d total_f| {p1['tf_err']:.3e} nats "
+            f"(tol {TOL_TOTAL}), |d exp(fstack)| {p1['fdiff']:.3e} (tol {TOL_POST})")
+        log(f"[kernels] sa_bwd_sweep_compact {p1['bwd_ms']:.3f} ms, twin "
+            f"{p1['bwd_plain_ms']:.1f} ms; |d total_b| {p1['tb_err']:.3e} nats, "
+            f"survivors {p1['n_kernel']} vs {p1['n_twin']}, |d posterior| "
+            f"{p1['pdiff']:.3e} (tol {TOL_POST})")
 
         # ---- 3b. the main path on the GPU against the CPU (twins)
         small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:2]
@@ -198,6 +267,62 @@ def main():
         check(worst <= TOL_PATH, f"pair posteriors differ by {worst}")
         log(f"[small] {[r.events.shape[0] for r, _ in small]} events: gpu = cpu "
             f"within {TOL_TOTAL} nats, |d p| {worst:.3e} (tol {TOL_PATH})")
+
+        # ---- 3c. P > 1 kernels against their twins on the card, on the
+        # shapes phase 5 gives them: its own config and segments, one
+        # bucket per (W, P) class, the class's three shortest problems
+        amb_cfg = AlignmentConfig(ambig_map=AMB).for_batch(len(rgs))
+        site_segs = prepare_all(rgs, amb_ref, model, amb_cfg)
+        by_class = {}
+        for W, Dpad, P, prob in site_segs:
+            by_class.setdefault((W, P), []).append(prob)
+        paths_rows = {}
+        for (W, P), probs in sorted(by_class.items()):
+            if P == 1:
+                continue    # site mode skips P = 1 segments
+            probs = sorted(probs, key=lambda q: q.n_diag)[:3]
+            ptp = problem_tensors(probs, W, dev)
+            r = kernels_vs_twins(hk, bfb, ptp, threshold, R)
+            paths_rows[(W, P)] = r
+            log(f"[kernels P={P} W={W} K={cells_per_thread(P * W)}] "
+                f"{len(probs)} problems n_diag {min(ptp.n_diag)}..{max(ptp.n_diag)}: "
+                f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms), "
+                f"sa_bwd_sweep_compact {r['bwd_ms']:.3f} ms (twin "
+                f"{r['bwd_plain_ms']:.1f} ms); |d total| "
+                f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
+                f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
+                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}")
+        ks = {cells_per_thread(P * W) for W, P in paths_rows}
+        check(ks == {1, 2, 4, 8}, f"phase 5's buckets hold cells per thread "
+              f"{sorted(ks)}, not every kernel instance 1, 2, 4, 8")
+        check(sum(min(3, len(v)) for (_, P), v in by_class.items() if P == 8)
+              >= 2, "fewer than two P=8 problems")
+
+        # ---- 3d. site calls and P > 1 pairs on the GPU against the CPU
+        small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:2]
+        worst_calls = worst_pairs = 0.0
+        for kw in ({"call_variants": "CT"}, {}):
+            on_cpu = run_alignment_batch(small, amb_ref, model, amb_cfg,
+                                         device=torch.device("cpu"), **kw)
+            on_gpu = run_alignment_batch(small, amb_ref, model, amb_cfg,
+                                         device=dev, **kw)
+            check(len(on_cpu) == len(on_gpu) == 2, "small site batch lost a read")
+            for a, g in zip(on_cpu, on_gpu):
+                check(abs(a.total_log_prob - g.total_log_prob) <= TOL_TOTAL,
+                      f"{a.read_label}: total {g.total_log_prob} vs cpu "
+                      f"{a.total_log_prob}")
+                if kw:
+                    check(len(g.variant_calls) > 0, f"{g.read_label}: no calls")
+                    worst_calls = max(worst_calls, compare_calls(
+                        a.variant_calls, g.variant_calls))
+                else:
+                    worst_pairs = max(worst_pairs, compare_pairs(
+                        a.aligned_pairs, g.aligned_pairs, threshold))
+        check(worst_calls <= TOL_PATH and worst_pairs <= TOL_PATH,
+              f"site calls differ by {worst_calls}, P>1 pairs by {worst_pairs}")
+        log(f"[small sites] {[r.events.shape[0] for r, _ in small]} events: "
+            f"gpu = cpu, |d p_C| {worst_calls:.3e}, P>1 pairs |d p| "
+            f"{worst_pairs:.3e} (tol {TOL_PATH})")
 
         # ---- 4. the main path at a realistic size
         hk.reset_launch_counts()
@@ -254,22 +379,130 @@ def main():
             f"peak device memory {peak / 2**30:.2f} GiB")
         log(f"[main] launches {launches}")
 
-    kernels = [
-        {"name": "sa_fwd_sweep", "route": "cuda",
-         "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
-         "replaces": "signalalign_tpu/ops/banded_fb_pallas_batch.py:569 "
-                     "(+ signalalign_tpu/ops/banded_fb_pallas.py:216)",
-         "launches": launches["sa_fwd_sweep"],
-         "max_abs_err": max(tf_err, fdiff),
-         "ms": fwd_ms, "plain_ms": fwd_plain_ms},
-        {"name": "sa_bwd_sweep_compact", "route": "cuda",
-         "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
-         "replaces": "signalalign_tpu/ops/banded_fb_pallas_batch.py:775 "
-                     "(+ signalalign_tpu/ops/banded_fb_pallas.py:326)",
-         "launches": launches["sa_bwd_sweep_compact"],
-         "max_abs_err": max(tb_err, pdiff),
-         "ms": bwd_ms, "plain_ms": bwd_plain_ms},
-    ]
+        # ---- 5. site-mode methylation calling at a realistic size
+        hk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        t0 = time.perf_counter()
+        results = run_alignment_batch(rgs, amb_ref, model, amb_cfg, device=dev,
+                                      call_variants="CT", stage_seconds=stages)
+        t_sites = time.perf_counter() - t0
+        site_launches = {"sa_fwd_sweep": hk.forward_sweep.launches,
+                         "sa_bwd_sweep_compact": hk.backward_sweep_compact.launches}
+        peak = torch.cuda.max_memory_allocated()
+        out_dir = os.path.join(tmp, "variants")
+        t0 = time.perf_counter()
+        written = write_outputs(results, model, out_dir, "variants",
+                                variants="CT")
+        t_write = time.perf_counter() - t0
+
+        check(len(results) == len(rgs), f"{len(rgs) - len(results)} reads failed")
+        edition = amb_ref.forward["synth"]
+        n_rows = n_c = 0
+        for r in results:
+            vc = r.variant_calls
+            check(vc is not None and len(vc) > 0, f"{r.read_label}: no calls")
+            check(r.aligned_pairs == [], f"{r.read_label}: pairs in site mode")
+            check(r.forward, f"{r.read_label}: reverse-mapped synthetic read")
+            check(float(np.abs(vc["C"] + vc["T"] - 1.0).max()) <= 1e-6,
+                  f"{r.read_label}: C + T != 1")
+            # position is the reporting k-mer's start; the site is its
+            # last base
+            bad = [int(q) for q in vc["position"] if edition[int(q) + k - 1] != "Y"]
+            check(not bad, f"{r.read_label}: calls at non-Y positions {bad[:5]}")
+            check(r.max_total_gap < 1.0,
+                  f"{r.read_label}: total_f - total_b gap {r.max_total_gap}")
+            n_rows += len(vc)
+            n_c += int((vc["C"] > 0.5).sum())
+        names = [os.path.basename(w) for w in written]
+        for name in ("variants_aggregate.tsv", "variants_per_read.tsv"):
+            check(name in names and os.path.getsize(
+                os.path.join(out_dir, name)) > 0, f"{name} missing or empty")
+        check(len(names) == len(rgs) + 2, f"{len(names)} variants files")
+        share_c = n_c / n_rows
+        check(share_c >= MIN_SHARE_C,
+              f"share of sites called C {share_c:.3f} < {MIN_SHARE_C}")
+        check(all(site_launches.values()),
+              f"a kernel was not launched in site mode: {site_launches}")
+        # the buckets run_alignment_batch made: the same prep as 3c's
+        buckets = {}
+        for W, Dpad, P, prob in site_segs:
+            buckets.setdefault((W, Dpad, P), []).append(prob)
+        wp = {(W, P): len(v) for (W, P), v in by_class.items()}
+        n_seg = len(site_segs)
+        log(f"[sites] {len(results)} reads, {n_events} events, {n_rows} site "
+            f"rows, share called C {share_c:.4f} (bound {MIN_SHARE_C}), "
+            f"{len(written)} files")
+        log("[sites] segments by (W, P): " + " ".join(
+            f"{w},{p}:{n}" for (w, p), n in sorted(wp.items()))
+            + f" ({n_seg} segments; P=8 share "
+            f"{sum(n for (w, p), n in wp.items() if p == 8) / n_seg:.3f})")
+        log("[sites] stages " + " ".join(f"{s_}={v:.2f}s" for s_, v in stages.items())
+            + f" write={t_write:.2f}s")
+        log(f"[sites] run_alignment_batch {t_sites:.2f} s: "
+            f"{n_events / t_sites:.0f} events/s; kernels stage "
+            f"{n_events / stages['kernels']:.0f} events/s; "
+            f"peak device memory {peak / 2**30:.2f} GiB")
+        log(f"[sites] launches {site_launches}")
+
+        # ---- 5b. kernel time of each phase-5 bucket, by CUDA events, in
+        # the runner's chunks; summed by (W, P)
+        by_wp = {}
+        for (W, Dpad, P), probs in sorted(buckets.items()):
+            for chunk in _stack_chunks(list(range(len(probs))), W, Dpad, P):
+                ptb = problem_tensors([probs[i] for i in chunk], W, dev)
+                f_ms, (f, fi, lf) = cuda_ms(lambda: hk.forward_sweep(ptb), 1)
+                fo, tf = bfb.forward_offsets(fi, lf, ptb.meta[:, bfb.M_NDIAG])
+                cvecf = (fo - tf[:, None]).contiguous()
+                b_ms, _ = cuda_ms(lambda: hk.backward_sweep_compact(
+                    ptb, f, cvecf, threshold, R), 1)
+                del f
+                # one block per problem: a launch lasts about as long as
+                # its longest problem
+                nd = max(ptb.n_diag)
+                e = by_wp.setdefault((W, P), [0, 0.0, 0.0, []])
+                e[0] += len(chunk)
+                e[1] += f_ms
+                e[2] += b_ms
+                e[3].append((1e3 * f_ms / nd, 1e3 * b_ms / nd))
+        for (W, P), (n, f_ms, b_ms, us) in sorted(by_wp.items()):
+            uf, ub = [u for u, _ in us], [u for _, u in us]
+            log(f"[sites] kernels W={W} P={P}: {n} problems, fwd {f_ms:.3f} ms, "
+                f"bwd {b_ms:.3f} ms; us per diagonal of each launch's longest "
+                f"problem fwd {min(uf):.2f}..{max(uf):.2f}, bwd "
+                f"{min(ub):.2f}..{max(ub):.2f}")
+        f_sum = sum(e[1] for e in by_wp.values())
+        b_sum = sum(e[2] for e in by_wp.values())
+        log(f"[sites] kernel sums fwd {f_sum:.3f} ms, bwd {b_sum:.3f} ms: "
+            f"{(f_sum + b_sum) / 1e3 / t_sites:.4f} of run_alignment_batch's "
+            f"wall time (sums of CUDA-event times, not a trace)")
+
+    def err(r, name):
+        return max(r["tf_err"], r["fdiff"]) if name == "sa_fwd_sweep" \
+            else max(r["tb_err"], r["pdiff"])
+
+    kernels = []
+    for name, src, ms in (
+            ("sa_fwd_sweep", "signalalign_tpu/ops/banded_fb_pallas_batch.py:569 "
+             "(+ signalalign_tpu/ops/banded_fb_pallas.py:216)", "fwd_"),
+            ("sa_bwd_sweep_compact",
+             "signalalign_tpu/ops/banded_fb_pallas_batch.py:775 "
+             "(+ signalalign_tpu/ops/banded_fb_pallas.py:326, "
+             "signalalign_tpu/ops/banded_fb_pallas_batch.py:1407)", "bwd_")):
+        err_pn = max(err(r, name) for r in paths_rows.values())
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "signalalign_tpu_torch/csrc/banded_fb.cu", "replaces": src,
+            # the two main-path runs (phases 4 and 5), each counted from 0
+            "launches": launches[name] + site_launches[name],
+            "max_abs_err": max(err(p1, name), err_pn),
+            "ms": p1[ms + "ms"], "plain_ms": p1[ms + "plain_ms"],
+            "launches_by_phase": {"4": launches[name], "5": site_launches[name]},
+            "max_abs_err_p1": err(p1, name), "max_abs_err_p_gt_1": err_pn,
+            "ms_by_W_P": {f"{W},{P}": r[ms + "ms"]
+                          for (W, P), r in paths_rows.items()},
+            "plain_ms_by_W_P": {f"{W},{P}": r[ms + "plain_ms"]
+                                for (W, P), r in paths_rows.items()}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
 """signalalign_tpu_torch — the PyTorch + CUDA port of signalalign_tpu.
 
-The canonical alignment path (P=1 paths, Gaussian mean-only emissions,
-TSV output) runs on an NVIDIA Hopper GPU through two hand-written CUDA
-kernels (``csrc/banded_fb.cu``); on CPU tensors every kernel wrapper
-uses its plain PyTorch twin. The JAX package ``signalalign_tpu`` stays
-the reference: this package reuses its numpy-only host modules
-(``io``, ``models.pore_model``, ``ops.band_geometry``, ``ops.scaling``,
-``ops.fb_oracle``, ``utils``) and never imports ``jax``.
+Gaussian mean-only alignment with 1 <= P <= 8 paths per cell (TSV
+output, and site-mode variant/methylation calling) runs on an NVIDIA
+Hopper GPU through two hand-written CUDA kernels (``csrc/banded_fb.cu``);
+on CPU tensors every kernel wrapper uses its plain PyTorch twin. The JAX
+package ``signalalign_tpu`` stays the reference: this package reuses its
+numpy-only host modules (``io``, ``models.pore_model``,
+``ops.band_geometry``, ``ops.scaling``, ``ops.fb_oracle``,
+``pipeline.variant_caller``, ``utils``) and never imports ``jax``.
 """
 
 import os as _os

@@ -29,30 +29,36 @@ def problem_from_numpy(src) -> bfb.BandedProblem:
     return bfb.BandedProblem(**kw)
 
 
-def _check_canonical(p: bfb.BandedProblem) -> None:
+def _check_slice(p: bfb.BandedProblem) -> None:
     if p.mode != bfb.MODE_MEAN_ONLY:
         raise NotImplementedError(
             f"emission mode {p.mode}: the port runs MODE_MEAN_ONLY; HDP "
-            "emissions come with ROADMAP slice 2 (site-mode calling)")
+            "emissions come with ROADMAP slice 2b")
     P = p.ref_params.shape[1]
-    if P != 1:
+    if P > bfb.MAX_P:
         raise NotImplementedError(
-            f"P={P} paths per cell: paths-in-lanes come with ROADMAP "
-            "slice 2 (site-mode calling)")
-    # the kernels derive legality as 1 <= x <= lX (true of every P=1 problem)
-    xs = np.arange(p.legal.shape[-1])
-    if not np.array_equal(p.legal[0, 0], (xs >= 1) & (xs <= p.lX)):
-        raise NotImplementedError("P=1 problem with a non-canonical legality row")
+            f"P={P} paths per cell: the port runs P <= {bfb.MAX_P} "
+            "(ambiguity codes of three or more bases can exceed it)")
+
+
+def legality_bits(legal: np.ndarray) -> np.ndarray:
+    """(P, P, LX) bool ``legal[p_to, q_from, x]`` -> (LX,) int64 with bit
+    p_to*MAX_P + q_from set where the transition is legal."""
+    P = legal.shape[0]
+    bit = (np.arange(P)[:, None] * bfb.MAX_P + np.arange(P)[None, :])
+    words = (legal.astype(np.uint64) << bit[:, :, None].astype(np.uint64))
+    return words.sum(axis=(0, 1), dtype=np.uint64).view(np.int64)
 
 
 def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
                     device: torch.device) -> bfb.ProblemTensors:
-    """Stack one bucket's P=1 mean-only problems into padded tensors on
-    ``device`` (one host-to-device copy per tensor)."""
+    """Stack one bucket's mean-only problems (P <= 8 paths, the bucket's
+    P is their largest) into padded tensors on ``device`` (one
+    host-to-device copy per tensor)."""
     if not problems:
         raise ValueError("empty bucket")
     for p in problems:
-        _check_canonical(p)
+        _check_slice(p)
         if int(p.width.max()) > W:
             raise ValueError(f"band width {int(p.width.max())} exceeds W={W}")
         # the W-wide windows of the sweeps must fit in the problem's tables
@@ -60,12 +66,14 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
             raise ValueError(f"problem tables shorter than W={W}: prepare "
                              "it with the bucket's W")
     B = len(problems)
+    P = max(p.ref_params.shape[1] for p in problems)
     D1 = max(p.n_diag for p in problems) + 1
     LX = max(p.ref_params.shape[-1] for p in problems)
     LE = max(p.ev_params.shape[-1] for p in problems)
     x0 = np.zeros((B, D1), np.int32)
     width = np.zeros((B, D1), np.int32)
-    ref = np.zeros((B, bfb.NREF, LX), np.float32)
+    ref = np.zeros((B, bfb.NREF, P, LX), np.float32)
+    leg = np.zeros((B, LX), np.int64)
     ev = np.zeros((B, bfb.NEV, LE), np.float32)
     meta = np.zeros((B, bfb.NMETA), np.int32)
     par = np.zeros((B, bfb.NPACK), np.float32)
@@ -76,7 +84,8 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         width[i, :n] = p.width[:n]
         lx = p.ref_params.shape[-1]
         le = p.ev_params.shape[-1]
-        ref[i, :, :lx] = p.ref_params[:bfb.NREF, 0]
+        ref[i, :, :p.ref_params.shape[1], :lx] = p.ref_params[:bfb.NREF]
+        leg[i, :lx] = legality_bits(p.legal)
         ev[i, 0, :le] = p.ev_params[0]
         ev[i, 1, :le] = p.ev_params[3]
         meta[i, [bfb.M_LX, bfb.M_LY, bfb.M_NDIAG, bfb.M_EVPAD, bfb.M_REFLEN,
@@ -90,6 +99,6 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         return torch.from_numpy(a).to(device)
 
     return bfb.ProblemTensors(
-        W=W, n_diag=[p.n_diag for p in problems], x0=dev(x0),
-        width=dev(width), ref=dev(ref), ev=dev(ev), meta=dev(meta),
-        par=dev(par))
+        W=W, P=P, n_diag=[p.n_diag for p in problems], x0=dev(x0),
+        width=dev(width), ref=dev(ref), leg=dev(leg), ev=dev(ev),
+        meta=dev(meta), par=dev(par))

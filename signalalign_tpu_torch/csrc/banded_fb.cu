@@ -1,42 +1,50 @@
-// Hand-written Hopper kernels for the canonical banded forward-backward
-// (P=1 paths, MODE_MEAN_ONLY Gaussian emissions) of signalalign_tpu_torch.
+// Hand-written Hopper kernels for the banded forward-backward of
+// signalalign_tpu_torch: MODE_MEAN_ONLY Gaussian emissions, 1 <= P <= 8
+// paths per cell (degenerate reference positions expand into paths).
 //
 // sa_fwd_sweep replaces the TPU forward kernels
-//   signalalign_tpu/ops/banded_fb_pallas.py        _fwd_kernel      (pallas_forward)
-//   signalalign_tpu/ops/banded_fb_pallas_batch.py  _fwd_kernel_log  (pallas_forward_b, PP=1)
-// sa_bwd_sweep_compact replaces the TPU backward kernels
-//   signalalign_tpu/ops/banded_fb_pallas.py        _bwd_kernel      (fuse_post)
-//   signalalign_tpu/ops/banded_fb_pallas_batch.py  _bwd_kernel_log  (fuse_post + fuse_compact, PP=1)
+//   signalalign_tpu/ops/banded_fb_pallas.py        _fwd_kernel      (pallas_forward, P=1)
+//   signalalign_tpu/ops/banded_fb_pallas_batch.py  _fwd_kernel_log  (pallas_forward_b, PP=1 and PP>1)
+// sa_bwd_sweep_compact replaces the TPU backward and compaction kernels
+//   signalalign_tpu/ops/banded_fb_pallas.py        _bwd_kernel      (fuse_post, P=1)
+//   signalalign_tpu/ops/banded_fb_pallas_batch.py  _bwd_kernel_log  (fuse_post + fuse_compact PP=1,
+//                                                                    fuse_post PP>1)
+//   signalalign_tpu/ops/banded_fb_pallas_batch.py  _compact_map_kernel (PP>1 survivors)
 // Both keep the output contract of the plain DP in
 // signalalign_tpu_torch/ops/banded_fb.py (sweep_forward / sweep_backward):
 // max-normalised diagonals plus per-diagonal offset increments. They do
-// not copy the TPU layout (x-frame lanes, 128-lane stripes, ring
-// re-basing, TwoSum scans): cells are addressed in the band-offset frame,
-// cell (d, o) is x = x0[d] + o, y = d - x, and the backward offset is a
+// not copy the TPU layout (x-frame lanes, 128-lane stripes, paths in
+// lanes with lane rolls and legality planes, ring re-basing, TwoSum
+// scans): cell (d, p, o) is x = x0[d] + o, y = d - x on path p; a block
+// holds all P paths of a problem, legality is one 64-bit word per
+// reference position (bit p_to*8 + q_from), and the backward offset is a
 // plain double.
 //
 // What bounds them on this card: the serial chain of anti-diagonals. A
 // diagonal depends on the two before it, so one problem is one block that
 // walks its own n_diag diagonals in order, with two block barriers per
 // diagonal (one inside the max reduction, one before the next diagonal
-// reads the ring). The work per diagonal is small (W cells, ~10
+// reads the ring). The work per diagonal is small (P*W cells, ~10 + 4P
 // transcendentals each), so the barrier latency, not device-memory
 // bandwidth or arithmetic, sets the time of one problem; throughput comes
-// from many problems in flight (one block each, several per SM).
+// from many problems in flight (one block each).
 //
-// What the design does about it: the three live diagonals (d, d-1, d-2)
-// of all three states sit in a shared-memory ring (9 W floats, 36 KB at
-// W = 1024), emissions are computed inline from the per-position tables
-// (no emission stack in device memory), and each block stops at its own
-// n_diag instead of the bucket's padded length. The backward kernel folds
-// the posterior, the threshold and the survivor compaction into the sweep
-// (a warp ballot + per-warp counts published by the diagonal's second
-// barrier), so the posterior band is never written to device memory.
+// What the design does about it: the two live diagonals of all three
+// states sit in a shared-memory ring (6 P W floats, 192 KB at P*W = 8192);
+// each thread keeps its K <= 8 cells of the new diagonal in registers
+// until the max reduction's barrier has passed (every read of the ring is
+// done by then) and only then overwrites the oldest diagonal. Emissions
+// are computed inline from the per-position tables (no emission stack in
+// device memory) and each block stops at its own n_diag. The backward
+// kernel folds the posterior, the threshold and the survivor compaction
+// into the sweep (a warp ballot + per-warp counts published by the
+// diagonal's second barrier), so no posterior stack is ever written.
 //
 // Numerics: float32 values with precise expf/logf/log1pf (no fast math),
 // built with --fmad=false so each operation rounds as in the plain twin,
-// and the logaddexp formulation of torch.logaddexp; the backward running
-// offset and the forward normaliser stream cvecf are float64.
+// the logaddexp formulation of torch.logaddexp and the twin's legal
+// logsumexp over paths (max, then exp-sum in path order); the backward
+// running offset and the forward normaliser stream cvecf are float64.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +61,10 @@ constexpr int NREF = 5, NEV = 2, NMETA = 8, NPACK = 16;
 constexpr int M_LX = 0, M_LY = 1, M_NDIAG = 2, M_EVPAD = 3, M_REFLEN = 4,
               M_EVLEN = 5;
 constexpr int PACK_TRANS = 0, PACK_START = 9, PACK_END = 12, PACK_GAPX = 15;
-constexpr int MAX_CHUNKS = 4;   // backward: W <= MAX_CHUNKS * 1024
+constexpr int MAX_P = 8;                        // legality: 8 bits per path
+constexpr int MAX_THREADS = 1024;
+constexpr int MAX_K = 8;                        // cells per thread
+constexpr int MAX_CELLS = MAX_K * MAX_THREADS;  // P * W
 
 __device__ __forceinline__ float lae(float a, float b) {
   float m = fmaxf(a, b);
@@ -62,6 +73,23 @@ __device__ __forceinline__ float lae(float a, float b) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
+}
+
+// logsumexp of v[0..P) (entries an illegal transition masked to NEG):
+// the max, then the exp-sum in path order, as the twin's _legal_reduce.
+// At P = 1 it returns v[0] bit for bit (expf(0) = 1, logf(1) = 0), but
+// its expf/logf cost 12-18% of a P = 1 sweep (H100, 700 W), so the
+// callers skip it there.
+__device__ __forceinline__ float legal_lse(const float* v, int P) {
+  float mx = v[0];
+#pragma unroll
+  for (int q = 1; q < MAX_P; ++q)
+    if (q < P) mx = fmaxf(mx, v[q]);
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < MAX_P; ++q)
+    if (q < P) s += expf(v[q] - mx);
+  return mx + logf(fmaxf(s, 1e-37f));
 }
 
 // Block-wide max or sum; blockDim.x is a multiple of 32. Contains one
@@ -81,20 +109,20 @@ __device__ float block_reduce(float v, float* part) {
   return r;
 }
 
-// logsumexp over the 3 states x W cells of a normalised ring slot,
+// logsumexp over the 3 states x N cells of a normalised ring slot,
 // weighted by logs[3] (torch.logsumexp of clamp(cur + logs, NEG)).
-__device__ float block_lse(const float* slot, const float* logs, int W,
+__device__ float block_lse(const float* slot, const float* logs, int N,
                            float* part) {
   float mx = NEG;
-  for (int o = threadIdx.x; o < W; o += blockDim.x)
+  for (int c = threadIdx.x; c < N; c += blockDim.x)
     for (int s = 0; s < 3; ++s)
-      mx = fmaxf(mx, fmaxf(slot[s * W + o] + logs[s], NEG));
+      mx = fmaxf(mx, fmaxf(slot[s * N + c] + logs[s], NEG));
   __syncthreads();
   mx = block_reduce<false>(mx, part);
   float sm = 0.f;
-  for (int o = threadIdx.x; o < W; o += blockDim.x)
+  for (int c = threadIdx.x; c < N; c += blockDim.x)
     for (int s = 0; s < 3; ++s)
-      sm += expf(fmaxf(slot[s * W + o] + logs[s], NEG) - mx);
+      sm += expf(fmaxf(slot[s * N + c] + logs[s], NEG) - mx);
   __syncthreads();
   sm = block_reduce<true>(sm, part);
   return logf(sm) + mx;
@@ -103,19 +131,23 @@ __device__ float block_lse(const float* slot, const float* logs, int W,
 struct Problem {
   const int* x0;
   const int* width;
-  const float* ref;   // (NREF, LX)
-  const float* ev;    // (NEV, LE)
-  int lX, lY, nd, efp, reflen, evlen, LX, LE;
+  const float* ref;                 // (NREF, P, LX)
+  const unsigned long long* leg;    // (LX,) legality words
+  const float* ev;                  // (NEV, LE)
+  int lX, lY, nd, efp, reflen, evlen, P, LX, LE;
   float t[9], start[3], end[3], gapx;
 
   __device__ void load(const int* x0_, const int* width_, const float* ref_,
-                       const float* ev_, const int* meta_, const float* par_,
-                       int D1, int LX_, int LE_) {
+                       const unsigned long long* leg_, const float* ev_,
+                       const int* meta_, const float* par_, int D1, int P_,
+                       int LX_, int LE_) {
     const int b = blockIdx.x;
     x0 = x0_ + (size_t)b * D1;
     width = width_ + (size_t)b * D1;
-    ref = ref_ + (size_t)b * NREF * LX_;
+    ref = ref_ + (size_t)b * NREF * P_ * LX_;
+    leg = leg_ + (size_t)b * LX_;
     ev = ev_ + (size_t)b * NEV * LE_;
+    P = P_;
     LX = LX_;
     LE = LE_;
     const int* meta = meta_ + (size_t)b * NMETA;
@@ -133,134 +165,177 @@ struct Problem {
     }
     gapx = par[PACK_GAPX];
   }
+
+  // reference row r of path p at column x
+  __device__ __forceinline__ float rf(int r, int p, int x) const {
+    return ref[((size_t)r * P + p) * LX + x];
+  }
 };
 
-__device__ __forceinline__ float rd(const float* slot, int s, int i, int W) {
-  return (i >= 0 && i < W) ? slot[s * W + i] : NEG;
+// state s of band offset i on path p of a ring slot; NEG outside the band
+__device__ __forceinline__ float rd(const float* slot, int s, int i, int p,
+                                    int W, int N, int P) {
+  return (i >= 0 && i < W) ? slot[s * N + i * P + p] : NEG;
 }
 
 // ---------------------------------------------------------------- forward
 
-__global__ void sa_fwd_sweep_kernel(
+template <int K>
+__global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
-    const float* __restrict__ ref_, const float* __restrict__ ev_,
-    const int* __restrict__ meta_, const float* __restrict__ par_,
-    float* __restrict__ fstack, float* __restrict__ f_incr,
-    float* __restrict__ lse_f, int D1, int W, int LX, int LE) {
+    const float* __restrict__ ref_,
+    const unsigned long long* __restrict__ leg_,
+    const float* __restrict__ ev_, const int* __restrict__ meta_,
+    const float* __restrict__ par_, float* __restrict__ fstack,
+    float* __restrict__ f_incr, float* __restrict__ lse_f, int D1, int W,
+    int P_, int LX, int LE) {
   extern __shared__ float smem[];
-  float* ring = smem;              // [3 slots][3 states][W]
-  float* part = smem + 9 * W;      // [32] reduction partials
-  __shared__ Problem P;
-  if (threadIdx.x == 0) P.load(x0_, width_, ref_, ev_, meta_, par_, D1, LX, LE);
-  for (int i = threadIdx.x; i < 9 * W; i += blockDim.x) ring[i] = NEG;
+  const int N = P_ * W;
+  float* ring = smem;              // [2 slots][3 states][N], cell o*P + p
+  float* part = smem + 6 * N;      // [32] reduction partials
+  __shared__ Problem pr;
+  if (threadIdx.x == 0)
+    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, D1, P_, LX, LE);
+  for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) ring[i] = NEG;
   __syncthreads();
 
   const int b = blockIdx.x;
-  float* fs = fstack + (size_t)b * D1 * W;
+  const int P = pr.P;
+  float* fs = fstack + (size_t)b * D1 * N;   // (D1, P, W)
   float* inc = f_incr + (size_t)b * D1;
-  const int nd = P.nd;
+  const int nd = pr.nd;
   for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) inc[d] = 0.f;
 
-  // diagonal 0: the single start cell (0, 0)
+  // diagonal 0: the single start cell (0, 0) on path 0, in slot 0
   if (threadIdx.x == 0) {
-    for (int s = 0; s < 3; ++s) ring[s * W] = P.start[s];
+    for (int s = 0; s < 3; ++s) ring[s * N] = pr.start[s];
     inc[0] = 0.f;
   }
-  for (int o = threadIdx.x; o < W; o += blockDim.x)
-    fs[o] = o == 0 ? P.start[MATCH] : NEG;
+  for (int c = threadIdx.x; c < N; c += blockDim.x)
+    fs[c] = c == 0 ? pr.start[MATCH] : NEG;
   __syncthreads();
 
-  const float* tr = P.t;
+  const float* tr = pr.t;
   float m_prev = 0.f;
   for (int d = 1; d <= nd; ++d) {
-    float* cur = ring + (d % 3) * 3 * W;
-    const float* p1 = ring + ((d - 1) % 3) * 3 * W;
-    const float* p2 = ring + ((d + 1) % 3) * 3 * W;   // == (d - 2) % 3
-    const int xd = P.x0[d];
-    const int wd = P.width[d];
-    const int s1 = xd - P.x0[d - 1] - 1;
-    const int s2 = d >= 2 ? xd - P.x0[d - 2] - 1 : W + 5;
-    const int rs = clampi(xd, 0, P.reflen - W);
-    const int es = clampi(P.lY - d + xd + P.efp, 0, P.evlen - W);
+    float* cur = ring + (d & 1) * 3 * N;        // holds d-2 until written
+    const float* p1 = ring + ((d - 1) & 1) * 3 * N;
+    const float* p2 = cur;
+    const int xd = pr.x0[d];
+    const int wd = pr.width[d];
+    const int s1 = xd - pr.x0[d - 1] - 1;
+    const int s2 = d >= 2 ? xd - pr.x0[d - 2] - 1 : W + 5;
+    const int rs = clampi(xd, 0, pr.reflen - W);
+    const int es = clampi(pr.lY - d + xd + pr.efp, 0, pr.evlen - W);
 
+    float vm[K], vx[K], vy[K];
     float tmax = NEG;
-    for (int o = threadIdx.x; o < W; o += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
       float mm = NEG, gx = NEG, gy = NEG;
-      if (o < wd) {
+      const int o = c / P, p = c - o * P;
+      if (c < N && o < wd) {
         const int xr = rs + o, je = es + o;
-        const float m_hat = P.ref[xr], inv_m = P.ref[P.LX + xr],
-                    c_m = P.ref[2 * P.LX + xr], inv_y = P.ref[3 * P.LX + xr],
-                    c_y = P.ref[4 * P.LX + xr];
-        const float ev_mean = P.ev[je];
+        const float m_hat = pr.rf(0, p, xr), inv_m = pr.rf(1, p, xr),
+                    c_m = pr.rf(2, p, xr), inv_y = pr.rf(3, p, xr),
+                    c_y = pr.rf(4, p, xr);
+        const float ev_mean = pr.ev[je];
         const bool kvalid = inv_m > 0.f;
-        const bool ok = kvalid && P.ev[P.LE + je] > 0.5f;
-        const bool legal = xr >= 1 && xr <= P.lX;
+        const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
+        const unsigned lb = (unsigned)(pr.leg[xr] >> (p * MAX_P)) & 0xffu;
         const float am = (ev_mean - m_hat) * inv_m;
         const float ay = (ev_mean - m_hat) * inv_y;
         const float e_match = ok ? c_m - 0.5f * am * am : NEG;
         const float e_stay = ok ? c_y - 0.5f * ay * ay : NEG;
-        const float e_gapx = kvalid ? P.gapx : NEG;
+        const float e_gapx = kvalid ? pr.gapx : NEG;
 
+        // gapX from (x-1, y) and match from (x-1, y-1), over the legal
+        // source paths q
         const int il = o + s1, im = o + s2;
-        const float src_x = lae(rd(p1, MATCH, il, W) + tr[T_MX],
-                                rd(p1, GAP_X, il, W) + tr[T_XX]);
-        gx = (legal ? src_x : NEG) + e_gapx;
-        const float src_m = lae(lae(rd(p2, MATCH, im, W) + tr[T_MM],
-                                    rd(p2, GAP_X, im, W) + tr[T_XM]),
-                                rd(p2, GAP_Y, im, W) + tr[T_YM]) - m_prev;
-        mm = (legal ? src_m : NEG) + e_match;
-        gy = lae(rd(p1, MATCH, il + 1, W) + tr[T_MY],
-                 rd(p1, GAP_Y, il + 1, W) + tr[T_YY]) + e_stay;
+        float srx[MAX_P], srm[MAX_P];
+#pragma unroll
+        for (int q = 0; q < MAX_P; ++q) {
+          if (q < P) {
+            const bool leg = (lb >> q) & 1u;
+            const float sx = lae(rd(p1, MATCH, il, q, W, N, P) + tr[T_MX],
+                                 rd(p1, GAP_X, il, q, W, N, P) + tr[T_XX]);
+            const float sm =
+                lae(lae(rd(p2, MATCH, im, q, W, N, P) + tr[T_MM],
+                        rd(p2, GAP_X, im, q, W, N, P) + tr[T_XM]),
+                    rd(p2, GAP_Y, im, q, W, N, P) + tr[T_YM]) - m_prev;
+            srx[q] = leg ? sx : NEG;
+            srm[q] = leg ? sm : NEG;
+          }
+        }
+        gx = (P == 1 ? srx[0] : legal_lse(srx, P)) + e_gapx;
+        mm = (P == 1 ? srm[0] : legal_lse(srm, P)) + e_match;
+        // gapY from (x, y-1), same path
+        gy = lae(rd(p1, MATCH, il + 1, p, W, N, P) + tr[T_MY],
+                 rd(p1, GAP_Y, il + 1, p, W, N, P) + tr[T_YY]) + e_stay;
       }
-      cur[MATCH * W + o] = mm;
-      cur[GAP_X * W + o] = gx;
-      cur[GAP_Y * W + o] = gy;
+      vm[k] = mm;
+      vx[k] = gx;
+      vy[k] = gy;
       tmax = fmaxf(tmax, fmaxf(mm, fmaxf(gx, gy)));
     }
+    // its barrier also ends every read of diagonal d-2 in `cur`
     float m = block_reduce<false>(tmax, part);
     m = m > NEG * 0.5f ? m : 0.f;
-    for (int o = threadIdx.x; o < W; o += blockDim.x) {
-      for (int s = 0; s < 3; ++s)
-        cur[s * W + o] = fmaxf(cur[s * W + o] - m, NEG);
-      fs[(size_t)d * W + o] = cur[MATCH * W + o];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
+      if (c < N) {
+        const int o = c / P, p = c - o * P;
+        const float mm = fmaxf(vm[k] - m, NEG);
+        cur[MATCH * N + c] = mm;
+        cur[GAP_X * N + c] = fmaxf(vx[k] - m, NEG);
+        cur[GAP_Y * N + c] = fmaxf(vy[k] - m, NEG);
+        fs[(size_t)d * N + p * W + o] = mm;
+      }
     }
     if (threadIdx.x == 0) inc[d] = m;
     m_prev = m;
     __syncthreads();
   }
-  const float l = block_lse(ring + (nd % 3) * 3 * W, P.end, W, part);
+  const float l = block_lse(ring + (nd & 1) * 3 * N, pr.end, N, part);
   if (threadIdx.x == 0) lse_f[b] = l;
 }
 
 
 // ----------------------------------------------- backward + compaction
 
-__global__ void sa_bwd_sweep_compact_kernel(
+template <int K>
+__global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
-    const float* __restrict__ ref_, const float* __restrict__ ev_,
-    const int* __restrict__ meta_, const float* __restrict__ par_,
-    const float* __restrict__ fstack, const double* __restrict__ cvecf,
-    float* __restrict__ b_incr, float* __restrict__ lse_b,
-    int* __restrict__ slot_off, float* __restrict__ slot_val,
-    int* __restrict__ cnt, int D1, int W, int LX, int LE, int R,
-    float threshold) {
+    const float* __restrict__ ref_,
+    const unsigned long long* __restrict__ leg_,
+    const float* __restrict__ ev_, const int* __restrict__ meta_,
+    const float* __restrict__ par_, const float* __restrict__ fstack,
+    const double* __restrict__ cvecf, float* __restrict__ b_incr,
+    float* __restrict__ lse_b, int* __restrict__ slot_cell,
+    float* __restrict__ slot_val, int* __restrict__ cnt, int D1, int W,
+    int P_, int LX, int LE, int R, float threshold) {
   extern __shared__ float smem[];
-  float* ring = smem;                               // [3 slots][3 states][W]
-  float* part = smem + 9 * W;                       // [32] reduction partials
-  int* wcnt = reinterpret_cast<int*>(part + 32);    // [MAX_CHUNKS][32] survivors
-  __shared__ Problem P;
-  if (threadIdx.x == 0) P.load(x0_, width_, ref_, ev_, meta_, par_, D1, LX, LE);
-  for (int i = threadIdx.x; i < 9 * W; i += blockDim.x) ring[i] = NEG;
+  const int N = P_ * W;
+  float* ring = smem;                               // [2 slots][3 states][N]
+  float* part = smem + 6 * N;                       // [32] reduction partials
+  int* wcnt = reinterpret_cast<int*>(part + 32);    // [K][32] survivors
+  __shared__ Problem pr;
+  if (threadIdx.x == 0)
+    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, D1, P_, LX, LE);
+  for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) ring[i] = NEG;
   __syncthreads();
 
   const int b = blockIdx.x;
-  const float* fs = fstack + (size_t)b * D1 * W;
+  const int P = pr.P;
+  const float* fs = fstack + (size_t)b * D1 * N;
   const double* cv = cvecf + (size_t)b * D1;
   float* inc = b_incr + (size_t)b * D1;
-  int* so = slot_off + (size_t)b * D1 * R;
+  int* so = slot_cell + (size_t)b * D1 * R;
   float* sv = slot_val + (size_t)b * D1 * R;
   int* cn = cnt + (size_t)b * D1;
-  const int nd = P.nd;
+  const int nd = pr.nd;
   for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) {
     inc[d] = 0.f;
     cn[d] = 0;
@@ -268,100 +343,110 @@ __global__ void sa_bwd_sweep_compact_kernel(
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  const int nchunk = (W + blockDim.x - 1) / blockDim.x;
-  const float* tr = P.t;
+  const float* tr = pr.t;
   float m_prev = 0.f;
   double bo = 0.0;   // running backward offset: Bo(d) = sum of m over >= d
   for (int d = nd; d >= 0; --d) {
-    float* cur = ring + (d % 3) * 3 * W;
-    const float* b1 = ring + ((d + 1) % 3) * 3 * W;
-    const float* b2 = ring + ((d + 2) % 3) * 3 * W;
-    const int xd = P.x0[d];
-    const int wd = P.width[d];
+    float* cur = ring + (d & 1) * 3 * N;          // holds d+2 until written
+    const float* b1 = ring + ((d + 1) & 1) * 3 * N;
+    const float* b2 = cur;
+    const int xd = pr.x0[d];
+    const int wd = pr.width[d];
     const bool fin = d == nd;
-    const int u1 = d + 1 < D1 ? xd - P.x0[d + 1] : W + 5;
-    const int u2 = d + 2 < D1 ? xd + 1 - P.x0[d + 2] : W + 5;
-    const int r1 = clampi(xd + 1, 0, P.reflen - W);
-    const int r0 = clampi(xd, 0, P.reflen - W);
-    const int es = clampi(P.lY - d + xd + P.efp - 1, 0, P.evlen - W);
+    const int u1 = d + 1 < D1 ? xd - pr.x0[d + 1] : W + 5;
+    const int u2 = d + 2 < D1 ? xd + 1 - pr.x0[d + 2] : W + 5;
+    const int r1 = clampi(xd + 1, 0, pr.reflen - W);
+    const int r0 = clampi(xd, 0, pr.reflen - W);
+    const int es = clampi(pr.lY - d + xd + pr.efp - 1, 0, pr.evlen - W);
+    float vm[K], vx[K], vy[K];
     float tmax = NEG;
-    for (int o = threadIdx.x; o < W; o += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
       float bm = NEG, bx = NEG, by = NEG;
-      if (o < wd) {
+      const int o = c / P, q = c - o * P;   // q: this cell's (source) path
+      if (c < N && o < wd) {
         if (fin) {
-          bm = P.end[MATCH];
-          bx = P.end[GAP_X];
-          by = P.end[GAP_Y];
+          bm = pr.end[MATCH];
+          bx = pr.end[GAP_X];
+          by = pr.end[GAP_Y];
         } else {
           const int xr1 = r1 + o, xr0 = r0 + o, je = es + o;
-          const float ev_mean = P.ev[je];
-          const bool evok = P.ev[P.LE + je] > 0.5f;
-          // match TO cell (x+1, y+1)
-          const float m_hat1 = P.ref[xr1], inv_m1 = P.ref[P.LX + xr1],
-                      c_m1 = P.ref[2 * P.LX + xr1];
-          const float am = (ev_mean - m_hat1) * inv_m1;
-          const float e_match_to =
-              (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am : NEG;
-          // gapY TO cell (x, y+1)
-          const float m_hat0 = P.ref[xr0], inv_m0 = P.ref[P.LX + xr0],
-                      inv_y0 = P.ref[3 * P.LX + xr0],
-                      c_y0 = P.ref[4 * P.LX + xr0];
+          const float ev_mean = pr.ev[je];
+          const bool evok = pr.ev[pr.LE + je] > 0.5f;
+          // gapY TO cell (x, y+1) on the same path
+          const float m_hat0 = pr.rf(0, q, xr0), inv_m0 = pr.rf(1, q, xr0),
+                      inv_y0 = pr.rf(3, q, xr0), c_y0 = pr.rf(4, q, xr0);
           const float ay = (ev_mean - m_hat0) * inv_y0;
           const float e_stay_same =
               (inv_m0 > 0.f && evok) ? c_y0 - 0.5f * ay * ay : NEG;
-          const float gapx_valid = inv_m1 > 0.f ? P.gapx : NEG;
-          const bool legal1 = xr1 >= 1 && xr1 <= P.lX;
-
-          const float gx_red =
-              legal1 ? rd(b1, GAP_X, o + u1 + 1, W) + gapx_valid : NEG;
-          const float mm_red =
-              legal1 ? rd(b2, MATCH, o + u2, W) + e_match_to - m_prev : NEG;
-          const float gy_term = rd(b1, GAP_Y, o + u1, W) + e_stay_same;
+          const float gy_term = rd(b1, GAP_Y, o + u1, q, W, N, P) + e_stay_same;
+          // gapX TO (x+1, y) and match TO (x+1, y+1), over the target
+          // paths p that may follow q: legal[p, q] at x+1
+          const unsigned long long lw = pr.leg[xr1];
+          float tgx[MAX_P], tmm[MAX_P];
+#pragma unroll
+          for (int p = 0; p < MAX_P; ++p) {
+            if (p < P) {
+              const bool leg = (lw >> (p * MAX_P + q)) & 1ull;
+              const float m_hat1 = pr.rf(0, p, xr1), inv_m1 = pr.rf(1, p, xr1),
+                          c_m1 = pr.rf(2, p, xr1);
+              const float am = (ev_mean - m_hat1) * inv_m1;
+              const float e_match_to =
+                  (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am : NEG;
+              const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
+              tgx[p] = leg ? rd(b1, GAP_X, o + u1 + 1, p, W, N, P) + gapx_valid
+                           : NEG;
+              tmm[p] = leg ? rd(b2, MATCH, o + u2, p, W, N, P) + e_match_to
+                                 - m_prev
+                           : NEG;
+            }
+          }
+          const float gx_red = P == 1 ? tgx[0] : legal_lse(tgx, P);
+          const float mm_red = P == 1 ? tmm[0] : legal_lse(tmm, P);
           bm = lae(lae(gx_red + tr[T_MX], mm_red + tr[T_MM]),
                    gy_term + tr[T_MY]);
           bx = lae(gx_red + tr[T_XX], mm_red + tr[T_XM]);
           by = lae(mm_red + tr[T_YM], gy_term + tr[T_YY]);
         }
       }
-      cur[MATCH * W + o] = bm;
-      cur[GAP_X * W + o] = bx;
-      cur[GAP_Y * W + o] = by;
+      vm[k] = bm;
+      vx[k] = bx;
+      vy[k] = by;
       tmax = fmaxf(tmax, fmaxf(bm, fmaxf(bx, by)));
     }
-    float m = block_reduce<false>(tmax, part);          // barrier 1
+    // barrier 1; it also ends every read of diagonal d+2 in `cur`
+    float m = block_reduce<false>(tmax, part);
     m = fin ? 0.f : (m > NEG * 0.5f ? m : 0.f);
     bo += (double)m;                                     // Bo(d)
     // absolute log posterior = f + b + cvecf[d] + Bo(d), b normalised
-    const float c = (float)(cv[d] + bo);
+    const float cd = (float)(cv[d] + bo);
 
-    float pk[MAX_CHUNKS];   // this lane's survivor value per chunk
-    int rk[MAX_CHUNKS];     // its rank inside its warp, -1 for none
+    float pk[K];   // this lane's survivor value per chunk
+    int rk[K];     // its rank inside its warp, -1 for none
 #pragma unroll
-    for (int k = 0; k < MAX_CHUNKS; ++k) {
-      pk[k] = 0.f;
-      rk[k] = -1;
-      if (k < nchunk) {   // uniform across the block
-        const int o = threadIdx.x + k * blockDim.x;
-        bool surv = false;
-        float p = 0.f;
-        if (o < W) {
-          for (int s = 0; s < 3; ++s)
-            cur[s * W + o] = fmaxf(cur[s * W + o] - m, NEG);
-          const int x = xd + o, y = d - x;
-          if (o < wd && x > 0 && y > 0 && x <= P.lX && y <= P.lY) {
-            p = expf(fmaxf(fs[(size_t)d * W + o] + cur[MATCH * W + o] + c,
-                           NEG));
-            surv = p >= threshold;
-          }
-        }
-        // survivors are ranked in band-offset (= x) order: chunk, warp, lane
-        const unsigned ball = __ballot_sync(0xffffffffu, surv);
-        if (lane == 0) wcnt[k * 32 + warp] = __popc(ball);
-        if (surv) {
-          pk[k] = p;
-          rk[k] = __popc(ball & ((1u << lane) - 1u));
+    for (int k = 0; k < K; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
+      bool surv = false;
+      float p = 0.f;
+      if (c < N) {
+        const int o = c / P, q = c - o * P;
+        const float bmn = fmaxf(vm[k] - m, NEG);
+        cur[MATCH * N + c] = bmn;
+        cur[GAP_X * N + c] = fmaxf(vx[k] - m, NEG);
+        cur[GAP_Y * N + c] = fmaxf(vy[k] - m, NEG);
+        const int x = xd + o, y = d - x;
+        if (o < wd && x > 0 && y > 0 && x <= pr.lX && y <= pr.lY) {
+          p = expf(fmaxf(fs[(size_t)d * N + q * W + o] + bmn + cd, NEG));
+          surv = p >= threshold;
         }
       }
+      // survivors are ranked in cell (= offset, then path) order: chunk,
+      // warp, lane
+      const unsigned ball = __ballot_sync(0xffffffffu, surv);
+      if (lane == 0) wcnt[k * 32 + warp] = __popc(ball);
+      pk[k] = p;
+      rk[k] = surv ? __popc(ball & ((1u << lane) - 1u)) : -1;
     }
     // barrier 2: publishes the normalised diagonal and the warp counts.
     // The next diagonal writes wcnt only after its barrier 1, which every
@@ -369,17 +454,15 @@ __global__ void sa_bwd_sweep_compact_kernel(
     __syncthreads();
     int before = 0;
 #pragma unroll
-    for (int k = 0; k < MAX_CHUNKS; ++k) {
-      if (k < nchunk) {
-        int base = before;
-        for (int w = 0; w < warp; ++w) base += wcnt[k * 32 + w];
-        const int r = base + rk[k];
-        if (rk[k] >= 0 && r < R) {
-          so[(size_t)d * R + r] = threadIdx.x + k * blockDim.x;
-          sv[(size_t)d * R + r] = pk[k];
-        }
-        for (int w = 0; w < nw; ++w) before += wcnt[k * 32 + w];
+    for (int k = 0; k < K; ++k) {
+      int base = before;
+      for (int w = 0; w < warp; ++w) base += wcnt[k * 32 + w];
+      const int r = base + rk[k];
+      if (rk[k] >= 0 && r < R) {
+        so[(size_t)d * R + r] = threadIdx.x + k * blockDim.x;
+        sv[(size_t)d * R + r] = pk[k];
       }
+      for (int w = 0; w < nw; ++w) before += wcnt[k * 32 + w];
     }
     if (threadIdx.x == 0) {
       inc[d] = m;
@@ -387,45 +470,107 @@ __global__ void sa_bwd_sweep_compact_kernel(
     }
     m_prev = m;
   }
-  const float l = block_lse(ring, P.start, W, part);   // diagonal 0 = slot 0
+  const float l = block_lse(ring, pr.start, N, part);   // diagonal 0 = slot 0
   if (threadIdx.x == 0) lse_b[b] = l;
 }
 
-int threads_for(int W) { return W >= 1024 ? 1024 : ((W + 31) / 32) * 32; }
+int threads_for(int N) {
+  return N >= MAX_THREADS ? MAX_THREADS : ((N + 31) / 32) * 32;
+}
+
+// cells per thread, rounded up to an instantiated K
+int cells_per_thread(int N) {
+  const int k = (N + MAX_THREADS - 1) / MAX_THREADS;
+  return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8;
+}
+
+bool shape_ok(int W, int P) {
+  return W >= 1 && P >= 1 && P <= MAX_P && P * W <= MAX_CELLS;
+}
+
+template <int K>
+int fwd_launch(const int* x0, const int* width, const float* ref,
+               const unsigned long long* leg, const float* ev,
+               const int* meta, const float* par, float* fstack,
+               float* f_incr, float* lse_f, int B, int D1, int W, int P,
+               int LX, int LE, cudaStream_t stream) {
+  const int N = P * W;
+  const size_t smem = (6 * (size_t)N + 32) * sizeof(float);
+  cudaFuncSetAttribute(sa_fwd_sweep_kernel<K>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  sa_fwd_sweep_kernel<K><<<B, threads_for(N), smem, stream>>>(
+      x0, width, ref, leg, ev, meta, par, fstack, f_incr, lse_f, D1, W, P,
+      LX, LE);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int bwd_launch(const int* x0, const int* width, const float* ref,
+               const unsigned long long* leg, const float* ev,
+               const int* meta, const float* par, const float* fstack,
+               const double* cvecf, float* b_incr, float* lse_b,
+               int* slot_cell, float* slot_val, int* cnt, int B, int D1,
+               int W, int P, int LX, int LE, int R, float threshold,
+               cudaStream_t stream) {
+  const int N = P * W;
+  const size_t smem =
+      (6 * (size_t)N + 32) * sizeof(float) + K * 32 * sizeof(int);
+  cudaFuncSetAttribute(sa_bwd_sweep_compact_kernel<K>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  sa_bwd_sweep_compact_kernel<K><<<B, threads_for(N), smem, stream>>>(
+      x0, width, ref, leg, ev, meta, par, fstack, cvecf, b_incr, lse_b,
+      slot_cell, slot_val, cnt, D1, W, P, LX, LE, R, threshold);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 // C interface, loaded with ctypes. Every pointer is a device pointer of a
 // contiguous tensor; the kernels launch on `stream`, allocate nothing and
-// do not synchronise. Each returns cudaGetLastError() after its launch.
+// do not synchronise. Each returns cudaGetLastError() after its launch,
+// or cudaErrorInvalidValue for a shape it does not take (P > 8 or
+// P * W > 8192).
 
 extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
-                            const float* ev, const int* meta,
-                            const float* par, float* fstack, float* f_incr,
-                            float* lse_f, int B, int D1, int W, int LX,
-                            int LE, void* stream) {
-  const size_t smem = (9 * (size_t)W + 32) * sizeof(float);
-  cudaFuncSetAttribute(sa_fwd_sweep_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_fwd_sweep_kernel<<<B, threads_for(W), smem, (cudaStream_t)stream>>>(
-      x0, width, ref, ev, meta, par, fstack, f_incr, lse_f, D1, W, LX, LE);
-  return (int)cudaGetLastError();
+                            const unsigned long long* leg, const float* ev,
+                            const int* meta, const float* par, float* fstack,
+                            float* f_incr, float* lse_f, int B, int D1, int W,
+                            int P, int LX, int LE, void* stream) {
+  if (!shape_ok(W, P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cells_per_thread(P * W)) {
+    case 1: return fwd_launch<1>(x0, width, ref, leg, ev, meta, par, fstack,
+                                 f_incr, lse_f, B, D1, W, P, LX, LE, s);
+    case 2: return fwd_launch<2>(x0, width, ref, leg, ev, meta, par, fstack,
+                                 f_incr, lse_f, B, D1, W, P, LX, LE, s);
+    case 4: return fwd_launch<4>(x0, width, ref, leg, ev, meta, par, fstack,
+                                 f_incr, lse_f, B, D1, W, P, LX, LE, s);
+    default: return fwd_launch<8>(x0, width, ref, leg, ev, meta, par, fstack,
+                                  f_incr, lse_f, B, D1, W, P, LX, LE, s);
+  }
 }
 
 extern "C" int sa_bwd_sweep_compact(
-    const int* x0, const int* width, const float* ref, const float* ev,
-    const int* meta, const float* par, const float* fstack,
-    const double* cvecf, float* b_incr, float* lse_b, int* slot_off,
-    float* slot_val, int* cnt, int B, int D1, int W, int LX, int LE, int R,
-    float threshold, void* stream) {
-  if (W > MAX_CHUNKS * 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (9 * (size_t)W + 32) * sizeof(float) + MAX_CHUNKS * 32 * sizeof(int);
-  cudaFuncSetAttribute(sa_bwd_sweep_compact_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_bwd_sweep_compact_kernel<<<B, threads_for(W), smem,
-                                (cudaStream_t)stream>>>(
-      x0, width, ref, ev, meta, par, fstack, cvecf, b_incr, lse_b, slot_off,
-      slot_val, cnt, D1, W, LX, LE, R, threshold);
-  return (int)cudaGetLastError();
+    const int* x0, const int* width, const float* ref,
+    const unsigned long long* leg, const float* ev, const int* meta,
+    const float* par, const float* fstack, const double* cvecf,
+    float* b_incr, float* lse_b, int* slot_cell, float* slot_val, int* cnt,
+    int B, int D1, int W, int P, int LX, int LE, int R, float threshold,
+    void* stream) {
+  if (!shape_ok(W, P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cells_per_thread(P * W)) {
+    case 1: return bwd_launch<1>(x0, width, ref, leg, ev, meta, par, fstack,
+                                 cvecf, b_incr, lse_b, slot_cell, slot_val,
+                                 cnt, B, D1, W, P, LX, LE, R, threshold, s);
+    case 2: return bwd_launch<2>(x0, width, ref, leg, ev, meta, par, fstack,
+                                 cvecf, b_incr, lse_b, slot_cell, slot_val,
+                                 cnt, B, D1, W, P, LX, LE, R, threshold, s);
+    case 4: return bwd_launch<4>(x0, width, ref, leg, ev, meta, par, fstack,
+                                 cvecf, b_incr, lse_b, slot_cell, slot_val,
+                                 cnt, B, D1, W, P, LX, LE, R, threshold, s);
+    default: return bwd_launch<8>(x0, width, ref, leg, ev, meta, par, fstack,
+                                  cvecf, b_incr, lse_b, slot_cell, slot_val,
+                                  cnt, B, D1, W, P, LX, LE, R, threshold, s);
+  }
 }

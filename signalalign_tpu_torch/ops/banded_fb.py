@@ -2,10 +2,15 @@
 field for field with ``signalalign_tpu.ops.banded_fb``) and the plain
 PyTorch DP of the canonical slice.
 
-The DP is the P=1 ``MODE_MEAN_ONLY`` specialisation of the JAX
-``_banded_sweeps_core``: a Python loop over anti-diagonals, vectorised
-over problems x band offsets, in the band-offset frame (cell (d, o) is
-x = x0[d] + o, y = d - x). Every stored diagonal is max-normalised and
+The DP is the ``MODE_MEAN_ONLY`` specialisation of the JAX
+``_banded_sweeps_core`` for 1 <= P <= 8 paths per cell: a Python loop
+over anti-diagonals, vectorised over problems x paths x band offsets, in
+the band-offset frame (cell (d, p, o) is x = x0[d] + o, y = d - x on path
+p). gapX and match take the legal logsumexp over source paths, gapY
+stays on its path, and one max over all states, paths and offsets
+normalises a diagonal, so a problem's paths share one frame per diagonal
+and the totals are joint over paths. Every stored diagonal is
+max-normalised and
 the per-diagonal offsets are returned as increments whose float64 prefix
 sums restore absolute log-probabilities. It is the CPU path of the port
 and the plain version each Hopper kernel (``banded_fb_hopper``) is held
@@ -333,21 +338,29 @@ def extract_aligned_pairs(problem: BandedProblem, post: np.ndarray,
 # device layout of one bucket
 # --------------------------------------------------------------------------
 
+MAX_P = 8   # paths per cell the legality words hold (8 bits per target path)
+
+
 @dataclasses.dataclass
 class ProblemTensors:
     """The problems of one bucket as padded tensors on one device: the
     layout both the plain DP below and the Hopper kernels read.
 
-    ``D1`` = max(n_diag) + 1 diagonals; ``ref``/``ev`` are padded along
-    their last axis to the bucket's longest problem, and each problem's
-    own lengths sit in ``meta`` (M_REFLEN, M_EVLEN) so windows clamp
-    exactly as the JAX package's per-problem dynamic slices do.
+    ``D1`` = max(n_diag) + 1 diagonals; ``ref``/``leg``/``ev`` are padded
+    along their last axis to the bucket's longest problem, and each
+    problem's own lengths sit in ``meta`` (M_REFLEN, M_EVLEN) so windows
+    clamp exactly as the JAX package's per-problem dynamic slices do.
+    ``leg[b, x]`` packs ``legal[p_to, q_from, x]`` into bit p_to*8+q_from.
+    Path slots a position does not use have zero ``ref`` rows (inv_m = 0
+    marks them invalid, as in the JAX emissions).
     """
     W: int
+    P: int
     n_diag: List[int]      # host copy of meta[:, M_NDIAG]
     x0: torch.Tensor       # (B, D1) int32 band origin per diagonal
     width: torch.Tensor    # (B, D1) int32 band width per diagonal
-    ref: torch.Tensor      # (B, NREF, LX) f32
+    ref: torch.Tensor      # (B, NREF, P, LX) f32
+    leg: torch.Tensor      # (B, LX) int64 legality bits
     ev: torch.Tensor       # (B, NEV, LE) f32
     meta: torch.Tensor     # (B, NMETA) int32
     par: torch.Tensor      # (B, NPACK) f32
@@ -358,7 +371,7 @@ class ProblemTensors:
 
 
 # --------------------------------------------------------------------------
-# plain PyTorch DP (P=1, MODE_MEAN_ONLY)
+# plain PyTorch DP (1 <= P <= MAX_P paths, MODE_MEAN_ONLY)
 # --------------------------------------------------------------------------
 
 def _lae(a, b):
@@ -366,68 +379,96 @@ def _lae(a, b):
 
 
 def _cols(table, start, length, W: int):
-    """(B, R, L) table -> (B, R, W) columns [s, s+W) per problem, with
+    """(B, ..., L) table -> (B, ..., W) columns [s, s+W) per problem, with
     s = start clamped to [0, length - W] (jax.lax.dynamic_slice's clamp);
     returns the window and its (B, W) column indices."""
     s = torch.minimum(torch.clamp(start, min=0), length - W)
     idx = s[:, None] + torch.arange(W, device=table.device)
-    win = torch.gather(table, 2, idx[:, None, :].expand(-1, table.shape[1], -1))
-    return win, idx
+    flat = table.reshape(table.shape[0], -1, table.shape[-1])
+    win = torch.gather(flat, 2, idx[:, None, :].expand(-1, flat.shape[1], -1))
+    return win.reshape(*table.shape[:-1], W), idx
+
+
+def _legal(pt: ProblemTensors, start, length):
+    """(B, P_to, P_from, W) bool legality window at columns [s, s+W)."""
+    win, _ = _cols(pt.leg, start, length, pt.W)
+    P = pt.P
+    bit = (torch.arange(P, device=win.device)[:, None] * MAX_P
+           + torch.arange(P, device=win.device)[None, :])
+    return ((win[:, None, None, :] >> bit[None, :, :, None]) & 1).bool()
 
 
 def _window(prev, shift, W: int):
-    """(B, S, W) diagonal -> (B, S, W+1) with out[..., i] = prev[..., i+shift]
-    where 0 <= i+shift < W and NEG elsewhere (the JAX ``_window2``)."""
+    """(B, S, P, W) diagonal -> (B, S, P, W+1) with out[..., i] =
+    prev[..., i+shift] where 0 <= i+shift < W and NEG elsewhere (the JAX
+    ``_window2``)."""
     idx = shift[:, None] + torch.arange(W + 1, device=prev.device)
     ok = (idx >= 0) & (idx < W)
-    g = torch.gather(prev, 2, idx.clamp(0, W - 1)[:, None, :]
-                     .expand(-1, prev.shape[1], -1))
-    return torch.where(ok[:, None, :], g, NEG)
+    g = torch.gather(prev, 3, idx.clamp(0, W - 1)[:, None, None, :]
+                     .expand(-1, prev.shape[1], prev.shape[2], -1))
+    return torch.where(ok[:, None, None, :], g, NEG)
+
+
+def _legal_reduce(src, legal):
+    """logsumexp over source paths q of ``src`` (B, Q, W) where
+    ``legal`` (B, P, Q, W) allows it -> (B, P, W); the JAX
+    ``_legal_reduce``, summing the paths in order (as the kernels do).
+    At P = 1 it returns the masked source bit for bit (exp(0) = 1,
+    log(1) = 0)."""
+    masked = torch.where(legal, src[:, None], NEG)
+    m = masked.amax(dim=2)
+    e = torch.exp(masked - m[:, :, None])
+    s = e[:, :, 0]
+    for q in range(1, e.shape[2]):
+        s = s + e[:, :, q]
+    return m + torch.log(torch.clamp(s, min=1e-37))
 
 
 def _emissions(refw, evw, gapx):
-    """Mean-only match / stay / gapX log emissions, (B, W) each."""
+    """Mean-only match / stay / gapX log emissions, (B, P, W) each, from
+    (B, NREF, P, W) reference and (B, NEV, W) event windows."""
     m_hat, inv_m, c_m, inv_y, c_y = refw.unbind(1)
-    ev_mean = evw[:, 0]
+    ev_mean = evw[:, 0, None]
     am = (ev_mean - m_hat) * inv_m
     ay = (ev_mean - m_hat) * inv_y
     e_match = c_m - 0.5 * am * am
     e_stay = c_y - 0.5 * ay * ay
     kvalid = inv_m > 0.0
-    ok = kvalid & (evw[:, 1] > 0.5)
+    ok = kvalid & (evw[:, 1, None] > 0.5)
     return (torch.where(ok, e_match, NEG), torch.where(ok, e_stay, NEG),
             torch.where(kvalid, gapx, NEG))
 
 
 def _diag_max(cur):
-    """Per-problem max over a (B, 3, W) diagonal; 0 for an empty one."""
-    m = cur.amax(dim=(1, 2))
+    """Per-problem max over a (B, 3, P, W) diagonal; 0 for an empty one."""
+    m = cur.amax(dim=(1, 2, 3))
     return torch.where(m > NEG * 0.5, m, 0.0)
 
 
 def _lse(cur, logs):
-    """Per-problem logsumexp of a (B, 3, W) diagonal weighted by (B, 3)."""
-    v = torch.clamp(cur + logs[:, :, None], min=NEG)
+    """Per-problem logsumexp of a (B, 3, P, W) diagonal weighted by (B, 3)."""
+    v = torch.clamp(cur + logs[:, :, None, None], min=NEG)
     return torch.logsumexp(v.reshape(v.shape[0], -1), dim=1)
 
 
 def _unpack(pt: ProblemTensors):
     meta = pt.meta.long()
-    t = pt.par[:, PACK_TRANS:PACK_TRANS + 9, None]    # t[:, T_xx] is (B, 1)
+    t = pt.par[:, PACK_TRANS:PACK_TRANS + 9, None, None]  # t[:, T_xx]: (B, 1, 1)
     return (meta[:, M_LX], meta[:, M_LY], meta[:, M_NDIAG], meta[:, M_EVPAD],
             meta[:, M_REFLEN], meta[:, M_EVLEN], t,
             pt.par[:, PACK_START:PACK_START + 3],
-            pt.par[:, PACK_END:PACK_END + 3], pt.par[:, PACK_GAPX, None])
+            pt.par[:, PACK_END:PACK_END + 3], pt.par[:, PACK_GAPX, None, None])
 
 
 def sweep_forward(pt: ProblemTensors):
     """Forward sweep over diagonals 0..D1-1.
 
-    Returns (fstack (B, D1, W) f32 normalised match rows, f_incr (B, D1)
-    per-diagonal offsets, lse_f (B,) end-weighted logsumexp at n_diag).
+    Returns (fstack (B, D1, P, W) f32 normalised match rows, f_incr
+    (B, D1) per-diagonal offsets, lse_f (B,) end-weighted logsumexp over
+    all states and paths at n_diag: the joint total's log-sum term).
     """
     B, D1 = pt.x0.shape
-    W = pt.W
+    W, P = pt.W, pt.P
     dev = pt.device
     lX, lY, nd, efp, reflen, evlen, t, start, end, gapx = _unpack(pt)
     x0 = pt.x0.long()
@@ -435,19 +476,19 @@ def sweep_forward(pt: ProblemTensors):
     o = torch.arange(W, device=dev)
     no_diag = torch.full((B,), W + 5, dtype=torch.long, device=dev)
 
-    fstack = torch.full((B, D1, W), NEG, device=dev)
+    fstack = torch.full((B, D1, P, W), NEG, device=dev)
     f_incr = torch.zeros(B, D1, device=dev)
     lse_f = torch.zeros(B, device=dev)
-    prev1 = torch.full((B, 3, W), NEG, device=dev)
-    prev1[:, :, 0] = start
+    prev1 = torch.full((B, 3, P, W), NEG, device=dev)
+    prev1[:, :, 0, 0] = start
     fstack[:, 0] = prev1[:, MATCH]
-    prev2 = torch.full((B, 3, W), NEG, device=dev)
+    prev2 = torch.full((B, 3, P, W), NEG, device=dev)
     m_prev = torch.zeros(B, device=dev)
     finals = set(pt.n_diag)
     for d in range(1, D1):
         xd = x0[:, d]
-        refw, xc = _cols(pt.ref, xd, reflen, W)
-        legw = (xc >= 1) & (xc <= lX[:, None])
+        refw, _ = _cols(pt.ref, xd, reflen, W)
+        legw = _legal(pt, xd, reflen)
         evw, _ = _cols(pt.ev, lY - d + xd + efp, evlen, W)
         e_match, e_stay, e_gapx = _emissions(refw, evw, gapx)
 
@@ -456,21 +497,23 @@ def sweep_forward(pt: ProblemTensors):
         w1 = _window(prev1, shift1, W)    # [..., :W] lower, [..., 1:] upper
         w2 = _window(prev2, shift2, W)    # relative to offset(prev1) + m_prev
 
-        # gapX from (x-1, y); match from (x-1, y-1); gapY from (x, y-1)
-        src_x = _lae(w1[:, MATCH, :W] + t[:, T_MX], w1[:, GAP_X, :W] + t[:, T_XX])
-        gx = torch.where(legw, src_x, NEG) + e_gapx
-        src_m = _lae(_lae(w2[:, MATCH, :W] + t[:, T_MM],
-                          w2[:, GAP_X, :W] + t[:, T_XM]),
-                     w2[:, GAP_Y, :W] + t[:, T_YM]) - m_prev[:, None]
-        mm = torch.where(legw, src_m, NEG) + e_match
-        gy = _lae(w1[:, MATCH, 1:] + t[:, T_MY],
-                  w1[:, GAP_Y, 1:] + t[:, T_YY]) + e_stay
+        # gapX from (x-1, y) and match from (x-1, y-1), both over the legal
+        # source paths; gapY from (x, y-1) on its own path
+        src_x = _lae(w1[:, MATCH, :, :W] + t[:, T_MX],
+                     w1[:, GAP_X, :, :W] + t[:, T_XX])
+        gx = _legal_reduce(src_x, legw) + e_gapx
+        src_m = _lae(_lae(w2[:, MATCH, :, :W] + t[:, T_MM],
+                          w2[:, GAP_X, :, :W] + t[:, T_XM]),
+                     w2[:, GAP_Y, :, :W] + t[:, T_YM]) - m_prev[:, None, None]
+        mm = _legal_reduce(src_m, legw) + e_match
+        gy = _lae(w1[:, MATCH, :, 1:] + t[:, T_MY],
+                  w1[:, GAP_Y, :, 1:] + t[:, T_YY]) + e_stay
 
         cur = torch.stack([mm, gx, gy], dim=1)
         inband = (o < width[:, d, None]) & (d <= nd)[:, None]
-        cur = torch.where(inband[:, None, :], cur, NEG)
+        cur = torch.where(inband[:, None, None, :], cur, NEG)
         m = _diag_max(cur)
-        cur = torch.clamp(cur - m[:, None, None], min=NEG)
+        cur = torch.clamp(cur - m[:, None, None, None], min=NEG)
         fstack[:, d] = cur[:, MATCH]
         f_incr[:, d] = m
         if d in finals:
@@ -482,11 +525,12 @@ def sweep_forward(pt: ProblemTensors):
 def sweep_backward(pt: ProblemTensors):
     """Backward sweep over diagonals D1-1..0.
 
-    Returns (bstack (B, D1, W) f32 normalised match rows, b_incr (B, D1)
-    per-diagonal offsets, lse_b (B,) start-weighted logsumexp at d = 0).
+    Returns (bstack (B, D1, P, W) f32 normalised match rows, b_incr
+    (B, D1) per-diagonal offsets, lse_b (B,) start-weighted logsumexp at
+    d = 0).
     """
     B, D1 = pt.x0.shape
-    W = pt.W
+    W, P = pt.W, pt.P
     dev = pt.device
     lX, lY, nd, efp, reflen, evlen, t, start, end, gapx = _unpack(pt)
     x0 = pt.x0.long()
@@ -494,19 +538,20 @@ def sweep_backward(pt: ProblemTensors):
     o = torch.arange(W, device=dev)
     no_diag = torch.full((B,), W + 5, dtype=torch.long, device=dev)
 
-    bstack = torch.full((B, D1, W), NEG, device=dev)
+    bstack = torch.full((B, D1, P, W), NEG, device=dev)
     b_incr = torch.zeros(B, D1, device=dev)
-    b1 = torch.full((B, 3, W), NEG, device=dev)
-    b2 = torch.full((B, 3, W), NEG, device=dev)
+    b1 = torch.full((B, 3, P, W), NEG, device=dev)
+    b2 = torch.full((B, 3, P, W), NEG, device=dev)
     m_prev = torch.zeros(B, device=dev)
     cur = b1
     for d in range(D1 - 1, -1, -1):
         xd = x0[:, d]
-        # TO-cell windows: match/gapX targets at x+1, gapY target at x,
-        # all consuming event y+1
-        refx1, xc1 = _cols(pt.ref, xd + 1, reflen, W)
+        # TO-cell windows: match/gapX targets at x+1 (every legal target
+        # path), gapY target at x (own path), all consuming event y+1
+        refx1, _ = _cols(pt.ref, xd + 1, reflen, W)
         refx0, _ = _cols(pt.ref, xd, reflen, W)
-        legx1 = (xc1 >= 1) & (xc1 <= lX[:, None])
+        # legal[p_to, q_from] at x+1, read from the source path q
+        leg_t = _legal(pt, xd + 1, reflen).transpose(1, 2)
         evy1, _ = _cols(pt.ev, lY - d + xd + efp - 1, evlen, W)
         e_match_to = _emissions(refx1, evy1, gapx)[0]
         e_stay_same = _emissions(refx0, evy1, gapx)[1]
@@ -517,10 +562,10 @@ def sweep_backward(pt: ProblemTensors):
         wb1 = _window(b1, u1, W)   # [..., :W] gapY target, [..., 1:] gapX target
         wb2 = _window(b2, u2, W)   # [..., :W] match target, offset -m_prev
 
-        gx_red = torch.where(legx1, wb1[:, GAP_X, 1:] + gapx_valid, NEG)
-        mm_red = torch.where(legx1, wb2[:, MATCH, :W] + e_match_to
-                             - m_prev[:, None], NEG)
-        gy_term = wb1[:, GAP_Y, :W] + e_stay_same
+        gx_red = _legal_reduce(wb1[:, GAP_X, :, 1:] + gapx_valid, leg_t)
+        mm_red = _legal_reduce(wb2[:, MATCH, :, :W] + e_match_to
+                               - m_prev[:, None, None], leg_t)
+        gy_term = wb1[:, GAP_Y, :, :W] + e_stay_same
 
         b_match = _lae(_lae(gx_red + t[:, T_MX], mm_red + t[:, T_MM]),
                        gy_term + t[:, T_MY])
@@ -529,12 +574,12 @@ def sweep_backward(pt: ProblemTensors):
 
         cur = torch.stack([b_match, b_gapx, b_gapy], dim=1)
         inband = (o < width[:, d, None]) & (d <= nd)[:, None]
-        cur = torch.where(inband[:, None, :], cur, NEG)
+        cur = torch.where(inband[:, None, None, :], cur, NEG)
         fin = nd == d
-        bfin = torch.where(inband[:, None, :], end[:, :, None], NEG)
-        cur = torch.where(fin[:, None, None], bfin, cur)
+        bfin = torch.where(inband[:, None, None, :], end[:, :, None, None], NEG)
+        cur = torch.where(fin[:, None, None, None], bfin, cur)
         m = torch.where(fin, 0.0, _diag_max(cur))
-        cur = torch.clamp(cur - m[:, None, None], min=NEG)
+        cur = torch.clamp(cur - m[:, None, None, None], min=NEG)
         bstack[:, d] = cur[:, MATCH]
         b_incr[:, d] = m
         b2, b1, m_prev = b1, cur, m
@@ -555,8 +600,8 @@ def backward_offsets(b_incr, lse_b):
 
 
 def cell_mask(pt: ProblemTensors):
-    """(B, D1, W) cells that may report a pair: in band, 1 <= x <= lX,
-    1 <= y <= lY and d <= n_diag."""
+    """(B, D1, 1, W) cells that may report a pair: in band, 1 <= x <= lX,
+    1 <= y <= lY and d <= n_diag (broadcast over paths)."""
     B, D1 = pt.x0.shape
     dev = pt.device
     meta = pt.meta.long()
@@ -566,13 +611,13 @@ def cell_mask(pt: ProblemTensors):
     y = d - x
     return ((o < pt.width.long()[:, :, None]) & (x > 0) & (y > 0)
             & (x <= meta[:, M_LX, None, None]) & (y <= meta[:, M_LY, None, None])
-            & (d <= meta[:, M_NDIAG, None, None]))
+            & (d <= meta[:, M_NDIAG, None, None]))[:, :, None, :]
 
 
 def posterior(fstack, bstack, cvec, pt: ProblemTensors):
-    """Posterior match probabilities (B, D1, W) from normalised stacks and
-    cvec[d] = Fo[d] + Bo[d] - total (float32)."""
-    logp = fstack + bstack + cvec[:, :, None]
+    """Posterior match probabilities (B, D1, P, W) from normalised stacks
+    and cvec[d] = Fo[d] + Bo[d] - total (float32)."""
+    logp = fstack + bstack + cvec[:, :, None, None]
     post = torch.exp(torch.clamp(logp, min=NEG))
     post = torch.where(cell_mask(pt), post, 0.0)
     return torch.clamp(post, max=1.0)
@@ -583,7 +628,7 @@ def run_banded_fb(problem: BandedProblem, W: int, P: int,
                   device: torch.device = torch.device("cpu")) -> Dict:
     """Sweeps, float64 offsets and the posterior for one problem.
 
-    Returns {"post": (Dpad+1, 1, W) numpy, "total_f", "total_b"} like the
+    Returns {"post": (Dpad+1, P, W) numpy, "total_f", "total_b"} like the
     JAX ``run_banded_fb``.
     """
     from signalalign_tpu_torch.ops.batch import run_banded_fb_batch

@@ -16,17 +16,17 @@ from signalalign_tpu_torch.ops import banded_fb as bfb
 def run_banded_fb_batch(problems: Sequence[bfb.BandedProblem], W: int, P: int,
                         with_expectations: bool = False, *,
                         device: torch.device) -> List[Dict]:
-    """Run a same-bucket batch; returns per-problem result dicts with the
-    full posterior "post" ((Dpad+1, 1, W) numpy), "total_f" and "total_b"."""
+    """Run a same-bucket batch of P-path problems; returns per-problem
+    result dicts with the full posterior "post" ((Dpad+1, P, W) numpy),
+    "total_f" and "total_b"."""
     if with_expectations:
         raise NotImplementedError(
             "EM expectations come with ROADMAP slice 3 (EM training)")
-    if P != 1:
-        raise NotImplementedError(
-            f"P={P}: paths-in-lanes come with ROADMAP slice 2")
     if not problems:
         return []
     pt = problem_tensors(problems, W, device)
+    if pt.P != P:
+        raise ValueError(f"bucket P={P} but its problems have P={pt.P}")
     fstack, f_incr, lse_f = bfb.sweep_forward(pt)
     bstack, b_incr, lse_b = bfb.sweep_backward(pt)
     fo, total_f = bfb.forward_offsets(f_incr, lse_f, pt.meta[:, bfb.M_NDIAG])
@@ -36,8 +36,8 @@ def run_banded_fb_batch(problems: Sequence[bfb.BandedProblem], W: int, P: int,
     D1 = post.shape[1]
     results = []
     for i, p in enumerate(problems):
-        full = np.zeros((p.x0.shape[0], 1, W), np.float32)
-        full[:D1, 0] = post[i]
+        full = np.zeros((p.x0.shape[0], P, W), np.float32)
+        full[:D1] = post[i]
         results.append({"post": full, "total_f": float(total_f[i]),
                         "total_b": float(total_b[i])})
     return results

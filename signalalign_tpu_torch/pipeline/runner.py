@@ -1,12 +1,14 @@
-"""Multi-read signal alignment in the port: the canonical branch of
-``signalalign_tpu.pipeline.runner.run_alignment_batch``.
+"""Multi-read signal alignment in the port: the Gaussian (MODE_MEAN_ONLY)
+branch of ``signalalign_tpu.pipeline.runner.run_alignment_batch`` for
+segments of 1 <= P <= 8 paths per cell, with pair output or site-mode
+variant/methylation calling.
 
 Reads are prepared on the host (scaling, anchors, band geometry,
-segment splits, ``prepare_problem``), bucketed by shape, and each bucket
-runs through ``HopperAligner``: the Hopper kernels on a CUDA device, their
-plain twins on the CPU. The JAX runner's small-bucket gate, lane packing,
-XLA fallback and per-device stripe queues exist for TPU reasons and have
-no counterpart here.
+segment and path-class splits, ``prepare_problem``), bucketed by shape,
+and each bucket runs through ``HopperAligner``: the Hopper kernels on a
+CUDA device, their plain twins on the CPU. The JAX runner's small-bucket
+gate, lane packing, XLA fallback and per-device stripe queues exist for
+TPU reasons and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from signalalign_tpu.io.guide import GuideAlignment
+from signalalign_tpu.io.guide import GuideAlignment, adjust_reference_coordinate
 from signalalign_tpu.io.output import (posterior_score,
                                        write_assignments_tsv,
                                        write_full_tsv, write_vc_tsv)
@@ -31,10 +34,14 @@ from signalalign_tpu.models.pore_model import PoreModel
 from signalalign_tpu.ops.band_geometry import (band_widths, build_band,
                                                get_split_points,
                                                remap_anchors_to_events,
+                                               split_segment_by_paths,
                                                split_segment_by_width)
 from signalalign_tpu.ops.scaling import (adjust_events_for_drift,
                                          estimate_nanopore_params)
-from signalalign_tpu.utils.alphabet import max_paths_per_kmer
+from signalalign_tpu.pipeline.variant_caller import (
+    aggregate_over_reads, marginals_from_site_probs, per_read_calls_dataframe,
+    variant_calls_dataframe)
+from signalalign_tpu.utils.alphabet import max_paths_per_kmer, paths_per_kmer
 from signalalign_tpu_torch.ops import banded_fb as bfb
 from signalalign_tpu_torch.ops.banded_fb_hopper import HopperAligner
 from signalalign_tpu_torch.pipeline.signal_align import (AlignmentConfig,
@@ -44,6 +51,27 @@ from signalalign_tpu_torch.pipeline.signal_align import (AlignmentConfig,
 # forward-stack bytes one aligner call may hold on the device; larger
 # buckets run in several calls
 STACK_BYTES = 8 << 30
+
+
+def _path_blocks(w_chars: str, k: int, anchors, lX: int, lY: int,
+                 config: AlignmentConfig):
+    """Path-class sub-splitting of one width block (the JAX runner's
+    tiered isolation): cut sparse P>2 windows into their own blocks when
+    the blocks stay long, else sparse P>4 windows."""
+    blocks = [(0, 0, lX, lY, anchors)]
+    if not config.path_split or \
+            max_paths_per_kmer(w_chars, k, config.ambig_map) <= 2:
+        return blocks
+    ppk = paths_per_kmer(w_chars, k, config.ambig_map)
+    for thresh in (2, 4):
+        hotv = ppk > thresh
+        if not hotv.any() or hotv.mean() > 0.25:
+            continue
+        cand = split_segment_by_paths(anchors, lX, lY, hotv)
+        if thresh == 2 and lX / max(len(cand), 1) < 400:
+            continue    # too fragmented; isolate only P>4
+        return cand
+    return blocks
 
 
 def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
@@ -107,42 +135,55 @@ def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
                 seg_anchors, x2 - x1, y2 - y1,
                 config.diagonal_expansion, config.max_band_width,
                 config.max_segment_diagonals):
-            seg_chars = target[x1 + sx1:x1 + sx2 + k - 1]
-            seg_events = window_events[y1 + sy1:y1 + sy2]
-            slX = len(seg_chars) - k + 1
-            slY = len(seg_events)
-            if slX < 1 or slY < 1:
-                continue
-            xmyL, xmyR = build_band(sub_anchors, slX, slY,
-                                    config.diagonal_expansion)
-            W = _bucket_w(int(band_widths(xmyL, xmyR).max()))
-            Dpad = _bucket_d(slX + slY)
-            P = max_paths_per_kmer(seg_chars, k, config.ambig_map)
-            problem = bfb.prepare_problem(
-                seg_chars, seg_events, model, params, config.ambig_map,
-                W=W, Dpad=Dpad, P=P, mode=config.emission_mode,
-                anchor_pairs=sub_anchors,
-                expansion=config.diagonal_expansion)
-            tasks.append(((x1 + sx1, y1 + sy1), problem, W, Dpad, P))
+            w_chars = target[x1 + sx1:x1 + sx2 + k - 1]
+            for (px1, py1, px2, py2, p_anchors) in _path_blocks(
+                    w_chars, k, sub_anchors, sx2 - sx1, sy2 - sy1, config):
+                ax1, ay1 = sx1 + px1, sy1 + py1
+                ax2, ay2 = sx1 + px2, sy1 + py2
+                seg_chars = target[x1 + ax1:x1 + ax2 + k - 1]
+                seg_events = window_events[y1 + ay1:y1 + ay2]
+                slX = len(seg_chars) - k + 1
+                slY = len(seg_events)
+                if slX < 1 or slY < 1:
+                    continue
+                xmyL, xmyR = build_band(p_anchors, slX, slY,
+                                        config.diagonal_expansion)
+                W = _bucket_w(int(band_widths(xmyL, xmyR).max()))
+                Dpad = _bucket_d(slX + slY)
+                P = max_paths_per_kmer(seg_chars, k, config.ambig_map)
+                problem = bfb.prepare_problem(
+                    seg_chars, seg_events, model, params, config.ambig_map,
+                    W=W, Dpad=Dpad, P=P, mode=config.emission_mode,
+                    anchor_pairs=p_anchors,
+                    expansion=config.diagonal_expansion)
+                tasks.append(((x1 + ax1, y1 + ay1), problem, W, Dpad, P))
     return target, params, events, ev_start, tasks
 
 
-def _check_slice(config: AlignmentConfig, call_variants) -> None:
-    if call_variants is not None:
-        raise NotImplementedError(
-            "call_variants (site-mode calling) comes with ROADMAP slice 2")
+def _check_slice(config: AlignmentConfig) -> None:
     if config.compute_expectations:
         raise NotImplementedError(
             "compute_expectations (EM training) comes with ROADMAP slice 3")
     if config.emission_mode != bfb.MODE_MEAN_ONLY:
         raise NotImplementedError(
             f"emission mode {config.emission_mode}: the port runs "
-            "MODE_MEAN_ONLY; MODE_HDP comes with ROADMAP slice 2")
+            "MODE_MEAN_ONLY; MODE_HDP comes with ROADMAP slice 2b")
 
 
-def _stack_chunks(idxs: List[int], W: int, Dpad: int) -> List[List[int]]:
-    per = max(1, STACK_BYTES // ((Dpad + 1) * W * 4))
+def _stack_chunks(idxs: List[int], W: int, Dpad: int,
+                  P: int) -> List[List[int]]:
+    per = max(1, STACK_BYTES // ((Dpad + 1) * P * W * 4))
     return [idxs[i:i + per] for i in range(0, len(idxs), per)]
+
+
+def _site_cells(problem: bfb.BandedProblem, k: int, codes: str) -> np.ndarray:
+    """1-based cells x whose k-mer's LAST base is an ambiguity code: the
+    only cells that report in MarginalizeFullVariants
+    (variantCaller.py:123-187)."""
+    seq_b = np.frombuffer(problem.seq.encode(), np.uint8)
+    lastb = seq_b[k - 1:k - 1 + problem.lX]
+    amb = np.frombuffer(codes.encode(), np.uint8)
+    return np.flatnonzero(np.isin(lastb, amb)) + 1
 
 
 def run_alignment_batch(
@@ -160,13 +201,23 @@ def run_alignment_batch(
     """Align many reads: prep -> shape buckets -> one ``HopperAligner``
     per bucket on ``device`` -> per-read results (failed reads dropped).
 
-    ``stage_seconds``, when given, receives the wall seconds of each stage:
-    "prep" (host), "kernels" (upload, both sweeps, survivor fetch; ends in
-    a device synchronisation), "decode" (survivors to pairs) and
-    "assemble".
+    ``call_variants`` (the candidate bases, e.g. "CT" for the ``Y`` code
+    of a CpG motif edition) switches to site-mode calling, as in the JAX
+    runner: per-site posterior sums on the device, results carrying
+    ``variant_calls`` (the MarginalizeFullVariants per-read table) and
+    empty ``aligned_pairs``. Segments with P = 1 hold no site cell and are
+    skipped, reporting total_f 0.0 as the JAX runner does.
+
+    A bucket with more than 8 paths per cell raises before anything
+    launches. ``stage_seconds``, when given, receives the wall seconds of
+    each stage: "prep" (host), "kernels" (upload, both sweeps, survivor or
+    site-sum fetch; ends in a device synchronisation), "decode" (survivors
+    to pairs) and "assemble".
     """
     config = config or AlignmentConfig()
-    _check_slice(config, call_variants)
+    _check_slice(config)
+    config = config.for_batch(len(reads_and_guides))
+    site_mode = call_variants is not None
     stages: Dict[str, float] = defaultdict(float)
     t_stage = time.perf_counter()
 
@@ -209,28 +260,45 @@ def run_alignment_batch(
             ids.append(len(tasks))
             tasks.append((ridx, off[0], off[1], problem, W, Dpad, P))
         prepped.append((read, guide, target, params, events, ev_start, ids))
+    k = model.kmer_length
+    cells = ([_site_cells(t[3], k, "".join(config.ambig_map)) for t in tasks]
+             if site_mode else None)
     mark("prep")
 
     buckets: Dict[Tuple[int, int, int], List[int]] = defaultdict(list)
     for i, t in enumerate(tasks):
         buckets[(t[4], t[5], t[6])].append(i)
     for (W, Dpad, P) in buckets:
-        if P != 1:
+        if P > bfb.MAX_P:
             raise NotImplementedError(
-                f"P={P} bucket (degenerate reference positions): "
-                "paths-in-lanes come with ROADMAP slice 2")
+                f"bucket of P={P} paths per cell (W={W}): the port runs "
+                f"P <= {bfb.MAX_P}; three-way ambiguity codes exceed it")
 
     seg_results: List[Optional[dict]] = [None] * len(tasks)
     for (W, Dpad, P), idxs in buckets.items():
-        for chunk in _stack_chunks(idxs, W, Dpad):
+        if site_mode and P == 1:
+            # a site cell has >= 2 paths, so a P = 1 segment reports no
+            # call and (segment DPs being independent) is not run
+            for i in idxs:
+                seg_results[i] = {"total_f": 0.0, "total_b": 0.0}
+            continue
+        for chunk in _stack_chunks(idxs, W, Dpad, P):
             aligner = HopperAligner([tasks[i][3] for i in chunk], W, device)
-            arrays = aligner.run(config.threshold)
-            mark("kernels")
-            for i, r in zip(chunk, aligner.decode(arrays)):
+            if site_mode:
+                res = aligner.site_sums([cells[i] for i in chunk],
+                                        config.threshold)
+                mark("kernels")
+            else:
+                arrays = aligner.run(config.threshold)
+                mark("kernels")
+                res = aligner.decode(arrays)
+                mark("decode")
+            for i, r in zip(chunk, res):
                 seg_results[i] = r
-            mark("decode")
 
     out: List[ReadAlignment] = []
+    k1 = k - 1
+    s_lab = "t" if strand_template else "c"
     for read, guide, target, params, events, ev_start, ids in prepped:
         if strand_template:
             fwd_out, ref_shift = guide.output_frame(read.rna)
@@ -239,23 +307,38 @@ def run_alignment_batch(
             ref_shift = guide.window_end if guide.forward \
                 else guide.window_start
         all_pairs = []
+        per_pos = {}    # site mode: (strand, genomic k-mer start) -> {base: p}
         total_lp = 0.0
         gap = 0.0
         for si in ids:
-            _, x1, y1 = tasks[si][:3]
+            _, x1, y1, problem = tasks[si][:4]
             r = seg_results[si]
             total_lp += r["total_f"]
             gap = max(gap, abs(r["total_f"] - r["total_b"]))
+            if site_mode:
+                if "site_probs" not in r:
+                    continue
+                segm = marginals_from_site_probs(
+                    cells[si], r["site_probs"], problem, call_variants)
+                for pos_seg, probs in segm.items():
+                    gpos = adjust_reference_coordinate(
+                        (pos_seg - k1) + x1, ref_shift, len(target), k,
+                        strand_template, fwd_out)
+                    per_pos[(s_lab, gpos)] = probs
+                continue
             for prob, x, y, kmer in r["pairs"]:
                 all_pairs.append((prob, x + x1, y + y1, kmer))
         all_pairs.sort(key=lambda r: (r[1] + r[2], r[1]))
+        vcalls = (variant_calls_dataframe(per_pos, read.read_label,
+                                          guide.contig, fwd_out, call_variants)
+                  if site_mode else None)
         out.append(ReadAlignment(
             read_label=read.read_label, contig=guide.contig,
             forward=fwd_out, strand_template=strand_template,
             aligned_pairs=all_pairs, score=posterior_score(all_pairs),
             target=target, event_offset=ev_start, ref_offset=ref_shift,
             params=params, events=events, total_log_prob=total_lp,
-            rna=read.rna, max_total_gap=gap))
+            rna=read.rna, max_total_gap=gap, variant_calls=vcalls))
     mark("assemble")
     if stage_seconds is not None:
         stage_seconds.update(stages)
@@ -263,16 +346,20 @@ def run_alignment_batch(
 
 
 def write_outputs(results: Sequence[ReadAlignment], model: PoreModel,
-                  output_dir: str, output_format: str = "full") -> List[str]:
-    """Per-read TSVs as the JAX ``run_signal_align`` writes them:
+                  output_dir: str, output_format: str = "full",
+                  variants: Optional[str] = None) -> List[str]:
+    """Output files as the JAX ``run_signal_align`` writes them:
     ``<label>.sm.forward|backward.tsv`` (full), ``<label>.sm.vc.tsv``
-    (variantCaller), both, or ``<label>.sm.assignments.tsv``."""
-    if output_format not in ("full", "variantCaller", "both", "assignments"):
-        if output_format == "variants":
-            raise NotImplementedError(
-                "variants output (site-mode calling) comes with ROADMAP "
-                "slice 2")
+    (variantCaller), both, ``<label>.sm.assignments.tsv``, or for
+    ``variants`` (results of site-mode calling; ``variants`` names the
+    candidate bases) ``<label>.sm.variants.tsv`` per read plus
+    ``variants_aggregate.tsv`` and ``variants_per_read.tsv``."""
+    if output_format not in ("full", "variantCaller", "both", "assignments",
+                             "variants"):
         raise ValueError(f"unknown output format {output_format!r}")
+    if output_format == "variants" and not variants:
+        raise ValueError("output_format='variants' needs the candidate "
+                         "bases (variants=...)")
     os.makedirs(output_dir, exist_ok=True)
     written = []
     for r in results:
@@ -296,4 +383,23 @@ def write_outputs(results: Sequence[ReadAlignment], model: PoreModel,
                                   r.params, r.strand_template,
                                   r.event_offset, append=False)
             written.append(path)
+        if output_format == "variants" and r.variant_calls is not None:
+            path = os.path.join(output_dir, f"{r.read_label}.sm.variants.tsv")
+            r.variant_calls.to_csv(path, sep="\t", index=False)
+            written.append(path)
+    if output_format == "variants":
+        import pandas as pd
+        frames = [r.variant_calls for r in results
+                  if r.variant_calls is not None]
+        path = os.path.join(output_dir, "variants_aggregate.tsv")
+        aggregate_over_reads(frames, variants).to_csv(path, sep="\t",
+                                                      index=False)
+        written.append(path)
+        # per-read per-strand summary calls (MarginalizeFullVariants
+        # per_read_calls, variantCaller.py:176-180)
+        path = os.path.join(output_dir, "variants_per_read.tsv")
+        per_read_calls_dataframe(
+            pd.concat(frames, ignore_index=True) if frames
+            else pd.DataFrame(), variants).to_csv(path, sep="\t", index=False)
+        written.append(path)
     return written

@@ -36,6 +36,18 @@ class AlignmentConfig:
     ambig_map: Dict[str, str] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_AMBIG_BASES))
     compute_expectations: bool = False
+    # isolate sparse adjacent-degenerate (P>2, then P>4) windows into
+    # their own segments (band_geometry.split_segment_by_paths), as the
+    # JAX runner does; None = AUTO: on for batches of >= 128 reads. The
+    # segments must equal the JAX runner's for the two to be compared.
+    path_split: Optional[bool] = None
+
+    def for_batch(self, n_reads: int) -> "AlignmentConfig":
+        """This config with ``path_split`` AUTO resolved for a batch of
+        ``n_reads`` reads (on from 128 reads, as in the JAX runner)."""
+        if self.path_split is not None:
+            return self
+        return dataclasses.replace(self, path_split=n_reads >= 128)
 
 
 @dataclasses.dataclass
@@ -56,6 +68,10 @@ class ReadAlignment:
     # max over the read's segments of |total_f - total_b|: a nat or more
     # means the DP lost precision
     max_total_gap: float = 0.0
+    # site-calling mode (run_alignment_batch call_variants): the per-read
+    # variant-call table (marginalize_full_variants schema, a pandas
+    # DataFrame) from device site sums; aligned_pairs stays empty then
+    variant_calls: Optional[object] = None
 
     def full_rows(self, model: PoreModel):
         return build_full_rows(

@@ -41,8 +41,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points of csrc/banded_fb.cu: (argtypes, restype)
 _SIGNATURES = {
-    "sa_fwd_sweep": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "sa_bwd_sweep_compact": ([_P] * 13 + [_I] * 6 + [ctypes.c_float, _P], _I),
+    "sa_fwd_sweep": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    "sa_bwd_sweep_compact": ([_P] * 14 + [_I] * 7 + [ctypes.c_float, _P], _I),
 }
 
 

@@ -140,8 +140,8 @@ def test_sweeps_match_jax_core(problems):
     bt, bit, lbt = (a.numpy() for a in bfb.sweep_backward(pt))
     for i, p in enumerate(tp):
         n = p.n_diag + 1
-        assert np.abs(np.exp(fj[i, :n, 0]) - np.exp(ft[i, :n])).max() < 1e-5
-        assert np.abs(np.exp(bj[i, :n, 0]) - np.exp(bt[i, :n])).max() < 1e-5
+        assert np.abs(np.exp(fj[i, :n, 0]) - np.exp(ft[i, :n, 0])).max() < 1e-5
+        assert np.abs(np.exp(bj[i, :n, 0]) - np.exp(bt[i, :n, 0])).max() < 1e-5
         assert np.abs(fij[i, :n] - fit[i, :n]).max() < 1e-4
         assert np.abs(bij[i, :n] - bit[i, :n]).max() < 1e-4
         assert abs(lfj[i] - lft[i]) < 1e-4 and abs(lbj[i] - lbt[i]) < 1e-4
@@ -241,9 +241,13 @@ def test_wrappers_use_twins_on_cpu_and_never_fall_back(problems):
 
 
 def test_outside_the_slice_raises():
-    args, kw = _ambiguous_args()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        problem_tensors([bfb.prepare_problem(*args, **kw)], 64, CPU)
+    """More than 8 paths per cell (three three-way codes in one 5-mer: 27
+    paths), non-Gaussian emissions and EM expectations raise."""
+    (seq, ev, model, params, amb), kw = _ambiguous_args()
+    seq = seq[:20] + "BBB" + seq[23:]
+    p27 = bfb.prepare_problem(seq, ev, model, params, amb, **dict(kw, P=27))
+    with pytest.raises(NotImplementedError, match="P=27"):
+        problem_tensors([p27], 64, CPU)
     args, kw = _problem_args()[0]
     p = bfb.prepare_problem(*args, **dict(kw, mode=bfb.MODE_FULL))
     with pytest.raises(NotImplementedError, match="MODE_MEAN_ONLY"):

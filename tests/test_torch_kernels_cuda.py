@@ -1,5 +1,7 @@
 """Each Hopper kernel of the port against its plain PyTorch twin on the
-card. Needs a CUDA GPU and nvcc; skipped without a GPU. On a GPU host:
+card, for P = 1 and for P = 2, 4 and 8 paths per cell, with every
+kernel instance (1, 2, 4 and 8 cells per thread). Needs a CUDA GPU
+and nvcc; skipped without a GPU. On a GPU host:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
@@ -31,15 +33,24 @@ def dev():
     return torch.device("cuda")
 
 
-def _problems(n, sizes, gap, W, Dpad, seed):
+def _problems(n, sizes, gap, W, Dpad, seed, P=1):
     """n problems with random lengths in ``sizes`` whose anchors (every 20
-    events) leave out ``gap``, so the band bulges there."""
+    events) leave out ``gap``, so the band bulges there. For P > 1 the
+    sequence carries the ambiguity code Y every 40 positions and a cluster
+    of log2(P) codes in one 5-mer every 400 (events read each Y as C)."""
     model = synthetic_pore_model(0)
     rng = np.random.default_rng(seed)
+    cluster = {1: "", 2: "Y", 4: "YGY", 8: "YGYGY"}[P]
     out = []
     for i in range(n):
-        seq = "".join(rng.choice(list("ACGT"), size=int(rng.integers(*sizes))))
-        ids = model.alphabet.seq_to_kmer_ids(seq)
+        seq = list(rng.choice(list("ACGT"), size=int(rng.integers(*sizes))))
+        if P > 1:
+            for j in range(20, len(seq) - 8, 40):
+                seq[j] = "Y"
+            for j in range(200, len(seq) - 8, 400):
+                seq[j:j + len(cluster)] = cluster
+        seq = "".join(seq)
+        ids = model.alphabet.seq_to_kmer_ids(seq.replace("Y", "C"))
         ev = np.stack([model.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
                        np.ones(len(ids)), np.full(len(ids), .005),
                        np.arange(len(ids)) * .005], 1)
@@ -47,20 +58,36 @@ def _problems(n, sizes, gap, W, Dpad, seed):
                    if not gap[0] < j < gap[1]]
         out.append(bfb.prepare_problem(
             seq, ev, model, ScalingParams(shift=0.1 * i), DEFAULT_AMBIG_BASES,
-            W=W, Dpad=Dpad, P=1, anchor_pairs=anchors, expansion=10))
+            W=W, Dpad=Dpad, P=P, anchor_pairs=anchors, expansion=10))
+    assert max(int(p.n_paths.max()) for p in out) == P
     return out
 
 
-@pytest.fixture(scope="module", params=["narrow", "wide"])
+@pytest.fixture(scope="module",
+                params=["narrow", "wide", "p2", "p4", "p8", "p8w512", "p8wide"])
 def bucket(request):
-    """(problems, W): six W=256 problems as on the main path, or two whose
-    bands pass 1024 offsets (W=1280: strided offsets in the forward
-    kernel, two chunks per thread in the backward one)."""
-    if request.param == "narrow":
+    """(problems, W): six W=256 P=1 problems as on the main path; two
+    whose bands pass 1024 offsets (W=1280: two cells per thread); four
+    W=256 problems of P = 2, 4 or 8 paths; two P=8 problems at W=512
+    (4096 cells: the four-cells-per-thread kernels); or two P=8 problems
+    at the widest W the runner makes (768: 6144 cells, six per thread)."""
+    name = request.param
+    if name == "narrow":
         return _problems(6, (200, 600), (100, 160), 256, 2048, 4), 256
-    probs = _problems(2, (1450, 1550), (200, 1300), 1280, 4096, 5)
-    assert max(int(p.width.max()) for p in probs) > 1024
-    return probs, 1280
+    if name == "wide":
+        probs = _problems(2, (1450, 1550), (200, 1300), 1280, 4096, 5)
+        assert max(int(p.width.max()) for p in probs) > 1024
+        return probs, 1280
+    if name == "p8w512":
+        probs = _problems(2, (1000, 1100), (200, 550), 512, 4096, 9, P=8)
+        assert max(int(p.width.max()) for p in probs) > 256
+        return probs, 512
+    if name == "p8wide":
+        probs = _problems(2, (1300, 1400), (200, 850), 768, 4096, 7, P=8)
+        assert max(int(p.width.max()) for p in probs) > 512
+        return probs, 768
+    P = int(name[1:])
+    return _problems(4, (700, 900), (100, 300), 256, 2048, 10 + P, P=P), 256
 
 
 def _forward_both(pt):
@@ -120,8 +147,8 @@ def test_aligner_on_gpu_matches_cpu(dev, bucket):
     cpu = hk.HopperAligner(*bucket, torch.device("cpu")).execute(THR)
     for g, c in zip(gpu, cpu):
         assert abs(g["total_f"] - c["total_f"]) <= 1e-2
-        dg = {(x, y): p for p, x, y, _ in g["pairs"]}
-        dc = {(x, y): p for p, x, y, _ in c["pairs"]}
+        dg = {(x, y, k): p for p, x, y, k in g["pairs"]}
+        dc = {(x, y, k): p for p, x, y, k in c["pairs"]}
         for key in set(dg) ^ set(dc):
             assert abs(dg.get(key, dc.get(key)) / 1e7 - THR) <= 1e-3
         assert all(abs(dg[k] - dc[k]) <= 1e-3 * 1e7 for k in set(dg) & set(dc))

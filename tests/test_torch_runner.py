@@ -3,13 +3,17 @@ synthetic reads: the XLA path and the Pallas interpret path, the TSVs
 written by write_outputs, output properties, and the features outside
 the port's slice."""
 
+import numpy as np
 import pytest
 import torch
 
+from signalalign_tpu.io.reference import ProcessedReference
 from signalalign_tpu.pipeline.runner import \
     run_alignment_batch as jax_run_alignment_batch
 from signalalign_tpu.pipeline.signal_align import \
     AlignmentConfig as JaxAlignmentConfig
+from signalalign_tpu.utils.synthetic import synthetic_read
+from signalalign_tpu_torch.ops.banded_fb import MODE_HDP
 from signalalign_tpu_torch.pipeline.runner import (run_alignment_batch,
                                                    write_outputs)
 from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
@@ -134,25 +138,38 @@ def test_output_properties(batch, port, tmp_path):
 
 
 def test_outside_the_slice_raises(batch, tmp_path):
+    """HDP emissions and EM expectations still raise, naming their ROADMAP
+    slices; the variants format needs its candidate bases."""
     model, rgs, reference = batch
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        run_alignment_batch(rgs, reference, model, device=CPU,
-                            call_variants="CE")
+    with pytest.raises(NotImplementedError, match="slice 2b"):
+        run_alignment_batch(rgs, reference, model,
+                            AlignmentConfig(emission_mode=MODE_HDP),
+                            device=CPU, call_variants="CT")
     with pytest.raises(NotImplementedError, match="slice 3"):
         run_alignment_batch(rgs, reference, model,
                             AlignmentConfig(compute_expectations=True),
                             device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(ValueError, match="variants="):
         write_outputs([], model, str(tmp_path), "variants")
 
 
 def test_p_greater_than_one_raises(tmp_path):
-    """A CpG-ambiguous reference edition gives P>1 segments."""
+    """A bucket of more than 8 paths per cell raises naming P before any
+    sweep runs: the motif edition puts the three-way code B (CGT) at every
+    C of a CG, so a CGCGCG window holds three B in one 5-mer (27 paths)."""
     model = synthetic_pore_model(1)
-    _, _, amb_rgs, amb_ref, _ = build_synthetic_batch(
+    rgs, _, _, _, fasta = build_synthetic_batch(
         model, n_reads=1, ev_min=300, ev_max=400, seed=2, genome_len=5000,
-        fasta_path=str(tmp_path / "g.fa"), ambig_frac=1.0)
-    with pytest.raises(NotImplementedError, match="P="):
-        run_alignment_batch(amb_rgs, amb_ref, model,
-                            AlignmentConfig(ambig_map={"Y": "CT"}),
+        fasta_path=str(tmp_path / "g.fa"))
+    with open(fasta) as fh:
+        body = "".join(line.strip() for line in fh if not line.startswith(">"))
+    genome = body[:1000] + "ACGCGCGTA" + body[1009:]
+    with open(fasta, "w") as fh:
+        fh.write(">synth\n" + genome + "\n")
+    reference = ProcessedReference(fasta, motifs=[("CG", "BG")])
+    read, guide = synthetic_read(np.random.default_rng(3), genome, model,
+                                 900, 300, "b27")
+    with pytest.raises(NotImplementedError, match="P=27"):
+        run_alignment_batch([(read, guide)], reference, model,
+                            AlignmentConfig(ambig_map={"B": "CGT"}),
                             device=CPU)
