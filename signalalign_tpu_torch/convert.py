@@ -1,10 +1,12 @@
-"""Carry the JAX package's state into the port.
+"""Carry the JAX package's state into the port, and stack problems into
+device tensors.
 
-The pore model is the shared numpy ``PoreModel`` and needs no
-conversion. A JAX ``BandedProblem`` holds numpy arrays, so
-``problem_from_numpy`` copies it field for field into the port's
-``BandedProblem``; ``problem_tensors`` stacks problems into the padded
-tensors the kernels and their plain twins read.
+The JAX package's host objects hold numpy arrays, so
+``pore_model_from_numpy`` and ``problem_from_numpy`` copy them field for
+field into the port's own classes (the port imports nothing of the JAX
+package, so it takes any object with the same fields);
+``problem_tensors`` stacks problems into the padded tensors the kernels
+and their plain twins read.
 """
 
 from __future__ import annotations
@@ -15,7 +17,19 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from signalalign_tpu_torch.models.pore_model import PoreModel
 from signalalign_tpu_torch.ops import banded_fb as bfb
+
+
+def pore_model_from_numpy(src) -> PoreModel:
+    """The port's PoreModel from any object with the same fields (a JAX
+    ``signalalign_tpu.models.pore_model.PoreModel``); arrays are copied."""
+    model = PoreModel(src.alphabet.letters, src.kmer_length,
+                      likelihood=src.likelihood)
+    for name in ("transitions", "log_transitions", "level_mean", "level_sd",
+                 "noise_mean", "noise_sd", "noise_lambda"):
+        setattr(model, name, np.array(getattr(src, name)))
+    return model
 
 
 def problem_from_numpy(src) -> bfb.BandedProblem:

@@ -26,16 +26,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from signalalign_tpu.models.pore_model import (GAP_X, GAP_Y, MATCH, PoreModel,
-                                               ScalingParams, T_MM, T_MX,
-                                               T_MY, T_XM, T_XX, T_YM, T_YY)
-from signalalign_tpu.ops.band_geometry import band_widths, build_band
-from signalalign_tpu.ops.fb_oracle import (LOG_GAPX_EMISSION, end_state_logs,
-                                           start_state_logs)
-from signalalign_tpu.utils.alphabet import expand_kmer_paths
+from signalalign_tpu_torch.models.pore_model import (GAP_X, GAP_Y, LOG_ZERO,
+                                                     MATCH, PoreModel,
+                                                     ScalingParams, T_MM,
+                                                     T_MX, T_MY, T_XM, T_XX,
+                                                     T_YM, T_YY)
+from signalalign_tpu_torch.ops.band_geometry import band_widths, build_band
+from signalalign_tpu_torch.utils.alphabet import expand_kmer_paths
 
 NEG = -1.0e30  # finite log-zero: no inf - inf NaNs
 DTYPE = np.float32
+LOG_GAPX_EMISSION = math.log(0.1)  # stateMachine3_construct (stateMachine.c:1586)
 
 # emission modes
 MODE_MEAN_ONLY = 0      # log(1/var) + N(descaled mean; mu, sd)     [production]
@@ -123,6 +124,34 @@ class BandedProblem:
             row = self.path_kmers[x - 1]
             return row[p] if p < len(row) else None
         return self.seq[x - 1:x - 1 + self.kmer_len] if p == 0 else None
+
+
+def start_state_logs(model: PoreModel, ragged: bool) -> np.ndarray:
+    """Start-state log weights (match only, or the two gap states for a
+    ragged start); the float64 oracle's ``start_state_logs``."""
+    out = np.full(3, LOG_ZERO)
+    if ragged:
+        out[GAP_X] = 0.0
+        out[GAP_Y] = 0.0
+    else:
+        out[MATCH] = 0.0
+    return out
+
+
+def end_state_logs(model: PoreModel, ragged: bool) -> np.ndarray:
+    """End-state log weights from the model's transitions; the float64
+    oracle's ``end_state_logs``."""
+    t = model.log_transitions
+    out = np.empty(3)
+    if ragged:
+        out[MATCH] = (t[T_MX] + t[T_MY]) / 2.0
+        out[GAP_X] = t[T_XX]
+        out[GAP_Y] = t[T_YY]
+    else:
+        out[MATCH] = t[T_MM]
+        out[GAP_X] = t[T_XM]
+        out[GAP_Y] = t[T_YM]
+    return out
 
 
 def _gauss_const(sd):

@@ -24,29 +24,31 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from signalalign_tpu.io.guide import GuideAlignment, adjust_reference_coordinate
-from signalalign_tpu.io.output import (posterior_score,
-                                       write_assignments_tsv,
-                                       write_full_tsv, write_vc_tsv)
-from signalalign_tpu.io.read import NanoporeReadData
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.models.pore_model import PoreModel
-from signalalign_tpu.ops.band_geometry import (band_widths, build_band,
-                                               get_split_points,
-                                               remap_anchors_to_events,
-                                               split_segment_by_paths,
-                                               split_segment_by_width)
-from signalalign_tpu.ops.scaling import (adjust_events_for_drift,
-                                         estimate_nanopore_params)
-from signalalign_tpu.pipeline.variant_caller import (
-    aggregate_over_reads, marginals_from_site_probs, per_read_calls_dataframe,
-    variant_calls_dataframe)
-from signalalign_tpu.utils.alphabet import max_paths_per_kmer, paths_per_kmer
+from signalalign_tpu_torch.io.guide import (GuideAlignment,
+                                            adjust_reference_coordinate)
+from signalalign_tpu_torch.io.output import (posterior_score,
+                                             write_assignments_tsv,
+                                             write_full_tsv, write_vc_tsv)
+from signalalign_tpu_torch.io.read import NanoporeReadData
+from signalalign_tpu_torch.io.reference import ProcessedReference
+from signalalign_tpu_torch.models.pore_model import PoreModel
 from signalalign_tpu_torch.ops import banded_fb as bfb
+from signalalign_tpu_torch.ops.band_geometry import (band_widths, build_band,
+                                                     get_split_points,
+                                                     remap_anchors_to_events,
+                                                     split_segment_by_paths,
+                                                     split_segment_by_width)
 from signalalign_tpu_torch.ops.banded_fb_hopper import HopperAligner
+from signalalign_tpu_torch.ops.scaling import (adjust_events_for_drift,
+                                               estimate_nanopore_params)
 from signalalign_tpu_torch.pipeline.signal_align import (AlignmentConfig,
                                                          ReadAlignment,
                                                          _bucket_d, _bucket_w)
+from signalalign_tpu_torch.pipeline.variant_caller import (
+    aggregate_over_reads, marginals_from_site_probs, per_read_calls_dataframe,
+    variant_calls_dataframe)
+from signalalign_tpu_torch.utils.alphabet import (max_paths_per_kmer,
+                                                  paths_per_kmer)
 
 # forward-stack bytes one aligner call may hold on the device; larger
 # buckets run in several calls

@@ -11,13 +11,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from signalalign_tpu.io.guide import GuideAlignment
-from signalalign_tpu.io.output import build_full_rows, build_vc_rows
-from signalalign_tpu.io.read import NanoporeReadData
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.models.pore_model import PoreModel, ScalingParams
-from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
+from signalalign_tpu_torch.io.guide import GuideAlignment
+from signalalign_tpu_torch.io.output import build_full_rows, build_vc_rows
+from signalalign_tpu_torch.io.read import NanoporeReadData
+from signalalign_tpu_torch.io.reference import ProcessedReference
+from signalalign_tpu_torch.models.pore_model import PoreModel, ScalingParams
 from signalalign_tpu_torch.ops import banded_fb as bfb
+from signalalign_tpu_torch.utils.alphabet import DEFAULT_AMBIG_BASES
 
 
 @dataclasses.dataclass

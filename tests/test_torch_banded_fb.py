@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from signalalign_tpu.models.pore_model import PoreModel as JPoreModel
 from signalalign_tpu.models.pore_model import ScalingParams
 from signalalign_tpu.ops import banded_fb as jbfb
 from signalalign_tpu.ops.banded_fb_pallas import PallasAligner
@@ -17,7 +18,9 @@ from signalalign_tpu.ops.batch import stack_problems
 from signalalign_tpu.ops.fb_oracle import (CellPaths, Emissions,
                                            banded_forward_backward)
 from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
-from signalalign_tpu_torch.convert import problem_from_numpy, problem_tensors
+from signalalign_tpu_torch.convert import (pore_model_from_numpy,
+                                           problem_from_numpy, problem_tensors)
+from signalalign_tpu_torch.models import pore_model as port_pm
 from signalalign_tpu_torch.ops import banded_fb as bfb
 from signalalign_tpu_torch.ops import banded_fb_hopper as hk
 from signalalign_tpu_torch.ops.batch import run_banded_fb_batch
@@ -25,7 +28,28 @@ from signalalign_tpu_torch.utils.synthetic import synthetic_pore_model
 
 W, DPAD, THR = 128, 512, 0.01
 CPU = torch.device("cpu")
-MODEL = synthetic_pore_model(0)
+
+
+def _models(seed=0, alphabet="ACGT", k=5):
+    """The JAX package's PoreModel with synthetic_pore_model's tables, and
+    the port's copy of it (convert.pore_model_from_numpy)."""
+    jm = JPoreModel(alphabet, k)
+    src = synthetic_pore_model(seed, alphabet, k)
+    for name in ("level_mean", "level_sd", "noise_mean", "noise_sd",
+                 "noise_lambda"):
+        setattr(jm, name, getattr(src, name))
+    return jm, pore_model_from_numpy(jm)
+
+
+MODEL, PORT_MODEL = _models()
+
+
+def _port_args(args):
+    """prepare_problem's positional arguments with the port's model and
+    scaling parameters in place of the JAX package's."""
+    seq, ev, _, params, amb = args
+    return (seq, ev, PORT_MODEL,
+            port_pm.ScalingParams(**dataclasses.asdict(params)), dict(amb))
 
 
 def _events(rng, seq, sd=1.2):
@@ -110,7 +134,7 @@ def test_prepare_problem_matches_jax(case):
     args, kw = {"short": _problem_args()[0], "bulge": _problem_args()[3],
                 "ambiguous": _ambiguous_args()}[case]
     want = jbfb.prepare_problem(*args, **kw)
-    got = bfb.prepare_problem(*args, **kw)
+    got = bfb.prepare_problem(*_port_args(args), **kw)
     for f in dataclasses.fields(want):
         a, b = getattr(want, f.name), getattr(got, f.name)
         if isinstance(a, np.ndarray):
@@ -243,13 +267,13 @@ def test_wrappers_use_twins_on_cpu_and_never_fall_back(problems):
 def test_outside_the_slice_raises():
     """More than 8 paths per cell (three three-way codes in one 5-mer: 27
     paths), non-Gaussian emissions and EM expectations raise."""
-    (seq, ev, model, params, amb), kw = _ambiguous_args()
-    seq = seq[:20] + "BBB" + seq[23:]
-    p27 = bfb.prepare_problem(seq, ev, model, params, amb, **dict(kw, P=27))
+    args, kw = _ambiguous_args()
+    seq = args[0][:20] + "BBB" + args[0][23:]
+    p27 = bfb.prepare_problem(*_port_args((seq, *args[1:])), **dict(kw, P=27))
     with pytest.raises(NotImplementedError, match="P=27"):
         problem_tensors([p27], 64, CPU)
     args, kw = _problem_args()[0]
-    p = bfb.prepare_problem(*args, **dict(kw, mode=bfb.MODE_FULL))
+    p = bfb.prepare_problem(*_port_args(args), **dict(kw, mode=bfb.MODE_FULL))
     with pytest.raises(NotImplementedError, match="MODE_MEAN_ONLY"):
         problem_tensors([p], W, CPU)
     with pytest.raises(NotImplementedError, match="slice 3"):

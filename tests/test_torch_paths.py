@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from signalalign_tpu.models.pore_model import PoreModel as JPoreModel
 from signalalign_tpu.models.pore_model import ScalingParams
 from signalalign_tpu.ops import banded_fb as jbfb
 from signalalign_tpu.ops.banded_fb_pallas_batch import PallasBatchAligner
@@ -21,16 +22,32 @@ from signalalign_tpu.ops.fb_oracle import (CellPaths, Emissions,
 from signalalign_tpu.pipeline.variant_caller import (marginals_from_pairs,
                                                      marginals_from_site_probs)
 from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
-from signalalign_tpu_torch.convert import problem_from_numpy, problem_tensors
+from signalalign_tpu_torch.convert import (pore_model_from_numpy,
+                                           problem_from_numpy, problem_tensors)
+from signalalign_tpu_torch.models import pore_model as port_pm
 from signalalign_tpu_torch.ops import banded_fb as bfb
 from signalalign_tpu_torch.ops import banded_fb_hopper as hk
 from signalalign_tpu_torch.ops.batch import run_banded_fb_batch
+from signalalign_tpu_torch.pipeline import variant_caller as port_vc
 from signalalign_tpu_torch.pipeline.runner import _site_cells
 from signalalign_tpu_torch.utils.synthetic import synthetic_pore_model
 
 W, DPAD, THR = 128, 512, 0.01
 CPU = torch.device("cpu")
-MODEL = synthetic_pore_model(0)
+
+
+def _models(seed=0, alphabet="ACGT", k=5):
+    """The JAX package's PoreModel with synthetic_pore_model's tables, and
+    the port's copy of it (convert.pore_model_from_numpy)."""
+    jm = JPoreModel(alphabet, k)
+    src = synthetic_pore_model(seed, alphabet, k)
+    for name in ("level_mean", "level_sd", "noise_mean", "noise_sd",
+                 "noise_lambda"):
+        setattr(jm, name, getattr(src, name))
+    return jm, pore_model_from_numpy(jm)
+
+
+MODEL, PORT_MODEL = _models()
 K = MODEL.kmer_length
 # ambiguity clusters that set the largest path count of a segment: one Y
 # (2 paths), two Y in a 5-mer (4) and three (8)
@@ -117,7 +134,10 @@ def test_prepare_problem_matches_jax(P):
     """Field for field and bit for bit, dtypes included."""
     args, kw = _problem_args(P, 1, 7)
     want = jbfb.prepare_problem(*args, **kw)
-    got = bfb.prepare_problem(*args, **kw)
+    seq, ev, _, params, amb = args
+    got = bfb.prepare_problem(
+        seq, ev, PORT_MODEL, port_pm.ScalingParams(**dataclasses.asdict(params)),
+        dict(amb), **kw)
     for f in dataclasses.fields(want):
         a, b = getattr(want, f.name), getattr(got, f.name)
         if isinstance(a, np.ndarray):
@@ -253,7 +273,7 @@ def test_site_sums_match_folded_pairs(bucket, port):
     for p, s, r, x in zip(tp, sums, port, sites):
         assert s["site_probs"].shape == (P, len(x))
         assert s["total_f"] == r["total_f"]
-        got = marginals_from_site_probs(x, s["site_probs"], p, "CT")
+        got = port_vc.marginals_from_site_probs(x, s["site_probs"], p, "CT")
         want = marginals_from_pairs(r["pairs"], x, p, "CT")
         assert set(got) == set(want)
         for pos in want:
@@ -273,7 +293,7 @@ def test_site_sums_match_execute_site_marginals(bucket):
     for p, x, w, g in zip(tp, sites, want, got):
         assert abs(w["total_f"] - g["total_f"]) <= 0.05
         cw = marginals_from_site_probs(x, w["site_probs"][:P], p, "CT")
-        cg = marginals_from_site_probs(x, g["site_probs"], p, "CT")
+        cg = port_vc.marginals_from_site_probs(x, g["site_probs"], p, "CT")
         assert set(cw) == set(cg) and len(cg) >= len(x) // 2
         for pos in cw:
             assert abs(cw[pos]["C"] - cg[pos]["C"]) <= 0.02

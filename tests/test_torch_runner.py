@@ -7,18 +7,22 @@ import numpy as np
 import pytest
 import torch
 
-from signalalign_tpu.io.reference import ProcessedReference
+from signalalign_tpu.models.pore_model import PoreModel as JPoreModel
 from signalalign_tpu.pipeline.runner import \
     run_alignment_batch as jax_run_alignment_batch
 from signalalign_tpu.pipeline.signal_align import \
     AlignmentConfig as JaxAlignmentConfig
-from signalalign_tpu.utils.synthetic import synthetic_read
+from signalalign_tpu.utils.synthetic import \
+    build_synthetic_batch as jax_build_synthetic_batch
+from signalalign_tpu_torch.convert import pore_model_from_numpy
+from signalalign_tpu_torch.io.reference import ProcessedReference
 from signalalign_tpu_torch.ops.banded_fb import MODE_HDP
 from signalalign_tpu_torch.pipeline.runner import (run_alignment_batch,
                                                    write_outputs)
 from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
 from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
-                                                   synthetic_pore_model)
+                                                   synthetic_pore_model,
+                                                   synthetic_read)
 
 CPU = torch.device("cpu")
 THR = 0.01
@@ -32,25 +36,52 @@ THR = 0.01
 TOL_POST = 1e-3
 
 
+def _models(seed=0, alphabet="ACGT", k=5):
+    """The JAX package's PoreModel with synthetic_pore_model's tables, and
+    the port's copy of it (convert.pore_model_from_numpy)."""
+    jm = JPoreModel(alphabet, k)
+    src = synthetic_pore_model(seed, alphabet, k)
+    for name in ("level_mean", "level_sd", "noise_mean", "noise_sd",
+                 "noise_lambda"):
+        setattr(jm, name, getattr(src, name))
+    return jm, pore_model_from_numpy(jm)
+
+
+def _both_batches(jm, pm, fasta, **kw):
+    """One seeded batch from both packages' build_synthetic_batch: the JAX
+    objects for the JAX runner, the port's for the port; their event
+    arrays, event maps, reads and guide ops are equal."""
+    j = jax_build_synthetic_batch(jm, fasta_path=fasta, **kw)
+    p = build_synthetic_batch(pm, fasta_path=fasta, **kw)
+    for jl, pl in ((j[0], p[0]), (j[2], p[2])):
+        assert len(jl) == len(pl)
+        for (jr, jg), (pr, pg) in zip(jl, pl):
+            assert np.array_equal(jr.events, pr.events)
+            assert np.array_equal(jr.event_map, pr.event_map)
+            assert jr.template_read == pr.template_read and jg.ops == pg.ops
+    return j, p
+
+
 @pytest.fixture(scope="module")
 def batch(tmp_path_factory):
-    model = synthetic_pore_model(0)
+    """(JAX model, reads, reference), (the port's model, reads,
+    reference)."""
+    jm, pm = _models()
     fasta = tmp_path_factory.mktemp("ref") / "genome.fa"
-    rgs, reference, _, _, _ = build_synthetic_batch(
-        model, n_reads=4, ev_min=300, ev_max=900, seed=5, genome_len=20_000,
-        fasta_path=str(fasta))
-    return model, rgs, reference
+    j, p = _both_batches(jm, pm, str(fasta), n_reads=4, ev_min=300,
+                         ev_max=900, seed=5, genome_len=20_000)
+    return (jm, j[0], j[1]), (pm, p[0], p[1])
 
 
 @pytest.fixture(scope="module")
 def port(batch):
-    model, rgs, reference = batch
+    model, rgs, reference = batch[1]
     return run_alignment_batch(rgs, reference, model, device=CPU)
 
 
 @pytest.fixture(scope="module")
 def xla(batch):
-    model, rgs, reference = batch
+    model, rgs, reference = batch[0]
     return jax_run_alignment_batch(rgs, reference, model, JaxAlignmentConfig(),
                                    use_pallas=False)
 
@@ -80,7 +111,7 @@ def test_matches_jax_xla_runner(port, xla):
 def test_matches_jax_pallas_interpret_runner(batch, port):
     """Against the Pallas kernels in interpret mode (the per-read-row
     PallasAligner): totals within 0.05 nats, pairs within TOL_POST."""
-    model, rgs, reference = batch
+    model, rgs, reference = batch[0]
     pal = jax_run_alignment_batch(rgs, reference, model, JaxAlignmentConfig(),
                                   use_pallas=True, pallas_interpret=True)
     for p, j in zip(port, pal):
@@ -92,12 +123,12 @@ def test_matches_jax_pallas_interpret_runner(batch, port):
 def test_tsv_rows_match_jax(batch, port, xla, tmp_path, fmt):
     """write_outputs TSVs against the JAX results' rows: every column but
     the posterior identical, posteriors within TOL_POST."""
-    model = batch[0]
-    written = write_outputs(port, model, str(tmp_path), fmt)
+    jm, pm = batch[0][0], batch[1][0]
+    written = write_outputs(port, pm, str(tmp_path), fmt)
     assert len(written) == len(port)
     prob_col = 12 if fmt == "full" else 3
     for path, x in zip(written, xla):
-        rows = x.full_rows(model) if fmt == "full" else x.vc_rows(model)
+        rows = x.full_rows(jm) if fmt == "full" else x.vc_rows(jm)
         want = {}
         for r in rows:
             line = r.tsv() if fmt == "full" else \
@@ -123,7 +154,7 @@ def test_output_properties(batch, port, tmp_path):
     """Pair counts within [n/2, 3n] events (the upstream upper bound; these
     reads carry ~1.39 events per k-mer and only match events report a
     pair), every output k-mer equals the reference, totals agree."""
-    model, rgs, reference = batch
+    model, rgs, reference = batch[1]
     genome = reference.forward["synth"]
     k = model.kmer_length
     for (read, _), r in zip(rgs, port):
@@ -140,7 +171,7 @@ def test_output_properties(batch, port, tmp_path):
 def test_outside_the_slice_raises(batch, tmp_path):
     """HDP emissions and EM expectations still raise, naming their ROADMAP
     slices; the variants format needs its candidate bases."""
-    model, rgs, reference = batch
+    model, rgs, reference = batch[1]
     with pytest.raises(NotImplementedError, match="slice 2b"):
         run_alignment_batch(rgs, reference, model,
                             AlignmentConfig(emission_mode=MODE_HDP),

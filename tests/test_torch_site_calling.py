@@ -13,12 +13,19 @@ import pytest
 import torch
 
 import signalalign_tpu.pipeline.runner as jax_runner
+from signalalign_tpu.io import guide as jax_guide
+from signalalign_tpu.io import read as jax_read
+from signalalign_tpu.io import reference as jax_reference
+from signalalign_tpu.models import pore_model as jax_pm
 from signalalign_tpu.pipeline.signal_align import \
     AlignmentConfig as JaxAlignmentConfig
-from signalalign_tpu.io.guide import GuideAlignment
-from signalalign_tpu.io.read import NanoporeReadData
-from signalalign_tpu.io.reference import ProcessedReference
-from signalalign_tpu.models.pore_model import ScalingParams
+from signalalign_tpu.utils.synthetic import \
+    build_synthetic_batch as jax_build_synthetic_batch
+from signalalign_tpu_torch.convert import pore_model_from_numpy
+from signalalign_tpu_torch.io import guide as port_guide
+from signalalign_tpu_torch.io import read as port_read
+from signalalign_tpu_torch.io import reference as port_reference
+from signalalign_tpu_torch.models import pore_model as port_pm
 from signalalign_tpu_torch.pipeline.runner import (prepare_read,
                                                    run_alignment_batch,
                                                    write_outputs)
@@ -34,19 +41,45 @@ AMB = {"Y": "CT"}
 TOL_POST = 1e-3
 
 
+def _models(seed=0, alphabet="ACGT", k=5):
+    """The JAX package's PoreModel with synthetic_pore_model's tables, and
+    the port's copy of it (convert.pore_model_from_numpy)."""
+    jm = jax_pm.PoreModel(alphabet, k)
+    src = synthetic_pore_model(seed, alphabet, k)
+    for name in ("level_mean", "level_sd", "noise_mean", "noise_sd",
+                 "noise_lambda"):
+        setattr(jm, name, getattr(src, name))
+    return jm, pore_model_from_numpy(jm)
+
+
+def _both_batches(jm, pm, fasta, **kw):
+    """One seeded batch from both packages' build_synthetic_batch: the JAX
+    objects for the JAX runner, the port's for the port; their event
+    arrays, event maps, reads and guide ops are equal."""
+    j = jax_build_synthetic_batch(jm, fasta_path=fasta, **kw)
+    p = build_synthetic_batch(pm, fasta_path=fasta, **kw)
+    for jl, pl in ((j[0], p[0]), (j[2], p[2])):
+        assert len(jl) == len(pl)
+        for (jr, jg), (pr, pg) in zip(jl, pl):
+            assert np.array_equal(jr.events, pr.events)
+            assert np.array_equal(jr.event_map, pr.event_map)
+            assert jr.template_read == pr.template_read and jg.ops == pg.ops
+    return j, p
+
+
 @pytest.fixture(scope="module")
 def batch(tmp_path_factory):
-    model = synthetic_pore_model(0)
-    fasta = tmp_path_factory.mktemp("ref") / "genome.fa"
-    _, _, rgs, reference, fasta = build_synthetic_batch(
-        model, n_reads=4, ev_min=300, ev_max=700, seed=6, genome_len=20_000,
-        fasta_path=str(fasta), ambig_frac=1.0)
-    return model, rgs, reference, fasta
+    """(JAX model, reads, CpG edition), (the port's), fasta path."""
+    jm, pm = _models()
+    fasta = str(tmp_path_factory.mktemp("ref") / "genome.fa")
+    j, p = _both_batches(jm, pm, fasta, n_reads=4, ev_min=300, ev_max=700,
+                         seed=6, genome_len=20_000, ambig_frac=1.0)
+    return (jm, j[2], j[3]), (pm, p[2], p[3]), fasta
 
 
 @pytest.fixture(scope="module")
 def port_calls(batch):
-    model, rgs, reference, _ = batch
+    model, rgs, reference = batch[1]
     return run_alignment_batch(rgs, reference, model,
                                AlignmentConfig(ambig_map=AMB), device=CPU,
                                call_variants="CT")
@@ -54,14 +87,14 @@ def port_calls(batch):
 
 @pytest.fixture(scope="module")
 def port_pairs(batch):
-    model, rgs, reference, _ = batch
+    model, rgs, reference = batch[1]
     return run_alignment_batch(rgs, reference, model,
                                AlignmentConfig(ambig_map=AMB), device=CPU)
 
 
 @pytest.fixture(scope="module")
 def xla_pairs(batch):
-    model, rgs, reference, _ = batch
+    model, rgs, reference = batch[0]
     return jax_runner.run_alignment_batch(
         rgs, reference, model, JaxAlignmentConfig(ambig_map=AMB),
         use_pallas=False)
@@ -85,19 +118,19 @@ def test_path_split_segments_match_jax(tmp_path):
     """With path_split the port cuts the same segments as the JAX runner
     (start, sequence, events, W, Dpad, P), on longer reads whose segments
     hold P = 4 and P = 8 windows; the split isolates some of them."""
-    model = synthetic_pore_model(0)
-    _, _, rgs, reference, _ = build_synthetic_batch(
-        model, n_reads=4, ev_min=1500, ev_max=3000, seed=6,
-        genome_len=20_000, fasta_path=str(tmp_path / "g.fa"), ambig_frac=1.0)
+    jm, pm = _models()
+    j, p = _both_batches(jm, pm, str(tmp_path / "g.fa"), n_reads=4,
+                         ev_min=1500, ev_max=3000, seed=6, genome_len=20_000,
+                         ambig_frac=1.0)
     counts = {}
     for split in (False, True):
         ps = set()
         n = 0
-        for rg in rgs:
+        for jrg, prg in zip(j[2], p[2]):
             want = jax_runner.prepare_read(
-                *rg, reference, model,
+                *jrg, j[3], jm,
                 JaxAlignmentConfig(ambig_map=AMB, path_split=split))[4]
-            got = prepare_read(*rg, reference, model,
+            got = prepare_read(*prg, p[3], pm,
                                AlignmentConfig(ambig_map=AMB,
                                                path_split=split))[4]
             assert len(got) == len(want)
@@ -116,7 +149,7 @@ def test_site_calls_match_jax_xla_fold(batch, port_calls):
     call_variants="CT"), the exact fold of the XLA pair stream: each
     probability within 1e-2 (0.01 of site mass is one threshold-edge
     survivor). Both skip P = 1 segments and give them total_f 0.0."""
-    model, rgs, reference, _ = batch
+    model, rgs, reference = batch[0]
     want = jax_runner.run_alignment_batch(
         rgs, reference, model, JaxAlignmentConfig(ambig_map=AMB),
         use_pallas=False, call_variants="CT")
@@ -133,16 +166,16 @@ def test_site_calls_match_jax_xla_fold(batch, port_calls):
 def cpg_batch(tmp_path_factory):
     """The JAX package's own site-calling batch (tests/test_site_calling.py)
     with the synthetic model: 8 reads of 220 bases with gap-free guides
-    over a CpG-dense reference whose CG became CGCG."""
-    model = synthetic_pore_model(0)
+    over a CpG-dense reference whose CG became CGCG. Returns the JAX
+    package's (model, reads, reference) and the port's."""
+    model, pm = _models()
     rng = np.random.default_rng(9)
     core = "".join(rng.choice(list("ACGT"), size=598))
     genome = ("ACGT" * 40 + core + "ACGT" * 40).replace("CG", "CGCG")
     fasta = tmp_path_factory.mktemp("cpg") / "ref.fa"
     fasta.write_text(">chr\n" + genome + "\n")
-    reference = ProcessedReference(str(fasta), motifs=[("CG", "YG")])
     k = model.kmer_length
-    rgs = []
+    both = []
     for ri in range(8):
         start, n = 40 + 17 * ri, 220
         read_seq = genome[start:start + n]
@@ -153,17 +186,24 @@ def cpg_batch(tmp_path_factory):
                                       model.level_sd[kid]),
                            1.0, .002, len(events) * .002])
         event_map.extend([event_map[-1]] * (k - 1))
-        read = NanoporeReadData(
-            read_label=f"p2r{ri}", template_read=read_seq,
-            events=np.array(events), event_map=np.array(event_map),
-            model_states=None, p_model_state=None, kmer_length=k,
-            params=ScalingParams(), rna=False)
-        guide = GuideAlignment(
-            contig="chr", forward=True, window_start=start,
-            window_end=start + n, query_start=0, query_end=n,
-            ops=[(n, "M")])
-        rgs.append((read, guide))
-    return model, rgs, reference
+        both.append([
+            (io_read.NanoporeReadData(
+                read_label=f"p2r{ri}", template_read=read_seq,
+                events=np.array(events), event_map=np.array(event_map),
+                model_states=None, p_model_state=None, kmer_length=k,
+                params=pm_mod.ScalingParams(), rna=False),
+             io_guide.GuideAlignment(
+                contig="chr", forward=True, window_start=start,
+                window_end=start + n, query_start=0, query_end=n,
+                ops=[(n, "M")]))
+            for io_read, io_guide, pm_mod in ((jax_read, jax_guide, jax_pm),
+                                              (port_read, port_guide,
+                                               port_pm))])
+    motifs = [("CG", "YG")]
+    return ((model, [b[0] for b in both],
+             jax_reference.ProcessedReference(str(fasta), motifs=motifs)),
+            (pm, [b[1] for b in both],
+             port_reference.ProcessedReference(str(fasta), motifs=motifs)))
 
 
 def test_site_calls_match_jax_pallas_site_path(cpg_batch):
@@ -172,12 +212,12 @@ def test_site_calls_match_jax_pallas_site_path(cpg_batch):
     package's own site batch: within 0.02, JAX's own bound. (On the
     synthetic batch above, whose bands pass 128 offsets, that path returns
     inf or zero sums; ROADMAP section 3.)"""
-    model, rgs, reference = cpg_batch
+    (model, rgs, reference), (pm, prgs, pref) = cpg_batch
     cfg = dict(ambig_map=AMB)
     want = jax_runner.run_alignment_batch(
         rgs, reference, model, JaxAlignmentConfig(**cfg), use_pallas=True,
         pallas_interpret=True, call_variants="CT")
-    got = run_alignment_batch(rgs, reference, model, AlignmentConfig(**cfg),
+    got = run_alignment_batch(prgs, pref, pm, AlignmentConfig(**cfg),
                               device=CPU, call_variants="CT")
     for g, w in zip(got, want):
         assert len(w.variant_calls) > 10
@@ -210,8 +250,8 @@ def test_tsv_rows_match_jax(batch, port_pairs, xla_pairs, tmp_path, fmt):
     """write_outputs P > 1 TSVs against the JAX results' rows: every
     column but the posterior (and the vc score) identical, posteriors
     within TOL_POST."""
-    model = batch[0]
-    written = write_outputs(port_pairs, model, str(tmp_path), fmt)
+    model, pm = batch[0][0], batch[1][0]
+    written = write_outputs(port_pairs, pm, str(tmp_path), fmt)
     assert len(written) == len(port_pairs)
     prob_col = 12 if fmt == "full" else 3
     skip = {prob_col} if fmt == "full" else {prob_col, 7}
@@ -245,7 +285,7 @@ def test_variants_files_match_jax_run_signal_align(batch, port_calls,
     run_signal_align writes for the same reads (its fast5 and BAM readers
     replaced by the in-memory reads): the same file names, columns and
     row order, probabilities within 1e-2."""
-    model, rgs, reference, fasta = batch
+    (model, rgs, _), (pm, _, _), fasta = batch
     monkeypatch.setattr(jax_runner, "filter_reads",
                         lambda *a, **kw: list(rgs))
     monkeypatch.setattr(jax_runner.NanoporeReadData, "from_fast5",
@@ -257,7 +297,7 @@ def test_variants_files_match_jax_run_signal_align(batch, port_calls,
         "unused.bam", "unused.readdb", [], fasta, model, str(jdir),
         config=JaxAlignmentConfig(ambig_map=AMB), output_format="variants",
         motifs=[("CG", "YG")], verbose=False, variants="CT")
-    pwritten = write_outputs(port_calls, model, str(pdir), "variants",
+    pwritten = write_outputs(port_calls, pm, str(pdir), "variants",
                              variants="CT")
     assert [os.path.basename(p) for p in pwritten] == \
         [os.path.basename(p) for p in jwritten]
