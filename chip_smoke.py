@@ -11,7 +11,7 @@ Phases (any failure stops the run with a non-zero exit):
      batch's two shortest reads;
   3c. the kernels with P = 2, 4 and 8 paths per cell against their twins
      on the card, at the shapes phase 5 gives them: phase 5's own host
-     prep, one bucket per (W, P) class it makes (the class's three shortest
+     prep, one bucket per (W, P) class it makes (the class's two shortest
      problems), so that every kernel instance (cells per thread K = 1, 2,
      4, 8) is held; with totals, |d exp(fstack)|, the survivor sets with
      their paths, |d posterior| and the times;
@@ -28,7 +28,26 @@ Phases (any failure stops the run with a non-zero exit):
      by (W, P), peak device memory and the launch counts of that run;
   5b. both kernels on each phase-5 bucket again, in the runner's chunks,
      timed by CUDA events and summed by (W, P), with their share of
-     phase 5's wall time.
+     phase 5's wall time;
+  6. HDP methylation calling, the JAX package's flagship workload: a
+     6-mer ACEGOT synthetic model (46,656 k-mers), its synthetic HDP on
+     the trainer's grid (30-180 pA, 1,200 points; 2 x 224 MB tables) and
+     the same 64 reads against the CG -> PG edition (P: C or E):
+     6a. both kernels in HDP mode against their twins on the card, one
+         bucket per (W, P) class of phase 6's own prep (its two shortest
+         problems), with the times;
+     6b. HDP calls ("CE") and HDP pair output on the GPU against the CPU
+         on the batch's two shortest reads;
+     6c. run_alignment_batch(..., hdp=, call_variants="CE") on the 64
+         reads and write_outputs("variants"), with the call checks, stage
+         times (the HDP table upload among them), events/s, site rows, the
+         bucket mix, peak device memory and the launch counts;
+     6d. both kernels on each phase-6 bucket by CUDA events, summed by
+         (W, P), with their share of 6c's wall time.
+Each kernel's line carries its bound: the larger of the bytes it must
+move over the HBM rate and its transcendentals over the SFU rate, with
+the serial-diagonal floor (longest problem's diagonals times the measured
+latency of a diagonal's two block barriers, phase 2) beside it.
 The last two lines are a JSON object per kernel and the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
@@ -55,11 +74,22 @@ TOL_EDGE = 1e-4         # survivors may differ only this close to threshold
 TOL_PATH = 1e-3
 SEED_MODEL, SEED_READS = 0, 1
 AMB = {"Y": "CT"}
+AMB_HDP = {"P": "CE"}
+SEED_HDP = 2
 # least share of sites called C (p_C > 0.5): the reads come from the
 # unedited genome, so C is the truth at every site but for read
 # substitutions; measured 0.79-0.88 on small batches of these reads on
 # the CPU
 MIN_SHARE_C = 0.7
+# the same for HDP calls (C against E) on the 6-mer ACEGOT model and its
+# synthetic HDP: measured 0.857 and 0.827 on two batches of four such
+# reads (2,098-2,885 events) on the CPU, 0.794 to 0.893 per read
+MIN_SHARE_C_HDP = 0.75
+# H100 SXM peaks for the bounds: HBM bytes per second, and transcendental
+# results per second (16 special-function results per clock per SM, 132
+# SMs, 1,980 MHz boost clock)
+HBM_BYTES_PER_S = 3.35e12
+SFU_PER_S = 16 * 132 * 1.98e9
 
 
 def log(msg=""):
@@ -77,7 +107,15 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() over reps launches, by CUDA events."""
+    """Mean milliseconds of fn() over reps launches, by CUDA events. With
+    reps > 1, two untimed calls come first and their outputs are held
+    together, so that the caching allocator holds the blocks the timed
+    calls reuse: a cudaMalloc inside the timed window stalls the stream
+    (the likely cause of one run's 3a forward at 11.0 ms, where other
+    runs read 4.2-4.8 ms)."""
+    if reps > 1:
+        warm = [fn(), fn()]
+        del warm
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -110,15 +148,14 @@ def compare_calls(a, b):
 def kernels_vs_twins(hk, bfb, pt, threshold, R, reps=5):
     """Both kernels against their twins on one bucket; fails beyond the
     tolerances. Returns the kernels' mean CUDA-event times over ``reps``
-    launches after a warm-up, the twins' times, the errors and the
-    survivor counts."""
+    launches after two warm-up calls, the twins' times, the errors and
+    the survivor counts."""
     dev = pt.device
     nds = pt.meta[:, bfb.M_NDIAG]
     t0 = time.perf_counter()
     f_ref, fi_ref, lf_ref = hk.forward_sweep_ref(pt)
     torch.cuda.synchronize()
     fwd_plain_ms = (time.perf_counter() - t0) * 1e3
-    hk.forward_sweep(pt)                                         # warm-up
     fwd_ms, (f_k, fi_k, lf_k) = cuda_ms(lambda: hk.forward_sweep(pt), reps)
     _, tf_k = bfb.forward_offsets(fi_k, lf_k, nds)
     fo_ref, tf_ref = bfb.forward_offsets(fi_ref, lf_ref, nds)
@@ -133,7 +170,6 @@ def kernels_vs_twins(hk, bfb, pt, threshold, R, reps=5):
     bref = hk.backward_sweep_compact_ref(pt, f_ref, cvecf, threshold, R)
     torch.cuda.synchronize()
     bwd_plain_ms = (time.perf_counter() - t0) * 1e3
-    hk.backward_sweep_compact(pt, f_ref, cvecf, threshold, R)   # warm-up
     bwd_ms, bk = cuda_ms(lambda: hk.backward_sweep_compact(
         pt, f_ref, cvecf, threshold, R), reps)
     _, tb_k = bfb.backward_offsets(bk[0], bk[1])
@@ -162,16 +198,154 @@ def cells_per_thread(n):
     return next(i for i in (1, 2, 4, 8) if k <= i)
 
 
-def prepare_all(rgs, reference, model, config):
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
+
+
+def sweep_bounds(bfb, pt, n_surv):
+    """Least times in ms, and what sets them, of the two sweeps on ``pt``'s
+    problems: the larger of the bytes each must move (every input read
+    once, every output written once: the fstack rows up to each problem's
+    n_diag, ``n_surv`` survivor slots; of an HDP table only one 16-byte
+    knot pair per distinct k-mer) over the HBM rate, and the
+    transcendentals its in-band cells need (counted per cell from the
+    kernels' formulas: two per logaddexp, P + 1 per legal logsumexp, one
+    per posterior and per HDP spline, the backward's spline once per legal
+    target path) over the SFU rate."""
+    B, D1 = pt.x0.shape
+    P, W = pt.P, pt.W
+    x0 = pt.x0.cpu().numpy()
+    width = pt.width.cpu().numpy()
+    nd = pt.meta[:, bfb.M_NDIAG].cpu().numpy()
+    leg = pt.leg.cpu().numpy().view(np.uint64)
+    hdp = pt.hdp is not None
+    cells = rows = legal = 0
+    o = np.arange(W)
+    for b in range(B):
+        n = int(nd[b]) + 1
+        w = width[b, :n]
+        cells += int(w.sum())
+        rows += n
+        if hdp:
+            inb = o[None, :] < w[:, None]
+            x = np.clip((x0[b, :n, None] + o[None, :] + 1)[inb], 0,
+                        leg.shape[1] - 1)
+            legal += int(_POPCOUNT8[leg[b, x].view(np.uint8)].sum())
+    tensors = [pt.x0, pt.width, pt.ref, pt.leg, pt.ev, pt.meta, pt.par]
+    in_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    if hdp:
+        in_bytes += (pt.kid.numel() + pt.mu.numel()) * 4
+        in_bytes += int(torch.unique(pt.kid).numel()) * 16
+    fstack = rows * P * W * 4
+    fwd_bytes = in_bytes + fstack + B * D1 * 4 + B * 4
+    bwd_bytes = in_bytes + fstack + B * D1 * 8 + 2 * B * D1 * 4 + B * 4 \
+        + n_surv * 8
+    cp = cells * P
+    fwd_ops = cp * (8 if P == 1 else 8 * P + 4) + (cp if hdp else 0)
+    bwd_ops = cp * (9 if P == 1 else 2 * P + 11) + (cp + legal if hdp else 0)
+    out = {}
+    for name, nbytes, ops in (("sa_fwd_sweep", fwd_bytes, fwd_ops),
+                              ("sa_bwd_sweep_compact", bwd_bytes, bwd_ops)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SFU_PER_S
+        out[name] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else
+                     "operations")
+    return out
+
+
+def barrier_latency_us(cuda_build):
+    """Microseconds of one diagonal's synchronisation in the sweeps (a
+    block max reduction and a second barrier, 1024 threads), measured by
+    csrc/barrier_probe.cu with one block per SM."""
+    lib = cuda_build.load()
+    out = torch.empty(132, device="cuda")
+    iters = 20000
+
+    def probe():
+        rc = lib.sa_barrier_probe(132, 1024, iters, out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"sa_barrier_probe launch failed: CUDA error {rc}")
+    probe()
+    ms, _ = cuda_ms(probe, 3)
+    return 1e3 * ms / iters
+
+
+def kernel_sums(hk, bfb, problem_tensors, stack_chunks, buckets, dev,
+                threshold, R, tables=None):
+    """Both kernels on every bucket again, in the runner's chunks, timed by
+    CUDA events: {(W, P): [problems, fwd ms, bwd ms, [(us per diagonal of
+    each launch's longest problem, fwd, bwd)]]}."""
+    by_wp = {}
+    for (W, Dpad, P), probs in sorted(buckets.items()):
+        for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P):
+            ptb = problem_tensors([probs[i] for i in chunk], W, dev, tables)
+            f_ms, (f, fi, lf) = cuda_ms(lambda: hk.forward_sweep(ptb), 1)
+            fo, tf = bfb.forward_offsets(fi, lf, ptb.meta[:, bfb.M_NDIAG])
+            cvecf = (fo - tf[:, None]).contiguous()
+            b_ms, _ = cuda_ms(lambda: hk.backward_sweep_compact(
+                ptb, f, cvecf, threshold, R), 1)
+            del f
+            # one block per problem: a launch lasts about as long as its
+            # longest problem
+            nd = max(ptb.n_diag)
+            e = by_wp.setdefault((W, P), [0, 0.0, 0.0, []])
+            e[0] += len(chunk)
+            e[1] += f_ms
+            e[2] += b_ms
+            e[3].append((1e3 * f_ms / nd, 1e3 * b_ms / nd))
+    return by_wp
+
+
+def log_kernel_sums(tag, by_wp, wall_s):
+    for (W, P), (n, f_ms, b_ms, us) in sorted(by_wp.items()):
+        uf, ub = [u for u, _ in us], [u for _, u in us]
+        log(f"[{tag}] kernels W={W} P={P}: {n} problems, fwd {f_ms:.3f} ms, "
+            f"bwd {b_ms:.3f} ms; us per diagonal of each launch's longest "
+            f"problem fwd {min(uf):.2f}..{max(uf):.2f}, bwd "
+            f"{min(ub):.2f}..{max(ub):.2f}")
+    f_sum = sum(e[1] for e in by_wp.values())
+    b_sum = sum(e[2] for e in by_wp.values())
+    log(f"[{tag}] kernel sums fwd {f_sum:.3f} ms, bwd {b_sum:.3f} ms: "
+        f"{(f_sum + b_sum) / 1e3 / wall_s:.4f} of run_alignment_batch's "
+        f"wall time (sums of CUDA-event times, not a trace)")
+
+
+def prepare_all(rgs, reference, model, config, hdp=None):
     """[(W, Dpad, P, problem)] of every segment of every read, in read
     order: the host prep of run_alignment_batch, on as many threads."""
     from signalalign_tpu_torch.pipeline.runner import prepare_read
     nw = min(8, max(2, (os.cpu_count() or 4) - 2))
     with ThreadPoolExecutor(max_workers=nw) as ex:
         preps = list(ex.map(lambda rg: prepare_read(
-            rg[0], rg[1], reference, model, config), rgs))
+            rg[0], rg[1], reference, model, config, hdp), rgs))
     return [(W, Dpad, P, prob) for prep in preps
             for _, prob, W, Dpad, P in prep[4]]
+
+
+def check_calls(results, edition, k, codes, bases):
+    """Site-mode output checks: every read has calls and no pairs, each
+    row's probabilities sum to 1, every call sits on an ambiguity code of
+    the edition, |total_f - total_b| < 1 nat, the total is not log 0.
+    Returns (site rows, rows
+    called ``bases[0]``)."""
+    n_rows = n_first = 0
+    for r in results:
+        vc = r.variant_calls
+        check(vc is not None and len(vc) > 0, f"{r.read_label}: no calls")
+        check(r.aligned_pairs == [], f"{r.read_label}: pairs in site mode")
+        check(r.forward, f"{r.read_label}: reverse-mapped synthetic read")
+        check(float(np.abs(vc[bases[0]] + vc[bases[1]] - 1.0).max()) <= 1e-6,
+              f"{r.read_label}: {bases[0]} + {bases[1]} != 1")
+        # position is the reporting k-mer's start; the site is its last base
+        bad = [int(q) for q in vc["position"]
+               if edition[int(q) + k - 1] not in codes]
+        check(not bad, f"{r.read_label}: calls at positions {bad[:5]} "
+              f"without {codes}")
+        check(r.max_total_gap < 1.0,
+              f"{r.read_label}: total_f - total_b gap {r.max_total_gap}")
+        check(r.total_log_prob > -1e29,
+              f"{r.read_label}: alignment of probability 0")
+        n_rows += len(vc)
+        n_first += int((vc[bases[0]] > 0.5).sum())
+    return n_rows, n_first
 
 
 def compare_pairs(a, b, threshold):
@@ -197,7 +371,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    from signalalign_tpu_torch.convert import problem_tensors
+    from signalalign_tpu_torch.convert import hdp_tables, problem_tensors
     from signalalign_tpu_torch.ops import banded_fb as bfb
     from signalalign_tpu_torch.ops import banded_fb_hopper as hk
     from signalalign_tpu_torch.pipeline.runner import (_stack_chunks,
@@ -207,8 +381,10 @@ def main():
     from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
     from signalalign_tpu_torch.utils import cuda_build
     from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                       synthetic_hdp,
                                                        synthetic_pore_model)
-    check("jax" not in sys.modules, "the port imported jax")
+    check("jax" not in sys.modules and "signalalign_tpu" not in sys.modules,
+          "the port imported jax or the JAX package")
 
     # ---- 2. build
     b = cuda_build.build()
@@ -217,6 +393,9 @@ def main():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
     cuda_build.load()
+    barrier_us = barrier_latency_us(cuda_build)
+    log(f"[build] one diagonal's two block barriers (1024 threads, a block "
+        f"per SM): {barrier_us:.4f} us")
 
     with tempfile.TemporaryDirectory() as tmp:
         model = synthetic_pore_model(SEED_MODEL)
@@ -244,6 +423,8 @@ def main():
         pt = problem_tensors(picked, 256, dev)
         log(f"[kernels] 8 problems W=256 n_diag {min(pt.n_diag)}..{max(pt.n_diag)}")
         p1 = kernels_vs_twins(hk, bfb, pt, threshold, R)
+        p1_bounds = sweep_bounds(bfb, pt, p1["n_kernel"])
+        p1_floor = 1e-3 * barrier_us * max(pt.n_diag)
         log(f"[kernels] sa_fwd_sweep {p1['fwd_ms']:.3f} ms, twin "
             f"{p1['fwd_plain_ms']:.1f} ms; |d total_f| {p1['tf_err']:.3e} nats "
             f"(tol {TOL_TOTAL}), |d exp(fstack)| {p1['fdiff']:.3e} (tol {TOL_POST})")
@@ -251,6 +432,9 @@ def main():
             f"{p1['bwd_plain_ms']:.1f} ms; |d total_b| {p1['tb_err']:.3e} nats, "
             f"survivors {p1['n_kernel']} vs {p1['n_twin']}, |d posterior| "
             f"{p1['pdiff']:.3e} (tol {TOL_POST})")
+        log("[kernels] bounds " + ", ".join(
+            f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in p1_bounds.items())
+            + f"; serial-diagonal floor {p1_floor:.3f} ms")
 
         # ---- 3b. the main path on the GPU against the CPU (twins)
         small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:2]
@@ -270,32 +454,36 @@ def main():
 
         # ---- 3c. P > 1 kernels against their twins on the card, on the
         # shapes phase 5 gives them: its own config and segments, one
-        # bucket per (W, P) class, the class's three shortest problems
+        # bucket per (W, P) class, the class's two shortest problems
         amb_cfg = AlignmentConfig(ambig_map=AMB).for_batch(len(rgs))
         site_segs = prepare_all(rgs, amb_ref, model, amb_cfg)
         by_class = {}
         for W, Dpad, P, prob in site_segs:
             by_class.setdefault((W, P), []).append(prob)
-        paths_rows = {}
+        paths_rows, paths_bounds = {}, {}
         for (W, P), probs in sorted(by_class.items()):
             if P == 1:
                 continue    # site mode skips P = 1 segments
-            probs = sorted(probs, key=lambda q: q.n_diag)[:3]
+            probs = sorted(probs, key=lambda q: q.n_diag)[:2]
             ptp = problem_tensors(probs, W, dev)
             r = kernels_vs_twins(hk, bfb, ptp, threshold, R)
             paths_rows[(W, P)] = r
+            paths_bounds[(W, P)] = bd = sweep_bounds(bfb, ptp, r["n_kernel"])
             log(f"[kernels P={P} W={W} K={cells_per_thread(P * W)}] "
                 f"{len(probs)} problems n_diag {min(ptp.n_diag)}..{max(ptp.n_diag)}: "
-                f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms), "
+                f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
+                f"bound {bd['sa_fwd_sweep'][0]:.4f} ms), "
                 f"sa_bwd_sweep_compact {r['bwd_ms']:.3f} ms (twin "
-                f"{r['bwd_plain_ms']:.1f} ms); |d total| "
+                f"{r['bwd_plain_ms']:.1f} ms, bound "
+                f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms), serial floor "
+                f"{1e-3 * barrier_us * max(ptp.n_diag):.3f} ms; |d total| "
                 f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
                 f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
                 f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}")
         ks = {cells_per_thread(P * W) for W, P in paths_rows}
         check(ks == {1, 2, 4, 8}, f"phase 5's buckets hold cells per thread "
               f"{sorted(ks)}, not every kernel instance 1, 2, 4, 8")
-        check(sum(min(3, len(v)) for (_, P), v in by_class.items() if P == 8)
+        check(sum(min(2, len(v)) for (_, P), v in by_class.items() if P == 8)
               >= 2, "fewer than two P=8 problems")
 
         # ---- 3d. site calls and P > 1 pairs on the GPU against the CPU
@@ -397,23 +585,8 @@ def main():
         t_write = time.perf_counter() - t0
 
         check(len(results) == len(rgs), f"{len(rgs) - len(results)} reads failed")
-        edition = amb_ref.forward["synth"]
-        n_rows = n_c = 0
-        for r in results:
-            vc = r.variant_calls
-            check(vc is not None and len(vc) > 0, f"{r.read_label}: no calls")
-            check(r.aligned_pairs == [], f"{r.read_label}: pairs in site mode")
-            check(r.forward, f"{r.read_label}: reverse-mapped synthetic read")
-            check(float(np.abs(vc["C"] + vc["T"] - 1.0).max()) <= 1e-6,
-                  f"{r.read_label}: C + T != 1")
-            # position is the reporting k-mer's start; the site is its
-            # last base
-            bad = [int(q) for q in vc["position"] if edition[int(q) + k - 1] != "Y"]
-            check(not bad, f"{r.read_label}: calls at non-Y positions {bad[:5]}")
-            check(r.max_total_gap < 1.0,
-                  f"{r.read_label}: total_f - total_b gap {r.max_total_gap}")
-            n_rows += len(vc)
-            n_c += int((vc["C"] > 0.5).sum())
+        n_rows, n_c = check_calls(results, amb_ref.forward["synth"], k, "Y",
+                                  "CT")
         names = [os.path.basename(w) for w in written]
         for name in ("variants_aggregate.tsv", "variants_per_read.tsv"):
             check(name in names and os.path.getsize(
@@ -447,35 +620,142 @@ def main():
 
         # ---- 5b. kernel time of each phase-5 bucket, by CUDA events, in
         # the runner's chunks; summed by (W, P)
-        by_wp = {}
-        for (W, Dpad, P), probs in sorted(buckets.items()):
-            for chunk in _stack_chunks(list(range(len(probs))), W, Dpad, P):
-                ptb = problem_tensors([probs[i] for i in chunk], W, dev)
-                f_ms, (f, fi, lf) = cuda_ms(lambda: hk.forward_sweep(ptb), 1)
-                fo, tf = bfb.forward_offsets(fi, lf, ptb.meta[:, bfb.M_NDIAG])
-                cvecf = (fo - tf[:, None]).contiguous()
-                b_ms, _ = cuda_ms(lambda: hk.backward_sweep_compact(
-                    ptb, f, cvecf, threshold, R), 1)
-                del f
-                # one block per problem: a launch lasts about as long as
-                # its longest problem
-                nd = max(ptb.n_diag)
-                e = by_wp.setdefault((W, P), [0, 0.0, 0.0, []])
-                e[0] += len(chunk)
-                e[1] += f_ms
-                e[2] += b_ms
-                e[3].append((1e3 * f_ms / nd, 1e3 * b_ms / nd))
-        for (W, P), (n, f_ms, b_ms, us) in sorted(by_wp.items()):
-            uf, ub = [u for u, _ in us], [u for _, u in us]
-            log(f"[sites] kernels W={W} P={P}: {n} problems, fwd {f_ms:.3f} ms, "
-                f"bwd {b_ms:.3f} ms; us per diagonal of each launch's longest "
-                f"problem fwd {min(uf):.2f}..{max(uf):.2f}, bwd "
-                f"{min(ub):.2f}..{max(ub):.2f}")
-        f_sum = sum(e[1] for e in by_wp.values())
-        b_sum = sum(e[2] for e in by_wp.values())
-        log(f"[sites] kernel sums fwd {f_sum:.3f} ms, bwd {b_sum:.3f} ms: "
-            f"{(f_sum + b_sum) / 1e3 / t_sites:.4f} of run_alignment_batch's "
-            f"wall time (sums of CUDA-event times, not a trace)")
+        log_kernel_sums("sites", kernel_sums(
+            hk, bfb, problem_tensors, _stack_chunks, buckets, dev, threshold,
+            R), t_sites)
+        del site_segs, by_class, buckets
+
+        # ---- 6. HDP methylation calling (the flagship workload)
+        t0 = time.perf_counter()
+        model6 = synthetic_pore_model(SEED_MODEL, alphabet="ACEGOT", k=6)
+        hdp6 = synthetic_hdp(model6, SEED_HDP)
+        _, _, rgs6, ref6, _ = build_synthetic_batch(
+            model6, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
+            genome_len=400_000, fasta_path=os.path.join(tmp, "genome6.fa"),
+            ambig_frac=1.0, ambig_motif=("CG", "PG"))
+        cfg6 = AlignmentConfig(emission_mode=bfb.MODE_HDP,
+                               ambig_map=AMB_HDP).for_batch(len(rgs6))
+        table_bytes = 2 * hdp6.densities.size * 4
+        log(f"[hdp] model {model6.alphabet.letters} k={model6.kmer_length} "
+            f"({model6.num_kmers} k-mers), HDP grid {hdp6.grid[0]:.0f}-"
+            f"{hdp6.grid[-1]:.0f} pA x {len(hdp6.grid)}, tables "
+            f"{table_bytes / 2**20:.1f} MiB, made with the reads in "
+            f"{time.perf_counter() - t0:.1f} s")
+        n_events6 = sum(r.n_events for r, _ in rgs6)
+
+        # ---- 6a. HDP kernels against their twins, one bucket per (W, P)
+        # class of phase 6's own prep, the class's two shortest problems
+        segs6 = prepare_all(rgs6, ref6, model6, cfg6, hdp6)
+        by_class6 = {}
+        for W, Dpad, P, prob in segs6:
+            by_class6.setdefault((W, P), []).append(prob)
+        tables = hdp_tables(*hdp6.density_arrays(), dev)
+        hdp_rows, hdp_bounds = {}, {}
+        for (W, P), probs in sorted(by_class6.items()):
+            probs = sorted(probs, key=lambda q: q.n_diag)[:2]
+            pth = problem_tensors(probs, W, dev, tables)
+            r = kernels_vs_twins(hk, bfb, pth, threshold, R)
+            hdp_rows[(W, P)] = r
+            hdp_bounds[(W, P)] = sweep_bounds(bfb, pth, r["n_kernel"])
+            floor = 1e-3 * barrier_us * max(pth.n_diag)
+            log(f"[hdp kernels P={P} W={W} K={cells_per_thread(P * W)}] "
+                f"{len(probs)} problems n_diag {min(pth.n_diag)}..{max(pth.n_diag)}: "
+                f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
+                f"bound {hdp_bounds[(W, P)]['sa_fwd_sweep'][0]:.4f} ms), "
+                f"sa_bwd_sweep_compact {r['bwd_ms']:.3f} ms (twin "
+                f"{r['bwd_plain_ms']:.1f} ms, bound "
+                f"{hdp_bounds[(W, P)]['sa_bwd_sweep_compact'][0]:.4f} ms), "
+                f"serial floor {floor:.3f} ms; |d total| "
+                f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
+                f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
+                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}")
+        ks6 = sorted({cells_per_thread(P * W) for W, P in hdp_rows})
+        log(f"[hdp kernels] instances held here K={ks6}; "
+            "tests/test_torch_kernels_cuda.py holds HDP at K=1, 2, 4, 8")
+        del tables
+
+        # ---- 6b. HDP calls and pairs on the GPU against the CPU (twins)
+        small6 = sorted(rgs6, key=lambda rg: rg[0].events.shape[0])[:2]
+        worst_calls = worst_pairs = 0.0
+        for kw in ({"call_variants": "CE"}, {}):
+            on_cpu = run_alignment_batch(small6, ref6, model6, cfg6, hdp6,
+                                         device=torch.device("cpu"), **kw)
+            on_gpu = run_alignment_batch(small6, ref6, model6, cfg6, hdp6,
+                                         device=dev, **kw)
+            check(len(on_cpu) == len(on_gpu) == 2, "small HDP batch lost a read")
+            for a, g in zip(on_cpu, on_gpu):
+                check(abs(a.total_log_prob - g.total_log_prob) <= TOL_TOTAL,
+                      f"{a.read_label}: HDP total {g.total_log_prob} vs cpu "
+                      f"{a.total_log_prob}")
+                if kw:
+                    check(len(g.variant_calls) > 0, f"{g.read_label}: no calls")
+                    worst_calls = max(worst_calls, compare_calls(
+                        a.variant_calls, g.variant_calls))
+                else:
+                    check(len(g.aligned_pairs) > 0, f"{g.read_label}: no pairs")
+                    worst_pairs = max(worst_pairs, compare_pairs(
+                        a.aligned_pairs, g.aligned_pairs, threshold))
+        check(worst_calls <= TOL_PATH and worst_pairs <= TOL_PATH,
+              f"HDP calls differ by {worst_calls}, pairs by {worst_pairs}")
+        log(f"[small hdp] {[r.events.shape[0] for r, _ in small6]} events: "
+            f"gpu = cpu, |d p_C| {worst_calls:.3e}, pairs |d p| "
+            f"{worst_pairs:.3e} (tol {TOL_PATH})")
+
+        # ---- 6c. HDP methylation calling at a realistic size
+        hk.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        t0 = time.perf_counter()
+        results = run_alignment_batch(rgs6, ref6, model6, cfg6, hdp6,
+                                      device=dev, call_variants="CE",
+                                      stage_seconds=stages)
+        t_hdp = time.perf_counter() - t0
+        hdp_launches = {"sa_fwd_sweep": hk.forward_sweep.launches,
+                        "sa_bwd_sweep_compact": hk.backward_sweep_compact.launches}
+        peak = torch.cuda.max_memory_allocated()
+        out_dir = os.path.join(tmp, "variants_hdp")
+        t0 = time.perf_counter()
+        written = write_outputs(results, model6, out_dir, "variants",
+                                variants="CE")
+        t_write = time.perf_counter() - t0
+        check(len(results) == len(rgs6), f"{len(rgs6) - len(results)} reads failed")
+        n_rows, n_c = check_calls(results, ref6.forward["synth"],
+                                  model6.kmer_length, "P", "CE")
+        names = [os.path.basename(w) for w in written]
+        for name in ("variants_aggregate.tsv", "variants_per_read.tsv"):
+            check(name in names and os.path.getsize(
+                os.path.join(out_dir, name)) > 0, f"{name} missing or empty")
+        check(len(names) == len(rgs6) + 2, f"{len(names)} variants files")
+        share_c = n_c / n_rows
+        check(share_c >= MIN_SHARE_C_HDP,
+              f"HDP share of sites called C {share_c:.3f} < {MIN_SHARE_C_HDP}")
+        check(all(hdp_launches.values()),
+              f"a kernel was not launched in HDP mode: {hdp_launches}")
+        buckets6 = {}
+        for W, Dpad, P, prob in segs6:
+            buckets6.setdefault((W, Dpad, P), []).append(prob)
+        wp6 = {(W, P): len(v) for (W, P), v in by_class6.items()}
+        log(f"[hdp] {len(results)} reads, {n_events6} events, {n_rows} site "
+            f"rows, share called C {share_c:.4f} (bound {MIN_SHARE_C_HDP}), "
+            f"{len(written)} files")
+        log("[hdp] segments by (W, P): " + " ".join(
+            f"{w},{p}:{n}" for (w, p), n in sorted(wp6.items()))
+            + f" ({len(segs6)} segments in {len(buckets6)} buckets)")
+        log("[hdp] stages " + " ".join(f"{s_}={v:.2f}s" for s_, v in stages.items())
+            + f" write={t_write:.2f}s")
+        log(f"[hdp] table upload {table_bytes / 2**20:.1f} MiB in "
+            f"{stages['hdp_upload']:.3f} s, once per run_alignment_batch")
+        log(f"[hdp] run_alignment_batch {t_hdp:.2f} s: "
+            f"{n_events6 / t_hdp:.0f} events/s; kernels stage "
+            f"{n_events6 / stages['kernels']:.0f} events/s; "
+            f"peak device memory {peak / 2**30:.2f} GiB")
+        log(f"[hdp] launches {hdp_launches}")
+
+        # ---- 6d. kernel time of each phase-6 bucket, by CUDA events
+        log_kernel_sums("hdp", kernel_sums(
+            hk, bfb, problem_tensors, _stack_chunks, buckets6, dev, threshold,
+            R, hdp_tables(*hdp6.density_arrays(), dev)), t_hdp)
 
     def err(r, name):
         return max(r["tf_err"], r["fdiff"]) if name == "sa_fwd_sweep" \
@@ -484,25 +764,46 @@ def main():
     kernels = []
     for name, src, ms in (
             ("sa_fwd_sweep", "signalalign_tpu/ops/banded_fb_pallas_batch.py:569 "
-             "(+ signalalign_tpu/ops/banded_fb_pallas.py:216)", "fwd_"),
+             "(+ signalalign_tpu/ops/banded_fb_pallas.py:216; its estream "
+             "mode with signalalign_tpu/ops/emission_stream.py:75 and :46)",
+             "fwd_"),
             ("sa_bwd_sweep_compact",
              "signalalign_tpu/ops/banded_fb_pallas_batch.py:775 "
              "(+ signalalign_tpu/ops/banded_fb_pallas.py:326, "
-             "signalalign_tpu/ops/banded_fb_pallas_batch.py:1407)", "bwd_")):
+             "signalalign_tpu/ops/banded_fb_pallas_batch.py:1407; its "
+             "estream mode with signalalign_tpu/ops/emission_stream.py:75 "
+             "and :46)", "bwd_")):
         err_pn = max(err(r, name) for r in paths_rows.values())
+        err_hdp = max(err(r, name) for r in hdp_rows.values())
+        by_phase = {"4": launches[name], "5": site_launches[name],
+                    "6": hdp_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "signalalign_tpu_torch/csrc/banded_fb.cu", "replaces": src,
-            # the two main-path runs (phases 4 and 5), each counted from 0
-            "launches": launches[name] + site_launches[name],
-            "max_abs_err": max(err(p1, name), err_pn),
+            # the three main-path runs (phases 4, 5 and 6c), each counted
+            # from 0
+            "launches": sum(by_phase.values()),
+            "max_abs_err": max(err(p1, name), err_pn, err_hdp),
             "ms": p1[ms + "ms"], "plain_ms": p1[ms + "plain_ms"],
-            "launches_by_phase": {"4": launches[name], "5": site_launches[name]},
+            "bound_ms": p1_bounds[name][0], "bound_by": p1_bounds[name][1],
+            # no single PyTorch call computes a banded pair-HMM sweep
+            "library_ms": None,
+            "serial_floor_ms": p1_floor,
+            "launches_by_phase": by_phase,
             "max_abs_err_p1": err(p1, name), "max_abs_err_p_gt_1": err_pn,
+            "max_abs_err_hdp": err_hdp,
             "ms_by_W_P": {f"{W},{P}": r[ms + "ms"]
                           for (W, P), r in paths_rows.items()},
             "plain_ms_by_W_P": {f"{W},{P}": r[ms + "plain_ms"]
-                                for (W, P), r in paths_rows.items()}})
+                                for (W, P), r in paths_rows.items()},
+            "bound_ms_by_W_P": {f"{W},{P}": b[name][0]
+                                for (W, P), b in paths_bounds.items()},
+            "ms_by_W_P_hdp": {f"{W},{P}": r[ms + "ms"]
+                              for (W, P), r in hdp_rows.items()},
+            "plain_ms_by_W_P_hdp": {f"{W},{P}": r[ms + "plain_ms"]
+                                    for (W, P), r in hdp_rows.items()},
+            "bound_ms_by_W_P_hdp": {f"{W},{P}": b[name][0]
+                                    for (W, P), b in hdp_bounds.items()}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,13 +12,15 @@ and their plain twins read.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from signalalign_tpu_torch.models.hdp_model import NanoporeHDP
 from signalalign_tpu_torch.models.pore_model import PoreModel
 from signalalign_tpu_torch.ops import banded_fb as bfb
+from signalalign_tpu_torch.utils.alphabet import Alphabet
 
 
 def pore_model_from_numpy(src) -> PoreModel:
@@ -30,6 +32,42 @@ def pore_model_from_numpy(src) -> PoreModel:
                  "noise_mean", "noise_sd", "noise_lambda"):
         setattr(model, name, np.array(getattr(src, name)))
     return model
+
+
+def hdp_from_numpy(src) -> NanoporeHDP:
+    """The port's NanoporeHDP from any object with the same fields (a JAX
+    ``signalalign_tpu.models.hdp_model.NanoporeHDP``); arrays are copied."""
+
+    def cp(v):
+        if isinstance(v, list):
+            return [None if a is None else np.array(a) for a in v]
+        return None if v is None else np.array(v)
+
+    return NanoporeHDP(
+        alphabet=Alphabet(src.alphabet.letters, src.alphabet.kmer_length),
+        grid=np.array(src.grid), densities=np.array(src.densities),
+        slopes=np.array(src.slopes), observed=np.array(src.observed),
+        num_dps=int(src.num_dps), dp_densities=cp(src.dp_densities),
+        dp_slopes=cp(src.dp_slopes), dp_parent=cp(src.dp_parent))
+
+
+def hdp_tables(dens: np.ndarray, slopes: np.ndarray, g0: float, dx: float,
+               device: torch.device) -> bfb.HdpTables:
+    """Upload an HDP's (K, NG) float32 density and slope tables
+    (``NanoporeHDP.density_arrays()``, or a problem's ``hdp_dens``,
+    ``hdp_slopes`` and ``hdp_grid``) to ``device``, one copy each, to be
+    shared by every bucket of a run; g0 and dx are rounded to float32 and
+    the last knot is g0 + (NG - 1) * dx in float32, as the JAX package
+    computes it."""
+    if dens.shape != slopes.shape or dens.ndim != 2 or dens.shape[1] < 2:
+        raise ValueError(f"HDP tables of shapes {dens.shape}, {slopes.shape}")
+    g0_, dx_ = np.float32(g0), np.float32(dx)
+    gN = g0_ + np.float32(dens.shape[1] - 1) * dx_
+    return bfb.HdpTables(
+        dens=torch.from_numpy(np.ascontiguousarray(dens, np.float32)).to(device),
+        slopes=torch.from_numpy(
+            np.ascontiguousarray(slopes, np.float32)).to(device),
+        g0=float(g0_), dx=float(dx_), gN=float(gN))
 
 
 def problem_from_numpy(src) -> bfb.BandedProblem:
@@ -44,10 +82,10 @@ def problem_from_numpy(src) -> bfb.BandedProblem:
 
 
 def _check_slice(p: bfb.BandedProblem) -> None:
-    if p.mode != bfb.MODE_MEAN_ONLY:
+    if p.mode not in (bfb.MODE_MEAN_ONLY, bfb.MODE_HDP):
         raise NotImplementedError(
-            f"emission mode {p.mode}: the port runs MODE_MEAN_ONLY; HDP "
-            "emissions come with ROADMAP slice 2b")
+            f"emission mode {p.mode}: the port runs MODE_MEAN_ONLY and "
+            "MODE_HDP")
     P = p.ref_params.shape[1]
     if P > bfb.MAX_P:
         raise NotImplementedError(
@@ -65,14 +103,31 @@ def legality_bits(legal: np.ndarray) -> np.ndarray:
 
 
 def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
-                    device: torch.device) -> bfb.ProblemTensors:
-    """Stack one bucket's mean-only problems (P <= 8 paths, the bucket's
-    P is their largest) into padded tensors on ``device`` (one
-    host-to-device copy per tensor)."""
+                    device: torch.device,
+                    hdp: Optional[bfb.HdpTables] = None) -> bfb.ProblemTensors:
+    """Stack one bucket's problems (P <= 8 paths, the bucket's P is their
+    largest) into padded tensors on ``device`` (one host-to-device copy
+    per tensor). A MODE_HDP bucket also gets per-(problem, path, position)
+    k-mer ids and level means, and needs ``hdp``: the run's tables on
+    ``device``, uploaded once (``hdp_tables``) and shared, not copied.
+    Mixed-mode buckets raise."""
     if not problems:
         raise ValueError("empty bucket")
+    modes = {p.mode for p in problems}
+    if len(modes) > 1:
+        raise ValueError(f"bucket mixes emission modes {sorted(modes)}")
+    hdp_mode = problems[0].mode == bfb.MODE_HDP
+    if hdp_mode:
+        if hdp is None:
+            raise ValueError("a MODE_HDP bucket needs the HDP tables (hdp=)")
+    elif hdp is not None:
+        raise ValueError("HDP tables given for a MODE_MEAN_ONLY bucket")
     for p in problems:
         _check_slice(p)
+        if hdp_mode and (p.hdp_dens.shape != tuple(hdp.dens.shape)
+                         or np.float32(p.hdp_grid[0]) != np.float32(hdp.g0)
+                         or np.float32(p.hdp_grid[1]) != np.float32(hdp.dx)):
+            raise ValueError("a problem was prepared with other HDP tables")
         if int(p.width.max()) > W:
             raise ValueError(f"band width {int(p.width.max())} exceeds W={W}")
         # the W-wide windows of the sweeps must fit in the problem's tables
@@ -91,6 +146,8 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
     ev = np.zeros((B, bfb.NEV, LE), np.float32)
     meta = np.zeros((B, bfb.NMETA), np.int32)
     par = np.zeros((B, bfb.NPACK), np.float32)
+    kid = np.zeros((B, P, LX), np.int32) if hdp_mode else None
+    mu = np.zeros((B, P, LX), np.float32) if hdp_mode else None
     for i, p in enumerate(problems):
         n = min(D1, p.x0.shape[0])
         x0[i, :n] = p.x0[:n]
@@ -108,11 +165,21 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         par[i, bfb.PACK_START:bfb.PACK_START + 3] = p.start_logs
         par[i, bfb.PACK_END:bfb.PACK_END + 3] = p.end_logs
         par[i, bfb.PACK_GAPX] = bfb.LOG_GAPX_EMISSION
+        par[i, bfb.PACK_VAR] = p.var
+        if hdp_mode:
+            kid[i, :p.kmer_ids.shape[0], :lx] = p.kmer_ids
+            mu[i, :p.ref_params.shape[1], :lx] = p.ref_params[7]
 
     def dev(a):
         return torch.from_numpy(a).to(device)
 
+    x0 = dev(x0)
+    if hdp_mode and hdp.dens.device != x0.device:
+        raise ValueError(f"HDP tables on {hdp.dens.device}, bucket on "
+                         f"{x0.device}")
     return bfb.ProblemTensors(
-        W=W, P=P, n_diag=[p.n_diag for p in problems], x0=dev(x0),
+        W=W, P=P, n_diag=[p.n_diag for p in problems], x0=x0,
         width=dev(width), ref=dev(ref), leg=dev(leg), ev=dev(ev),
-        meta=dev(meta), par=dev(par))
+        meta=dev(meta), par=dev(par),
+        kid=dev(kid) if hdp_mode else None, mu=dev(mu) if hdp_mode else None,
+        hdp=hdp)

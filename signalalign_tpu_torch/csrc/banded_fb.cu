@@ -1,15 +1,21 @@
 // Hand-written Hopper kernels for the banded forward-backward of
-// signalalign_tpu_torch: MODE_MEAN_ONLY Gaussian emissions, 1 <= P <= 8
-// paths per cell (degenerate reference positions expand into paths).
+// signalalign_tpu_torch: MODE_MEAN_ONLY Gaussian or MODE_HDP spline
+// emissions, 1 <= P <= 8 paths per cell (degenerate reference positions
+// expand into paths).
 //
 // sa_fwd_sweep replaces the TPU forward kernels
 //   signalalign_tpu/ops/banded_fb_pallas.py        _fwd_kernel      (pallas_forward, P=1)
-//   signalalign_tpu/ops/banded_fb_pallas_batch.py  _fwd_kernel_log  (pallas_forward_b, PP=1 and PP>1)
+//   signalalign_tpu/ops/banded_fb_pallas_batch.py  _fwd_kernel_log  (pallas_forward_b, PP=1 and PP>1,
+//                                                                    estream)
 // sa_bwd_sweep_compact replaces the TPU backward and compaction kernels
 //   signalalign_tpu/ops/banded_fb_pallas.py        _bwd_kernel      (fuse_post, P=1)
 //   signalalign_tpu/ops/banded_fb_pallas_batch.py  _bwd_kernel_log  (fuse_post + fuse_compact PP=1,
-//                                                                    fuse_post PP>1)
+//                                                                    fuse_post PP>1, estream)
 //   signalalign_tpu/ops/banded_fb_pallas_batch.py  _compact_map_kernel (PP>1 survivors)
+// and, in their HDP instances (template flag HDP), the HDP emission
+// stream the TPU sweeps read:
+//   signalalign_tpu/ops/emission_stream.py  _spline_eval_banked_kernel (banked table DMA)
+//   signalalign_tpu/ops/emission_stream.py  _spline_eval_fused_kernel  (per-tile windows)
 // Both keep the output contract of the plain DP in
 // signalalign_tpu_torch/ops/banded_fb.py (sweep_forward / sweep_backward):
 // max-normalised diagonals plus per-diagonal offset increments. They do
@@ -40,6 +46,24 @@
 // into the sweep (a warp ballot + per-warp counts published by the
 // diagonal's second barrier), so no posterior stack is ever written.
 //
+// HDP emissions (log((1/var) * Hermite spline of the descaled mean) over
+// the k-mer's density/slope rows on a uniform grid, hdp_log_emission
+// below) are computed inline too, where the sweeps need them: no
+// (diagonal, cell, path) emission stack is written or read, and no extra
+// launch runs. The TPU wrote that stack, with banked table DMA, select
+// trees and `ebnd` boundary rows, only because Mosaic has no gather
+// (emission_stream.py:1-29); here each spline is four loads from the
+// k-mer's table rows in device memory (two density, two slope values at
+// the interval's knots). What bounds the HDP instances is still the
+// serial diagonal chain, now lengthened by that gather chain: the tables
+// (2 x 224 MB at 46,656 k-mers x 1,200 points) do not fit the 50 MB L2,
+// but within a block the k-mer row is fixed per (position, path) and
+// neighbouring diagonals read nearby knots, so the loads mostly hit L1/L2.
+// The backward evaluates the match-to emission once per legal (source,
+// target) path pair (up to P^2 per offset); illegal pairs skip it. The
+// Gaussian instances compile without any of it (if constexpr), to the
+// code of the Gaussian-only kernels.
+//
 // Numerics: float32 values with precise expf/logf/log1pf (no fast math),
 // built with --fmad=false so each operation rounds as in the plain twin,
 // the logaddexp formulation of torch.logaddexp and the twin's legal
@@ -57,10 +81,11 @@ constexpr int MATCH = 0, GAP_X = 1, GAP_Y = 2;
 constexpr int T_MM = 0, T_MX = 1, T_MY = 2, T_XM = 3, T_XX = 4, T_YM = 6,
               T_YY = 8;
 // ProblemTensors layout (signalalign_tpu_torch/ops/banded_fb.py)
-constexpr int NREF = 5, NEV = 2, NMETA = 8, NPACK = 16;
+constexpr int NREF = 5, NEV = 2, NMETA = 8, NPACK = 17;
 constexpr int M_LX = 0, M_LY = 1, M_NDIAG = 2, M_EVPAD = 3, M_REFLEN = 4,
               M_EVLEN = 5;
-constexpr int PACK_TRANS = 0, PACK_START = 9, PACK_END = 12, PACK_GAPX = 15;
+constexpr int PACK_TRANS = 0, PACK_START = 9, PACK_END = 12, PACK_GAPX = 15,
+              PACK_VAR = 16;
 constexpr int MAX_P = 8;                        // legality: 8 bits per path
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_K = 8;                        // cells per thread
@@ -90,6 +115,50 @@ __device__ __forceinline__ float legal_lse(const float* v, int P) {
   for (int q = 0; q < MAX_P; ++q)
     if (q < P) s += expf(v[q] - mx);
   return mx + logf(fmaxf(s, 1e-37f));
+}
+
+// HDP tables of a bucket: per-(problem, path, position) k-mer ids and
+// unscaled level means (the layout of the ref rows), and the (nk, ng)
+// density and slope tables on the grid g0 + i * dx, i < ng (gN = its last
+// knot). All pointers are null for a Gaussian bucket.
+struct HdpTab {
+  const int* kid;        // (B, P, LX)
+  const float* mu;       // (B, P, LX)
+  const float* dens;     // (nk, ng)
+  const float* slopes;   // (nk, ng)
+  int nk, ng;
+  float g0, dx, gN;
+};
+
+// log((1/var) * spline density of k-mer k at x), NEG where it is 0: the
+// plain twin's hdp_log_emission (and the JAX hdp_spline_density) with the
+// interval index floor((x - g0) / dx) clamped to [0, ng - 2], linear
+// extension past either end of the grid and the negative clamp. Every
+// load index is inside the tables whatever x and k are.
+__device__ __forceinline__ float hdp_log_emission(float x, int k, float var,
+                                                  const HdpTab& h) {
+  const size_t row = (size_t)clampi(k, 0, h.nk - 1) * h.ng;
+  float v;
+  if (x <= h.g0) {
+    v = __ldg(h.dens + row) - __ldg(h.slopes + row) * (h.g0 - x);
+  } else if (x >= h.gN) {
+    const size_t e = row + h.ng - 1;
+    v = __ldg(h.dens + e) + __ldg(h.slopes + e) * (x - h.gN);
+  } else {
+    const float il = fminf(fmaxf(floorf((x - h.g0) / h.dx), 0.f),
+                           (float)(h.ng - 2));
+    const size_t i = row + (size_t)il;
+    const float yl = __ldg(h.dens + i), yr = __ldg(h.dens + i + 1);
+    const float sl = __ldg(h.slopes + i), sr = __ldg(h.slopes + i + 1);
+    const float dy = yr - yl;
+    const float a = sl * h.dx - dy;
+    const float b = dy - sr * h.dx;
+    const float tl = (x - (h.g0 + il * h.dx)) / h.dx;
+    const float tr = 1.f - tl;
+    v = tr * yl + tl * yr + tl * tr * (a * tr + b * tl);
+  }
+  v = fmaxf(v, 0.f) / var;
+  return v > 0.f ? logf(fmaxf(v, 1e-37f)) : NEG;
 }
 
 // Block-wide max or sum; blockDim.x is a multiple of 32. Contains one
@@ -136,15 +205,21 @@ struct Problem {
   const float* ev;                  // (NEV, LE)
   int lX, lY, nd, efp, reflen, evlen, P, LX, LE;
   float t[9], start[3], end[3], gapx;
+  // HDP buckets only
+  const int* kid;                   // (P, LX) k-mer ids
+  const float* mu;                  // (P, LX) level means
+  float var;
 
   __device__ void load(const int* x0_, const int* width_, const float* ref_,
                        const unsigned long long* leg_, const float* ev_,
-                       const int* meta_, const float* par_, int D1, int P_,
-                       int LX_, int LE_) {
+                       const int* meta_, const float* par_, const HdpTab& h,
+                       int D1, int P_, int LX_, int LE_) {
     const int b = blockIdx.x;
     x0 = x0_ + (size_t)b * D1;
     width = width_ + (size_t)b * D1;
     ref = ref_ + (size_t)b * NREF * P_ * LX_;
+    kid = h.kid ? h.kid + (size_t)b * P_ * LX_ : nullptr;
+    mu = h.mu ? h.mu + (size_t)b * P_ * LX_ : nullptr;
     leg = leg_ + (size_t)b * LX_;
     ev = ev_ + (size_t)b * NEV * LE_;
     P = P_;
@@ -164,11 +239,20 @@ struct Problem {
       end[i] = par[PACK_END + i];
     }
     gapx = par[PACK_GAPX];
+    var = par[PACK_VAR];
   }
 
   // reference row r of path p at column x
   __device__ __forceinline__ float rf(int r, int p, int x) const {
     return ref[((size_t)r * P + p) * LX + x];
+  }
+
+  // HDP log emission of path p at column x for an event of mean ev_mean:
+  // descaled mean mu + (ev_mean - m_hat) / var (the XLA formula)
+  __device__ __forceinline__ float hdp(int p, int x, float m_hat,
+                                       float ev_mean, const HdpTab& h) const {
+    const size_t i = (size_t)p * LX + x;
+    return hdp_log_emission(mu[i] + (ev_mean - m_hat) / var, kid[i], var, h);
   }
 };
 
@@ -180,22 +264,22 @@ __device__ __forceinline__ float rd(const float* slot, int s, int i, int p,
 
 // ---------------------------------------------------------------- forward
 
-template <int K>
+template <int K, bool HDP>
 __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_,
     const unsigned long long* __restrict__ leg_,
     const float* __restrict__ ev_, const int* __restrict__ meta_,
-    const float* __restrict__ par_, float* __restrict__ fstack,
-    float* __restrict__ f_incr, float* __restrict__ lse_f, int D1, int W,
-    int P_, int LX, int LE) {
+    const float* __restrict__ par_, const HdpTab h,
+    float* __restrict__ fstack, float* __restrict__ f_incr,
+    float* __restrict__ lse_f, int D1, int W, int P_, int LX, int LE) {
   extern __shared__ float smem[];
   const int N = P_ * W;
   float* ring = smem;              // [2 slots][3 states][N], cell o*P + p
   float* part = smem + 6 * N;      // [32] reduction partials
   __shared__ Problem pr;
   if (threadIdx.x == 0)
-    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, D1, P_, LX, LE);
+    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE);
   for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) ring[i] = NEG;
   __syncthreads();
 
@@ -237,17 +321,30 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
       const int o = c / P, p = c - o * P;
       if (c < N && o < wd) {
         const int xr = rs + o, je = es + o;
-        const float m_hat = pr.rf(0, p, xr), inv_m = pr.rf(1, p, xr),
-                    c_m = pr.rf(2, p, xr), inv_y = pr.rf(3, p, xr),
-                    c_y = pr.rf(4, p, xr);
-        const float ev_mean = pr.ev[je];
-        const bool kvalid = inv_m > 0.f;
-        const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
-        const unsigned lb = (unsigned)(pr.leg[xr] >> (p * MAX_P)) & 0xffu;
-        const float am = (ev_mean - m_hat) * inv_m;
-        const float ay = (ev_mean - m_hat) * inv_y;
-        const float e_match = ok ? c_m - 0.5f * am * am : NEG;
-        const float e_stay = ok ? c_y - 0.5f * ay * ay : NEG;
+        bool kvalid;
+        unsigned lb;
+        float e_match, e_stay;
+        if constexpr (HDP) {
+          const float m_hat = pr.rf(0, p, xr), inv_m = pr.rf(1, p, xr);
+          const float ev_mean = pr.ev[je];
+          kvalid = inv_m > 0.f;
+          const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
+          lb = (unsigned)(pr.leg[xr] >> (p * MAX_P)) & 0xffu;
+          // stay = match (emissions_signal_getHdpKmerDensity)
+          e_match = e_stay = ok ? pr.hdp(p, xr, m_hat, ev_mean, h) : NEG;
+        } else {
+          const float m_hat = pr.rf(0, p, xr), inv_m = pr.rf(1, p, xr),
+                      c_m = pr.rf(2, p, xr), inv_y = pr.rf(3, p, xr),
+                      c_y = pr.rf(4, p, xr);
+          const float ev_mean = pr.ev[je];
+          kvalid = inv_m > 0.f;
+          const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
+          lb = (unsigned)(pr.leg[xr] >> (p * MAX_P)) & 0xffu;
+          const float am = (ev_mean - m_hat) * inv_m;
+          const float ay = (ev_mean - m_hat) * inv_y;
+          e_match = ok ? c_m - 0.5f * am * am : NEG;
+          e_stay = ok ? c_y - 0.5f * ay * ay : NEG;
+        }
         const float e_gapx = kvalid ? pr.gapx : NEG;
 
         // gapX from (x-1, y) and match from (x-1, y-1), over the legal
@@ -305,13 +402,14 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
 
 // ----------------------------------------------- backward + compaction
 
-template <int K>
+template <int K, bool HDP>
 __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_,
     const unsigned long long* __restrict__ leg_,
     const float* __restrict__ ev_, const int* __restrict__ meta_,
-    const float* __restrict__ par_, const float* __restrict__ fstack,
+    const float* __restrict__ par_, const HdpTab h,
+    const float* __restrict__ fstack,
     const double* __restrict__ cvecf, float* __restrict__ b_incr,
     float* __restrict__ lse_b, int* __restrict__ slot_cell,
     float* __restrict__ slot_val, int* __restrict__ cnt, int D1, int W,
@@ -323,7 +421,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
   int* wcnt = reinterpret_cast<int*>(part + 32);    // [K][32] survivors
   __shared__ Problem pr;
   if (threadIdx.x == 0)
-    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, D1, P_, LX, LE);
+    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE);
   for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) ring[i] = NEG;
   __syncthreads();
 
@@ -375,11 +473,17 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
           const float ev_mean = pr.ev[je];
           const bool evok = pr.ev[pr.LE + je] > 0.5f;
           // gapY TO cell (x, y+1) on the same path
-          const float m_hat0 = pr.rf(0, q, xr0), inv_m0 = pr.rf(1, q, xr0),
-                      inv_y0 = pr.rf(3, q, xr0), c_y0 = pr.rf(4, q, xr0);
-          const float ay = (ev_mean - m_hat0) * inv_y0;
-          const float e_stay_same =
-              (inv_m0 > 0.f && evok) ? c_y0 - 0.5f * ay * ay : NEG;
+          float e_stay_same;
+          if constexpr (HDP) {
+            const float m_hat0 = pr.rf(0, q, xr0), inv_m0 = pr.rf(1, q, xr0);
+            e_stay_same = (inv_m0 > 0.f && evok)
+                              ? pr.hdp(q, xr0, m_hat0, ev_mean, h) : NEG;
+          } else {
+            const float m_hat0 = pr.rf(0, q, xr0), inv_m0 = pr.rf(1, q, xr0),
+                        inv_y0 = pr.rf(3, q, xr0), c_y0 = pr.rf(4, q, xr0);
+            const float ay = (ev_mean - m_hat0) * inv_y0;
+            e_stay_same = (inv_m0 > 0.f && evok) ? c_y0 - 0.5f * ay * ay : NEG;
+          }
           const float gy_term = rd(b1, GAP_Y, o + u1, q, W, N, P) + e_stay_same;
           // gapX TO (x+1, y) and match TO (x+1, y+1), over the target
           // paths p that may follow q: legal[p, q] at x+1
@@ -389,11 +493,21 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
           for (int p = 0; p < MAX_P; ++p) {
             if (p < P) {
               const bool leg = (lw >> (p * MAX_P + q)) & 1ull;
-              const float m_hat1 = pr.rf(0, p, xr1), inv_m1 = pr.rf(1, p, xr1),
-                          c_m1 = pr.rf(2, p, xr1);
-              const float am = (ev_mean - m_hat1) * inv_m1;
-              const float e_match_to =
-                  (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am : NEG;
+              float inv_m1, e_match_to;
+              if constexpr (HDP) {
+                const float m_hat1 = pr.rf(0, p, xr1);
+                inv_m1 = pr.rf(1, p, xr1);
+                // only a legal target's emission is read below
+                e_match_to = (inv_m1 > 0.f && evok && leg)
+                                 ? pr.hdp(p, xr1, m_hat1, ev_mean, h) : NEG;
+              } else {
+                const float m_hat1 = pr.rf(0, p, xr1);
+                inv_m1 = pr.rf(1, p, xr1);
+                const float c_m1 = pr.rf(2, p, xr1);
+                const float am = (ev_mean - m_hat1) * inv_m1;
+                e_match_to = (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am
+                                                    : NEG;
+              }
               const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
               tgx[p] = leg ? rd(b1, GAP_X, o + u1 + 1, p, W, N, P) + gapx_valid
                            : NEG;
@@ -488,89 +602,125 @@ bool shape_ok(int W, int P) {
   return W >= 1 && P >= 1 && P <= MAX_P && P * W <= MAX_CELLS;
 }
 
-template <int K>
-int fwd_launch(const int* x0, const int* width, const float* ref,
-               const unsigned long long* leg, const float* ev,
-               const int* meta, const float* par, float* fstack,
-               float* f_incr, float* lse_f, int B, int D1, int W, int P,
-               int LX, int LE, cudaStream_t stream) {
-  const int N = P * W;
+// The device pointers and sizes of one bucket.
+struct Bucket {
+  const int* x0;
+  const int* width;
+  const float* ref;
+  const unsigned long long* leg;
+  const float* ev;
+  const int* meta;
+  const float* par;
+  HdpTab h;
+  int B, D1, W, P, LX, LE;
+};
+
+template <int K, bool HDP>
+int fwd_launch(const Bucket& a, float* fstack, float* f_incr, float* lse_f,
+               cudaStream_t stream) {
+  const int N = a.P * a.W;
   const size_t smem = (6 * (size_t)N + 32) * sizeof(float);
-  cudaFuncSetAttribute(sa_fwd_sweep_kernel<K>,
+  cudaFuncSetAttribute(sa_fwd_sweep_kernel<K, HDP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_fwd_sweep_kernel<K><<<B, threads_for(N), smem, stream>>>(
-      x0, width, ref, leg, ev, meta, par, fstack, f_incr, lse_f, D1, W, P,
-      LX, LE);
+  sa_fwd_sweep_kernel<K, HDP><<<a.B, threads_for(N), smem, stream>>>(
+      a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, f_incr,
+      lse_f, a.D1, a.W, a.P, a.LX, a.LE);
   return (int)cudaGetLastError();
 }
 
-template <int K>
-int bwd_launch(const int* x0, const int* width, const float* ref,
-               const unsigned long long* leg, const float* ev,
-               const int* meta, const float* par, const float* fstack,
-               const double* cvecf, float* b_incr, float* lse_b,
-               int* slot_cell, float* slot_val, int* cnt, int B, int D1,
-               int W, int P, int LX, int LE, int R, float threshold,
-               cudaStream_t stream) {
-  const int N = P * W;
+template <bool HDP>
+int fwd_dispatch(const Bucket& a, float* fstack, float* f_incr, float* lse_f,
+                 cudaStream_t s) {
+  switch (cells_per_thread(a.P * a.W)) {
+    case 1: return fwd_launch<1, HDP>(a, fstack, f_incr, lse_f, s);
+    case 2: return fwd_launch<2, HDP>(a, fstack, f_incr, lse_f, s);
+    case 4: return fwd_launch<4, HDP>(a, fstack, f_incr, lse_f, s);
+    default: return fwd_launch<8, HDP>(a, fstack, f_incr, lse_f, s);
+  }
+}
+
+template <int K, bool HDP>
+int bwd_launch(const Bucket& a, const float* fstack, const double* cvecf,
+               float* b_incr, float* lse_b, int* slot_cell, float* slot_val,
+               int* cnt, int R, float threshold, cudaStream_t stream) {
+  const int N = a.P * a.W;
   const size_t smem =
       (6 * (size_t)N + 32) * sizeof(float) + K * 32 * sizeof(int);
-  cudaFuncSetAttribute(sa_bwd_sweep_compact_kernel<K>,
+  cudaFuncSetAttribute(sa_bwd_sweep_compact_kernel<K, HDP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_bwd_sweep_compact_kernel<K><<<B, threads_for(N), smem, stream>>>(
-      x0, width, ref, leg, ev, meta, par, fstack, cvecf, b_incr, lse_b,
-      slot_cell, slot_val, cnt, D1, W, P, LX, LE, R, threshold);
+  sa_bwd_sweep_compact_kernel<K, HDP><<<a.B, threads_for(N), smem, stream>>>(
+      a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, cvecf,
+      b_incr, lse_b, slot_cell, slot_val, cnt, a.D1, a.W, a.P, a.LX, a.LE, R,
+      threshold);
   return (int)cudaGetLastError();
+}
+
+template <bool HDP>
+int bwd_dispatch(const Bucket& a, const float* fstack, const double* cvecf,
+                 float* b_incr, float* lse_b, int* slot_cell, float* slot_val,
+                 int* cnt, int R, float threshold, cudaStream_t s) {
+  switch (cells_per_thread(a.P * a.W)) {
+    case 1: return bwd_launch<1, HDP>(a, fstack, cvecf, b_incr, lse_b,
+                                      slot_cell, slot_val, cnt, R, threshold, s);
+    case 2: return bwd_launch<2, HDP>(a, fstack, cvecf, b_incr, lse_b,
+                                      slot_cell, slot_val, cnt, R, threshold, s);
+    case 4: return bwd_launch<4, HDP>(a, fstack, cvecf, b_incr, lse_b,
+                                      slot_cell, slot_val, cnt, R, threshold, s);
+    default: return bwd_launch<8, HDP>(a, fstack, cvecf, b_incr, lse_b,
+                                       slot_cell, slot_val, cnt, R, threshold, s);
+  }
+}
+
+// A Gaussian bucket passes null HDP pointers; an HDP bucket all four
+// pointers and a grid of at least two knots.
+bool hdp_ok(const HdpTab& h) {
+  if (!h.dens) return !h.kid && !h.mu && !h.slopes;
+  return h.kid && h.mu && h.slopes && h.nk >= 1 && h.ng >= 2 && h.dx > 0.f;
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Every pointer is a device pointer of a
 // contiguous tensor; the kernels launch on `stream`, allocate nothing and
-// do not synchronise. Each returns cudaGetLastError() after its launch,
-// or cudaErrorInvalidValue for a shape it does not take (P > 8 or
-// P * W > 8192).
+// do not synchronise. kid, mu, dens and slopes are the HDP tables (kid
+// and mu (B, P, LX), dens and slopes (nk, ng) on the grid g0 + i * dx with
+// last knot gN), all null for a Gaussian bucket. Each returns
+// cudaGetLastError() after its launch, or cudaErrorInvalidValue for a
+// shape it does not take (P > 8 or P * W > 8192) or an incomplete set of
+// HDP tables.
 
 extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
                             const unsigned long long* leg, const float* ev,
-                            const int* meta, const float* par, float* fstack,
+                            const int* meta, const float* par, const int* kid,
+                            const float* mu, const float* dens,
+                            const float* slopes, float* fstack,
                             float* f_incr, float* lse_f, int B, int D1, int W,
-                            int P, int LX, int LE, void* stream) {
-  if (!shape_ok(W, P)) return (int)cudaErrorInvalidValue;
+                            int P, int LX, int LE, int nk, int ng, float g0,
+                            float dx, float gN, void* stream) {
+  const Bucket a{x0, width, ref, leg, ev, meta, par,
+                 HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
+                 B, D1, W, P, LX, LE};
+  if (!shape_ok(W, P) || !hdp_ok(a.h)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (cells_per_thread(P * W)) {
-    case 1: return fwd_launch<1>(x0, width, ref, leg, ev, meta, par, fstack,
-                                 f_incr, lse_f, B, D1, W, P, LX, LE, s);
-    case 2: return fwd_launch<2>(x0, width, ref, leg, ev, meta, par, fstack,
-                                 f_incr, lse_f, B, D1, W, P, LX, LE, s);
-    case 4: return fwd_launch<4>(x0, width, ref, leg, ev, meta, par, fstack,
-                                 f_incr, lse_f, B, D1, W, P, LX, LE, s);
-    default: return fwd_launch<8>(x0, width, ref, leg, ev, meta, par, fstack,
-                                  f_incr, lse_f, B, D1, W, P, LX, LE, s);
-  }
+  return dens ? fwd_dispatch<true>(a, fstack, f_incr, lse_f, s)
+              : fwd_dispatch<false>(a, fstack, f_incr, lse_f, s);
 }
 
 extern "C" int sa_bwd_sweep_compact(
     const int* x0, const int* width, const float* ref,
     const unsigned long long* leg, const float* ev, const int* meta,
-    const float* par, const float* fstack, const double* cvecf,
+    const float* par, const int* kid, const float* mu, const float* dens,
+    const float* slopes, const float* fstack, const double* cvecf,
     float* b_incr, float* lse_b, int* slot_cell, float* slot_val, int* cnt,
-    int B, int D1, int W, int P, int LX, int LE, int R, float threshold,
-    void* stream) {
-  if (!shape_ok(W, P)) return (int)cudaErrorInvalidValue;
+    int B, int D1, int W, int P, int LX, int LE, int R, int nk, int ng,
+    float threshold, float g0, float dx, float gN, void* stream) {
+  const Bucket a{x0, width, ref, leg, ev, meta, par,
+                 HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
+                 B, D1, W, P, LX, LE};
+  if (!shape_ok(W, P) || !hdp_ok(a.h)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (cells_per_thread(P * W)) {
-    case 1: return bwd_launch<1>(x0, width, ref, leg, ev, meta, par, fstack,
-                                 cvecf, b_incr, lse_b, slot_cell, slot_val,
-                                 cnt, B, D1, W, P, LX, LE, R, threshold, s);
-    case 2: return bwd_launch<2>(x0, width, ref, leg, ev, meta, par, fstack,
-                                 cvecf, b_incr, lse_b, slot_cell, slot_val,
-                                 cnt, B, D1, W, P, LX, LE, R, threshold, s);
-    case 4: return bwd_launch<4>(x0, width, ref, leg, ev, meta, par, fstack,
-                                 cvecf, b_incr, lse_b, slot_cell, slot_val,
-                                 cnt, B, D1, W, P, LX, LE, R, threshold, s);
-    default: return bwd_launch<8>(x0, width, ref, leg, ev, meta, par, fstack,
-                                  cvecf, b_incr, lse_b, slot_cell, slot_val,
-                                  cnt, B, D1, W, P, LX, LE, R, threshold, s);
-  }
+  return dens ? bwd_dispatch<true>(a, fstack, cvecf, b_incr, lse_b, slot_cell,
+                                   slot_val, cnt, R, threshold, s)
+              : bwd_dispatch<false>(a, fstack, cvecf, b_incr, lse_b,
+                                    slot_cell, slot_val, cnt, R, threshold, s);
 }

@@ -19,7 +19,7 @@ impl/signalMachineUtils.c:130-171 rebasing, impl/signalMachine.c:54-87):
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 from signalalign_tpu_torch.ops.band_geometry import filter_to_remove_overlap
 
@@ -78,16 +78,6 @@ class GuideAlignment:
                 k += length
         out.sort()
         return filter_to_remove_overlap(out)
-
-    def validate(self, read_length: Optional[int] = None) -> bool:
-        if self.window_start >= self.window_end:
-            return False
-        if self.query_start >= self.query_end:
-            return False
-        if read_length is not None and self.query_end > read_length:
-            return False
-        ref_len = sum(l for l, op in self.ops if op in REF_OPS)
-        return ref_len == self.window_length
 
 
 def adjust_reference_coordinate(x: int, ref_offset: int, target_len: int,

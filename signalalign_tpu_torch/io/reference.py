@@ -67,9 +67,6 @@ class ProcessedReference:
             self.forward[name] = fwd
             self.backward[name] = bwd
 
-    def contig_length(self, name: str) -> int:
-        return len(self.forward[name])
-
     def template_target(self, name: str, start: int, end: int,
                         forward_mapped: bool) -> str:
         """Trimmed target sequence for the template strand: the edited

@@ -7,8 +7,8 @@ Cells on one anti-diagonal share xay; the band restricts each diagonal to
 [xmyL, xmyR] with xmy stepping by 2.
 
 This reproduces the geometry of the reference band iterator
-(band_construct / band_setCurrentDiagonal, /root/reference/impl/
-pairwiseAligner.c:155-246): anchors (x, y) become waypoints (x+1, y+1) in
+(band_construct / band_setCurrentDiagonal, the reference's
+impl/pairwiseAligner.c:155-246): anchors (x, y) become waypoints (x+1, y+1) in
 matrix coordinates; between consecutive waypoints the band is the
 intersection of each diagonal with a rectangle whose corners are the two
 waypoints expanded by ``expansion`` along the xmy axis.

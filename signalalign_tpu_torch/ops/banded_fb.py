@@ -1,9 +1,9 @@
 """Banded forward-backward for the port: the host problem build (numpy,
 field for field with ``signalalign_tpu.ops.banded_fb``) and the plain
-PyTorch DP of the canonical slice.
+PyTorch DP.
 
-The DP is the ``MODE_MEAN_ONLY`` specialisation of the JAX
-``_banded_sweeps_core`` for 1 <= P <= 8 paths per cell: a Python loop
+The DP is the ``MODE_MEAN_ONLY`` and ``MODE_HDP`` specialisation of the
+JAX ``_banded_sweeps_core`` for 1 <= P <= 8 paths per cell: a Python loop
 over anti-diagonals, vectorised over problems x paths x band offsets, in
 the band-offset frame (cell (d, p, o) is x = x0[d] + o, y = d - x on path
 p). gapX and match take the legal logsumexp over source paths, gapY
@@ -71,7 +71,8 @@ PACK_TRANS = 0    # 9 log transitions
 PACK_START = 9    # 3 start-state logs
 PACK_END = 12     # 3 end-state logs
 PACK_GAPX = 15    # gapX log emission
-NPACK = 16
+PACK_VAR = 16     # the read's var (HDP descaling and density prefactor)
+NPACK = 17
 
 
 @dataclasses.dataclass
@@ -295,6 +296,8 @@ def prepare_problem(
     if mode == MODE_HDP:
         if hdp is None:
             raise ValueError("MODE_HDP requires an hdp model")
+        # the HDP's own float32 tables, converted once and shared by every
+        # problem (not copied per problem)
         hdp_dens, hdp_slopes, g0, dx = hdp.density_arrays()
         hdp_grid = np.array([g0, dx], dtype=np.float32)
 
@@ -393,14 +396,79 @@ class ProblemTensors:
     ev: torch.Tensor       # (B, NEV, LE) f32
     meta: torch.Tensor     # (B, NMETA) int32
     par: torch.Tensor      # (B, NPACK) f32
+    # MODE_HDP buckets only (None for Gaussian ones): per-(problem, path,
+    # position) k-mer ids and unscaled level means (ref_params row 7), in
+    # the layout of ``ref``, and the run's shared density tables
+    kid: Optional[torch.Tensor] = None    # (B, P, LX) int32
+    mu: Optional[torch.Tensor] = None     # (B, P, LX) f32
+    hdp: Optional["HdpTables"] = None
 
     @property
     def device(self) -> torch.device:
         return self.x0.device
 
 
+@dataclasses.dataclass
+class HdpTables:
+    """An HDP's float32 density and slope tables on one device, with its
+    grid g0 + i * dx, i < NG (``gN`` its last knot). g0, dx and gN are
+    float32 values (held as Python floats), computed as the JAX package
+    computes them, so the kernels and their twins use the same numbers.
+    One instance serves every bucket of a run."""
+    dens: torch.Tensor     # (K, NG) f32
+    slopes: torch.Tensor   # (K, NG) f32
+    g0: float
+    dx: float
+    gN: float
+
+    @property
+    def NG(self) -> int:
+        return self.dens.shape[1]
+
+    @property
+    def K(self) -> int:
+        return self.dens.shape[0]
+
+
+def hdp_spline_density(x, kid, tables: HdpTables):
+    """Hermite spline density of k-mer ``kid`` at ``x`` (same shapes) on
+    the HDP grid, linear past either end, clamped at 0: the plain twin of
+    the kernels' spline and the JAX ``hdp_spline_density``
+    (``ops/banded_fb.py:351``), whose formula it keeps. The interval index
+    is floor((x - g0) / dx) clamped to [0, NG - 2], as in the kernels."""
+    NG, g0, dx, gN = tables.NG, tables.g0, tables.dx, tables.gN
+    # divide by a tensor on x's device: PyTorch's CUDA division by a
+    # Python number multiplies by its reciprocal, which rounds otherwise
+    # than the kernels' (and the JAX package's) division
+    dx_t = torch.tensor(dx, dtype=x.dtype, device=x.device)
+    il = torch.clamp(torch.floor((x - g0) / dx_t), 0, NG - 2)
+    row = torch.clamp(kid.long(), 0, tables.K - 1) * NG
+    i = row + il.long()
+    dens = tables.dens.reshape(-1)
+    slopes = tables.slopes.reshape(-1)
+    yl, yr = dens[i], dens[i + 1]
+    sl, sr = slopes[i], slopes[i + 1]
+    dy = yr - yl
+    a = sl * dx - dy
+    b = dy - sr * dx
+    tl = (x - (g0 + il * dx)) / dx_t
+    tr = 1.0 - tl
+    mid = tr * yl + tl * yr + tl * tr * (a * tr + b * tl)
+    below = dens[row] - slopes[row] * (g0 - x)
+    above = dens[row + NG - 1] + slopes[row + NG - 1] * (x - gN)
+    v = torch.where(x <= g0, below, torch.where(x >= gN, above, mid))
+    return torch.clamp(v, min=0.0)
+
+
+def hdp_log_emission(x, kid, var, tables: HdpTables):
+    """log((1/var) * spline density), NEG where the density is 0 (the XLA
+    ``_emissions_at`` MODE_HDP)."""
+    v = hdp_spline_density(x, kid, tables) / var
+    return torch.where(v > 0, torch.log(torch.clamp(v, min=1e-37)), NEG)
+
+
 # --------------------------------------------------------------------------
-# plain PyTorch DP (1 <= P <= MAX_P paths, MODE_MEAN_ONLY)
+# plain PyTorch DP (1 <= P <= MAX_P paths, MODE_MEAN_ONLY or MODE_HDP)
 # --------------------------------------------------------------------------
 
 def _lae(a, b):
@@ -453,15 +521,23 @@ def _legal_reduce(src, legal):
     return m + torch.log(torch.clamp(s, min=1e-37))
 
 
-def _emissions(refw, evw, gapx):
-    """Mean-only match / stay / gapX log emissions, (B, P, W) each, from
-    (B, NREF, P, W) reference and (B, NEV, W) event windows."""
+def _emissions(refw, evw, gapx, hdpw=None):
+    """Match / stay / gapX log emissions, (B, P, W) each, from
+    (B, NREF, P, W) reference and (B, NEV, W) event windows: mean-only
+    Gaussian, or with ``hdpw`` = (k-mer id window, level-mean window (B,
+    P, W), var (B, 1, 1), HdpTables) the HDP spline of the descaled mean
+    x = mu + (mean - m_hat) / var, stay = match (the XLA formula)."""
     m_hat, inv_m, c_m, inv_y, c_y = refw.unbind(1)
     ev_mean = evw[:, 0, None]
-    am = (ev_mean - m_hat) * inv_m
-    ay = (ev_mean - m_hat) * inv_y
-    e_match = c_m - 0.5 * am * am
-    e_stay = c_y - 0.5 * ay * ay
+    if hdpw is None:
+        am = (ev_mean - m_hat) * inv_m
+        ay = (ev_mean - m_hat) * inv_y
+        e_match = c_m - 0.5 * am * am
+        e_stay = c_y - 0.5 * ay * ay
+    else:
+        kidw, muw, var, tables = hdpw
+        e_match = e_stay = hdp_log_emission(muw + (ev_mean - m_hat) / var,
+                                            kidw, var, tables)
     kvalid = inv_m > 0.0
     ok = kvalid & (evw[:, 1, None] > 0.5)
     return (torch.where(ok, e_match, NEG), torch.where(ok, e_stay, NEG),
@@ -478,6 +554,16 @@ def _lse(cur, logs):
     """Per-problem logsumexp of a (B, 3, P, W) diagonal weighted by (B, 3)."""
     v = torch.clamp(cur + logs[:, :, None, None], min=NEG)
     return torch.logsumexp(v.reshape(v.shape[0], -1), dim=1)
+
+
+def _hdp_window(pt: ProblemTensors, start, length):
+    """The HDP arguments of ``_emissions`` at columns [s, s+W) of each
+    problem; None for a Gaussian bucket."""
+    if pt.hdp is None:
+        return None
+    kidw, _ = _cols(pt.kid, start, length, pt.W)
+    muw, _ = _cols(pt.mu, start, length, pt.W)
+    return kidw, muw, pt.par[:, PACK_VAR, None, None], pt.hdp
 
 
 def _unpack(pt: ProblemTensors):
@@ -519,7 +605,8 @@ def sweep_forward(pt: ProblemTensors):
         refw, _ = _cols(pt.ref, xd, reflen, W)
         legw = _legal(pt, xd, reflen)
         evw, _ = _cols(pt.ev, lY - d + xd + efp, evlen, W)
-        e_match, e_stay, e_gapx = _emissions(refw, evw, gapx)
+        e_match, e_stay, e_gapx = _emissions(refw, evw, gapx,
+                                             _hdp_window(pt, xd, reflen))
 
         shift1 = xd - x0[:, d - 1] - 1
         shift2 = xd - x0[:, d - 2] - 1 if d >= 2 else no_diag
@@ -582,8 +669,10 @@ def sweep_backward(pt: ProblemTensors):
         # legal[p_to, q_from] at x+1, read from the source path q
         leg_t = _legal(pt, xd + 1, reflen).transpose(1, 2)
         evy1, _ = _cols(pt.ev, lY - d + xd + efp - 1, evlen, W)
-        e_match_to = _emissions(refx1, evy1, gapx)[0]
-        e_stay_same = _emissions(refx0, evy1, gapx)[1]
+        e_match_to = _emissions(refx1, evy1, gapx,
+                                _hdp_window(pt, xd + 1, reflen))[0]
+        e_stay_same = _emissions(refx0, evy1, gapx,
+                                 _hdp_window(pt, xd, reflen))[1]
         gapx_valid = torch.where(refx1[:, 1] > 0.0, gapx, NEG)
 
         u1 = xd - x0[:, d + 1] if d + 1 < D1 else no_diag

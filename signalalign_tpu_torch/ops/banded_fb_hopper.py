@@ -1,19 +1,25 @@
 """The port's two Hopper kernels, their plain twins, and the aligner that
-drives them over one bucket of problems with 1 <= P <= 8 paths per cell.
+drives them over one bucket of problems with 1 <= P <= 8 paths per cell,
+Gaussian (MODE_MEAN_ONLY) or HDP (MODE_HDP) emissions.
 
 ``forward_sweep`` launches ``sa_fwd_sweep`` and ``backward_sweep_compact``
 launches ``sa_bwd_sweep_compact`` (``csrc/banded_fb.cu``) on CUDA tensors;
 on CPU tensors each uses its plain twin (``forward_sweep_ref``,
 ``backward_sweep_compact_ref``), which has the same signature and output
-contract. A CUDA tensor never falls back: a missing ``nvcc``, a failed
-build, a shape the kernels do not take or a refused launch raises. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+contract. An HDP bucket's tensors carry its k-mer ids, level means and
+the run's shared density tables (``ProblemTensors.kid``/``mu``/``hdp``),
+which the kernels' HDP instances read. A CUDA tensor never falls back: a
+missing ``nvcc``, a failed build, a shape the kernels do not take, a
+missing table or a refused launch raises. Each wrapper counts its kernel
+launches in ``<wrapper>.launches``.
 
 ``HopperAligner`` is the counterpart of the JAX package's
 ``PallasAligner.execute`` (``ops/banded_fb_pallas.py``), of
 ``PallasBatchAligner.execute_async`` (``ops/banded_fb_pallas_batch.py``;
-the P = 1 ``fuse_compact`` branch and the P > 1 ``fuse_post`` +
-``_compact_map_kernel`` branch) and of its ``execute_site_marginals``:
+the P = 1 ``fuse_compact`` branch, the P > 1 ``fuse_post`` +
+``_compact_map_kernel`` branch and the ``estream`` HDP branch with its
+``emission_stream.hdp_emission_stacks``) and of its
+``execute_site_marginals``:
 forward sweep, float64 normaliser scan, backward sweep with in-sweep
 posterior + survivor compaction, then either the survivors decoded to
 aligned pairs or their posteriors summed per site on the device.
@@ -21,7 +27,7 @@ aligned pairs or their posteriors summed per site on the device.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,14 +40,23 @@ from signalalign_tpu_torch.utils import cuda_build
 def _check_cuda(pt: bfb.ProblemTensors) -> None:
     if pt.device.type != "cuda":
         raise ValueError(f"tensors on {pt.device}: the kernels run on CUDA")
-    for name, dtype in (("x0", torch.int32), ("width", torch.int32),
-                        ("ref", torch.float32), ("leg", torch.int64),
-                        ("ev", torch.float32), ("meta", torch.int32),
-                        ("par", torch.float32)):
-        t = getattr(pt, name)
-        if t.dtype != dtype or not t.is_contiguous() or t.device != pt.device:
+    i32, f32 = torch.int32, torch.float32
+    tensors = [("x0", pt.x0, i32), ("width", pt.width, i32),
+               ("ref", pt.ref, f32), ("leg", pt.leg, torch.int64),
+               ("ev", pt.ev, f32), ("meta", pt.meta, i32),
+               ("par", pt.par, f32)]
+    hdp = pt.hdp is not None
+    if hdp:
+        tensors += [("kid", pt.kid, i32), ("mu", pt.mu, f32),
+                    ("hdp.dens", pt.hdp.dens, f32),
+                    ("hdp.slopes", pt.hdp.slopes, f32)]
+    elif pt.kid is not None or pt.mu is not None:
+        raise ValueError("k-mer id / level-mean tensors without HDP tables")
+    for name, t, dtype in tensors:
+        if (t is None or t.dtype != dtype or not t.is_contiguous()
+                or t.device != pt.device):
             raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
-                             f"{pt.device}, got {t.dtype} on {t.device}")
+                             f"{pt.device}")
     B, D1 = pt.x0.shape
     LX = pt.ref.shape[-1]
     if (pt.width.shape != (B, D1) or pt.ref.shape[:3] != (B, bfb.NREF, pt.P)
@@ -49,6 +64,10 @@ def _check_cuda(pt: bfb.ProblemTensors) -> None:
             or pt.meta.shape != (B, bfb.NMETA)
             or pt.par.shape != (B, bfb.NPACK)):
         raise ValueError("ProblemTensors shapes disagree")
+    if hdp and (pt.kid.shape != (B, pt.P, LX) or pt.mu.shape != (B, pt.P, LX)
+                or pt.hdp.slopes.shape != pt.hdp.dens.shape
+                or pt.hdp.NG < 2):
+        raise ValueError("HDP tensor shapes disagree")
 
 
 def _check_out(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
@@ -58,15 +77,24 @@ def _check_out(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
                          f"tensor on {dev}")
 
 
-def _launch(name: str, pt: bfb.ProblemTensors, tensors, *scalars) -> None:
-    """Call C entry point ``name`` with the pointers of ``pt``'s tensors,
-    then of ``tensors``, then ``scalars`` and the current stream of
-    ``pt``'s device; raises if the launch was refused."""
+def _launch(name: str, pt: bfb.ProblemTensors, tensors, ints,
+            floats=()) -> None:
+    """Call C entry point ``name`` with the pointers of ``pt``'s tensors
+    and HDP tables (null for a Gaussian bucket), then of ``tensors``, then
+    ``ints``, the HDP table sizes, ``floats``, the HDP grid and the
+    current stream of ``pt``'s device; raises if the launch was refused."""
     fn = getattr(cuda_build.load(), name)
+    h = pt.hdp
+    hdp_ptrs = ([t.data_ptr() for t in (pt.kid, pt.mu, h.dens, h.slopes)]
+                if h is not None else [None] * 4)
     ptrs = [t.data_ptr() for t in (pt.x0, pt.width, pt.ref, pt.leg, pt.ev,
-                                   pt.meta, pt.par, *tensors)]
+                                   pt.meta, pt.par)]
+    ptrs += hdp_ptrs + [t.data_ptr() for t in tensors]
+    sizes = (h.K, h.NG) if h is not None else (0, 0)
+    grid = (h.g0, h.dx, h.gN) if h is not None else (0.0, 0.0, 0.0)
     with torch.cuda.device(pt.device):
-        rc = fn(*ptrs, *scalars, torch.cuda.current_stream().cuda_stream)
+        rc = fn(*ptrs, *ints, *sizes, *floats, *grid,
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed (P={pt.P}, W={pt.W}): "
                            f"CUDA error {rc}")
@@ -95,7 +123,7 @@ def forward_sweep(pt: bfb.ProblemTensors):
     f_incr = torch.empty(B, D1, dtype=torch.float32, device=dev)
     lse_f = torch.empty(B, dtype=torch.float32, device=dev)
     _launch("sa_fwd_sweep", pt, (fstack, f_incr, lse_f),
-            B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1])
+            (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1]))
     forward_sweep.launches += 1
     return fstack, f_incr, lse_f
 
@@ -160,8 +188,8 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     cnt = torch.empty(B, D1, dtype=torch.int32, device=dev)
     _launch("sa_bwd_sweep_compact", pt,
             (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt),
-            B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1], R,
-            float(threshold))
+            (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1], R),
+            (float(threshold),))
     backward_sweep_compact.launches += 1
     return b_incr, lse_b, slot_cell, slot_val, cnt
 
@@ -206,13 +234,15 @@ def decode_pairs(problem: bfb.BandedProblem, d: np.ndarray, cell: np.ndarray,
 
 
 class HopperAligner:
-    """One bucket of mean-only problems with 1 <= P <= 8 paths per cell on
-    one device."""
+    """One bucket of problems with 1 <= P <= 8 paths per cell on one
+    device. A MODE_HDP bucket takes ``hdp_tables``: the run's HDP tables,
+    already on ``device`` (``convert.hdp_tables``)."""
 
     def __init__(self, problems: Sequence[bfb.BandedProblem], W: int,
-                 device: torch.device):
+                 device: torch.device,
+                 hdp_tables: Optional[bfb.HdpTables] = None):
         self.problems = list(problems)
-        self.pt = problem_tensors(self.problems, W, device)
+        self.pt = problem_tensors(self.problems, W, device, hdp_tables)
 
     def _survivors(self, threshold: float):
         """Both sweeps on the device; returns device tensors (problem b,

@@ -9,7 +9,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from signalalign_tpu_torch.convert import problem_tensors
+from signalalign_tpu_torch.convert import hdp_tables, problem_tensors
 from signalalign_tpu_torch.ops import banded_fb as bfb
 
 
@@ -18,13 +18,17 @@ def run_banded_fb_batch(problems: Sequence[bfb.BandedProblem], W: int, P: int,
                         device: torch.device) -> List[Dict]:
     """Run a same-bucket batch of P-path problems; returns per-problem
     result dicts with the full posterior "post" ((Dpad+1, P, W) numpy),
-    "total_f" and "total_b"."""
+    "total_f" and "total_b". A MODE_HDP bucket uploads the first
+    problem's HDP tables, as the JAX function replicates them."""
     if with_expectations:
         raise NotImplementedError(
             "EM expectations come with ROADMAP slice 3 (EM training)")
     if not problems:
         return []
-    pt = problem_tensors(problems, W, device)
+    p0 = problems[0]
+    hdp = (hdp_tables(p0.hdp_dens, p0.hdp_slopes, *p0.hdp_grid, device)
+           if p0.mode == bfb.MODE_HDP else None)
+    pt = problem_tensors(problems, W, device, hdp)
     if pt.P != P:
         raise ValueError(f"bucket P={P} but its problems have P={pt.P}")
     fstack, f_incr, lse_f = bfb.sweep_forward(pt)

@@ -1,12 +1,15 @@
 """Multi-read signal alignment in the port: the Gaussian (MODE_MEAN_ONLY)
-branch of ``signalalign_tpu.pipeline.runner.run_alignment_batch`` for
-segments of 1 <= P <= 8 paths per cell, with pair output or site-mode
+and HDP (MODE_HDP) branches of
+``signalalign_tpu.pipeline.runner.run_alignment_batch`` for segments of
+1 <= P <= 8 paths per cell, with pair output or site-mode
 variant/methylation calling.
 
 Reads are prepared on the host (scaling, anchors, band geometry,
 segment and path-class splits, ``prepare_problem``), bucketed by shape,
 and each bucket runs through ``HopperAligner``: the Hopper kernels on a
-CUDA device, their plain twins on the CPU. The JAX runner's small-bucket
+CUDA device, their plain twins on the CPU. In HDP mode the HDP's tables
+are converted to float32 once, shared by every problem, and uploaded to
+the device once per call. The JAX runner's small-bucket
 gate, lane packing, XLA fallback and per-device stripe queues exist for
 TPU reasons and have no counterpart here.
 """
@@ -30,7 +33,9 @@ from signalalign_tpu_torch.io.output import (posterior_score,
                                              write_assignments_tsv,
                                              write_full_tsv, write_vc_tsv)
 from signalalign_tpu_torch.io.read import NanoporeReadData
+from signalalign_tpu_torch.convert import hdp_tables
 from signalalign_tpu_torch.io.reference import ProcessedReference
+from signalalign_tpu_torch.models.hdp_model import NanoporeHDP
 from signalalign_tpu_torch.models.pore_model import PoreModel
 from signalalign_tpu_torch.ops import banded_fb as bfb
 from signalalign_tpu_torch.ops.band_geometry import (band_widths, build_band,
@@ -78,7 +83,8 @@ def _path_blocks(w_chars: str, k: int, anchors, lX: int, lY: int,
 
 def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
                  reference: ProcessedReference, model: PoreModel,
-                 config: AlignmentConfig, strand_template: bool = True):
+                 config: AlignmentConfig, hdp: Optional[NanoporeHDP] = None,
+                 strand_template: bool = True):
     """Host-side prep of one read -> (target, params, events, ev_start,
     [((x1, y1), problem, W, Dpad, P)])."""
     k = model.kmer_length
@@ -157,19 +163,21 @@ def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
                     seg_chars, seg_events, model, params, config.ambig_map,
                     W=W, Dpad=Dpad, P=P, mode=config.emission_mode,
                     anchor_pairs=p_anchors,
-                    expansion=config.diagonal_expansion)
+                    expansion=config.diagonal_expansion, hdp=hdp)
                 tasks.append(((x1 + ax1, y1 + ay1), problem, W, Dpad, P))
     return target, params, events, ev_start, tasks
 
 
-def _check_slice(config: AlignmentConfig) -> None:
+def _check_slice(config: AlignmentConfig, hdp) -> None:
     if config.compute_expectations:
         raise NotImplementedError(
             "compute_expectations (EM training) comes with ROADMAP slice 3")
-    if config.emission_mode != bfb.MODE_MEAN_ONLY:
+    if config.emission_mode not in (bfb.MODE_MEAN_ONLY, bfb.MODE_HDP):
         raise NotImplementedError(
             f"emission mode {config.emission_mode}: the port runs "
-            "MODE_MEAN_ONLY; MODE_HDP comes with ROADMAP slice 2b")
+            "MODE_MEAN_ONLY and MODE_HDP")
+    if config.emission_mode == bfb.MODE_HDP and hdp is None:
+        raise ValueError("MODE_HDP requires an hdp model (hdp=)")
 
 
 def _stack_chunks(idxs: List[int], W: int, Dpad: int,
@@ -193,6 +201,7 @@ def run_alignment_batch(
     reference: ProcessedReference,
     model: PoreModel,
     config: Optional[AlignmentConfig] = None,
+    hdp: Optional[NanoporeHDP] = None,
     *,
     device: torch.device,
     strand_template: bool = True,
@@ -202,6 +211,8 @@ def run_alignment_batch(
 ) -> List[ReadAlignment]:
     """Align many reads: prep -> shape buckets -> one ``HopperAligner``
     per bucket on ``device`` -> per-read results (failed reads dropped).
+    ``config.emission_mode`` MODE_HDP takes its emissions from ``hdp``
+    (the JAX runner's keyword), whose tables go to ``device`` once.
 
     ``call_variants`` (the candidate bases, e.g. "CT" for the ``Y`` code
     of a CpG motif edition) switches to site-mode calling, as in the JAX
@@ -212,12 +223,13 @@ def run_alignment_batch(
 
     A bucket with more than 8 paths per cell raises before anything
     launches. ``stage_seconds``, when given, receives the wall seconds of
-    each stage: "prep" (host), "kernels" (upload, both sweeps, survivor or
-    site-sum fetch; ends in a device synchronisation), "decode" (survivors
-    to pairs) and "assemble".
+    each stage: "prep" (host), "hdp_upload" (HDP mode: the tables to the
+    device), "kernels" (upload, both sweeps, survivor or site-sum fetch;
+    ends in a device synchronisation), "decode" (survivors to pairs) and
+    "assemble".
     """
     config = config or AlignmentConfig()
-    _check_slice(config)
+    _check_slice(config, hdp)
     config = config.for_batch(len(reads_and_guides))
     site_mode = call_variants is not None
     stages: Dict[str, float] = defaultdict(float)
@@ -232,7 +244,7 @@ def run_alignment_batch(
     def prep_one(rg):
         read, guide = rg
         try:
-            return prepare_read(read, guide, reference, model, config,
+            return prepare_read(read, guide, reference, model, config, hdp,
                                 strand_template=strand_template), None
         except Exception as exc:  # per-read fault isolation
             # (reference: KEY:FAILED handling, signalAlignment.py:627-737)
@@ -275,6 +287,12 @@ def run_alignment_batch(
             raise NotImplementedError(
                 f"bucket of P={P} paths per cell (W={W}): the port runs "
                 f"P <= {bfb.MAX_P}; three-way ambiguity codes exceed it")
+    tables = None
+    if config.emission_mode == bfb.MODE_HDP:
+        tables = hdp_tables(*hdp.density_arrays(), device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        mark("hdp_upload")
 
     seg_results: List[Optional[dict]] = [None] * len(tasks)
     for (W, Dpad, P), idxs in buckets.items():
@@ -285,7 +303,8 @@ def run_alignment_batch(
                 seg_results[i] = {"total_f": 0.0, "total_b": 0.0}
             continue
         for chunk in _stack_chunks(idxs, W, Dpad, P):
-            aligner = HopperAligner([tasks[i][3] for i in chunk], W, device)
+            aligner = HopperAligner([tasks[i][3] for i in chunk], W, device,
+                                    tables)
             if site_mode:
                 res = aligner.site_sums([cells[i] for i in chunk],
                                         config.threshold)

@@ -106,12 +106,13 @@ def _bucket_d(d: int) -> int:
 
 def align_read(read: NanoporeReadData, guide: GuideAlignment,
                reference: ProcessedReference, model: PoreModel,
-               config: Optional[AlignmentConfig] = None, *,
+               config: Optional[AlignmentConfig] = None, hdp=None, *,
                device: torch.device,
                strand_template: bool = True) -> ReadAlignment:
-    """Align one read strand against its guide window (a batch of one)."""
+    """Align one read strand against its guide window (a batch of one);
+    ``hdp`` gives MODE_HDP its emissions."""
     from signalalign_tpu_torch.pipeline.runner import run_alignment_batch
-    out = run_alignment_batch([(read, guide)], reference, model, config,
+    out = run_alignment_batch([(read, guide)], reference, model, config, hdp,
                               device=device, strand_template=strand_template,
                               verbose=True)
     if not out:

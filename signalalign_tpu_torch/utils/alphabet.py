@@ -60,7 +60,7 @@ DEFAULT_AMBIG_BASES: Dict[str, str] = {
 
 
 class Alphabet:
-    """A model alphabet with k-mer <-> rank conversions.
+    """A model alphabet with k-mer to rank conversions.
 
     The rank of a k-mer is its lexicographic index with digit values given by
     each base's position in the *sorted* alphabet.
@@ -86,13 +86,6 @@ class Alphabet:
         for j, c in enumerate(kmer):
             idx += self._base_to_digit[c] * int(self._powers[j])
         return idx
-
-    def index_to_kmer(self, index: int) -> str:
-        out = []
-        for p in self._powers:
-            d, index = divmod(index, int(p))
-            out.append(self.letters[d])
-        return "".join(out)
 
     def seq_to_digits(self, seq: str) -> np.ndarray:
         """Per-base digit values; -1 for characters outside the alphabet."""

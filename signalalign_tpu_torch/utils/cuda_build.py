@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``signalalign_tpu_torch/csrc``).
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``: no PyTorch
-headers, so a build takes seconds. The library lands in
+Each source compiles with its own ``nvcc`` for Hopper (``sm_90a``), all
+started together, and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes``: no PyTorch headers, so a build
+takes seconds. The library lands in
 ``build/torch_kernels/<source hash>/`` at the repository root, so an edit
 to a source triggers a rebuild and concurrent processes never load a
 half-written file. A missing ``nvcc`` or a failed build raises; nothing
@@ -31,18 +32,20 @@ LIB_NAME = "libsa_torch_kernels.so"
 # in the plain PyTorch twin (one kernel per op); measured on an H100, the
 # contracted build drifted 1e-3 in posteriors over 4k diagonals
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points of csrc/banded_fb.cu: (argtypes, restype)
 _SIGNATURES = {
-    "sa_fwd_sweep": ([_P] * 10 + [_I] * 6 + [_P], _I),
-    "sa_bwd_sweep_compact": ([_P] * 14 + [_I] * 7 + [ctypes.c_float, _P], _I),
+    "sa_fwd_sweep": ([_P] * 14 + [_I] * 8 + [_F] * 3 + [_P], _I),
+    "sa_bwd_sweep_compact": ([_P] * 18 + [_I] * 9 + [_F] * 4 + [_P], _I),
+    # csrc/barrier_probe.cu (a timing probe, not a port of a TPU kernel)
+    "sa_barrier_probe": ([_I] * 3 + [_P] * 2, _I),
 }
 
 
@@ -77,21 +80,40 @@ class Build:
 
 
 def build() -> Build:
-    """Compile the sources unless the library for their hash exists."""
+    """Compile the sources unless the library for their hash exists: one
+    ``nvcc -c`` per source, run in parallel, then one link."""
     so = library_path()
     if os.path.exists(so):
         return Build(so, 0.0, "")
-    os.makedirs(os.path.dirname(so), exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    out_dir = os.path.dirname(so)
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{os.getpid()}.o")
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate(timeout=900)
+        log += out
+        if proc.returncode != 0:
+            failed.append(os.path.basename(src))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = f"{so}.{os.getpid()}.tmp"
+    link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                           *[obj for _, obj, _ in jobs]],
+                          capture_output=True, text=True, timeout=300)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
     os.replace(tmp, so)
-    return Build(so, seconds, log)
+    for _, obj, _ in jobs:
+        os.remove(obj)
+    return Build(so, time.perf_counter() - t0, log)
 
 
 def load() -> ctypes.CDLL:

@@ -12,6 +12,10 @@ width classes) has a real flowcell's diversity:
   * events per k-mer follow a geometric stay distribution (~1.4x);
   * motif editions of the reference (CpG ambiguity) give the natural
     P in {2, 4, 8} mix of methylation workloads.
+
+``synthetic_hdp`` builds an HDP emission model over a pore model's
+k-mers, and ``write_nhdp_text`` writes a small one as an ``.nhdp`` file
+that both packages' ``load_nhdp`` read.
 """
 
 from __future__ import annotations
@@ -25,9 +29,13 @@ import numpy as np
 from signalalign_tpu_torch.io.guide import GuideAlignment
 from signalalign_tpu_torch.io.read import NanoporeReadData
 from signalalign_tpu_torch.io.reference import ProcessedReference
+from signalalign_tpu_torch.models.hdp_model import NanoporeHDP
 from signalalign_tpu_torch.models.pore_model import PoreModel, ScalingParams
 
 BASES = "ACGT"
+# synthetic_hdp's heavy tail: weight and sd (pA) of its broad component
+TAIL_WEIGHT = 0.05
+TAIL_SD = 15.0
 
 
 def synthetic_pore_model(seed: int, alphabet: str = "ACGT",
@@ -42,6 +50,66 @@ def synthetic_pore_model(seed: int, alphabet: str = "ACGT",
     model.noise_sd = rng.uniform(0.1, 0.3, model.num_kmers)
     model.noise_lambda = model.noise_mean ** 3 / model.noise_sd ** 2
     return model
+
+
+def synthetic_hdp(model: PoreModel, seed: int, grid_start: float = 30.0,
+                  grid_stop: float = 180.0,
+                  grid_length: int = 1200) -> NanoporeHDP:
+    """A ``singleLevelFixed``-shaped HDP over every k-mer of ``model``,
+    sampled on np.linspace(grid_start, grid_stop, grid_length) (the
+    trainer's default grid) with the density's derivative as the knot
+    slopes. Every k-mer is observed. Per k-mer the density is a Gaussian
+    at the model's level_mean with sd level_sd times a width factor drawn
+    from ``seed`` in [1, 1.25), mixed with weight TAIL_WEIGHT with a
+    Gaussian of sd TAIL_SD at the same mean: the heavy tail an HDP
+    posterior predictive has. Without it the density underflows to 0 in
+    float32 some 13 sd from the level, and every alignment of a read with
+    a basecall error (an event no reference k-mer explains) has
+    probability 0. k-mers with an E keep the model's own random levels,
+    so C and E paths separate. Tables are float32 (46,656 x 1,200 x 4 B =
+    224 MB each for ACEGOT 6-mers), built 4,096 k-mers at a time."""
+    rng = np.random.default_rng(seed)
+    grid = np.linspace(grid_start, grid_stop, grid_length)
+    K = model.num_kmers
+    sd = model.level_sd * rng.uniform(1.0, 1.25, K)
+    dens = np.empty((K, grid_length), np.float32)
+    slopes = np.empty((K, grid_length), np.float32)
+    chunk = 4096
+    for k0 in range(0, K, chunk):
+        dx = grid[None, :] - model.level_mean[k0:k0 + chunk, None]
+        d = np.zeros(dx.shape)
+        s = np.zeros(dx.shape)
+        for w, sig in ((1.0 - TAIL_WEIGHT, sd[k0:k0 + chunk, None]),
+                       (TAIL_WEIGHT, TAIL_SD)):
+            pdf = w * np.exp(-0.5 * (dx / sig) ** 2) / (sig * np.sqrt(2 * np.pi))
+            d += pdf
+            s -= dx / sig ** 2 * pdf
+        dens[k0:k0 + chunk] = d
+        slopes[k0:k0 + chunk] = s
+    return NanoporeHDP(alphabet=model.alphabet, grid=grid, densities=dens,
+                       slopes=slopes, observed=np.ones(K, bool), num_dps=K)
+
+
+def write_nhdp_text(hdp: NanoporeHDP, path: str) -> str:
+    """Write ``hdp`` as an ``.nhdp`` file (serialize_nhdp's layout, one DP
+    per k-mer with no parent, finalized splines, full float precision),
+    for small tables: at 46,656 k-mers x 1,200 points the text is ~1 GB."""
+    fmt = "{:.17g}".format
+    a = hdp.alphabet
+    n = hdp.densities.shape[0]
+    g = hdp.grid
+    with open(path, "w") as fh:
+        fh.write(f"{a.size}\n{a.letters}\n{a.kmer_length}\n")
+        fh.write(f"1\n1\n0\n{n}\n")     # finalized, data, no gamma, DPs
+        fh.write("0\n0\n")                 # data, dp ids
+        fh.write("0 1 1 1\n")               # mu nu alpha beta
+        fh.write(f"{fmt(g[0])} {fmt(g[-1])} {len(g)}\n")
+        fh.write("1\n")                     # gamma params
+        fh.write("- 0\n" * n)               # parent, factor children
+        for table in (hdp.densities, hdp.slopes):
+            for row in np.asarray(table, np.float64):
+                fh.write(" ".join(fmt(v) for v in row) + "\n")
+    return path
 
 
 def synthetic_genome(rng: np.random.Generator, length: int = 400_000) -> str:

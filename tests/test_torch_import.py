@@ -25,15 +25,19 @@ def _run(code: str):
 
 
 def test_port_aligns_with_jax_and_h5py_blocked(tmp_path):
+    """Gaussian and HDP alignment on the CPU with signalalign_tpu, jax and
+    h5py blocked."""
     out = _run(f"""
         import sys
         sys.modules["signalalign_tpu"] = None   # importing it raises
         sys.modules["jax"] = None
         sys.modules["h5py"] = None      # not installed on every GPU host
         import torch
+        from signalalign_tpu_torch.ops.banded_fb import MODE_HDP
         from signalalign_tpu_torch.pipeline.runner import run_alignment_batch
+        from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
         from signalalign_tpu_torch.utils.synthetic import (
-            build_synthetic_batch, synthetic_pore_model)
+            build_synthetic_batch, synthetic_hdp, synthetic_pore_model)
         model = synthetic_pore_model(0)
         rgs, ref, _, _, _ = build_synthetic_batch(
             model, n_reads=1, ev_min=300, ev_max=400, seed=2,
@@ -41,7 +45,12 @@ def test_port_aligns_with_jax_and_h5py_blocked(tmp_path):
         res = run_alignment_batch(rgs, ref, model,
                                   device=torch.device("cpu"))
         assert len(res) == 1 and len(res[0].aligned_pairs) > 100
-        print("pairs", len(res[0].aligned_pairs))
+        hdp = synthetic_hdp(model, 1, grid_length=61)
+        res_hdp = run_alignment_batch(rgs, ref, model,
+                                      AlignmentConfig(emission_mode=MODE_HDP),
+                                      hdp, device=torch.device("cpu"))
+        assert len(res_hdp) == 1 and len(res_hdp[0].aligned_pairs) > 100
+        print("pairs", len(res[0].aligned_pairs), len(res_hdp[0].aligned_pairs))
     """)
     assert "pairs" in out
 

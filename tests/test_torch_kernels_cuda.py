@@ -1,7 +1,8 @@
 """Each Hopper kernel of the port against its plain PyTorch twin on the
 card, for P = 1 and for P = 2, 4 and 8 paths per cell, with every
-kernel instance (1, 2, 4 and 8 cells per thread). Needs a CUDA GPU
-and nvcc; skipped without a GPU. On a GPU host:
+kernel instance (1, 2, 4 and 8 cells per thread), with Gaussian and with
+HDP emissions. Needs a CUDA GPU and nvcc; skipped without a GPU. On a GPU
+host:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
@@ -15,12 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from signalalign_tpu.models.pore_model import ScalingParams
-from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
-from signalalign_tpu_torch.convert import problem_tensors
+from signalalign_tpu_torch.convert import hdp_tables, problem_tensors
+from signalalign_tpu_torch.models.pore_model import ScalingParams
 from signalalign_tpu_torch.ops import banded_fb as bfb
 from signalalign_tpu_torch.ops import banded_fb_hopper as hk
-from signalalign_tpu_torch.utils.synthetic import synthetic_pore_model
+from signalalign_tpu_torch.utils.alphabet import DEFAULT_AMBIG_BASES
+from signalalign_tpu_torch.utils.synthetic import (synthetic_hdp,
+                                                   synthetic_pore_model)
 
 pytestmark = pytest.mark.cuda
 THR = 0.01
@@ -33,24 +35,39 @@ def dev():
     return torch.device("cuda")
 
 
-def _problems(n, sizes, gap, W, Dpad, seed, P=1):
+# HDP cases: a 5-mer ACEGT model, its synthetic HDP on the trainer's grid
+# (30-180 pA, 1200 points) and the code P (C or E)
+HDP_MODEL = None
+
+
+def _hdp_model():
+    global HDP_MODEL
+    if HDP_MODEL is None:
+        model = synthetic_pore_model(0, "ACEGT", 5)
+        HDP_MODEL = model, synthetic_hdp(model, 1)
+    return HDP_MODEL
+
+
+def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False):
     """n problems with random lengths in ``sizes`` whose anchors (every 20
     events) leave out ``gap``, so the band bulges there. For P > 1 the
-    sequence carries the ambiguity code Y every 40 positions and a cluster
-    of log2(P) codes in one 5-mer every 400 (events read each Y as C)."""
-    model = synthetic_pore_model(0)
+    sequence carries the ambiguity code (Y, or P with ``hdp``) every 40
+    positions and a cluster of log2(P) codes in one 5-mer every 400
+    (events read each code as C). Returns (problems, the HDP or None)."""
+    model, h = _hdp_model() if hdp else (synthetic_pore_model(0), None)
+    code = "P" if hdp else "Y"
     rng = np.random.default_rng(seed)
-    cluster = {1: "", 2: "Y", 4: "YGY", 8: "YGYGY"}[P]
+    cluster = {1: "", 2: "Y", 4: "YGY", 8: "YGYGY"}[P].replace("Y", code)
     out = []
     for i in range(n):
         seq = list(rng.choice(list("ACGT"), size=int(rng.integers(*sizes))))
         if P > 1:
             for j in range(20, len(seq) - 8, 40):
-                seq[j] = "Y"
+                seq[j] = code
             for j in range(200, len(seq) - 8, 400):
                 seq[j:j + len(cluster)] = cluster
         seq = "".join(seq)
-        ids = model.alphabet.seq_to_kmer_ids(seq.replace("Y", "C"))
+        ids = model.alphabet.seq_to_kmer_ids(seq.replace(code, "C"))
         ev = np.stack([model.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
                        np.ones(len(ids)), np.full(len(ids), .005),
                        np.arange(len(ids)) * .005], 1)
@@ -58,36 +75,60 @@ def _problems(n, sizes, gap, W, Dpad, seed, P=1):
                    if not gap[0] < j < gap[1]]
         out.append(bfb.prepare_problem(
             seq, ev, model, ScalingParams(shift=0.1 * i), DEFAULT_AMBIG_BASES,
-            W=W, Dpad=Dpad, P=P, anchor_pairs=anchors, expansion=10))
+            W=W, Dpad=Dpad, P=P, anchor_pairs=anchors, expansion=10,
+            mode=bfb.MODE_HDP if hdp else bfb.MODE_MEAN_ONLY, hdp=h))
     assert max(int(p.n_paths.max()) for p in out) == P
-    return out
+    return out, h
 
 
 @pytest.fixture(scope="module",
-                params=["narrow", "wide", "p2", "p4", "p8", "p8w512", "p8wide"])
+                params=["narrow", "wide", "p2", "p4", "p8", "p8w512", "p8wide",
+                        "hdp_narrow", "hdp_p8", "hdp_p8w512", "hdp_p8wide"])
 def bucket(request):
-    """(problems, W): six W=256 P=1 problems as on the main path; two
-    whose bands pass 1024 offsets (W=1280: two cells per thread); four
-    W=256 problems of P = 2, 4 or 8 paths; two P=8 problems at W=512
-    (4096 cells: the four-cells-per-thread kernels); or two P=8 problems
-    at the widest W the runner makes (768: 6144 cells, six per thread)."""
+    """(problems, W, HDP or None): six W=256 P=1 problems as on the main
+    path; two whose bands pass 1024 offsets (W=1280: two cells per
+    thread); four W=256 problems of P = 2, 4 or 8 paths; two P=8 problems
+    at W=512 (4096 cells: the four-cells-per-thread kernels); or two P=8
+    problems at the widest W the runner makes (768: 6144 cells, six per
+    thread). The hdp_ cases run the HDP instances at cells per thread 1
+    (P=1, W=256), 2 (P=8, W=256), 4 (W=512) and 8 (W=768)."""
     name = request.param
+    hdp = name.startswith("hdp_")
+    name = name[4:] if hdp else name
     if name == "narrow":
-        return _problems(6, (200, 600), (100, 160), 256, 2048, 4), 256
+        return _case(_problems(6, (200, 600), (100, 160), 256, 2048, 4,
+                               hdp=hdp), 256)
     if name == "wide":
         probs = _problems(2, (1450, 1550), (200, 1300), 1280, 4096, 5)
-        assert max(int(p.width.max()) for p in probs) > 1024
-        return probs, 1280
+        assert max(int(p.width.max()) for p in probs[0]) > 1024
+        return _case(probs, 1280)
     if name == "p8w512":
-        probs = _problems(2, (1000, 1100), (200, 550), 512, 4096, 9, P=8)
-        assert max(int(p.width.max()) for p in probs) > 256
-        return probs, 512
+        probs = _problems(2, (1000, 1100), (200, 550), 512, 4096, 9, P=8,
+                          hdp=hdp)
+        assert max(int(p.width.max()) for p in probs[0]) > 256
+        return _case(probs, 512)
     if name == "p8wide":
-        probs = _problems(2, (1300, 1400), (200, 850), 768, 4096, 7, P=8)
-        assert max(int(p.width.max()) for p in probs) > 512
-        return probs, 768
+        probs = _problems(2, (1300, 1400), (200, 850), 768, 4096, 7, P=8,
+                          hdp=hdp)
+        assert max(int(p.width.max()) for p in probs[0]) > 512
+        return _case(probs, 768)
     P = int(name[1:])
-    return _problems(4, (700, 900), (100, 300), 256, 2048, 10 + P, P=P), 256
+    return _case(_problems(4, (700, 900), (100, 300), 256, 2048, 10 + P, P=P,
+                           hdp=hdp), 256)
+
+
+def _case(problems_hdp, W):
+    problems, h = problems_hdp
+    return problems, W, h
+
+
+def _hdp_tables(h, dev):
+    return hdp_tables(*h.density_arrays(), dev) if h is not None else None
+
+
+def _tensors(bucket, dev):
+    problems, W, h = bucket
+    return problem_tensors(problems, W, dev, _hdp_tables(h, dev))
 
 
 def _forward_both(pt):
@@ -99,7 +140,7 @@ def _forward_both(pt):
 
 
 def test_forward_kernel_matches_twin(dev, bucket):
-    pt = problem_tensors(*bucket, dev)
+    pt = _tensors(bucket, dev)
     n0 = hk.forward_sweep.launches
     nds, (f_k, fi_k, lf_k), (f_r, fi_r, lf_r) = _forward_both(pt)
     assert hk.forward_sweep.launches == n0 + 1
@@ -111,7 +152,7 @@ def test_forward_kernel_matches_twin(dev, bucket):
 
 
 def test_backward_kernel_matches_twin(dev, bucket):
-    pt = problem_tensors(*bucket, dev)
+    pt = _tensors(bucket, dev)
     nds, _, (f_r, fi_r, lf_r) = _forward_both(pt)
     fo, tf = bfb.forward_offsets(fi_r, lf_r, nds)
     cvecf = (fo - tf[:, None]).contiguous()
@@ -143,8 +184,11 @@ def test_aligner_on_gpu_matches_cpu(dev, bucket):
     on the card against the same path on the CPU (twins). The CPU's
     exp/log round otherwise, and a posterior's log terms reach hundreds
     of nats, where f32 resolves ~1e-4: pairs within 1e-3."""
-    gpu = hk.HopperAligner(*bucket, dev).execute(THR)
-    cpu = hk.HopperAligner(*bucket, torch.device("cpu")).execute(THR)
+    problems, W, h = bucket
+    cpu_dev = torch.device("cpu")
+    gpu = hk.HopperAligner(problems, W, dev, _hdp_tables(h, dev)).execute(THR)
+    cpu = hk.HopperAligner(problems, W, cpu_dev,
+                           _hdp_tables(h, cpu_dev)).execute(THR)
     for g, c in zip(gpu, cpu):
         assert abs(g["total_f"] - c["total_f"]) <= 1e-2
         dg = {(x, y, k): p for p, x, y, k in g["pairs"]}

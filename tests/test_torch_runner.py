@@ -1,7 +1,7 @@
 """The port's batch runner against the JAX runner on the CPU, on seeded
 synthetic reads: the XLA path and the Pallas interpret path, the TSVs
-written by write_outputs, output properties, and the features outside
-the port's slice."""
+written by write_outputs, output properties, HDP emissions through the
+same entry point, and the features outside the port's slice."""
 
 import numpy as np
 import pytest
@@ -21,6 +21,7 @@ from signalalign_tpu_torch.pipeline.runner import (run_alignment_batch,
                                                    write_outputs)
 from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
 from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                   synthetic_hdp,
                                                    synthetic_pore_model,
                                                    synthetic_read)
 
@@ -168,14 +169,30 @@ def test_output_properties(batch, port, tmp_path):
     assert len(written) == 2 * len(port)
 
 
-def test_outside_the_slice_raises(batch, tmp_path):
-    """HDP emissions and EM expectations still raise, naming their ROADMAP
-    slices; the variants format needs its candidate bases."""
+def test_hdp_emissions_run(batch):
+    """MODE_HDP through the same entry point with ``hdp=`` (a synthetic
+    HDP over the model's k-mers): every read aligns, its pairs sit within
+    [n/2, 3n] events with output k-mers equal to the reference, and its
+    totals agree."""
     model, rgs, reference = batch[1]
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        run_alignment_batch(rgs, reference, model,
-                            AlignmentConfig(emission_mode=MODE_HDP),
-                            device=CPU, call_variants="CT")
+    hdp = synthetic_hdp(model, 1, grid_length=121)
+    res = run_alignment_batch(rgs, reference, model,
+                              AlignmentConfig(emission_mode=MODE_HDP), hdp,
+                              device=CPU)
+    genome = reference.forward["synth"]
+    assert len(res) == len(rgs)
+    for (read, _), r in zip(rgs, res):
+        assert read.n_events // 2 <= len(r.aligned_pairs) <= 3 * read.n_events
+        assert r.max_total_gap < 1e-2 and r.total_log_prob > -1e29
+        for row in r.full_rows(model):
+            i = row.reference_index
+            assert genome[i:i + model.kmer_length] == row.reference_kmer
+
+
+def test_outside_the_slice_raises(batch, tmp_path):
+    """EM expectations still raise, naming their ROADMAP slice; the
+    variants format needs its candidate bases."""
+    model, rgs, reference = batch[1]
     with pytest.raises(NotImplementedError, match="slice 3"):
         run_alignment_batch(rgs, reference, model,
                             AlignmentConfig(compute_expectations=True),
