@@ -50,6 +50,13 @@ the serial-diagonal floor (longest problem's diagonals times the measured
 latency of a diagonal's two block barriers, phase 2) beside it.
 The last two lines are a JSON object per kernel and the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
+
+    python3 chip_smoke.py --kernel-sums [TREE]
+
+times only the Gaussian kernels of the port in TREE (a checkout; by
+default this one) on phase 3a's problems and every bucket of phases 4
+and 5, and prints one JSON line (no result line): run it for two
+checkouts in turns (A, B, B, A) in one job to compare their kernels.
 """
 
 import json
@@ -107,15 +114,15 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() over reps launches, by CUDA events. With
-    reps > 1, two untimed calls come first and their outputs are held
-    together, so that the caching allocator holds the blocks the timed
-    calls reuse: a cudaMalloc inside the timed window stalls the stream
-    (the likely cause of one run's 3a forward at 11.0 ms, where other
-    runs read 4.2-4.8 ms)."""
-    if reps > 1:
-        warm = [fn(), fn()]
-        del warm
+    """Mean milliseconds of fn() over reps launches, by CUDA events. Two
+    untimed calls come first and their outputs are held together, so that
+    the caching allocator holds the blocks the timed calls reuse: a
+    cudaMalloc inside the timed window stalls the stream (the likely cause
+    of one run's 3a forward at 11.0 ms, where other runs read 4.2-4.8 ms,
+    and of single-launch bucket times 15-70% above the same bucket's in
+    other runs)."""
+    warm = [fn(), fn()]
+    del warm
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -203,41 +210,55 @@ _POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
 
 def sweep_bounds(bfb, pt, n_surv):
     """Least times in ms, and what sets them, of the two sweeps on ``pt``'s
-    problems: the larger of the bytes each must move (every input read
-    once, every output written once: the fstack rows up to each problem's
-    n_diag, ``n_surv`` survivor slots; of an HDP table only one 16-byte
-    knot pair per distinct k-mer) over the HBM rate, and the
-    transcendentals its in-band cells need (counted per cell from the
-    kernels' formulas: two per logaddexp, P + 1 per legal logsumexp, one
-    per posterior and per HDP spline, the backward's spline once per legal
-    target path) over the SFU rate."""
+    problems: the larger of the bytes each must move over the HBM rate, and
+    the transcendentals its in-band cells need over the SFU rate.
+
+    Bytes: every input read once over each problem's own extents (x0 and
+    width up to n_diag, the reference rows and legality words over reflen,
+    the event rows over evlen; of the reference rows only m_hat and inv_m
+    in HDP mode, plus the k-mer ids and level means and one 16-byte knot
+    pair per distinct k-mer of a valid slot), every output written once
+    (the forward's fstack rows up to n_diag, the backward's ``n_surv``
+    survivor slots), and the backward's read of fstack only at in-band
+    cells. Transcendentals: counted per in-band cell from the kernels'
+    formulas (two per logaddexp, P + 1 per legal logsumexp, one per
+    posterior and per HDP spline, the backward's spline once per legal
+    target path)."""
     B, D1 = pt.x0.shape
     P, W = pt.P, pt.W
     x0 = pt.x0.cpu().numpy()
     width = pt.width.cpu().numpy()
-    nd = pt.meta[:, bfb.M_NDIAG].cpu().numpy()
+    meta = pt.meta.cpu().numpy()
     leg = pt.leg.cpu().numpy().view(np.uint64)
     hdp = pt.hdp is not None
-    cells = rows = legal = 0
+    cells = rows = legal = ref_cols = ev_cols = 0
     o = np.arange(W)
     for b in range(B):
-        n = int(nd[b]) + 1
+        n = int(meta[b, bfb.M_NDIAG]) + 1
         w = width[b, :n]
         cells += int(w.sum())
         rows += n
+        ref_cols += int(meta[b, bfb.M_REFLEN])
+        ev_cols += int(meta[b, bfb.M_EVLEN])
         if hdp:
             inb = o[None, :] < w[:, None]
             x = np.clip((x0[b, :n, None] + o[None, :] + 1)[inb], 0,
                         leg.shape[1] - 1)
             legal += int(_POPCOUNT8[leg[b, x].view(np.uint8)].sum())
-    tensors = [pt.x0, pt.width, pt.ref, pt.leg, pt.ev, pt.meta, pt.par]
-    in_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    n_ref_rows = 2 if hdp else bfb.NREF
+    in_bytes = (2 * rows * 4                           # x0, width
+                + n_ref_rows * P * ref_cols * 4        # ref rows
+                + ref_cols * 8                         # legality words
+                + bfb.NEV * ev_cols * 4                # event rows
+                + B * (bfb.NMETA + bfb.NPACK) * 4)     # meta, par
     if hdp:
-        in_bytes += (pt.kid.numel() + pt.mu.numel()) * 4
-        in_bytes += int(torch.unique(pt.kid).numel()) * 16
-    fstack = rows * P * W * 4
-    fwd_bytes = in_bytes + fstack + B * D1 * 4 + B * 4
-    bwd_bytes = in_bytes + fstack + B * D1 * 8 + 2 * B * D1 * 4 + B * 4 \
+        in_bytes += 2 * P * ref_cols * 4               # k-mer ids, means
+        cols = torch.arange(pt.kid.shape[2], device=pt.kid.device)
+        valid = (pt.ref[:, 1] > 0) & (
+            cols < pt.meta[:, bfb.M_REFLEN, None, None])
+        in_bytes += int(torch.unique(pt.kid[valid]).numel()) * 16
+    fwd_bytes = in_bytes + rows * P * W * 4 + B * D1 * 4 + B * 4
+    bwd_bytes = in_bytes + cells * P * 4 + rows * 8 + 2 * B * D1 * 4 + B * 4 \
         + n_surv * 8
     cp = cells * P
     fwd_ops = cp * (8 if P == 1 else 8 * P + 4) + (cp if hdp else 0)
@@ -268,21 +289,31 @@ def barrier_latency_us(cuda_build):
     return 1e3 * ms / iters
 
 
+def sweep_ms(hk, bfb, pt, threshold, R, reps):
+    """Mean CUDA-event milliseconds (forward, backward) of both kernels on
+    ``pt`` over ``reps`` launches each, after two warm-up calls."""
+    f_ms, (f, fi, lf) = cuda_ms(lambda: hk.forward_sweep(pt), reps)
+    fo, tf = bfb.forward_offsets(fi, lf, pt.meta[:, bfb.M_NDIAG])
+    cvecf = (fo - tf[:, None]).contiguous()
+    b_ms, _ = cuda_ms(lambda: hk.backward_sweep_compact(
+        pt, f, cvecf, threshold, R), reps)
+    return f_ms, b_ms
+
+
 def kernel_sums(hk, bfb, problem_tensors, stack_chunks, buckets, dev,
                 threshold, R, tables=None):
     """Both kernels on every bucket again, in the runner's chunks, timed by
-    CUDA events: {(W, P): [problems, fwd ms, bwd ms, [(us per diagonal of
-    each launch's longest problem, fwd, bwd)]]}."""
+    CUDA events (one launch each after two warm-up calls): {(W, P):
+    [problems, fwd ms, bwd ms, [(us per diagonal of each launch's longest
+    problem, fwd, bwd)]]}."""
+    # the tables go in only when given, so that --kernel-sums also runs a
+    # port whose problem_tensors predates them
+    extra = () if tables is None else (tables,)
     by_wp = {}
     for (W, Dpad, P), probs in sorted(buckets.items()):
         for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P):
-            ptb = problem_tensors([probs[i] for i in chunk], W, dev, tables)
-            f_ms, (f, fi, lf) = cuda_ms(lambda: hk.forward_sweep(ptb), 1)
-            fo, tf = bfb.forward_offsets(fi, lf, ptb.meta[:, bfb.M_NDIAG])
-            cvecf = (fo - tf[:, None]).contiguous()
-            b_ms, _ = cuda_ms(lambda: hk.backward_sweep_compact(
-                ptb, f, cvecf, threshold, R), 1)
-            del f
+            ptb = problem_tensors([probs[i] for i in chunk], W, dev, *extra)
+            f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1)
             # one block per problem: a launch lasts about as long as its
             # longest problem
             nd = max(ptb.n_diag)
@@ -313,11 +344,87 @@ def prepare_all(rgs, reference, model, config, hdp=None):
     order: the host prep of run_alignment_batch, on as many threads."""
     from signalalign_tpu_torch.pipeline.runner import prepare_read
     nw = min(8, max(2, (os.cpu_count() or 4) - 2))
+    extra = () if hdp is None else (hdp,)    # as in kernel_sums
     with ThreadPoolExecutor(max_workers=nw) as ex:
         preps = list(ex.map(lambda rg: prepare_read(
-            rg[0], rg[1], reference, model, config, hdp), rgs))
+            rg[0], rg[1], reference, model, config, *extra), rgs))
     return [(W, Dpad, P, prob) for prep in preps
             for _, prob, W, Dpad, P in prep[4]]
+
+
+def long_p1_problems(rgs, reference, model, config):
+    """Phase 3a's problems: the batch's first eight W=256 P=1 problems of
+    3,500 or more diagonals (about 4k), in read order."""
+    from signalalign_tpu_torch.pipeline.runner import prepare_read
+    picked = []
+    for read, guide in rgs:
+        segs = prepare_read(read, guide, reference, model, config)[4]
+        picked += [p for _, p, W, Dpad, _ in segs
+                   if W == 256 and Dpad == 4096 and p.n_diag >= 3500]
+        if len(picked) >= 8:
+            break
+    check(len(picked) >= 8, "batch has fewer than 8 W=256 ~4k-diagonal problems")
+    return picked[:8]
+
+
+def device_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def gaussian_kernel_sums(tree):
+    """``--kernel-sums [TREE]``: the Gaussian kernels of the port in TREE
+    (a checkout; by default this one), timed by CUDA events on phase 3a's
+    problems (mean of 5 launches after two warm-up calls) and on every
+    bucket of phases 4 and 5 (one launch each, summed as in 5b). Prints one
+    JSON line and no result line. Run it for two checkouts in turns (A, B,
+    B, A) in one job on one card to compare their kernels."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: --kernel-sums needs a CUDA GPU")
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import signalalign_tpu_torch
+    check(os.path.abspath(signalalign_tpu_torch.__file__).startswith(
+        os.path.join(tree, "signalalign_tpu_torch")),
+        f"imported {signalalign_tpu_torch.__file__}, not the port in {tree}")
+    from signalalign_tpu_torch.convert import problem_tensors
+    from signalalign_tpu_torch.ops import banded_fb as bfb
+    from signalalign_tpu_torch.ops import banded_fb_hopper as hk
+    from signalalign_tpu_torch.pipeline.runner import _stack_chunks
+    from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
+    from signalalign_tpu_torch.utils import cuda_build
+    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                       synthetic_pore_model)
+    dev = torch.device("cuda")
+    cuda_build.load()
+    model = synthetic_pore_model(SEED_MODEL)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, reference, rgs, amb_ref, _ = build_synthetic_batch(
+            model, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
+            genome_len=400_000, fasta_path=os.path.join(tmp, "genome.fa"),
+            ambig_frac=1.0)
+    config = AlignmentConfig()
+    threshold = config.threshold
+    R = hk.survivor_slots(threshold)
+    out = {"tree": tree, "device": device_line()}
+    pt = problem_tensors(long_p1_problems(rgs, reference, model, config),
+                         256, dev)
+    out["3a_fwd_ms"], out["3a_bwd_ms"] = sweep_ms(hk, bfb, pt, threshold, R, 5)
+    del pt
+    for phase, ref, cfg in (
+            ("4", reference, config.for_batch(len(rgs))),
+            ("5", amb_ref, AlignmentConfig(ambig_map=AMB).for_batch(len(rgs)))):
+        buckets = {}
+        for W, Dpad, P, prob in prepare_all(rgs, ref, model, cfg):
+            buckets.setdefault((W, Dpad, P), []).append(prob)
+        by_wp = kernel_sums(hk, bfb, problem_tensors, _stack_chunks, buckets,
+                            dev, threshold, R)
+        out[f"phase{phase}_fwd_sum_ms"] = sum(e[1] for e in by_wp.values())
+        out[f"phase{phase}_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
+        out[f"phase{phase}_buckets"] = len(buckets)
+    log(json.dumps(out))
 
 
 def check_calls(results, edition, k, codes, bases):
@@ -364,10 +471,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(device_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
@@ -375,7 +479,6 @@ def main():
     from signalalign_tpu_torch.ops import banded_fb as bfb
     from signalalign_tpu_torch.ops import banded_fb_hopper as hk
     from signalalign_tpu_torch.pipeline.runner import (_stack_chunks,
-                                                       prepare_read,
                                                        run_alignment_batch,
                                                        write_outputs)
     from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
@@ -411,16 +514,8 @@ def main():
         R = hk.survivor_slots(threshold)
 
         # ---- 3a. kernels against their twins on the card
-        picked = []
-        for read, guide in rgs:
-            segs = prepare_read(read, guide, reference, model, config)[4]
-            picked += [p for _, p, W, Dpad, _ in segs
-                       if W == 256 and Dpad == 4096 and p.n_diag >= 3500]
-            if len(picked) >= 8:
-                break
-        check(len(picked) >= 8, "batch has fewer than 8 W=256 ~4k-diagonal problems")
-        picked = picked[:8]
-        pt = problem_tensors(picked, 256, dev)
+        pt = problem_tensors(long_p1_problems(rgs, reference, model, config),
+                             256, dev)
         log(f"[kernels] 8 problems W=256 n_diag {min(pt.n_diag)}..{max(pt.n_diag)}")
         p1 = kernels_vs_twins(hk, bfb, pt, threshold, R)
         p1_bounds = sweep_bounds(bfb, pt, p1["n_kernel"])
@@ -811,4 +906,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--kernel-sums"]:
+        gaussian_kernel_sums(sys.argv[2] if len(sys.argv) > 2
+                             else os.path.dirname(os.path.abspath(__file__)))
+    else:
+        main()
