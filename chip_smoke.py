@@ -43,7 +43,24 @@ Phases (any failure stops the run with a non-zero exit):
          times (the HDP table upload among them), events/s, site rows, the
          bucket mix, peak device memory and the launch counts;
      6d. both kernels on each phase-6 bucket by CUDA events, summed by
-         (W, P), with their share of 6c's wall time.
+         (W, P), with their share of 6c's wall time;
+  7. EM training (the expectation instances of both kernels, P = 1):
+     7a. both expectation kernels against their twins on the card, one
+         bucket per W class of 7c's own prep (the class's two shortest
+         problems) and one per W class of 7d's, with the times; then the
+         eight longest W=256 problems of 7c's prep, expectation and plain
+         instances timed on the same problems;
+     7b. the expectation pass (texp, kexp, totals) on the GPU against the
+         CPU (twins) on the batch's two shortest reads;
+     7c. em_train on the 64 reads of phase 4, from the phase-4 model with
+         its level means moved by N(0, 1.5 pA) noise: two iterations of
+         unified EM (transitions and emissions, prior weight 5) with
+         checkpoints and expectations files; the likelihood, transition
+         rows, emission recovery and file round-trip checks; stage times
+         per iteration, events/s, launch counts, kernel sums by CUDA
+         events and peak device memory;
+     7d. threeStateHdp transition EM: one iteration over 16 of phase 6's
+         reads against the plain genome (every segment P = 1).
 Each kernel's line carries its bound: the larger of the bytes it must
 move over the HBM rate and its transcendentals over the SFU rate, with
 the serial-diagonal floor (longest problem's diagonals times the measured
@@ -59,6 +76,7 @@ and 5, and prints one JSON line (no result line): run it for two
 checkouts in turns (A, B, B, A) in one job to compare their kernels.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -92,6 +110,21 @@ MIN_SHARE_C = 0.7
 # synthetic HDP: measured 0.857 and 0.827 on two batches of four such
 # reads (2,098-2,885 events) on the CPU, 0.794 to 0.893 per read
 MIN_SHARE_C_HDP = 0.75
+# the expectation kernels against their twins: texp and kx are float64
+# sums of float32 per-cell terms exp(f + t + b + normaliser) that the twin
+# forms in another association (the XLA core's); the normaliser reaches
+# hundreds of nats (~2^10 at most on these reads, as TOL_PATH's terms),
+# where an f32 ulp is up to 1.2e-4, so a single term may differ by a few
+# 1e-4 relative (measured on an H100: kx 6.1e-5, texp 6.3e-6 at W=128).
+# Compared as max |difference| over max |value|; 1e-3 is TOL_PATH's
+# 8 ulps
+TOL_EXPECT = 1e-3
+# the expectation pass on the GPU against the CPU: the tolerances of the
+# JAX package's own Pallas-vs-XLA expectation tests
+TEXP_TOL = dict(rtol=2e-4, atol=5e-3)
+KEXP_TOL = dict(rtol=2e-3, atol=5e-3)
+SEED_EM_NOISE = 99      # the level-mean noise of 7c's start model
+EM_SEGMENT_DIAGONALS = 3200   # em_train's segment cap
 # H100 SXM peaks for the bounds: HBM bytes per second, and transcendental
 # results per second (16 special-function results per clock per SM, 132
 # SMs, 1,980 MHz boost clock)
@@ -198,6 +231,56 @@ def kernels_vs_twins(hk, bfb, pt, threshold, R, reps=5):
             "n_twin": len(sr), "paths": sorted({c % pt.P for _, _, c in sk})}
 
 
+def expect_vs_twins(hk, bfb, pt, threshold, R, reps=5):
+    """Both expectation instances against their twins on one P = 1
+    bucket: the three-state stacks, offsets, totals and survivors must be
+    equal bit for bit, texp and kx (float64 sums of float32 terms, formed
+    in another association by the twin) within TOL_EXPECT of the twin's
+    relative to their largest value. Returns the kernels' times (3a's
+    method), the twins' wall times, the errors and the survivor count."""
+    dev = pt.device
+    nds = pt.meta[:, bfb.M_NDIAG]
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    t0 = time.perf_counter()
+    fr = hk.forward_sweep_ref(pt, expect=True)
+    torch.cuda.synchronize()
+    fwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    fwd_ms, fk = cuda_ms(lambda: hk.forward_sweep(pt, expect=True), reps)
+    check(torch.equal(fk[0][rows], fr[0][rows])
+          and torch.equal(fk[1][rows], fr[1][rows])
+          and torch.equal(fk[2], fr[2]),
+          f"sa_fwd_sweep (expect) differs from its twin (W={pt.W})")
+    fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
+    cvecf = (fo - tf[:, None]).contiguous()
+    t0 = time.perf_counter()
+    br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, threshold, R,
+                                       expect=True)
+    torch.cuda.synchronize()
+    bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    bwd_ms, bk = cuda_ms(lambda: hk.backward_sweep_compact(
+        pt, fr[0], cvecf, threshold, R, expect=True), reps)
+    sk, sr = survivors(*bk[2:5], R), survivors(*br[2:5], R)
+    check(torch.equal(bk[0][rows], br[0][rows]) and torch.equal(bk[1], br[1])
+          and sk == sr, f"sa_bwd_sweep_compact (expect) offsets, totals or "
+          f"survivors differ from its twin (W={pt.W})")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-300)).item()
+    texp_rel = rel(bk[5], br[5])
+    hdp = pt.hdp is not None
+    kx_rel = 0.0 if hdp else rel(bk[6], br[6])
+    check(texp_rel <= TOL_EXPECT and kx_rel <= TOL_EXPECT
+          and (not hdp or not bk[6].any()),
+          f"expectation sums differ from the twin's (W={pt.W}, HDP {hdp}): "
+          f"texp {texp_rel:.3e}, kx {kx_rel:.3e} (tol {TOL_EXPECT})")
+    return {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "bwd_ms": bwd_ms,
+            "bwd_plain_ms": bwd_plain_ms, "texp_rel": texp_rel,
+            "kx_rel": kx_rel,
+            "texp_abs": (bk[5] - br[5]).abs().max().item(),
+            "kx_abs": (bk[6] - br[6]).abs().max().item(), "n_kernel": len(sk),
+            "texp_sum": br[5].sum().item()}
+
+
 def cells_per_thread(n):
     """The kernel instance K (cells per thread) that csrc/banded_fb.cu
     launches for n = P * W cells."""
@@ -208,7 +291,7 @@ def cells_per_thread(n):
 _POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
 
 
-def sweep_bounds(bfb, pt, n_surv):
+def sweep_bounds(bfb, pt, n_surv, expect=False):
     """Least times in ms, and what sets them, of the two sweeps on ``pt``'s
     problems: the larger of the bytes each must move over the HBM rate, and
     the transcendentals its in-band cells need over the SFU rate.
@@ -223,7 +306,10 @@ def sweep_bounds(bfb, pt, n_surv):
     cells. Transcendentals: counted per in-band cell from the kernels'
     formulas (two per logaddexp, P + 1 per legal logsumexp, one per
     posterior and per HDP spline, the backward's spline once per legal
-    target path)."""
+    target path). ``expect``: the expectation instances, which write (and
+    read at in-band cells) three states per diagonal, compute seven more
+    exponentials per in-band cell and write texp (B, 7) and kx (B, 3,
+    reflen) in float64."""
     B, D1 = pt.x0.shape
     P, W = pt.P, pt.W
     x0 = pt.x0.cpu().numpy()
@@ -257,12 +343,16 @@ def sweep_bounds(bfb, pt, n_surv):
         valid = (pt.ref[:, 1] > 0) & (
             cols < pt.meta[:, bfb.M_REFLEN, None, None])
         in_bytes += int(torch.unique(pt.kid[valid]).numel()) * 16
-    fwd_bytes = in_bytes + rows * P * W * 4 + B * D1 * 4 + B * 4
-    bwd_bytes = in_bytes + cells * P * 4 + rows * 8 + 2 * B * D1 * 4 + B * 4 \
-        + n_surv * 8
+    states = 3 if expect else 1
+    fwd_bytes = in_bytes + states * rows * P * W * 4 + B * D1 * 4 + B * 4
+    bwd_bytes = in_bytes + states * cells * P * 4 + rows * 8 + 2 * B * D1 * 4 \
+        + B * 4 + n_surv * 8
+    if expect:
+        bwd_bytes += B * 7 * 8 + 3 * ref_cols * 8      # texp, kx
     cp = cells * P
     fwd_ops = cp * (8 if P == 1 else 8 * P + 4) + (cp if hdp else 0)
-    bwd_ops = cp * (9 if P == 1 else 2 * P + 11) + (cp + legal if hdp else 0)
+    bwd_ops = cp * (9 if P == 1 else 2 * P + 11) + (cp + legal if hdp else 0) \
+        + (7 * cp if expect else 0)
     out = {}
     for name, nbytes, ops in (("sa_fwd_sweep", fwd_bytes, fwd_ops),
                               ("sa_bwd_sweep_compact", bwd_bytes, bwd_ops)):
@@ -289,31 +379,36 @@ def barrier_latency_us(cuda_build):
     return 1e3 * ms / iters
 
 
-def sweep_ms(hk, bfb, pt, threshold, R, reps):
+def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False):
     """Mean CUDA-event milliseconds (forward, backward) of both kernels on
-    ``pt`` over ``reps`` launches each, after two warm-up calls."""
-    f_ms, (f, fi, lf) = cuda_ms(lambda: hk.forward_sweep(pt), reps)
+    ``pt`` over ``reps`` launches each, after two warm-up calls; with
+    ``expect`` their expectation instances."""
+    kw = {"expect": True} if expect else {}   # as in kernel_sums
+    f_ms, (f, fi, lf) = cuda_ms(lambda: hk.forward_sweep(pt, **kw), reps)
     fo, tf = bfb.forward_offsets(fi, lf, pt.meta[:, bfb.M_NDIAG])
     cvecf = (fo - tf[:, None]).contiguous()
     b_ms, _ = cuda_ms(lambda: hk.backward_sweep_compact(
-        pt, f, cvecf, threshold, R), reps)
+        pt, f, cvecf, threshold, R, **kw), reps)
     return f_ms, b_ms
 
 
 def kernel_sums(hk, bfb, problem_tensors, stack_chunks, buckets, dev,
-                threshold, R, tables=None):
+                threshold, R, tables=None, expect=False):
     """Both kernels on every bucket again, in the runner's chunks, timed by
     CUDA events (one launch each after two warm-up calls): {(W, P):
     [problems, fwd ms, bwd ms, [(us per diagonal of each launch's longest
-    problem, fwd, bwd)]]}."""
-    # the tables go in only when given, so that --kernel-sums also runs a
-    # port whose problem_tensors predates them
+    problem, fwd, bwd)]]}. ``expect``: the expectation instances, in the
+    EM path's chunks."""
+    # the tables and the expectation arguments go in only when given, so
+    # that --kernel-sums also runs a port whose functions predate them
     extra = () if tables is None else (tables,)
     by_wp = {}
     for (W, Dpad, P), probs in sorted(buckets.items()):
-        for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P):
-            ptb = problem_tensors([probs[i] for i in chunk], W, dev, *extra)
-            f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1)
+        for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P,
+                                  *((3,) if expect else ())):
+            ptb = problem_tensors([probs[i] for i in chunk], W, dev, *extra,
+                                  **({"kmer_ids": True} if expect else {}))
+            f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1, expect)
             # one block per problem: a launch lasts about as long as its
             # longest problem
             nd = max(ptb.n_diag)
@@ -486,6 +581,10 @@ def main():
     from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
                                                        synthetic_hdp,
                                                        synthetic_pore_model)
+    from signalalign_tpu_torch.models.expectations import \
+        ExpectationsAccumulator
+    from signalalign_tpu_torch.models.pore_model import PoreModel
+    from signalalign_tpu_torch.pipeline.train import em_train
     check("jax" not in sys.modules and "signalalign_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
 
@@ -724,7 +823,7 @@ def main():
         t0 = time.perf_counter()
         model6 = synthetic_pore_model(SEED_MODEL, alphabet="ACEGOT", k=6)
         hdp6 = synthetic_hdp(model6, SEED_HDP)
-        _, _, rgs6, ref6, _ = build_synthetic_batch(
+        _, plain6, rgs6, ref6, _ = build_synthetic_batch(
             model6, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
             genome_len=400_000, fasta_path=os.path.join(tmp, "genome6.fa"),
             ambig_frac=1.0, ambig_motif=("CG", "PG"))
@@ -851,6 +950,204 @@ def main():
         log_kernel_sums("hdp", kernel_sums(
             hk, bfb, problem_tensors, _stack_chunks, buckets6, dev, threshold,
             R, hdp_tables(*hdp6.density_arrays(), dev)), t_hdp)
+        del segs6, by_class6, buckets6
+
+        # ---- 7. EM training: the expectation instances (P = 1)
+        em_cfg = dataclasses.replace(
+            config, compute_expectations=True,
+            max_segment_diagonals=EM_SEGMENT_DIAGONALS).for_batch(len(rgs))
+        rgs7d = rgs6[:16]
+        cfg7d = dataclasses.replace(
+            em_cfg, emission_mode=bfb.MODE_HDP).for_batch(len(rgs7d))
+
+        # ---- 7a. expectation kernels against their twins, one bucket per
+        # W class of 7c's and 7d's own prep (the class's two shortest)
+        segs7 = prepare_all(rgs, reference, model, em_cfg)
+        segs7d = prepare_all(rgs7d, plain6, model6, cfg7d, hdp6)
+        check(all(P == 1 for _, _, P, _ in segs7 + segs7d),
+              "an EM segment has more than one path")
+        tables = hdp_tables(*hdp6.density_arrays(), dev)
+        exp_rows = {}
+        for tag, segs, tb in (("gauss", segs7, None), ("hdp", segs7d, tables)):
+            by_w = {}
+            for W, _, _, prob in segs:
+                by_w.setdefault(W, []).append(prob)
+            for W, probs in sorted(by_w.items()):
+                probs = sorted(probs, key=lambda q: q.n_diag)[:2]
+                pte = problem_tensors(probs, W, dev, tb, kmer_ids=True)
+                r = expect_vs_twins(hk, bfb, pte, threshold, R)
+                r["bounds"] = sweep_bounds(bfb, pte, r["n_kernel"], True)
+                r["floor"] = 1e-3 * barrier_us * max(pte.n_diag)
+                exp_rows[(tag, W)] = r
+                log(f"[em kernels {tag} W={W} K={cells_per_thread(W)}] "
+                    f"{len(probs)} problems n_diag {min(pte.n_diag)}.."
+                    f"{max(pte.n_diag)}: expect fwd {r['fwd_ms']:.3f} ms (twin "
+                    f"{r['fwd_plain_ms']:.1f} ms, bound "
+                    f"{r['bounds']['sa_fwd_sweep'][0]:.4f} ms), bwd "
+                    f"{r['bwd_ms']:.3f} ms (twin {r['bwd_plain_ms']:.1f} ms, "
+                    f"bound {r['bounds']['sa_bwd_sweep_compact'][0]:.4f} ms), "
+                    f"floor {r['floor']:.3f} ms; stacks, totals, survivors "
+                    f"equal ({r['n_kernel']}); texp rel {r['texp_rel']:.3e} "
+                    f"(abs {r['texp_abs']:.3e}, sum {r['texp_sum']:.1f}), kx "
+                    f"rel {r['kx_rel']:.3e} (tol {TOL_EXPECT})")
+        log(f"[em kernels] instances held here K="
+            f"{sorted({cells_per_thread(W) for _, W in exp_rows})}; "
+            "tests/test_torch_kernels_cuda.py holds K=1 and K=2 (W=1280)")
+        # the eight longest W=256 problems of 7c's prep: expectation and
+        # plain instances on the same problems, by CUDA events
+        long7 = sorted((p_ for W, _, _, p_ in segs7 if W == 256),
+                       key=lambda q: -q.n_diag)[:8]
+        check(len(long7) == 8, "fewer than 8 W=256 EM problems")
+        ptl = problem_tensors(long7, 256, dev, kmer_ids=True)
+        em_main = expect_vs_twins(hk, bfb, ptl, threshold, R)
+        em_main["bounds"] = sweep_bounds(bfb, ptl, em_main["n_kernel"], True)
+        em_main["floor"] = 1e-3 * barrier_us * max(ptl.n_diag)
+        plain_f, plain_b = sweep_ms(hk, bfb, ptl, threshold, R, 5)
+        log(f"[em kernels] 8 problems W=256 n_diag {min(ptl.n_diag)}.."
+            f"{max(ptl.n_diag)}: expect fwd {em_main['fwd_ms']:.3f} ms, bwd "
+            f"{em_main['bwd_ms']:.3f} ms (twins {em_main['fwd_plain_ms']:.1f}"
+            f" / {em_main['bwd_plain_ms']:.1f} ms); plain instances on the "
+            f"same problems fwd {plain_f:.3f} ms, bwd {plain_b:.3f} ms; "
+            f"bounds " + ", ".join(
+                f"{k} {v[0]:.4f} ms ({v[1]})"
+                for k, v in em_main["bounds"].items())
+            + f"; floor {em_main['floor']:.3f} ms; texp rel "
+            f"{em_main['texp_rel']:.3e}, kx rel {em_main['kx_rel']:.3e}")
+        del ptl, long7
+
+        # ---- 7b. the expectation pass on the GPU against the CPU (twins)
+        small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:2]
+        on_cpu = run_alignment_batch(small, reference, model, em_cfg,
+                                     device=torch.device("cpu"))
+        on_gpu = run_alignment_batch(small, reference, model, em_cfg,
+                                     device=dev)
+        check(len(on_cpu) == len(on_gpu) == 2, "small EM batch lost a read")
+        worst_t = worst_k = 0.0
+        for a, g in zip(on_cpu, on_gpu):
+            check(abs(a.total_log_prob - g.total_log_prob) <= TOL_TOTAL,
+                  f"{a.read_label}: EM total {g.total_log_prob} vs cpu "
+                  f"{a.total_log_prob}")
+            for name, ga, ca, tol in (
+                    ("texp", g.transition_expectations,
+                     a.transition_expectations, TEXP_TOL),
+                    ("kexp", g.emission_expectations,
+                     a.emission_expectations, KEXP_TOL)):
+                bad = np.abs(ga - ca) > tol["atol"] + tol["rtol"] * np.abs(ca)
+                check(not bad.any(), f"{a.read_label}: {name} gpu vs cpu "
+                      f"{np.abs(ga - ca).max()}")
+            worst_t = max(worst_t, float(np.abs(
+                g.transition_expectations - a.transition_expectations).max()))
+            worst_k = max(worst_k, float(np.abs(
+                g.emission_expectations - a.emission_expectations).max()))
+        log(f"[small em] {[r.events.shape[0] for r, _ in small]} events: gpu "
+            f"= cpu, |d texp| {worst_t:.3e}, |d kexp| {worst_k:.3e} (rtol "
+            f"{TEXP_TOL['rtol']} / {KEXP_TOL['rtol']}, atol {TEXP_TOL['atol']})")
+
+        # ---- 7c. em_train at full width on the 64 reads of phase 4
+        start = synthetic_pore_model(SEED_MODEL)
+        start.level_mean = start.level_mean + np.random.default_rng(
+            SEED_EM_NOISE).normal(0.0, 1.5, size=start.level_mean.shape)
+        ck_dir = os.path.join(tmp, "em")
+        os.makedirs(ck_dir)
+        hk.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        em_stages = []
+        t0 = time.perf_counter()
+        em = em_train(rgs, reference, start, iterations=2, config=config,
+                      update_transitions=True, update_emissions=True,
+                      emission_prior_weight=5.0, checkpoint_dir=ck_dir,
+                      write_expectations=True, device=dev,
+                      stage_seconds=em_stages)
+        t_em = time.perf_counter() - t0
+        em_launches = {
+            "sa_fwd_sweep": hk.forward_sweep.expect_launches,
+            "sa_bwd_sweep_compact": hk.backward_sweep_compact.expect_launches}
+        plain_launches = (hk.forward_sweep.launches,
+                          hk.backward_sweep_compact.launches)
+        peak = torch.cuda.max_memory_allocated()
+        lls = em.log_likelihoods
+        check(all(np.isfinite(lls)) and lls[-1] > lls[0],
+              f"EM log-likelihoods {lls}")
+        for probs in em.transitions_history:
+            check(np.allclose(probs.sum(axis=1), 1.0, rtol=1e-9),
+                  f"transition rows do not sum to 1: {probs}")
+        err0 = np.abs(start.level_mean - model.level_mean)
+        heavy = np.flatnonzero((em.kexp_history[0][0] > 3.0) & (err0 > 0.75))
+        after = np.abs(em.model.level_mean[heavy] - model.level_mean[heavy])
+        check(len(heavy) >= 10 and after.mean() < err0[heavy].mean(),
+              f"emissions did not recover: {len(heavy)} heavy k-mers, mean "
+              f"error {err0[heavy].mean():.4f} -> {after.mean():.4f} pA")
+        check(all(em_launches.values()) and plain_launches == (0, 0),
+              f"EM launches {em_launches}, plain instances {plain_launches}")
+        # the iteration-0 expectations file reproduces checkpoint 0 through
+        # the accumulator's summed slots, with em_train's M-step (prior
+        # weight 5), at every k-mer the file's 9 decimals resolve (Σp >=
+        # 1e-3)
+        acc = ExpectationsAccumulator(synthetic_pore_model(SEED_MODEL))
+        check(acc.add_file(em.expectations_files[0]), "no expectations file")
+        ck0 = PoreModel.from_file(em.checkpoint_files[0])
+        tr0 = acc.normalize_transitions()
+        w, post = 5.0, acc.posteriors
+        u = (acc.mean_expectations + start.level_mean * w) / (post + w)
+        o = (np.sqrt(acc.sd_expectations / np.maximum(post, 1e-300)) * post
+             + start.level_sd * w) / (post + w)
+        well = acc.observed & (em.kexp_history[0][0] >= 1e-3)
+        d_mean = float(np.abs(u - ck0.level_mean)[well].max())
+        d_sd = float(np.abs(o - ck0.level_sd)[well].max())
+        d_tr = float(np.abs(tr0.reshape(-1) - ck0.transitions).max())
+        check(d_mean <= 1e-4 and d_sd <= 1e-4 and d_tr <= 1e-6,
+              f"expectations file vs checkpoint: means {d_mean}, sds {d_sd}, "
+              f"transitions {d_tr}")
+        log(f"[em] {len(rgs)} reads, {n_events} events, 2 iterations: "
+            f"log-likelihood {lls[0]:.2f} -> {lls[1]:.2f}; transitions "
+            f"m->m {em.transitions_history[0][0, 0]:.5f} -> "
+            f"{em.transitions_history[1][0, 0]:.5f}; {len(heavy)} heavy "
+            f"k-mers, mean level error {err0[heavy].mean():.4f} -> "
+            f"{after.mean():.4f} pA; file vs checkpoint |d| means "
+            f"{d_mean:.2e}, sds {d_sd:.2e}, transitions {d_tr:.2e} "
+            f"({int(well.sum())} k-mers)")
+        for it, st in enumerate(em_stages):
+            log(f"[em] iteration {it} stages " + " ".join(
+                f"{s_}={v:.2f}s" for s_, v in st.items()))
+        log(f"[em] em_train {t_em:.2f} s: {2 * n_events / t_em:.0f} events/s "
+            f"over both iterations; kernels stage "
+            f"{2 * n_events / sum(st['kernels'] for st in em_stages):.0f} "
+            f"events/s; peak device memory {peak / 2**30:.2f} GiB")
+        log(f"[em] launches {em_launches} (plain instances {plain_launches})")
+        buckets7 = {}
+        for W, Dpad, P, prob in segs7:
+            buckets7.setdefault((W, Dpad, P), []).append(prob)
+        log_kernel_sums("em", kernel_sums(
+            hk, bfb, problem_tensors, _stack_chunks, buckets7, dev, threshold,
+            R, expect=True), t_em / 2)
+        del segs7, buckets7
+
+        # ---- 7d. threeStateHdp transition EM on the plain genome
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        em6 = em_train(rgs7d, plain6, model6, iterations=1,
+                       config=dataclasses.replace(config,
+                                                  emission_mode=bfb.MODE_HDP),
+                       hdp=hdp6, device=dev)
+        t_em6 = time.perf_counter() - t0
+        hdp_em_launches = {
+            "sa_fwd_sweep": hk.forward_sweep.expect_launches,
+            "sa_bwd_sweep_compact": hk.backward_sweep_compact.expect_launches}
+        ll6 = em6.log_likelihoods[0]
+        check(np.isfinite(ll6) and ll6 > -1e29, f"HDP EM log-likelihood {ll6}")
+        check(np.allclose(em6.transitions_history[0].sum(axis=1), 1.0,
+                          rtol=1e-9), "HDP transition rows do not sum to 1")
+        check(not em6.kexp_history[0].any(), "HDP kexp is not zero")
+        check(all(hdp_em_launches.values()),
+              f"HDP EM launches {hdp_em_launches}")
+        n_ev7d = sum(r.n_events for r, _ in rgs7d)
+        log(f"[em hdp] {len(rgs7d)} reads, {n_ev7d} events, {len(segs7d)} "
+            f"segments: log-likelihood {ll6:.2f}, transitions m->m "
+            f"{em6.transitions_history[0][0, 0]:.5f}, kexp zero; "
+            f"{t_em6:.2f} s ({n_ev7d / t_em6:.0f} events/s); launches "
+            f"{hdp_em_launches}")
+        del tables
 
     def err(r, name):
         return max(r["tf_err"], r["fdiff"]) if name == "sa_fwd_sweep" \
@@ -899,6 +1196,38 @@ def main():
                                     for (W, P), r in hdp_rows.items()},
             "bound_ms_by_W_P_hdp": {f"{W},{P}": b[name][0]
                                     for (W, P), b in hdp_bounds.items()}})
+    for name, src, ms in (
+            ("sa_fwd_sweep", "signalalign_tpu/ops/banded_fb_pallas_batch.py:569"
+             " (expect mode, :740-745)", "fwd_"),
+            ("sa_bwd_sweep_compact",
+             "signalalign_tpu/ops/banded_fb_pallas_batch.py:775 (expect mode, "
+             ":971-1015; its kexp reduction :2116 is kexp_by_kmer)", "bwd_")):
+        by_phase = {"7c": em_launches[name], "7d": hdp_em_launches[name]}
+        kernels.append({
+            "name": f"{name} (expect)", "route": "cuda",
+            "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
+            "replaces": src,
+            "launches": sum(by_phase.values()),
+            # stacks, totals and survivors are equal bit for bit (checked);
+            # the float64 expectation sums differ from the twin's by this
+            "max_abs_err": max(max(r["texp_abs"], r["kx_abs"])
+                               for r in list(exp_rows.values()) + [em_main])
+            if name == "sa_bwd_sweep_compact" else 0.0,
+            "ms": em_main[ms + "ms"], "plain_ms": em_main[ms + "plain_ms"],
+            "bound_ms": em_main["bounds"][name][0],
+            "bound_by": em_main["bounds"][name][1],
+            "library_ms": None,
+            "serial_floor_ms": em_main["floor"],
+            "launches_by_phase": by_phase,
+            "plain_instance_ms": plain_f if ms == "fwd_" else plain_b,
+            "max_rel_err_texp": max(r["texp_rel"] for r in exp_rows.values()),
+            "max_rel_err_kx": max(r["kx_rel"] for r in exp_rows.values()),
+            "ms_by_W": {f"{t},{W}": r[ms + "ms"]
+                        for (t, W), r in exp_rows.items()},
+            "plain_ms_by_W": {f"{t},{W}": r[ms + "plain_ms"]
+                              for (t, W), r in exp_rows.items()},
+            "bound_ms_by_W": {f"{t},{W}": r["bounds"][name][0]
+                              for (t, W), r in exp_rows.items()}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

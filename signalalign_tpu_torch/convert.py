@@ -104,13 +104,15 @@ def legality_bits(legal: np.ndarray) -> np.ndarray:
 
 def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
                     device: torch.device,
-                    hdp: Optional[bfb.HdpTables] = None) -> bfb.ProblemTensors:
+                    hdp: Optional[bfb.HdpTables] = None,
+                    kmer_ids: bool = False) -> bfb.ProblemTensors:
     """Stack one bucket's problems (P <= 8 paths, the bucket's P is their
     largest) into padded tensors on ``device`` (one host-to-device copy
     per tensor). A MODE_HDP bucket also gets per-(problem, path, position)
     k-mer ids and level means, and needs ``hdp``: the run's tables on
     ``device``, uploaded once (``hdp_tables``) and shared, not copied.
-    Mixed-mode buckets raise."""
+    ``kmer_ids`` gives a Gaussian bucket the k-mer ids too (the keys of
+    the EM emission moments). Mixed-mode buckets raise."""
     if not problems:
         raise ValueError("empty bucket")
     modes = {p.mode for p in problems}
@@ -146,7 +148,8 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
     ev = np.zeros((B, bfb.NEV, LE), np.float32)
     meta = np.zeros((B, bfb.NMETA), np.int32)
     par = np.zeros((B, bfb.NPACK), np.float32)
-    kid = np.zeros((B, P, LX), np.int32) if hdp_mode else None
+    with_kid = hdp_mode or kmer_ids
+    kid = np.zeros((B, P, LX), np.int32) if with_kid else None
     mu = np.zeros((B, P, LX), np.float32) if hdp_mode else None
     for i, p in enumerate(problems):
         n = min(D1, p.x0.shape[0])
@@ -166,8 +169,9 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         par[i, bfb.PACK_END:bfb.PACK_END + 3] = p.end_logs
         par[i, bfb.PACK_GAPX] = bfb.LOG_GAPX_EMISSION
         par[i, bfb.PACK_VAR] = p.var
-        if hdp_mode:
+        if with_kid:
             kid[i, :p.kmer_ids.shape[0], :lx] = p.kmer_ids
+        if hdp_mode:
             mu[i, :p.ref_params.shape[1], :lx] = p.ref_params[7]
 
     def dev(a):
@@ -181,5 +185,5 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         W=W, P=P, n_diag=[p.n_diag for p in problems], x0=x0,
         width=dev(width), ref=dev(ref), leg=dev(leg), ev=dev(ev),
         meta=dev(meta), par=dev(par),
-        kid=dev(kid) if hdp_mode else None, mu=dev(mu) if hdp_mode else None,
+        kid=dev(kid) if with_kid else None, mu=dev(mu) if hdp_mode else None,
         hdp=hdp)

@@ -64,6 +64,23 @@
 // Gaussian instances compile without any of it (if constexpr), to the
 // code of the Gaussian-only kernels.
 //
+// The EM expectation pass (template flag EXPECT, P = 1 only, K in {1, 2})
+// replaces the `expect` mode of _fwd_kernel_log / _bwd_kernel_log: the
+// forward writes all three normalised states of each diagonal (fstack
+// (B, D1, 3, W)); the backward, at each FROM diagonal d < n_diag, already
+// holds the to-cell reductions gx_red, mm_red and gy_term of every cell,
+// so it adds the seven transition posteriors exp(f_s + t + red + normA),
+// normA = cvecf[d] + Bo(d+1), into per-thread double sums (one block
+// reduction at the end, in a fixed order: texp (B, 7)), and in the
+// Gaussian instance the into-match posterior's moments [p, p dx, p dx^2],
+// dx = (event mean - m_hat(x+1)) / var, into kx[b, :, x+1] in device
+// memory (double). A position has one writer per diagonal and the
+// diagonal's barriers order successive writers, so kx needs no atomics and
+// its sums are deterministic. The HDP instance accumulates texp only (the
+// TPU kernel's contract: HDP emissions train from assignments, not
+// Gaussian moments). The non-expect instances compile without any of it
+// (if constexpr).
+//
 // Numerics: float32 values with precise expf/logf/log1pf (no fast math),
 // built with --fmad=false so each operation rounds as in the plain twin,
 // the logaddexp formulation of torch.logaddexp and the twin's legal
@@ -264,7 +281,7 @@ __device__ __forceinline__ float rd(const float* slot, int s, int i, int p,
 
 // ---------------------------------------------------------------- forward
 
-template <int K, bool HDP>
+template <int K, bool HDP, bool EXPECT>
 __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_,
@@ -285,7 +302,8 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
 
   const int b = blockIdx.x;
   const int P = pr.P;
-  float* fs = fstack + (size_t)b * D1 * N;   // (D1, P, W)
+  // (D1, P, W); EXPECT: (D1, 3, P, W)
+  float* fs = fstack + (size_t)b * D1 * N * (EXPECT ? 3 : 1);
   float* inc = f_incr + (size_t)b * D1;
   const int nd = pr.nd;
   for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) inc[d] = 0.f;
@@ -295,8 +313,13 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
     for (int s = 0; s < 3; ++s) ring[s * N] = pr.start[s];
     inc[0] = 0.f;
   }
-  for (int c = threadIdx.x; c < N; c += blockDim.x)
-    fs[c] = c == 0 ? pr.start[MATCH] : NEG;
+  if constexpr (EXPECT) {
+    for (int c = threadIdx.x; c < 3 * N; c += blockDim.x)
+      fs[c] = c % N == 0 ? pr.start[c / N] : NEG;
+  } else {
+    for (int c = threadIdx.x; c < N; c += blockDim.x)
+      fs[c] = c == 0 ? pr.start[MATCH] : NEG;
+  }
   __syncthreads();
 
   const float* tr = pr.t;
@@ -385,10 +408,19 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
       if (c < N) {
         const int o = c / P, p = c - o * P;
         const float mm = fmaxf(vm[k] - m, NEG);
+        const float gx = fmaxf(vx[k] - m, NEG);
+        const float gy = fmaxf(vy[k] - m, NEG);
         cur[MATCH * N + c] = mm;
-        cur[GAP_X * N + c] = fmaxf(vx[k] - m, NEG);
-        cur[GAP_Y * N + c] = fmaxf(vy[k] - m, NEG);
-        fs[(size_t)d * N + p * W + o] = mm;
+        cur[GAP_X * N + c] = gx;
+        cur[GAP_Y * N + c] = gy;
+        if constexpr (EXPECT) {
+          float* fd = fs + (size_t)d * 3 * N + p * W + o;
+          fd[MATCH * N] = mm;
+          fd[GAP_X * N] = gx;
+          fd[GAP_Y * N] = gy;
+        } else {
+          fs[(size_t)d * N + p * W + o] = mm;
+        }
       }
     }
     if (threadIdx.x == 0) inc[d] = m;
@@ -402,7 +434,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
 
 // ----------------------------------------------- backward + compaction
 
-template <int K, bool HDP>
+template <int K, bool HDP, bool EXPECT>
 __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_,
@@ -412,7 +444,8 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
     const float* __restrict__ fstack,
     const double* __restrict__ cvecf, float* __restrict__ b_incr,
     float* __restrict__ lse_b, int* __restrict__ slot_cell,
-    float* __restrict__ slot_val, int* __restrict__ cnt, int D1, int W,
+    float* __restrict__ slot_val, int* __restrict__ cnt,
+    double* __restrict__ texp, double* __restrict__ kx, int D1, int W,
     int P_, int LX, int LE, int R, float threshold) {
   extern __shared__ float smem[];
   const int N = P_ * W;
@@ -427,7 +460,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
 
   const int b = blockIdx.x;
   const int P = pr.P;
-  const float* fs = fstack + (size_t)b * D1 * N;
+  const float* fs = fstack + (size_t)b * D1 * N * (EXPECT ? 3 : 1);
   const double* cv = cvecf + (size_t)b * D1;
   float* inc = b_incr + (size_t)b * D1;
   int* so = slot_cell + (size_t)b * D1 * R;
@@ -444,6 +477,9 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
   const float* tr = pr.t;
   float m_prev = 0.f;
   double bo = 0.0;   // running backward offset: Bo(d) = sum of m over >= d
+  // EXPECT: this thread's sums of the seven transition posteriors, in the
+  // order of texp's rows (mx, xx, mm, xm, ym, my, yy)
+  double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   for (int d = nd; d >= 0; --d) {
     float* cur = ring + (d & 1) * 3 * N;          // holds d+2 until written
     const float* b1 = ring + ((d + 1) & 1) * 3 * N;
@@ -518,6 +554,41 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
           }
           const float gx_red = P == 1 ? tgx[0] : legal_lse(tgx, P);
           const float mm_red = P == 1 ? tmm[0] : legal_lse(tmm, P);
+          if constexpr (EXPECT) {
+            // transitions out of (x, y) at d; the to-cell reductions are
+            // normalised to Bo(d+1), which `bo` still holds here
+            const float normA = (float)(cv[d] + bo);
+            const float* fd = fs + (size_t)d * 3 * N + q * W + o;
+            const float f_m = fd[MATCH * N], f_x = fd[GAP_X * N],
+                        f_y = fd[GAP_Y * N];
+            const float p_mx = expf(f_m + tr[T_MX] + gx_red + normA);
+            const float p_xx = expf(f_x + tr[T_XX] + gx_red + normA);
+            const float p_mm = expf(f_m + tr[T_MM] + mm_red + normA);
+            const float p_xm = expf(f_x + tr[T_XM] + mm_red + normA);
+            const float p_ym = expf(f_y + tr[T_YM] + mm_red + normA);
+            const float p_my = expf(f_m + tr[T_MY] + gy_term + normA);
+            const float p_yy = expf(f_y + tr[T_YY] + gy_term + normA);
+            acc[0] += (double)p_mx;
+            acc[1] += (double)p_xx;
+            acc[2] += (double)p_mm;
+            acc[3] += (double)p_xm;
+            acc[4] += (double)p_ym;
+            acc[5] += (double)p_my;
+            acc[6] += (double)p_yy;
+            if constexpr (!HDP) {
+              // moments of the into-match posterior at (x+1, y+1)
+              const float mtp = p_mm + p_xm + p_ym;
+              if (mtp != 0.f) {
+                const float dxv = pr.rf(1, q, xr1) > 0.f
+                                      ? (ev_mean - pr.rf(0, q, xr1)) / pr.var
+                                      : 0.f;
+                double* kb = kx + (size_t)b * 3 * LX + xr1;
+                kb[0] += (double)mtp;
+                kb[LX] += (double)(mtp * dxv);
+                kb[2 * (size_t)LX] += (double)(mtp * dxv * dxv);
+              }
+            }
+          }
           bm = lae(lae(gx_red + tr[T_MX], mm_red + tr[T_MM]),
                    gy_term + tr[T_MY]);
           bx = lae(gx_red + tr[T_XX], mm_red + tr[T_XM]);
@@ -551,7 +622,10 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
         cur[GAP_Y * N + c] = fmaxf(vy[k] - m, NEG);
         const int x = xd + o, y = d - x;
         if (o < wd && x > 0 && y > 0 && x <= pr.lX && y <= pr.lY) {
-          p = expf(fmaxf(fs[(size_t)d * N + q * W + o] + bmn + cd, NEG));
+          float fm;
+          if constexpr (EXPECT) fm = fs[(size_t)d * 3 * N + q * W + o];
+          else fm = fs[(size_t)d * N + q * W + o];
+          p = expf(fmaxf(fm + bmn + cd, NEG));
           surv = p >= threshold;
         }
       }
@@ -586,6 +660,23 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
   }
   const float l = block_lse(ring, pr.start, N, part);   // diagonal 0 = slot 0
   if (threadIdx.x == 0) lse_b[b] = l;
+  if constexpr (EXPECT) {
+    // texp: warp sums, then the warps in order
+    __shared__ double tpart[7][32];
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      double v = acc[i];
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0) tpart[i][warp] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < 7) {
+      double s = 0.0;
+      for (int w = 0; w < nw; ++w) s += tpart[threadIdx.x][w];
+      texp[(size_t)b * 7 + threadIdx.x] = s;
+    }
+  }
 }
 
 int threads_for(int N) {
@@ -602,6 +693,11 @@ bool shape_ok(int W, int P) {
   return W >= 1 && P >= 1 && P <= MAX_P && P * W <= MAX_CELLS;
 }
 
+// the expectation instances: P = 1, at most two cells per thread
+bool expect_shape_ok(int W, int P) {
+  return P == 1 && W >= 1 && W <= 2 * MAX_THREADS;
+}
+
 // The device pointers and sizes of one bucket.
 struct Bucket {
   const int* x0;
@@ -615,59 +711,82 @@ struct Bucket {
   int B, D1, W, P, LX, LE;
 };
 
-template <int K, bool HDP>
+template <int K, bool HDP, bool EXPECT>
 int fwd_launch(const Bucket& a, float* fstack, float* f_incr, float* lse_f,
                cudaStream_t stream) {
   const int N = a.P * a.W;
   const size_t smem = (6 * (size_t)N + 32) * sizeof(float);
-  cudaFuncSetAttribute(sa_fwd_sweep_kernel<K, HDP>,
+  cudaFuncSetAttribute(sa_fwd_sweep_kernel<K, HDP, EXPECT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_fwd_sweep_kernel<K, HDP><<<a.B, threads_for(N), smem, stream>>>(
+  sa_fwd_sweep_kernel<K, HDP, EXPECT><<<a.B, threads_for(N), smem, stream>>>(
       a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, f_incr,
       lse_f, a.D1, a.W, a.P, a.LX, a.LE);
   return (int)cudaGetLastError();
 }
 
-template <bool HDP>
+template <bool HDP, bool EXPECT>
 int fwd_dispatch(const Bucket& a, float* fstack, float* f_incr, float* lse_f,
                  cudaStream_t s) {
-  switch (cells_per_thread(a.P * a.W)) {
-    case 1: return fwd_launch<1, HDP>(a, fstack, f_incr, lse_f, s);
-    case 2: return fwd_launch<2, HDP>(a, fstack, f_incr, lse_f, s);
-    case 4: return fwd_launch<4, HDP>(a, fstack, f_incr, lse_f, s);
-    default: return fwd_launch<8, HDP>(a, fstack, f_incr, lse_f, s);
+  if constexpr (EXPECT) {
+    return cells_per_thread(a.P * a.W) == 1
+               ? fwd_launch<1, HDP, true>(a, fstack, f_incr, lse_f, s)
+               : fwd_launch<2, HDP, true>(a, fstack, f_incr, lse_f, s);
+  } else {
+    switch (cells_per_thread(a.P * a.W)) {
+      case 1: return fwd_launch<1, HDP, false>(a, fstack, f_incr, lse_f, s);
+      case 2: return fwd_launch<2, HDP, false>(a, fstack, f_incr, lse_f, s);
+      case 4: return fwd_launch<4, HDP, false>(a, fstack, f_incr, lse_f, s);
+      default: return fwd_launch<8, HDP, false>(a, fstack, f_incr, lse_f, s);
+    }
   }
 }
 
-template <int K, bool HDP>
+// The backward's outputs: the survivor slots, and for an expectation
+// pass texp (B, 7) and kx (B, 3, LX) (null otherwise).
+struct BwdOut {
+  float* b_incr;
+  float* lse_b;
+  int* slot_cell;
+  float* slot_val;
+  int* cnt;
+  double* texp;
+  double* kx;
+};
+
+template <int K, bool HDP, bool EXPECT>
 int bwd_launch(const Bucket& a, const float* fstack, const double* cvecf,
-               float* b_incr, float* lse_b, int* slot_cell, float* slot_val,
-               int* cnt, int R, float threshold, cudaStream_t stream) {
+               const BwdOut& o, int R, float threshold, cudaStream_t stream) {
   const int N = a.P * a.W;
   const size_t smem =
       (6 * (size_t)N + 32) * sizeof(float) + K * 32 * sizeof(int);
-  cudaFuncSetAttribute(sa_bwd_sweep_compact_kernel<K, HDP>,
+  cudaFuncSetAttribute(sa_bwd_sweep_compact_kernel<K, HDP, EXPECT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_bwd_sweep_compact_kernel<K, HDP><<<a.B, threads_for(N), smem, stream>>>(
-      a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, cvecf,
-      b_incr, lse_b, slot_cell, slot_val, cnt, a.D1, a.W, a.P, a.LX, a.LE, R,
-      threshold);
+  sa_bwd_sweep_compact_kernel<K, HDP, EXPECT>
+      <<<a.B, threads_for(N), smem, stream>>>(
+          a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
+          cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt, o.texp,
+          o.kx, a.D1, a.W, a.P, a.LX, a.LE, R, threshold);
   return (int)cudaGetLastError();
 }
 
-template <bool HDP>
+template <bool HDP, bool EXPECT>
 int bwd_dispatch(const Bucket& a, const float* fstack, const double* cvecf,
-                 float* b_incr, float* lse_b, int* slot_cell, float* slot_val,
-                 int* cnt, int R, float threshold, cudaStream_t s) {
-  switch (cells_per_thread(a.P * a.W)) {
-    case 1: return bwd_launch<1, HDP>(a, fstack, cvecf, b_incr, lse_b,
-                                      slot_cell, slot_val, cnt, R, threshold, s);
-    case 2: return bwd_launch<2, HDP>(a, fstack, cvecf, b_incr, lse_b,
-                                      slot_cell, slot_val, cnt, R, threshold, s);
-    case 4: return bwd_launch<4, HDP>(a, fstack, cvecf, b_incr, lse_b,
-                                      slot_cell, slot_val, cnt, R, threshold, s);
-    default: return bwd_launch<8, HDP>(a, fstack, cvecf, b_incr, lse_b,
-                                       slot_cell, slot_val, cnt, R, threshold, s);
+                 const BwdOut& o, int R, float threshold, cudaStream_t s) {
+  if constexpr (EXPECT) {
+    return cells_per_thread(a.P * a.W) == 1
+               ? bwd_launch<1, HDP, true>(a, fstack, cvecf, o, R, threshold, s)
+               : bwd_launch<2, HDP, true>(a, fstack, cvecf, o, R, threshold, s);
+  } else {
+    switch (cells_per_thread(a.P * a.W)) {
+      case 1: return bwd_launch<1, HDP, false>(a, fstack, cvecf, o, R,
+                                               threshold, s);
+      case 2: return bwd_launch<2, HDP, false>(a, fstack, cvecf, o, R,
+                                               threshold, s);
+      case 4: return bwd_launch<4, HDP, false>(a, fstack, cvecf, o, R,
+                                               threshold, s);
+      default: return bwd_launch<8, HDP, false>(a, fstack, cvecf, o, R,
+                                                threshold, s);
+    }
   }
 }
 
@@ -684,10 +803,13 @@ bool hdp_ok(const HdpTab& h) {
 // contiguous tensor; the kernels launch on `stream`, allocate nothing and
 // do not synchronise. kid, mu, dens and slopes are the HDP tables (kid
 // and mu (B, P, LX), dens and slopes (nk, ng) on the grid g0 + i * dx with
-// last knot gN), all null for a Gaussian bucket. Each returns
-// cudaGetLastError() after its launch, or cudaErrorInvalidValue for a
-// shape it does not take (P > 8 or P * W > 8192) or an incomplete set of
-// HDP tables.
+// last knot gN), all null for a Gaussian bucket. `expect` != 0 runs the
+// EM expectation instances: fstack is (B, D1, 3, P, W), and the backward
+// writes texp (B, 7) and adds into kx (B, 3, LX), which the caller zeroes
+// (both null otherwise). Each returns cudaGetLastError() after its launch,
+// or cudaErrorInvalidValue for a shape it does not take (P > 8 or
+// P * W > 8192; with `expect`, P > 1 or W > 2048), an incomplete set of
+// HDP tables or missing expectation outputs.
 
 extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
                             const unsigned long long* leg, const float* ev,
@@ -695,15 +817,19 @@ extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
                             const float* mu, const float* dens,
                             const float* slopes, float* fstack,
                             float* f_incr, float* lse_f, int B, int D1, int W,
-                            int P, int LX, int LE, int nk, int ng, float g0,
-                            float dx, float gN, void* stream) {
+                            int P, int LX, int LE, int expect, int nk, int ng,
+                            float g0, float dx, float gN, void* stream) {
   const Bucket a{x0, width, ref, leg, ev, meta, par,
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
-  if (!shape_ok(W, P) || !hdp_ok(a.h)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(W, P) || !hdp_ok(a.h) || (expect && !expect_shape_ok(W, P)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return dens ? fwd_dispatch<true>(a, fstack, f_incr, lse_f, s)
-              : fwd_dispatch<false>(a, fstack, f_incr, lse_f, s);
+  if (expect)
+    return dens ? fwd_dispatch<true, true>(a, fstack, f_incr, lse_f, s)
+                : fwd_dispatch<false, true>(a, fstack, f_incr, lse_f, s);
+  return dens ? fwd_dispatch<true, false>(a, fstack, f_incr, lse_f, s)
+              : fwd_dispatch<false, false>(a, fstack, f_incr, lse_f, s);
 }
 
 extern "C" int sa_bwd_sweep_compact(
@@ -712,15 +838,21 @@ extern "C" int sa_bwd_sweep_compact(
     const float* par, const int* kid, const float* mu, const float* dens,
     const float* slopes, const float* fstack, const double* cvecf,
     float* b_incr, float* lse_b, int* slot_cell, float* slot_val, int* cnt,
-    int B, int D1, int W, int P, int LX, int LE, int R, int nk, int ng,
-    float threshold, float g0, float dx, float gN, void* stream) {
+    double* texp, double* kx, int B, int D1, int W, int P, int LX, int LE,
+    int R, int expect, int nk, int ng, float threshold, float g0, float dx,
+    float gN, void* stream) {
   const Bucket a{x0, width, ref, leg, ev, meta, par,
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
-  if (!shape_ok(W, P) || !hdp_ok(a.h)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(W, P) || !hdp_ok(a.h) ||
+      (expect && (!expect_shape_ok(W, P) || !texp || !kx)))
+    return (int)cudaErrorInvalidValue;
+  const BwdOut o{b_incr, lse_b, slot_cell, slot_val, cnt, texp, kx};
   cudaStream_t s = (cudaStream_t)stream;
-  return dens ? bwd_dispatch<true>(a, fstack, cvecf, b_incr, lse_b, slot_cell,
-                                   slot_val, cnt, R, threshold, s)
-              : bwd_dispatch<false>(a, fstack, cvecf, b_incr, lse_b,
-                                    slot_cell, slot_val, cnt, R, threshold, s);
+  if (expect)
+    return dens ? bwd_dispatch<true, true>(a, fstack, cvecf, o, R, threshold, s)
+                : bwd_dispatch<false, true>(a, fstack, cvecf, o, R, threshold,
+                                            s);
+  return dens ? bwd_dispatch<true, false>(a, fstack, cvecf, o, R, threshold, s)
+              : bwd_dispatch<false, false>(a, fstack, cvecf, o, R, threshold, s);
 }

@@ -398,7 +398,8 @@ class ProblemTensors:
     par: torch.Tensor      # (B, NPACK) f32
     # MODE_HDP buckets only (None for Gaussian ones): per-(problem, path,
     # position) k-mer ids and unscaled level means (ref_params row 7), in
-    # the layout of ``ref``, and the run's shared density tables
+    # the layout of ``ref``, and the run's shared density tables; the
+    # k-mer ids also in Gaussian buckets made for EM (the kexp keys)
     kid: Optional[torch.Tensor] = None    # (B, P, LX) int32
     mu: Optional[torch.Tensor] = None     # (B, P, LX) f32
     hdp: Optional["HdpTables"] = None
@@ -575,12 +576,14 @@ def _unpack(pt: ProblemTensors):
             pt.par[:, PACK_END:PACK_END + 3], pt.par[:, PACK_GAPX, None, None])
 
 
-def sweep_forward(pt: ProblemTensors):
+def sweep_forward(pt: ProblemTensors, store_full: bool = False):
     """Forward sweep over diagonals 0..D1-1.
 
     Returns (fstack (B, D1, P, W) f32 normalised match rows, f_incr
     (B, D1) per-diagonal offsets, lse_f (B,) end-weighted logsumexp over
     all states and paths at n_diag: the joint total's log-sum term).
+    ``store_full`` keeps all three states, fstack (B, D1, 3, P, W) (the
+    JAX ``store_full``; the EM expectation pass reads them).
     """
     B, D1 = pt.x0.shape
     W, P = pt.W, pt.P
@@ -591,12 +594,13 @@ def sweep_forward(pt: ProblemTensors):
     o = torch.arange(W, device=dev)
     no_diag = torch.full((B,), W + 5, dtype=torch.long, device=dev)
 
-    fstack = torch.full((B, D1, P, W), NEG, device=dev)
+    fstack = torch.full((B, D1, 3, P, W) if store_full else (B, D1, P, W),
+                        NEG, device=dev)
     f_incr = torch.zeros(B, D1, device=dev)
     lse_f = torch.zeros(B, device=dev)
     prev1 = torch.full((B, 3, P, W), NEG, device=dev)
     prev1[:, :, 0, 0] = start
-    fstack[:, 0] = prev1[:, MATCH]
+    fstack[:, 0] = prev1 if store_full else prev1[:, MATCH]
     prev2 = torch.full((B, 3, P, W), NEG, device=dev)
     m_prev = torch.zeros(B, device=dev)
     finals = set(pt.n_diag)
@@ -630,7 +634,7 @@ def sweep_forward(pt: ProblemTensors):
         cur = torch.where(inband[:, None, None, :], cur, NEG)
         m = _diag_max(cur)
         cur = torch.clamp(cur - m[:, None, None, None], min=NEG)
-        fstack[:, d] = cur[:, MATCH]
+        fstack[:, d] = cur if store_full else cur[:, MATCH]
         f_incr[:, d] = m
         if d in finals:
             lse_f = torch.where(nd == d, _lse(cur, end), lse_f)
@@ -638,12 +642,12 @@ def sweep_forward(pt: ProblemTensors):
     return fstack, f_incr, lse_f
 
 
-def sweep_backward(pt: ProblemTensors):
+def sweep_backward(pt: ProblemTensors, store_full: bool = False):
     """Backward sweep over diagonals D1-1..0.
 
     Returns (bstack (B, D1, P, W) f32 normalised match rows, b_incr
     (B, D1) per-diagonal offsets, lse_b (B,) start-weighted logsumexp at
-    d = 0).
+    d = 0); ``store_full``: bstack (B, D1, 3, P, W), all three states.
     """
     B, D1 = pt.x0.shape
     W, P = pt.W, pt.P
@@ -654,7 +658,8 @@ def sweep_backward(pt: ProblemTensors):
     o = torch.arange(W, device=dev)
     no_diag = torch.full((B,), W + 5, dtype=torch.long, device=dev)
 
-    bstack = torch.full((B, D1, P, W), NEG, device=dev)
+    bstack = torch.full((B, D1, 3, P, W) if store_full else (B, D1, P, W),
+                        NEG, device=dev)
     b_incr = torch.zeros(B, D1, device=dev)
     b1 = torch.full((B, 3, P, W), NEG, device=dev)
     b2 = torch.full((B, 3, P, W), NEG, device=dev)
@@ -698,7 +703,7 @@ def sweep_backward(pt: ProblemTensors):
         cur = torch.where(fin[:, None, None, None], bfin, cur)
         m = torch.where(fin, 0.0, _diag_max(cur))
         cur = torch.clamp(cur - m[:, None, None, None], min=NEG)
-        bstack[:, d] = cur[:, MATCH]
+        bstack[:, d] = cur if store_full else cur[:, MATCH]
         b_incr[:, d] = m
         b2, b1, m_prev = b1, cur, m
     return bstack, b_incr, _lse(cur, start)
@@ -741,13 +746,168 @@ def posterior(fstack, bstack, cvec, pt: ProblemTensors):
     return torch.clamp(post, max=1.0)
 
 
+# --------------------------------------------------------------------------
+# EM expectations (P = 1)
+# --------------------------------------------------------------------------
+
+# the seven live transitions (from state, to state), in the order of the
+# backward kernel's texp rows (the JAX ``execute_expect`` ``rows``)
+TEXP_ROWS = ((MATCH, GAP_X), (GAP_X, GAP_X), (MATCH, MATCH), (GAP_X, MATCH),
+             (GAP_Y, MATCH), (MATCH, GAP_Y), (GAP_Y, GAP_Y))
+
+
+def check_expect(P: int) -> None:
+    """The expectation pass runs at P = 1 only; P > 1 EM waits for its
+    ROADMAP item."""
+    if P != 1:
+        raise NotImplementedError(
+            f"EM expectations on a bucket of P={P} paths per cell: the port "
+            "computes them at P = 1 (P > 1 EM is queued in ROADMAP slice 3)")
+
+
+def expect_cvecs(cvecf, bo):
+    """The expectation normalisers from cvecf = Fo(d) - total and Bo, (B,
+    D1) float64 each: cvec_d1[d] = Fo(d-1) + Bo(d) - total and cvec_d2[d]
+    = Fo(d-2) + Bo(d) - total, with Fo(-1) = Fo(-2) = 0 as the JAX host
+    builds them; Fo(0) = 0, so cvecf[:, 0] = -total stands for those."""
+    c0 = cvecf[:, :1]
+    return (torch.cat([c0, cvecf[:, :-1]], dim=1) + bo,
+            torch.cat([c0, c0, cvecf[:, :-2]], dim=1) + bo)
+
+
+def texp_matrix(texp7):
+    """(B, 7) texp rows -> (B, 3, 3) [from state, to state]."""
+    out = texp7.new_zeros(texp7.shape[0], 3, 3)
+    for r, (a, b) in enumerate(TEXP_ROWS):
+        out[:, a, b] = texp7[:, r]
+    return out
+
+
+def kexp_by_kmer(kx, kid, K: int):
+    """Per-kmer emission moments (B, 3, K) float64 from the per-position
+    moments ``kx`` (B, 3, LX) of the expectation pass, keyed by each
+    position's k-mer id ``kid`` (B, LX): a float64 ``index_add_`` on
+    kx's device. The counterpart of the XLA ``_kexp_reduce_banked``
+    (``ops/banded_fb_pallas_batch.py:2116``); positions the pass never
+    reached hold zeros."""
+    B, _, LX = kx.shape
+    key = (torch.arange(B * 3, device=kx.device)[:, None] * K
+           + kid.long().repeat_interleave(3, dim=0)).reshape(-1)
+    out = torch.zeros(B * 3 * K, dtype=torch.float64, device=kx.device)
+    out.index_add_(0, key, kx.reshape(-1).double())
+    return out.view(B, 3, K)
+
+
+def expectation_sums(pt: ProblemTensors, fstack, bstack, cvec_d1, cvec_d2,
+                     moments: bool = True):
+    """Transition posteriors and per-position Gaussian moments of a P = 1
+    bucket, accumulated over TO diagonals d = 1..D1-1 as the JAX
+    ``_expectations_core`` (``ops/banded_fb.py:642-746``) does.
+
+    ``fstack`` / ``bstack`` are the three-state stacks (B, D1, 3, 1, W)
+    (``store_full``); ``cvec_d1[d]`` = Fo(d-1) + Bo(d) - total and
+    ``cvec_d2[d]`` = Fo(d-2) + Bo(d) - total (cast to float32 here, as the
+    JAX host casts them). A transition counts where its TO cell is in the
+    band, d <= n_diag and the step is legal; end-state transitions do not.
+
+    Returns (texp (B, 7) float64 in ``TEXP_ROWS`` order, kx (B, 3, LX)
+    float64 [Σp, Σp·dx, Σp·dx²] of the into-match posteriors at each TO
+    position, dx = (event mean − m̂)/var, zero where inv_m <= 0; all zero
+    unless ``moments``). Per-cell terms are float32 in the JAX order
+    (src + e_to + t + b + c); sums are float64. The JAX ``match_tp``
+    (per-cell into-match posteriors) has no reader on the EM path and is
+    not computed.
+    """
+    check_expect(pt.P)
+    B, D1 = pt.x0.shape
+    W = pt.W
+    dev = pt.device
+    lX, lY, nd, efp, reflen, evlen, t, start, end, gapx = _unpack(pt)
+    x0 = pt.x0.long()
+    width = pt.width.long()
+    o = torch.arange(W, device=dev)
+    no_diag = torch.full((B,), W + 5, dtype=torch.long, device=dev)
+    c1s, c2s = cvec_d1.float(), cvec_d2.float()
+    var = pt.par[:, PACK_VAR, None, None]
+    texp = torch.zeros(B, 7, dtype=torch.float64, device=dev)
+    kx = torch.zeros(B, 3, pt.ref.shape[-1], dtype=torch.float64, device=dev)
+    for d in range(1, D1):
+        xd = x0[:, d]
+        refw, idx = _cols(pt.ref, xd, reflen, W)
+        legw = _legal(pt, xd, reflen)[:, :, 0]          # (B, 1, W) at P = 1
+        evw, _ = _cols(pt.ev, lY - d + xd + efp, evlen, W)
+        e_match, e_stay, e_gapx = _emissions(refw, evw, gapx,
+                                             _hdp_window(pt, xd, reflen))
+        shift1 = xd - x0[:, d - 1] - 1
+        shift2 = xd - x0[:, d - 2] - 1 if d >= 2 else no_diag
+        f1 = _window(fstack[:, d - 1], shift1, W)       # (B, 3, 1, W+1)
+        f2 = _window(fstack[:, max(d - 2, 0)], shift2, W)
+        bcur = bstack[:, d]
+        c1 = c1s[:, d, None, None]
+        c2 = c2s[:, d, None, None]
+        inband = ((o < width[:, d, None]) & (d <= nd)[:, None])[:, None, :]
+        ok = legw & inband
+
+        def pair(src, e_to, t_log, b_state, c):
+            val = src + e_to + t_log + bcur[:, b_state] + c
+            return torch.exp(torch.clamp(torch.where(ok, val, NEG), min=NEG))
+
+        def stay(src, t_log):
+            val = src + e_stay + t_log + bcur[:, GAP_Y] + c1
+            return torch.exp(torch.clamp(torch.where(inband, val, NEG),
+                                         min=NEG))
+
+        p_mx = pair(f1[:, MATCH, :, :W], e_gapx, t[:, T_MX], GAP_X, c1)
+        p_xx = pair(f1[:, GAP_X, :, :W], e_gapx, t[:, T_XX], GAP_X, c1)
+        p_mm = pair(f2[:, MATCH, :, :W], e_match, t[:, T_MM], MATCH, c2)
+        p_xm = pair(f2[:, GAP_X, :, :W], e_match, t[:, T_XM], MATCH, c2)
+        p_ym = pair(f2[:, GAP_Y, :, :W], e_match, t[:, T_YM], MATCH, c2)
+        p_my = stay(f1[:, MATCH, :, 1:], t[:, T_MY])
+        p_yy = stay(f1[:, GAP_Y, :, 1:], t[:, T_YY])
+        texp += torch.stack([p.double().sum(dim=(1, 2)) for p in (
+            p_mx, p_xx, p_mm, p_xm, p_ym, p_my, p_yy)], dim=1)
+        if moments:
+            mtp = (p_mm + p_xm + p_ym)[:, 0]
+            # divide by a tensor: PyTorch's CUDA division by a Python
+            # number multiplies by its reciprocal (see hdp_spline_density)
+            dx = (evw[:, 0, None] - refw[:, 0]) / var
+            dx = torch.where(refw[:, 1] > 0.0, dx, 0.0)[:, 0]
+            for r, v in enumerate((mtp, mtp * dx, mtp * dx * dx)):
+                kx[:, r].scatter_add_(1, idx, v.double())
+    return texp, kx
+
+
+def expectations(pt: ProblemTensors, fstack, bstack, cvec_d1, cvec_d2,
+                 num_kmers: int):
+    """The JAX ``_expectations_core`` of a P = 1 bucket: texp (B, 3, 3)
+    [from, to] and kexp (B, 3, num_kmers) [Σp, Σp·dx, Σp·dx²] by k-mer,
+    both float64 (``expectation_sums``, then ``kexp_by_kmer`` over
+    ``pt.kid``). ``num_kmers`` = 0 skips the moments and returns kexp
+    zeros (B, 3, 1), as the JAX core does. Emission modes are treated
+    alike, as in the XLA core: the port's EM path asks for no moments in
+    MODE_HDP (see ``ops.batch.run_banded_fb_batch``)."""
+    texp7, kx = expectation_sums(pt, fstack, bstack, cvec_d1, cvec_d2,
+                                 moments=num_kmers > 0)
+    if num_kmers > 0:
+        if pt.kid is None:
+            raise ValueError("kexp needs the k-mer ids: problem_tensors(..., "
+                             "kmer_ids=True)")
+        kexp = kexp_by_kmer(kx, pt.kid[:, 0], num_kmers)
+    else:
+        kexp = torch.zeros(pt.x0.shape[0], 3, 1, dtype=torch.float64,
+                           device=pt.device)
+    return texp_matrix(texp7), kexp
+
+
 def run_banded_fb(problem: BandedProblem, W: int, P: int,
-                  with_expectations: bool = False,
-                  device: torch.device = torch.device("cpu")) -> Dict:
-    """Sweeps, float64 offsets and the posterior for one problem.
+                  with_expectations: bool = False, *,
+                  device: torch.device) -> Dict:
+    """Sweeps, float64 offsets and the posterior for one problem on
+    ``device``.
 
     Returns {"post": (Dpad+1, P, W) numpy, "total_f", "total_b"} like the
-    JAX ``run_banded_fb``.
+    JAX ``run_banded_fb``, and with ``with_expectations`` "texp" and
+    "kexp" (``ops.batch.run_banded_fb_batch``).
     """
     from signalalign_tpu_torch.ops.batch import run_banded_fb_batch
     return run_banded_fb_batch([problem], W, P, with_expectations,

@@ -1,6 +1,7 @@
 """The port's two Hopper kernels, their plain twins, and the aligner that
 drives them over one bucket of problems with 1 <= P <= 8 paths per cell,
-Gaussian (MODE_MEAN_ONLY) or HDP (MODE_HDP) emissions.
+Gaussian (MODE_MEAN_ONLY) or HDP (MODE_HDP) emissions, and, at P = 1,
+the EM expectation pass.
 
 ``forward_sweep`` launches ``sa_fwd_sweep`` and ``backward_sweep_compact``
 launches ``sa_bwd_sweep_compact`` (``csrc/banded_fb.cu``) on CUDA tensors;
@@ -11,7 +12,8 @@ the run's shared density tables (``ProblemTensors.kid``/``mu``/``hdp``),
 which the kernels' HDP instances read. A CUDA tensor never falls back: a
 missing ``nvcc``, a failed build, a shape the kernels do not take, a
 missing table or a refused launch raises. Each wrapper counts its kernel
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches`` and those of its expectation instance
+(``expect=True``) in ``<wrapper>.expect_launches``.
 
 ``HopperAligner`` is the counterpart of the JAX package's
 ``PallasAligner.execute`` (``ops/banded_fb_pallas.py``), of
@@ -19,10 +21,12 @@ launches in ``<wrapper>.launches``.
 the P = 1 ``fuse_compact`` branch, the P > 1 ``fuse_post`` +
 ``_compact_map_kernel`` branch and the ``estream`` HDP branch with its
 ``emission_stream.hdp_emission_stacks``) and of its
-``execute_site_marginals``:
+``execute_site_marginals`` and ``execute_expect``:
 forward sweep, float64 normaliser scan, backward sweep with in-sweep
 posterior + survivor compaction, then either the survivors decoded to
-aligned pairs or their posteriors summed per site on the device.
+aligned pairs or their posteriors summed per site on the device; in the
+expectation pass the backward also sums the transition posteriors and
+the per-position emission moments, which ``kexp_by_kmer`` keys by k-mer.
 """
 
 from __future__ import annotations
@@ -50,8 +54,11 @@ def _check_cuda(pt: bfb.ProblemTensors) -> None:
         tensors += [("kid", pt.kid, i32), ("mu", pt.mu, f32),
                     ("hdp.dens", pt.hdp.dens, f32),
                     ("hdp.slopes", pt.hdp.slopes, f32)]
-    elif pt.kid is not None or pt.mu is not None:
-        raise ValueError("k-mer id / level-mean tensors without HDP tables")
+    elif pt.mu is not None:
+        raise ValueError("level-mean tensor without HDP tables")
+    elif pt.kid is not None:
+        # a Gaussian EM bucket's k-mer ids (read by kexp_by_kmer only)
+        tensors.append(("kid", pt.kid, i32))
     for name, t, dtype in tensors:
         if (t is None or t.dtype != dtype or not t.is_contiguous()
                 or t.device != pt.device):
@@ -89,7 +96,7 @@ def _launch(name: str, pt: bfb.ProblemTensors, tensors, ints,
                 if h is not None else [None] * 4)
     ptrs = [t.data_ptr() for t in (pt.x0, pt.width, pt.ref, pt.leg, pt.ev,
                                    pt.meta, pt.par)]
-    ptrs += hdp_ptrs + [t.data_ptr() for t in tensors]
+    ptrs += hdp_ptrs + [None if t is None else t.data_ptr() for t in tensors]
     sizes = (h.K, h.NG) if h is not None else (0, 0)
     grid = (h.g0, h.dx, h.gN) if h is not None else (0.0, 0.0, 0.0)
     with torch.cuda.device(pt.device):
@@ -102,52 +109,73 @@ def _launch(name: str, pt: bfb.ProblemTensors, tensors, ints,
 
 # --------------------------------------------------------------- forward
 
-def forward_sweep_ref(pt: bfb.ProblemTensors):
-    """Plain twin of ``forward_sweep``: (fstack (B, D1, P, W) f32, f_incr
-    (B, D1) f32, lse_f (B,) f32)."""
-    return bfb.sweep_forward(pt)
+def forward_sweep_ref(pt: bfb.ProblemTensors, expect: bool = False):
+    """Plain twin of ``forward_sweep``: (fstack (B, D1, P, W) f32, or
+    (B, D1, 3, P, W) with ``expect``, f_incr (B, D1) f32, lse_f (B,)
+    f32)."""
+    if expect:
+        bfb.check_expect(pt.P)
+    return bfb.sweep_forward(pt, store_full=expect)
 
 
-def forward_sweep(pt: bfb.ProblemTensors):
+def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False):
     """Forward sweep of every problem of ``pt`` (one CUDA block each).
 
     Returns (fstack, f_incr, lse_f) as ``forward_sweep_ref``; on CUDA the
-    fstack rows past a problem's n_diag are left unwritten.
+    fstack rows past a problem's n_diag are left unwritten. ``expect``
+    (P = 1, W <= 2048) keeps all three states of each diagonal for the
+    expectation pass.
     """
     if pt.device.type == "cpu":
-        return forward_sweep_ref(pt)
+        return forward_sweep_ref(pt, expect)
     _check_cuda(pt)
+    if expect:
+        bfb.check_expect(pt.P)
     B, D1 = pt.x0.shape
     dev = pt.device
-    fstack = torch.empty(B, D1, pt.P, pt.W, dtype=torch.float32, device=dev)
+    fstack = torch.empty((B, D1, 3, pt.P, pt.W) if expect
+                         else (B, D1, pt.P, pt.W),
+                         dtype=torch.float32, device=dev)
     f_incr = torch.empty(B, D1, dtype=torch.float32, device=dev)
     lse_f = torch.empty(B, dtype=torch.float32, device=dev)
     _launch("sa_fwd_sweep", pt, (fstack, f_incr, lse_f),
-            (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1]))
-    forward_sweep.launches += 1
+            (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1],
+             int(expect)))
+    if expect:
+        forward_sweep.expect_launches += 1
+    else:
+        forward_sweep.launches += 1
     return fstack, f_incr, lse_f
 
 
 forward_sweep.launches = 0
+forward_sweep.expect_launches = 0
 
 
 # ------------------------------------------------------------- backward
 
 def backward_sweep_compact_ref(pt: bfb.ProblemTensors, fstack, cvecf,
-                               threshold: float, R: int):
+                               threshold: float, R: int,
+                               expect: bool = False):
     """Plain twin of ``backward_sweep_compact``: the full backward sweep,
     then the posterior, threshold and rank compaction over the stack.
 
     Returns (b_incr (B, D1) f32, lse_b (B,) f32, slot_cell (B, D1, R)
     int32 cells o*P + p, slot_val (B, D1, R) f32 posteriors, cnt (B, D1)
     int32 survivors per diagonal); slots at ranks >= cnt hold -1 / 0.
-    Survivors of a diagonal rank in (band offset, path) order.
+    Survivors of a diagonal rank in (band offset, path) order. With
+    ``expect`` (P = 1, ``fstack`` the three-state stack) it also returns
+    texp (B, 7) and kx (B, 3, LX) float64 from ``bfb.expectation_sums``
+    over the three-state backward stack (kx zero in MODE_HDP).
     """
-    bstack, b_incr, lse_b = bfb.sweep_backward(pt)
+    if expect:
+        bfb.check_expect(pt.P)
+    bstack, b_incr, lse_b = bfb.sweep_backward(pt, store_full=expect)
     bo, _ = bfb.backward_offsets(b_incr, lse_b)
     c = (cvecf + bo).float()
-    p = torch.exp(torch.clamp(fstack + bstack + c[:, :, None, None],
-                              min=bfb.NEG))
+    fm, bm = ((fstack[:, :, bfb.MATCH], bstack[:, :, bfb.MATCH]) if expect
+              else (fstack, bstack))
+    p = torch.exp(torch.clamp(fm + bm + c[:, :, None, None], min=bfb.NEG))
     surv = bfb.cell_mask(pt) & (p >= threshold)
     B, D1 = pt.x0.shape
     # (B, D1, P, W) -> (B, D1, W*P): flat index o*P + p is the cell id
@@ -162,44 +190,69 @@ def backward_sweep_compact_ref(pt: bfb.ProblemTensors, fstack, cvecf,
     ri = rank[keep]
     slot_cell[bi, di, ri] = ci.int()
     slot_val[bi, di, ri] = p[keep]
-    return b_incr, lse_b, slot_cell, slot_val, cnt
+    out = (b_incr, lse_b, slot_cell, slot_val, cnt)
+    if not expect:
+        return out
+    return out + bfb.expectation_sums(pt, fstack, bstack,
+                                      *bfb.expect_cvecs(cvecf, bo),
+                                      moments=pt.hdp is None)
 
 
 def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
-                           threshold: float, R: int):
+                           threshold: float, R: int, expect: bool = False):
     """Backward sweep with the posterior, threshold and survivor
     compaction fused in; ``cvecf`` (B, D1) float64 is Fo(d) - total_f.
 
     Returns (b_incr, lse_b, slot_cell, slot_val, cnt) as
     ``backward_sweep_compact_ref``; ``cnt`` counts every survivor of a
-    diagonal even past R.
+    diagonal even past R. ``expect`` (P = 1, ``fstack`` the three-state
+    stack of ``forward_sweep(pt, expect=True)``) adds texp (B, 7) float64,
+    the transition posterior sums in ``bfb.TEXP_ROWS`` order, and kx (B,
+    3, LX) float64, the into-match posteriors' moments [Σp, Σp·dx, Σp·dx²]
+    at each TO position (zero in MODE_HDP).
     """
     if pt.device.type == "cpu":
-        return backward_sweep_compact_ref(pt, fstack, cvecf, threshold, R)
+        return backward_sweep_compact_ref(pt, fstack, cvecf, threshold, R,
+                                          expect)
     _check_cuda(pt)
+    if expect:
+        bfb.check_expect(pt.P)
     B, D1 = pt.x0.shape
+    LX = pt.ref.shape[-1]
     dev = pt.device
-    _check_out("fstack", fstack, (B, D1, pt.P, pt.W), torch.float32, dev)
+    _check_out("fstack", fstack, (B, D1, 3, pt.P, pt.W) if expect
+               else (B, D1, pt.P, pt.W), torch.float32, dev)
     _check_out("cvecf", cvecf, (B, D1), torch.float64, dev)
     b_incr = torch.empty(B, D1, dtype=torch.float32, device=dev)
     lse_b = torch.empty(B, dtype=torch.float32, device=dev)
     slot_cell = torch.empty(B, D1, R, dtype=torch.int32, device=dev)
     slot_val = torch.empty(B, D1, R, dtype=torch.float32, device=dev)
     cnt = torch.empty(B, D1, dtype=torch.int32, device=dev)
+    texp = kx = None
+    if expect:
+        texp = torch.empty(B, 7, dtype=torch.float64, device=dev)
+        kx = torch.zeros(B, 3, LX, dtype=torch.float64, device=dev)
     _launch("sa_bwd_sweep_compact", pt,
-            (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt),
-            (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1], R),
+            (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt, texp,
+             kx),
+            (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1], R, int(expect)),
             (float(threshold),))
+    out = (b_incr, lse_b, slot_cell, slot_val, cnt)
+    if expect:
+        backward_sweep_compact.expect_launches += 1
+        return out + (texp, kx)
     backward_sweep_compact.launches += 1
-    return b_incr, lse_b, slot_cell, slot_val, cnt
+    return out
 
 
 backward_sweep_compact.launches = 0
+backward_sweep_compact.expect_launches = 0
 
 
 def reset_launch_counts() -> None:
-    forward_sweep.launches = 0
-    backward_sweep_compact.launches = 0
+    for fn in (forward_sweep, backward_sweep_compact):
+        fn.launches = 0
+        fn.expect_launches = 0
 
 
 # --------------------------------------------------------------- aligner
@@ -236,26 +289,36 @@ def decode_pairs(problem: bfb.BandedProblem, d: np.ndarray, cell: np.ndarray,
 class HopperAligner:
     """One bucket of problems with 1 <= P <= 8 paths per cell on one
     device. A MODE_HDP bucket takes ``hdp_tables``: the run's HDP tables,
-    already on ``device`` (``convert.hdp_tables``)."""
+    already on ``device`` (``convert.hdp_tables``). ``expect`` makes a
+    P = 1 bucket run the EM expectation pass (``run``, ``execute`` and
+    ``expect`` then add the expectations); its tensors carry the k-mer ids
+    that key the emission moments."""
 
     def __init__(self, problems: Sequence[bfb.BandedProblem], W: int,
                  device: torch.device,
-                 hdp_tables: Optional[bfb.HdpTables] = None):
+                 hdp_tables: Optional[bfb.HdpTables] = None,
+                 expect: bool = False):
         self.problems = list(problems)
-        self.pt = problem_tensors(self.problems, W, device, hdp_tables)
+        self.pt = problem_tensors(self.problems, W, device, hdp_tables,
+                                  kmer_ids=expect)
+        if expect:
+            bfb.check_expect(self.pt.P)
+        self.with_expectations = expect
 
     def _survivors(self, threshold: float):
         """Both sweeps on the device; returns device tensors (problem b,
         diagonal d, cell, val) of every survivor in (problem, diagonal,
-        offset, path) order, survivors per problem n, and float64
-        total_f / total_b."""
+        offset, path) order, survivors per problem n, float64 total_f /
+        total_b, and in an expectation pass texp (B, 7) and kx (B, 3,
+        LX)."""
         pt = self.pt
         R = survivor_slots(threshold)
-        fstack, f_incr, lse_f = forward_sweep(pt)
+        expect = self.with_expectations
+        fstack, f_incr, lse_f = forward_sweep(pt, expect)
         fo, total_f = bfb.forward_offsets(f_incr, lse_f, pt.meta[:, bfb.M_NDIAG])
         cvecf = (fo - total_f[:, None]).contiguous()
-        b_incr, lse_b, slot_cell, slot_val, cnt = backward_sweep_compact(
-            pt, fstack, cvecf, threshold, R)
+        outs = backward_sweep_compact(pt, fstack, cvecf, threshold, R, expect)
+        b_incr, lse_b, slot_cell, slot_val, cnt = outs[:5]
         del fstack
         _, total_b = bfb.backward_offsets(b_incr, lse_b)
         cmax = int(cnt.max())
@@ -266,20 +329,32 @@ class HopperAligner:
         keep = torch.arange(R, device=cnt.device) < cnt[:, :, None]
         b, d, _ = keep.nonzero(as_tuple=True)
         return (b, d, slot_cell[keep], slot_val[keep], cnt.sum(dim=1),
-                total_f, total_b)
+                total_f, total_b) + tuple(outs[5:])
 
     def run(self, threshold: float = 0.01) -> Dict[str, np.ndarray]:
         """Both sweeps and the survivor flattening; returns host arrays:
         diagonal "d", cell "cell" (o*P + p) and posterior "val" of every
         survivor in (problem, diagonal, offset, path) order, survivors per
-        problem "n", and float64 "total_f" / "total_b"."""
-        _, d, cell, val, n, total_f, total_b = self._survivors(threshold)
-        return {k: v.cpu().numpy() for k, v in (
-            ("d", d.int()), ("cell", cell), ("val", val), ("n", n),
-            ("total_f", total_f), ("total_b", total_b))}
+        problem "n", and float64 "total_f" / "total_b". The expectation
+        pass adds "texp" (B, 3, 3) [from, to] and, in a Gaussian bucket,
+        "kexp" (B, 3, num_kmers) [Σp, Σp·dx, Σp·dx²] by k-mer, float64."""
+        outs = self._survivors(threshold)
+        _, d, cell, val, n, total_f, total_b = outs[:7]
+        arrays = [("d", d.int()), ("cell", cell), ("val", val), ("n", n),
+                  ("total_f", total_f), ("total_b", total_b)]
+        if self.with_expectations:
+            texp7, kx = outs[7:]
+            arrays.append(("texp", bfb.texp_matrix(texp7)))
+            if self.pt.hdp is None:
+                arrays.append(("kexp", bfb.kexp_by_kmer(
+                    kx, self.pt.kid[:, 0], self.problems[0].num_kmers)))
+        return {k: v.cpu().numpy() for k, v in arrays}
 
     def decode(self, arrays: Dict[str, np.ndarray]) -> List[Dict]:
-        """Per-problem {"pairs", "total_f", "total_b"} from ``run``'s arrays."""
+        """Per-problem {"pairs", "total_f", "total_b"} from ``run``'s
+        arrays, and from an expectation pass's "texp" (3, 3) and "kexp":
+        (3, num_kmers), or zeros (3, 1) in MODE_HDP (the TPU kernel's
+        contract: HDP emissions train from assignments, not moments)."""
         results = []
         start = 0
         for i, p in enumerate(self.problems):
@@ -291,11 +366,24 @@ class HopperAligner:
                                       arrays["val"][sl], self.pt.P),
                 "total_f": float(arrays["total_f"][i]),
                 "total_b": float(arrays["total_b"][i])})
+            if "texp" in arrays:
+                results[-1]["texp"] = arrays["texp"][i]
+                results[-1]["kexp"] = (arrays["kexp"][i] if "kexp" in arrays
+                                       else np.zeros((3, 1)))
         return results
 
     def execute(self, threshold: float = 0.01) -> List[Dict]:
-        """Per-problem {"pairs", "total_f", "total_b"}."""
+        """Per-problem {"pairs", "total_f", "total_b"} (and the
+        expectations, see ``decode``)."""
         return self.decode(self.run(threshold))
+
+    def expect(self, threshold: float = 0.01) -> List[Dict]:
+        """The EM expectation pass of an aligner made with ``expect=True``,
+        the counterpart of ``PallasBatchAligner.execute_expect``: per
+        problem {"pairs", "total_f", "total_b", "texp", "kexp"}."""
+        if not self.with_expectations:
+            raise ValueError("HopperAligner made without expect=True")
+        return self.execute(threshold)
 
     def site_sums(self, sites: Sequence[Sequence[int]],
                   threshold: float = 0.01) -> List[Dict]:
@@ -317,7 +405,7 @@ class HopperAligner:
         for i, xs in enumerate(sites):
             slot[i, np.asarray(xs, dtype=np.int64)] = np.arange(len(xs))
         slot = torch.from_numpy(slot).to(pt.device)
-        b, d, cell, val, _, total_f, total_b = self._survivors(threshold)
+        b, d, cell, val, _, total_f, total_b = self._survivors(threshold)[:7]
         cell = cell.long()
         x = pt.x0[b, d].long() + cell // P
         s = slot[b, x]

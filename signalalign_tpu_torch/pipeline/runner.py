@@ -1,8 +1,8 @@
 """Multi-read signal alignment in the port: the Gaussian (MODE_MEAN_ONLY)
 and HDP (MODE_HDP) branches of
 ``signalalign_tpu.pipeline.runner.run_alignment_batch`` for segments of
-1 <= P <= 8 paths per cell, with pair output or site-mode
-variant/methylation calling.
+1 <= P <= 8 paths per cell, with pair output, site-mode
+variant/methylation calling, or (P = 1) the EM expectation pass.
 
 Reads are prepared on the host (scaling, anchors, band geometry,
 segment and path-class splits, ``prepare_problem``), bucketed by shape,
@@ -169,9 +169,6 @@ def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
 
 
 def _check_slice(config: AlignmentConfig, hdp) -> None:
-    if config.compute_expectations:
-        raise NotImplementedError(
-            "compute_expectations (EM training) comes with ROADMAP slice 3")
     if config.emission_mode not in (bfb.MODE_MEAN_ONLY, bfb.MODE_HDP):
         raise NotImplementedError(
             f"emission mode {config.emission_mode}: the port runs "
@@ -180,9 +177,11 @@ def _check_slice(config: AlignmentConfig, hdp) -> None:
         raise ValueError("MODE_HDP requires an hdp model (hdp=)")
 
 
-def _stack_chunks(idxs: List[int], W: int, Dpad: int,
-                  P: int) -> List[List[int]]:
-    per = max(1, STACK_BYTES // ((Dpad + 1) * P * W * 4))
+def _stack_chunks(idxs: List[int], W: int, Dpad: int, P: int,
+                  states: int = 1) -> List[List[int]]:
+    """Chunks of a bucket whose forward stacks (``states`` rows per
+    diagonal: 1, or 3 in the expectation pass) fit STACK_BYTES."""
+    per = max(1, STACK_BYTES // ((Dpad + 1) * states * P * W * 4))
     return [idxs[i:i + per] for i in range(0, len(idxs), per)]
 
 
@@ -221,17 +220,25 @@ def run_alignment_batch(
     empty ``aligned_pairs``. Segments with P = 1 hold no site cell and are
     skipped, reporting total_f 0.0 as the JAX runner does.
 
-    A bucket with more than 8 paths per cell raises before anything
-    launches. ``stage_seconds``, when given, receives the wall seconds of
-    each stage: "prep" (host), "hdp_upload" (HDP mode: the tables to the
-    device), "kernels" (upload, both sweeps, survivor or site-sum fetch;
-    ends in a device synchronisation), "decode" (survivors to pairs) and
-    "assemble".
+    ``config.compute_expectations`` runs the EM expectation pass instead
+    (``call_variants`` is then ignored, as in the JAX runner): pairs as
+    usual, and per read the summed ``transition_expectations`` (3, 3),
+    ``emission_expectations`` (3, num_kmers; zeros in MODE_HDP) and
+    ``likelihood`` (sum of total_f * n_diag over its segments).
+
+    A bucket with more than 8 paths per cell, or an expectation pass over
+    a bucket with more than one, raises before anything launches.
+    ``stage_seconds``, when given, receives the wall seconds of each
+    stage: "prep" (host), "hdp_upload" (HDP mode: the tables to the
+    device), "kernels" (upload, both sweeps, survivor or site-sum fetch,
+    expectation sums; ends in a device synchronisation), "decode"
+    (survivors to pairs) and "assemble".
     """
     config = config or AlignmentConfig()
     _check_slice(config, hdp)
     config = config.for_batch(len(reads_and_guides))
-    site_mode = call_variants is not None
+    expect = config.compute_expectations
+    site_mode = call_variants is not None and not expect
     stages: Dict[str, float] = defaultdict(float)
     t_stage = time.perf_counter()
 
@@ -287,6 +294,8 @@ def run_alignment_batch(
             raise NotImplementedError(
                 f"bucket of P={P} paths per cell (W={W}): the port runs "
                 f"P <= {bfb.MAX_P}; three-way ambiguity codes exceed it")
+        if expect:
+            bfb.check_expect(P)
     tables = None
     if config.emission_mode == bfb.MODE_HDP:
         tables = hdp_tables(*hdp.density_arrays(), device)
@@ -302,9 +311,9 @@ def run_alignment_batch(
             for i in idxs:
                 seg_results[i] = {"total_f": 0.0, "total_b": 0.0}
             continue
-        for chunk in _stack_chunks(idxs, W, Dpad, P):
+        for chunk in _stack_chunks(idxs, W, Dpad, P, 3 if expect else 1):
             aligner = HopperAligner([tasks[i][3] for i in chunk], W, device,
-                                    tables)
+                                    tables, expect=expect)
             if site_mode:
                 res = aligner.site_sums([cells[i] for i in chunk],
                                         config.threshold)
@@ -331,11 +340,18 @@ def run_alignment_batch(
         per_pos = {}    # site mode: (strand, genomic k-mer start) -> {base: p}
         total_lp = 0.0
         gap = 0.0
+        texp = np.zeros((3, 3))
+        kexp = np.zeros((3, model.alphabet.num_kmers))
+        lik = 0.0
         for si in ids:
             _, x1, y1, problem = tasks[si][:4]
             r = seg_results[si]
             total_lp += r["total_f"]
             gap = max(gap, abs(r["total_f"] - r["total_b"]))
+            if expect:
+                texp += r["texp"]
+                kexp += r["kexp"]
+                lik += r["total_f"] * problem.n_diag
             if site_mode:
                 if "site_probs" not in r:
                     continue
@@ -359,7 +375,10 @@ def run_alignment_batch(
             aligned_pairs=all_pairs, score=posterior_score(all_pairs),
             target=target, event_offset=ev_start, ref_offset=ref_shift,
             params=params, events=events, total_log_prob=total_lp,
-            rna=read.rna, max_total_gap=gap, variant_calls=vcalls))
+            rna=read.rna, max_total_gap=gap, variant_calls=vcalls,
+            transition_expectations=texp if expect else None,
+            likelihood=lik,
+            emission_expectations=kexp if expect else None))
     mark("assemble")
     if stage_seconds is not None:
         stage_seconds.update(stages)

@@ -35,6 +35,8 @@ class AlignmentConfig:
     emission_mode: int = bfb.MODE_MEAN_ONLY
     ambig_map: Dict[str, str] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_AMBIG_BASES))
+    # EM expectation pass: transition posteriors and Gaussian emission
+    # moments per read (P = 1 segments only; pipeline.train sets it)
     compute_expectations: bool = False
     # isolate sparse adjacent-degenerate (P>2, then P>4) windows into
     # their own segments (band_geometry.split_segment_by_paths), as the
@@ -68,6 +70,15 @@ class ReadAlignment:
     # max over the read's segments of |total_f - total_b|: a nat or more
     # means the DP lost precision
     max_total_gap: float = 0.0
+    # EM expectation pass (AlignmentConfig.compute_expectations): the
+    # (3, 3) transition posterior sums over the read's segments, their
+    # reference-style likelihood (sum of total_f * n_diag) and the
+    # (3, num_kmers) per-kmer emission moments [Σp, Σp·dx, Σp·dx²]
+    # (models.expectations.emission_slots_from_kexp converts them; zeros
+    # in MODE_HDP)
+    transition_expectations: Optional[np.ndarray] = None
+    likelihood: float = 0.0
+    emission_expectations: Optional[np.ndarray] = None
     # site-calling mode (run_alignment_batch call_variants): the per-read
     # variant-call table (marginalize_full_variants schema, a pandas
     # DataFrame) from device site sums; aligned_pairs stays empty then

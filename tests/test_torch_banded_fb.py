@@ -175,7 +175,7 @@ def test_posterior_matches_xla(problems, xla):
     """ops.batch.run_banded_fb_batch and run_banded_fb (the port's XLA
     counterparts): totals within 5e-3 nats, posteriors within 1e-4."""
     res = run_banded_fb_batch(problems[1], W, 1, device=CPU)
-    single = bfb.run_banded_fb(problems[1][1], W, 1)
+    single = bfb.run_banded_fb(problems[1][1], W, 1, device=CPU)
     assert np.array_equal(single["post"], res[1]["post"])
     for r, x in zip(res, xla):
         assert r["post"].shape == x["post"].shape
@@ -266,7 +266,8 @@ def test_wrappers_use_twins_on_cpu_and_never_fall_back(problems):
 
 def test_outside_the_slice_raises():
     """More than 8 paths per cell (three three-way codes in one 5-mer: 27
-    paths), non-Gaussian emissions and EM expectations raise."""
+    paths) and non-Gaussian emissions raise; EM expectations run (texp
+    and kexp of a Gaussian problem from the same entry point)."""
     args, kw = _ambiguous_args()
     seq = args[0][:20] + "BBB" + args[0][23:]
     p27 = bfb.prepare_problem(*_port_args((seq, *args[1:])), **dict(kw, P=27))
@@ -276,5 +277,11 @@ def test_outside_the_slice_raises():
     p = bfb.prepare_problem(*_port_args(args), **dict(kw, mode=bfb.MODE_FULL))
     with pytest.raises(NotImplementedError, match="MODE_MEAN_ONLY"):
         problem_tensors([p], W, CPU)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        run_banded_fb_batch([p], W, 1, True, device=CPU)
+    gauss = bfb.prepare_problem(*_port_args(args), **kw)
+    r = run_banded_fb_batch([gauss], W, 1, True, device=CPU)[0]
+    assert r["texp"].shape == (3, 3) and r["kexp"].shape == (3, 1024)
+    assert np.isfinite(r["texp"]).all() and (r["texp"] >= 0).all()
+    # every event is matched or stayed on once: the into-match and
+    # into-gapY posteriors sum to the event count
+    assert abs(r["texp"][:, [0, 2]].sum() - gauss.lY) <= 1e-3 * gauss.lY
+    assert abs(r["kexp"][0].sum() - r["texp"][:, 0].sum()) <= 1e-6 * gauss.lY

@@ -59,6 +59,7 @@ def test_importing_the_port_leaves_jax_out():
     out = _run("""
         import sys
         import signalalign_tpu_torch.pipeline.runner
+        import signalalign_tpu_torch.pipeline.train
         import signalalign_tpu_torch.ops.banded_fb_hopper
         import signalalign_tpu_torch.ops.batch
         import signalalign_tpu_torch.convert

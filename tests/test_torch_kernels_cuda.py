@@ -1,15 +1,19 @@
 """Each Hopper kernel of the port against its plain PyTorch twin on the
 card, for P = 1 and for P = 2, 4 and 8 paths per cell, with every
 kernel instance (1, 2, 4 and 8 cells per thread), with Gaussian and with
-HDP emissions. Needs a CUDA GPU and nvcc; skipped without a GPU. On a GPU
-host:
+HDP emissions, and the EM expectation instances (P = 1, one and two
+cells per thread, Gaussian and HDP). Needs a CUDA GPU and nvcc; skipped
+without a GPU. On a GPU host:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
 Tolerances (same formulas, built without multiply-add contraction; only
 the final logsumexp reductions sum in another order): totals within
 1e-2 nats, posteriors within 1e-4, survivor sets equal except cells
-within 1e-4 of the threshold.
+within 1e-4 of the threshold; the expectation instances' three-state
+stacks, offsets and survivors equal their twins', and their texp and kx
+(per-cell float32 terms summed in float64, in another association than
+the twin's XLA-form core) within 1e-5 relative of the twin's.
 """
 
 import numpy as np
@@ -196,3 +200,82 @@ def test_aligner_on_gpu_matches_cpu(dev, bucket):
         for key in set(dg) ^ set(dc):
             assert abs(dg.get(key, dc.get(key)) / 1e7 - THR) <= 1e-3
         assert all(abs(dg[k] - dc[k]) <= 1e-3 * 1e7 for k in set(dg) & set(dc))
+
+
+@pytest.fixture(scope="module",
+                params=["narrow", "wide", "hdp_narrow", "hdp_wide"])
+def expect_bucket(request):
+    """P = 1 buckets for the expectation instances: six W=256 problems
+    (one cell per thread) or two whose bands pass 1024 offsets (W=1280:
+    two cells per thread), Gaussian or HDP."""
+    hdp = request.param.startswith("hdp_")
+    if request.param.endswith("narrow"):
+        return _case(_problems(6, (200, 600), (100, 160), 256, 2048, 4,
+                               hdp=hdp), 256)
+    probs = _problems(2, (1450, 1550), (200, 1300), 1280, 4096, 5, hdp=hdp)
+    assert max(int(p.width.max()) for p in probs[0]) > 1024
+    return _case(probs, 1280)
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def test_expect_kernels_match_twins(dev, expect_bucket):
+    problems, W, h = expect_bucket
+    pt = problem_tensors(problems, W, dev, _hdp_tables(h, dev), kmer_ids=True)
+    nds = pt.meta[:, bfb.M_NDIAG]
+    n0 = (hk.forward_sweep.expect_launches,
+          hk.backward_sweep_compact.expect_launches)
+    fk = hk.forward_sweep(pt, expect=True)
+    fr = hk.forward_sweep_ref(pt, expect=True)
+    torch.cuda.synchronize()
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    assert fk[0].shape == fr[0].shape == (*pt.x0.shape, 3, 1, W)
+    assert torch.equal(fk[0][rows], fr[0][rows])
+    assert torch.equal(fk[1][rows], fr[1][rows]) and torch.equal(fk[2], fr[2])
+    fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
+    cvecf = (fo - tf[:, None]).contiguous()
+    R = hk.survivor_slots(THR)
+    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R, expect=True)
+    br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, THR, R, expect=True)
+    torch.cuda.synchronize()
+    assert (hk.forward_sweep.expect_launches,
+            hk.backward_sweep_compact.expect_launches) == (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(bk[0][rows], br[0][rows]) and torch.equal(bk[1], br[1])
+    assert torch.equal(bk[4][rows], br[4][rows])
+    keep = torch.arange(R, device=dev) < bk[4][:, :, None]
+    assert torch.equal(bk[2][keep], br[2][keep])
+    assert torch.equal(bk[3][keep], br[3][keep])
+    assert _rel(bk[5], br[5]) <= 1e-5
+    if h is None:
+        assert _rel(bk[6], br[6]) <= 1e-5 and bk[6].abs().max() > 0
+    else:
+        assert not bk[6].any()
+
+
+def test_expect_aligner_on_gpu_matches_cpu(dev, expect_bucket):
+    """HopperAligner.expect on the card against the same pass on the CPU
+    (twins): totals within 1e-2 nats, texp rtol 2e-4 / atol 5e-3, kexp
+    rtol 2e-3 / atol 5e-3 (the CPU's exp/log round otherwise)."""
+    problems, W, h = expect_bucket
+    cpu_dev = torch.device("cpu")
+    gpu = hk.HopperAligner(problems, W, dev, _hdp_tables(h, dev),
+                           expect=True).expect(THR)
+    cpu = hk.HopperAligner(problems, W, cpu_dev, _hdp_tables(h, cpu_dev),
+                           expect=True).expect(THR)
+    for g, c in zip(gpu, cpu):
+        assert abs(g["total_f"] - c["total_f"]) <= 1e-2
+        np.testing.assert_allclose(g["texp"], c["texp"], rtol=2e-4, atol=5e-3)
+        np.testing.assert_allclose(g["kexp"], c["kexp"], rtol=2e-3, atol=5e-3)
+
+
+def test_expect_refuses_more_than_one_path(dev):
+    """The expectation instances take P = 1 only: a P = 2 bucket raises
+    before any launch."""
+    problems, _ = _problems(2, (700, 900), (100, 300), 256, 2048, 12, P=2)
+    pt = problem_tensors(problems, 256, dev)
+    n0 = hk.forward_sweep.expect_launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        hk.forward_sweep(pt, expect=True)
+    assert hk.forward_sweep.expect_launches == n0

@@ -189,14 +189,26 @@ def test_hdp_emissions_run(batch):
             assert genome[i:i + model.kmer_length] == row.reference_kmer
 
 
-def test_outside_the_slice_raises(batch, tmp_path):
-    """EM expectations still raise, naming their ROADMAP slice; the
-    variants format needs its candidate bases."""
+def test_outside_the_slice_raises(batch, port, tmp_path):
+    """EM expectations run through the same entry point (per read: the
+    transition posteriors, the Gaussian moments and the likelihood, with
+    the pairs and totals of the plain run); the variants format needs its
+    candidate bases."""
     model, rgs, reference = batch[1]
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        run_alignment_batch(rgs, reference, model,
-                            AlignmentConfig(compute_expectations=True),
-                            device=CPU)
+    res = run_alignment_batch(rgs, reference, model,
+                              AlignmentConfig(compute_expectations=True),
+                              device=CPU)
+    assert len(res) == len(rgs)
+    for r, p in zip(res, port):
+        assert r.aligned_pairs == p.aligned_pairs
+        assert r.total_log_prob == p.total_log_prob
+        te = r.transition_expectations
+        assert te.shape == (3, 3) and (te >= 0).all() and te.sum() > 0
+        assert r.emission_expectations.shape == (3, model.num_kmers)
+        # the into-match posteriors are the moments' Σp
+        assert abs(r.emission_expectations[0].sum() - te[:, 0].sum()) \
+            <= 1e-6 * te.sum()
+        assert np.isfinite(r.likelihood) and r.likelihood < 0
     with pytest.raises(ValueError, match="variants="):
         write_outputs([], model, str(tmp_path), "variants")
 
