@@ -61,6 +61,24 @@ Phases (any failure stops the run with a non-zero exit):
          events and peak device memory;
      7d. threeStateHdp transition EM: one iteration over 16 of phase 6's
          reads against the plain genome (every segment P = 1).
+  8. the probability-space path (SIGNALALIGN_TPU_PROB_KERNELS=1):
+     8a. both probability-space kernels against their twins on phase 3a's
+         problems, timed beside the log-space kernels on the same
+         problems, with bound and floor; and on problems of eight
+         error-free reads (phase 4's reads follow their basecall errors,
+         and every segment of theirs exhausts the f32 window, as the JAX
+         kernels' do), where the values are held;
+     8b. outlier_segments: the two lanes with an outlier run trip, the
+         aligner flags them, and the re-run gives them the log-space
+         path's results bit for bit;
+     8c. phase 4's 64 reads through run_alignment_batch with the switch
+         set and write_outputs("both"): the output equals phase 4's, the
+         probability-space kernels run on exactly the buckets the runner
+         admits and the log-space ones on the rest (W = 768 among them);
+         segments flagged and re-run, stage times (rerun among them),
+         events/s beside phase 4's, peak device memory, launch counts;
+     8d. probability-space against log-space kernel time on every W <= 512
+         bucket of phase 4, in the runner's chunks, by CUDA events.
 Each kernel's line carries its bound: the larger of the bytes it must
 move over the HBM rate and its transcendentals over the SFU rate, with
 the serial-diagonal floor (longest problem's diagonals times the measured
@@ -124,6 +142,7 @@ TOL_EXPECT = 1e-3
 TEXP_TOL = dict(rtol=2e-4, atol=5e-3)
 KEXP_TOL = dict(rtol=2e-3, atol=5e-3)
 SEED_EM_NOISE = 99      # the level-mean noise of 7c's start model
+SEED_CLEAN = 11         # 8a's error-free reads
 EM_SEGMENT_DIAGONALS = 3200   # em_train's segment cap
 # H100 SXM peaks for the bounds: HBM bytes per second, and transcendental
 # results per second (16 special-function results per clock per SM, 132
@@ -281,6 +300,63 @@ def expect_vs_twins(hk, bfb, pt, threshold, R, reps=5):
             "texp_sum": br[5].sum().item()}
 
 
+def prob_vs_twins(hk, bfb, pt, threshold, R, reps=5):
+    """Both probability-space kernels against their twins on one P = 1
+    bucket: the same lanes trip (totals not within 1 nat); on the others
+    totals within TOL_TOTAL, exp(fstack) and the survivors' posteriors
+    within TOL_POST, the survivor sets equal but for threshold-edge cells.
+    Returns the kernels' times (3a's method), the twins' wall times, the
+    errors, the survivor counts and the tripped lanes."""
+    dev = pt.device
+    nds = pt.meta[:, bfb.M_NDIAG]
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    t0 = time.perf_counter()
+    fr = hk.forward_sweep_prob_ref(pt)
+    torch.cuda.synchronize()
+    fwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    fwd_ms, fk = cuda_ms(lambda: hk.forward_sweep_prob(pt), reps)
+    fo, tf_r = bfb.forward_offsets(fr[1], fr[2], nds)
+    _, tf_k = bfb.forward_offsets(fk[1], fk[2], nds)
+    cvecf = (fo - tf_r[:, None]).contiguous()
+    t0 = time.perf_counter()
+    br = hk.backward_sweep_compact_prob_ref(pt, fr[0], cvecf, threshold, R)
+    torch.cuda.synchronize()
+    bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    bwd_ms, bk = cuda_ms(lambda: hk.backward_sweep_compact_prob(
+        pt, fr[0], cvecf, threshold, R), reps)
+    _, tb_r = bfb.backward_offsets(br[0], br[1])
+    _, tb_k = bfb.backward_offsets(bk[0], bk[1])
+    ok = (tf_r - tb_r).abs() < 1.0
+    check(torch.equal((tf_k - tb_k).abs() < 1.0, ok),
+          f"probability-space kernels trip other lanes than their twins: "
+          f"kernel {(tf_k - tb_k).tolist()}, twin {(tf_r - tb_r).tolist()}")
+    out = {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "bwd_ms": bwd_ms,
+           "bwd_plain_ms": bwd_plain_ms, "tripped": (~ok).tolist(),
+           "tf_err": 0.0, "tb_err": 0.0, "fdiff": 0.0, "pdiff": 0.0,
+           "n_kernel": 0, "n_twin": 0}
+    if not ok.any():
+        return out
+    live = rows & ok[:, None]
+    out["fdiff"] = (fk[0].exp() - fr[0].exp())[:, :, 0][live].abs().max().item()
+    out["tf_err"] = (tf_k - tf_r)[ok].abs().max().item()
+    out["tb_err"] = (tb_k - tb_r)[ok].abs().max().item()
+    check(int(bk[4][ok].max()) <= R, "survivor slots overflowed")
+    # the tripped lanes' slots are left out
+    sk = survivors(bk[2], bk[3], torch.where(ok[:, None], bk[4], 0), R)
+    sr = survivors(br[2], br[3], torch.where(ok[:, None], br[4], 0), R)
+    for key in set(sk) ^ set(sr):
+        p = sk.get(key, sr.get(key))
+        check(abs(p - threshold) <= TOL_EDGE, f"survivor {key} p={p} on one side only")
+    out["pdiff"] = max((abs(sk[k] - sr[k]) for k in set(sk) & set(sr)),
+                       default=0.0)
+    check(out["tf_err"] <= TOL_TOTAL and out["tb_err"] <= TOL_TOTAL
+          and out["fdiff"] <= TOL_POST and out["pdiff"] <= TOL_POST,
+          f"probability-space kernels disagree with their twins (W={pt.W}): "
+          f"{ {k: out[k] for k in ('tf_err', 'tb_err', 'fdiff', 'pdiff')} }")
+    out["n_kernel"], out["n_twin"] = len(sk), len(sr)
+    return out
+
+
 def cells_per_thread(n):
     """The kernel instance K (cells per thread) that csrc/banded_fb.cu
     launches for n = P * W cells."""
@@ -291,7 +367,7 @@ def cells_per_thread(n):
 _POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
 
 
-def sweep_bounds(bfb, pt, n_surv, expect=False):
+def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     """Least times in ms, and what sets them, of the two sweeps on ``pt``'s
     problems: the larger of the bytes each must move over the HBM rate, and
     the transcendentals its in-band cells need over the SFU rate.
@@ -309,7 +385,11 @@ def sweep_bounds(bfb, pt, n_surv, expect=False):
     target path). ``expect``: the expectation instances, which write (and
     read at in-band cells) three states per diagonal, compute seven more
     exponentials per in-band cell and write texp (B, 7) and kx (B, 3,
-    reflen) in float64."""
+    reflen) in float64. ``prob``: the probability-space kernels (P = 1),
+    which read three reference rows, the two exp-constant rows, the
+    best-case event row and a second pack and no legality words, and
+    spend two exponentials and a logarithm per in-band cell forward, and
+    those and the posterior's exponential backward."""
     B, D1 = pt.x0.shape
     P, W = pt.P, pt.W
     x0 = pt.x0.cpu().numpy()
@@ -337,6 +417,12 @@ def sweep_bounds(bfb, pt, n_surv, expect=False):
                 + ref_cols * 8                         # legality words
                 + bfb.NEV * ev_cols * 4                # event rows
                 + B * (bfb.NMETA + bfb.NPACK) * 4)     # meta, par
+    if prob:
+        # ref rows 0, 1, 3 and the two exp-constant rows; the event rows
+        # and the best-case row; meta and both packs
+        in_bytes = (2 * rows * 4 + 5 * ref_cols * 4
+                    + (bfb.NEV + 1) * ev_cols * 4
+                    + B * (bfb.NMETA + 2 * bfb.NPACK) * 4)
     if hdp:
         in_bytes += 2 * P * ref_cols * 4               # k-mer ids, means
         cols = torch.arange(pt.kid.shape[2], device=pt.kid.device)
@@ -353,9 +439,13 @@ def sweep_bounds(bfb, pt, n_surv, expect=False):
     fwd_ops = cp * (8 if P == 1 else 8 * P + 4) + (cp if hdp else 0)
     bwd_ops = cp * (9 if P == 1 else 2 * P + 11) + (cp + legal if hdp else 0) \
         + (7 * cp if expect else 0)
+    names = ("sa_fwd_sweep", "sa_bwd_sweep_compact")
+    if prob:
+        fwd_ops, bwd_ops = 3 * cp, 4 * cp
+        names = ("sa_fwd_sweep_prob", "sa_bwd_sweep_compact_prob")
     out = {}
-    for name, nbytes, ops in (("sa_fwd_sweep", fwd_bytes, fwd_ops),
-                              ("sa_bwd_sweep_compact", bwd_bytes, bwd_ops)):
+    for name, nbytes, ops in ((names[0], fwd_bytes, fwd_ops),
+                              (names[1], bwd_bytes, bwd_ops)):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SFU_PER_S
         out[name] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else
                      "operations")
@@ -379,45 +469,99 @@ def barrier_latency_us(cuda_build):
     return 1e3 * ms / iters
 
 
-def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False):
+def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False):
     """Mean CUDA-event milliseconds (forward, backward) of both kernels on
     ``pt`` over ``reps`` launches each, after two warm-up calls; with
-    ``expect`` their expectation instances."""
+    ``expect`` their expectation instances, with ``prob`` the
+    probability-space kernels (``pt`` made with ``prob=True``)."""
     kw = {"expect": True} if expect else {}   # as in kernel_sums
-    f_ms, (f, fi, lf) = cuda_ms(lambda: hk.forward_sweep(pt, **kw), reps)
+    fwd, bwd = ((hk.forward_sweep_prob, hk.backward_sweep_compact_prob)
+                if prob else (hk.forward_sweep, hk.backward_sweep_compact))
+    f_ms, (f, fi, lf) = cuda_ms(lambda: fwd(pt, **kw), reps)
     fo, tf = bfb.forward_offsets(fi, lf, pt.meta[:, bfb.M_NDIAG])
     cvecf = (fo - tf[:, None]).contiguous()
-    b_ms, _ = cuda_ms(lambda: hk.backward_sweep_compact(
-        pt, f, cvecf, threshold, R, **kw), reps)
+    b_ms, _ = cuda_ms(lambda: bwd(pt, f, cvecf, threshold, R, **kw), reps)
     return f_ms, b_ms
 
 
-def kernel_sums(hk, bfb, problem_tensors, stack_chunks, buckets, dev,
-                threshold, R, tables=None, expect=False):
-    """Both kernels on every bucket again, in the runner's chunks, timed by
-    CUDA events (one launch each after two warm-up calls): {(W, P):
-    [problems, fwd ms, bwd ms, [(us per diagonal of each launch's longest
-    problem, fwd, bwd)]]}. ``expect``: the expectation instances, in the
-    EM path's chunks."""
+def chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
+               tables=None, expect=False):
+    """Both kernels on every chunk again ([(W, P, problems)], the runner's
+    aligners), timed by CUDA events (one launch each after two warm-up
+    calls): {(W, P): [problems, fwd ms, bwd ms, [(us per diagonal of each
+    launch's longest problem, fwd, bwd)]]}. ``expect``: the expectation
+    instances."""
     # the tables and the expectation arguments go in only when given, so
     # that --kernel-sums also runs a port whose functions predate them
     extra = () if tables is None else (tables,)
     by_wp = {}
-    for (W, Dpad, P), probs in sorted(buckets.items()):
-        for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P,
-                                  *((3,) if expect else ())):
-            ptb = problem_tensors([probs[i] for i in chunk], W, dev, *extra,
-                                  **({"kmer_ids": True} if expect else {}))
-            f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1, expect)
-            # one block per problem: a launch lasts about as long as its
-            # longest problem
-            nd = max(ptb.n_diag)
-            e = by_wp.setdefault((W, P), [0, 0.0, 0.0, []])
-            e[0] += len(chunk)
-            e[1] += f_ms
-            e[2] += b_ms
-            e[3].append((1e3 * f_ms / nd, 1e3 * b_ms / nd))
+    for W, P, probs in chunks:
+        ptb = problem_tensors(probs, W, dev, *extra,
+                              **({"kmer_ids": True} if expect else {}))
+        f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1, expect)
+        # one block per problem: a launch lasts about as long as its
+        # longest problem
+        nd = max(ptb.n_diag)
+        e = by_wp.setdefault((W, P), [0, 0.0, 0.0, []])
+        e[0] += len(probs)
+        e[1] += f_ms
+        e[2] += b_ms
+        e[3].append((1e3 * f_ms / nd, 1e3 * b_ms / nd))
     return by_wp
+
+
+def kernel_sums(hk, bfb, problem_tensors, stack_chunks, buckets, dev,
+                threshold, R):
+    """``chunk_sums`` over {(W, Dpad, P): problems} cut into the runner's
+    chunks."""
+    chunks = [(W, P, [probs[i] for i in chunk])
+              for (W, Dpad, P), probs in sorted(buckets.items())
+              for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P)]
+    return chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R)
+
+
+class Recorder:
+    """Within ``with``, every aligner the runner makes is recorded in
+    ``made`` as (W, P, problems, log_space), in order: the buckets and
+    chunks of a main-path run, without a second host prep."""
+
+    def __init__(self, runner_mod):
+        self.mod = runner_mod
+        self.made = []
+
+    def __enter__(self):
+        self.orig = base = self.mod.HopperAligner
+        made = self.made
+
+        class Recording(base):
+            def __init__(self, problems, W, device, *args, **kw):
+                super().__init__(problems, W, device, *args, **kw)
+                made.append((W, self.pt.P, list(problems), self.log_space))
+
+        self.mod.HopperAligner = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.HopperAligner = self.orig
+
+    def chunks(self, made=None):
+        return [(W, P, probs) for W, P, probs, _ in
+                (self.made if made is None else made)]
+
+    def classes(self, made=None):
+        """{(W, P): problems}, shortest first."""
+        out = {}
+        for W, P, probs, _ in (self.made if made is None else made):
+            out.setdefault((W, P), []).extend(probs)
+        return {k: sorted(v, key=lambda q: q.n_diag) for k, v in out.items()}
+
+    def buckets(self):
+        """{(W, Dpad, P): problems} (Dpad from each problem's geometry)."""
+        out = {}
+        for W, P, probs, _ in self.made:
+            for q in probs:
+                out.setdefault((W, q.x0.shape[0] - 1, P), []).append(q)
+        return out
 
 
 def log_kernel_sums(tag, by_wp, wall_s):
@@ -562,6 +706,11 @@ def compare_pairs(a, b, threshold):
 
 
 def main():
+    t_start = time.perf_counter()
+
+    def phase_mark(name):
+        log(f"[time] phase {name} from {time.perf_counter() - t_start:.0f} s")
+
     # ---- 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
@@ -585,9 +734,15 @@ def main():
         ExpectationsAccumulator
     from signalalign_tpu_torch.models.pore_model import PoreModel
     from signalalign_tpu_torch.pipeline.train import em_train
+    from signalalign_tpu_torch.models.pore_model import ScalingParams
+    from signalalign_tpu_torch.pipeline import runner as runner_mod
+    from signalalign_tpu_torch.utils.alphabet import DEFAULT_AMBIG_BASES
+    from signalalign_tpu_torch.utils.synthetic import (outlier_segments,
+                                                       synthetic_read)
     check("jax" not in sys.modules and "signalalign_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
 
+    phase_mark("2")
     # ---- 2. build
     b = cuda_build.build()
     log(f"[build] {b.path} in {b.seconds:.1f} s")
@@ -612,9 +767,10 @@ def main():
         threshold = config.threshold
         R = hk.survivor_slots(threshold)
 
+        phase_mark("3a")
         # ---- 3a. kernels against their twins on the card
-        pt = problem_tensors(long_p1_problems(rgs, reference, model, config),
-                             256, dev)
+        p3 = long_p1_problems(rgs, reference, model, config)
+        pt = problem_tensors(p3, 256, dev)
         log(f"[kernels] 8 problems W=256 n_diag {min(pt.n_diag)}..{max(pt.n_diag)}")
         p1 = kernels_vs_twins(hk, bfb, pt, threshold, R)
         p1_bounds = sweep_bounds(bfb, pt, p1["n_kernel"])
@@ -630,12 +786,13 @@ def main():
             f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in p1_bounds.items())
             + f"; serial-diagonal floor {p1_floor:.3f} ms")
 
+        phase_mark("3b")
         # ---- 3b. the main path on the GPU against the CPU (twins)
-        small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:2]
+        small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:1]
         on_cpu = run_alignment_batch(small, reference, model, config,
                                      device=torch.device("cpu"))
         on_gpu = run_alignment_batch(small, reference, model, config, device=dev)
-        check(len(on_cpu) == len(on_gpu) == 2, "small batch lost a read")
+        check(len(on_cpu) == len(on_gpu) == 1, "small batch lost a read")
         worst = 0.0
         for a, g in zip(on_cpu, on_gpu):
             check(abs(a.total_log_prob - g.total_log_prob) <= TOL_TOTAL,
@@ -646,49 +803,17 @@ def main():
         log(f"[small] {[r.events.shape[0] for r, _ in small]} events: gpu = cpu "
             f"within {TOL_TOTAL} nats, |d p| {worst:.3e} (tol {TOL_PATH})")
 
-        # ---- 3c. P > 1 kernels against their twins on the card, on the
-        # shapes phase 5 gives them: its own config and segments, one
-        # bucket per (W, P) class, the class's two shortest problems
-        amb_cfg = AlignmentConfig(ambig_map=AMB).for_batch(len(rgs))
-        site_segs = prepare_all(rgs, amb_ref, model, amb_cfg)
-        by_class = {}
-        for W, Dpad, P, prob in site_segs:
-            by_class.setdefault((W, P), []).append(prob)
-        paths_rows, paths_bounds = {}, {}
-        for (W, P), probs in sorted(by_class.items()):
-            if P == 1:
-                continue    # site mode skips P = 1 segments
-            probs = sorted(probs, key=lambda q: q.n_diag)[:2]
-            ptp = problem_tensors(probs, W, dev)
-            r = kernels_vs_twins(hk, bfb, ptp, threshold, R)
-            paths_rows[(W, P)] = r
-            paths_bounds[(W, P)] = bd = sweep_bounds(bfb, ptp, r["n_kernel"])
-            log(f"[kernels P={P} W={W} K={cells_per_thread(P * W)}] "
-                f"{len(probs)} problems n_diag {min(ptp.n_diag)}..{max(ptp.n_diag)}: "
-                f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
-                f"bound {bd['sa_fwd_sweep'][0]:.4f} ms), "
-                f"sa_bwd_sweep_compact {r['bwd_ms']:.3f} ms (twin "
-                f"{r['bwd_plain_ms']:.1f} ms, bound "
-                f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms), serial floor "
-                f"{1e-3 * barrier_us * max(ptp.n_diag):.3f} ms; |d total| "
-                f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
-                f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
-                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}")
-        ks = {cells_per_thread(P * W) for W, P in paths_rows}
-        check(ks == {1, 2, 4, 8}, f"phase 5's buckets hold cells per thread "
-              f"{sorted(ks)}, not every kernel instance 1, 2, 4, 8")
-        check(sum(min(2, len(v)) for (_, P), v in by_class.items() if P == 8)
-              >= 2, "fewer than two P=8 problems")
-
+        phase_mark("3d")
         # ---- 3d. site calls and P > 1 pairs on the GPU against the CPU
-        small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:2]
+        amb_cfg = AlignmentConfig(ambig_map=AMB).for_batch(len(rgs))
+        small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:1]
         worst_calls = worst_pairs = 0.0
         for kw in ({"call_variants": "CT"}, {}):
             on_cpu = run_alignment_batch(small, amb_ref, model, amb_cfg,
                                          device=torch.device("cpu"), **kw)
             on_gpu = run_alignment_batch(small, amb_ref, model, amb_cfg,
                                          device=dev, **kw)
-            check(len(on_cpu) == len(on_gpu) == 2, "small site batch lost a read")
+            check(len(on_cpu) == len(on_gpu) == 1, "small site batch lost a read")
             for a, g in zip(on_cpu, on_gpu):
                 check(abs(a.total_log_prob - g.total_log_prob) <= TOL_TOTAL,
                       f"{a.read_label}: total {g.total_log_prob} vs cpu "
@@ -706,13 +831,16 @@ def main():
             f"gpu = cpu, |d p_C| {worst_calls:.3e}, P>1 pairs |d p| "
             f"{worst_pairs:.3e} (tol {TOL_PATH})")
 
+        phase_mark("4")
         # ---- 4. the main path at a realistic size
         hk.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
+        mem4 = torch.cuda.memory_allocated()
         stages = {}
         t0 = time.perf_counter()
-        results = run_alignment_batch(rgs, reference, model, config,
-                                      device=dev, stage_seconds=stages)
+        with Recorder(runner_mod) as rec4:
+            results = run_alignment_batch(rgs, reference, model, config,
+                                          device=dev, stage_seconds=stages)
         t_align = time.perf_counter() - t0
         launches = {"sa_fwd_sweep": hk.forward_sweep.launches,
                     "sa_bwd_sweep_compact": hk.backward_sweep_compact.launches}
@@ -758,16 +886,21 @@ def main():
         log(f"[main] run_alignment_batch {t_align:.2f} s: "
             f"{n_events / t_align:.0f} events/s; kernels stage "
             f"{n_events / stages['kernels']:.0f} events/s; "
-            f"peak device memory {peak / 2**30:.2f} GiB")
+            f"peak device memory {peak / 2**30:.2f} GiB (allocated at the "
+            f"start {mem4 / 2**30:.2f} GiB)")
         log(f"[main] launches {launches}")
+        main_results, t_main, main_stages = results, t_align, stages
 
+        phase_mark("5")
         # ---- 5. site-mode methylation calling at a realistic size
         hk.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         stages = {}
         t0 = time.perf_counter()
-        results = run_alignment_batch(rgs, amb_ref, model, amb_cfg, device=dev,
-                                      call_variants="CT", stage_seconds=stages)
+        with Recorder(runner_mod) as rec5:
+            results = run_alignment_batch(rgs, amb_ref, model, amb_cfg,
+                                          device=dev, call_variants="CT",
+                                          stage_seconds=stages)
         t_sites = time.perf_counter() - t0
         site_launches = {"sa_fwd_sweep": hk.forward_sweep.launches,
                          "sa_bwd_sweep_compact": hk.backward_sweep_compact.launches}
@@ -791,12 +924,10 @@ def main():
               f"share of sites called C {share_c:.3f} < {MIN_SHARE_C}")
         check(all(site_launches.values()),
               f"a kernel was not launched in site mode: {site_launches}")
-        # the buckets run_alignment_batch made: the same prep as 3c's
-        buckets = {}
-        for W, Dpad, P, prob in site_segs:
-            buckets.setdefault((W, Dpad, P), []).append(prob)
-        wp = {(W, P): len(v) for (W, P), v in by_class.items()}
-        n_seg = len(site_segs)
+        # the segments run_alignment_batch ran (site mode skips P = 1 ones:
+        # this edition has none)
+        wp = {k: len(v) for k, v in rec5.classes().items()}
+        n_seg = sum(wp.values())
         log(f"[sites] {len(results)} reads, {n_events} events, {n_rows} site "
             f"rows, share called C {share_c:.4f} (bound {MIN_SHARE_C}), "
             f"{len(written)} files")
@@ -812,13 +943,46 @@ def main():
             f"peak device memory {peak / 2**30:.2f} GiB")
         log(f"[sites] launches {site_launches}")
 
-        # ---- 5b. kernel time of each phase-5 bucket, by CUDA events, in
-        # the runner's chunks; summed by (W, P)
-        log_kernel_sums("sites", kernel_sums(
-            hk, bfb, problem_tensors, _stack_chunks, buckets, dev, threshold,
-            R), t_sites)
-        del site_segs, by_class, buckets
+        phase_mark("3c")
+        # ---- 3c. P > 1 kernels against their twins on the card, on the
+        # shapes phase 5 gave them: one bucket per (W, P) class of its
+        # aligners, the class's shortest problem
+        by_class = rec5.classes()
+        paths_rows, paths_bounds = {}, {}
+        for (W, P), probs in sorted(by_class.items()):
+            if P == 1:
+                continue    # site mode skips P = 1 segments
+            probs = probs[:1]
+            ptp = problem_tensors(probs, W, dev)
+            r = kernels_vs_twins(hk, bfb, ptp, threshold, R)
+            paths_rows[(W, P)] = r
+            paths_bounds[(W, P)] = bd = sweep_bounds(bfb, ptp, r["n_kernel"])
+            log(f"[kernels P={P} W={W} K={cells_per_thread(P * W)}] "
+                f"{len(probs)} problems n_diag {min(ptp.n_diag)}..{max(ptp.n_diag)}: "
+                f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
+                f"bound {bd['sa_fwd_sweep'][0]:.4f} ms), "
+                f"sa_bwd_sweep_compact {r['bwd_ms']:.3f} ms (twin "
+                f"{r['bwd_plain_ms']:.1f} ms, bound "
+                f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms), serial floor "
+                f"{1e-3 * barrier_us * max(ptp.n_diag):.3f} ms; |d total| "
+                f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
+                f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
+                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}")
+        ks = {cells_per_thread(P * W) for W, P in paths_rows}
+        check(ks == {1, 2, 4, 8}, f"phase 5's buckets hold cells per thread "
+              f"{sorted(ks)}, not every kernel instance 1, 2, 4, 8")
+        check(sum(min(2, len(v)) for (_, P), v in by_class.items() if P == 8)
+              >= 2, "fewer than two P=8 problems")
 
+        phase_mark("5b")
+        # ---- 5b. kernel time of each phase-5 chunk, by CUDA events;
+        # summed by (W, P)
+        log_kernel_sums("sites", chunk_sums(
+            hk, bfb, problem_tensors, rec5.chunks(), dev, threshold, R),
+            t_sites)
+        del by_class, rec5
+
+        phase_mark("6")
         # ---- 6. HDP methylation calling (the flagship workload)
         t0 = time.perf_counter()
         model6 = synthetic_pore_model(SEED_MODEL, alphabet="ACEGOT", k=6)
@@ -837,46 +1001,16 @@ def main():
             f"{time.perf_counter() - t0:.1f} s")
         n_events6 = sum(r.n_events for r, _ in rgs6)
 
-        # ---- 6a. HDP kernels against their twins, one bucket per (W, P)
-        # class of phase 6's own prep, the class's two shortest problems
-        segs6 = prepare_all(rgs6, ref6, model6, cfg6, hdp6)
-        by_class6 = {}
-        for W, Dpad, P, prob in segs6:
-            by_class6.setdefault((W, P), []).append(prob)
-        tables = hdp_tables(*hdp6.density_arrays(), dev)
-        hdp_rows, hdp_bounds = {}, {}
-        for (W, P), probs in sorted(by_class6.items()):
-            probs = sorted(probs, key=lambda q: q.n_diag)[:2]
-            pth = problem_tensors(probs, W, dev, tables)
-            r = kernels_vs_twins(hk, bfb, pth, threshold, R)
-            hdp_rows[(W, P)] = r
-            hdp_bounds[(W, P)] = sweep_bounds(bfb, pth, r["n_kernel"])
-            floor = 1e-3 * barrier_us * max(pth.n_diag)
-            log(f"[hdp kernels P={P} W={W} K={cells_per_thread(P * W)}] "
-                f"{len(probs)} problems n_diag {min(pth.n_diag)}..{max(pth.n_diag)}: "
-                f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
-                f"bound {hdp_bounds[(W, P)]['sa_fwd_sweep'][0]:.4f} ms), "
-                f"sa_bwd_sweep_compact {r['bwd_ms']:.3f} ms (twin "
-                f"{r['bwd_plain_ms']:.1f} ms, bound "
-                f"{hdp_bounds[(W, P)]['sa_bwd_sweep_compact'][0]:.4f} ms), "
-                f"serial floor {floor:.3f} ms; |d total| "
-                f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
-                f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
-                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}")
-        ks6 = sorted({cells_per_thread(P * W) for W, P in hdp_rows})
-        log(f"[hdp kernels] instances held here K={ks6}; "
-            "tests/test_torch_kernels_cuda.py holds HDP at K=1, 2, 4, 8")
-        del tables
-
+        phase_mark("6b")
         # ---- 6b. HDP calls and pairs on the GPU against the CPU (twins)
-        small6 = sorted(rgs6, key=lambda rg: rg[0].events.shape[0])[:2]
+        small6 = sorted(rgs6, key=lambda rg: rg[0].events.shape[0])[:1]
         worst_calls = worst_pairs = 0.0
         for kw in ({"call_variants": "CE"}, {}):
             on_cpu = run_alignment_batch(small6, ref6, model6, cfg6, hdp6,
                                          device=torch.device("cpu"), **kw)
             on_gpu = run_alignment_batch(small6, ref6, model6, cfg6, hdp6,
                                          device=dev, **kw)
-            check(len(on_cpu) == len(on_gpu) == 2, "small HDP batch lost a read")
+            check(len(on_cpu) == len(on_gpu) == 1, "small HDP batch lost a read")
             for a, g in zip(on_cpu, on_gpu):
                 check(abs(a.total_log_prob - g.total_log_prob) <= TOL_TOTAL,
                       f"{a.read_label}: HDP total {g.total_log_prob} vs cpu "
@@ -895,15 +1029,17 @@ def main():
             f"gpu = cpu, |d p_C| {worst_calls:.3e}, pairs |d p| "
             f"{worst_pairs:.3e} (tol {TOL_PATH})")
 
+        phase_mark("6c")
         # ---- 6c. HDP methylation calling at a realistic size
         hk.reset_launch_counts()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         stages = {}
         t0 = time.perf_counter()
-        results = run_alignment_batch(rgs6, ref6, model6, cfg6, hdp6,
-                                      device=dev, call_variants="CE",
-                                      stage_seconds=stages)
+        with Recorder(runner_mod) as rec6:
+            results = run_alignment_batch(rgs6, ref6, model6, cfg6, hdp6,
+                                          device=dev, call_variants="CE",
+                                          stage_seconds=stages)
         t_hdp = time.perf_counter() - t0
         hdp_launches = {"sa_fwd_sweep": hk.forward_sweep.launches,
                         "sa_bwd_sweep_compact": hk.backward_sweep_compact.launches}
@@ -926,16 +1062,14 @@ def main():
               f"HDP share of sites called C {share_c:.3f} < {MIN_SHARE_C_HDP}")
         check(all(hdp_launches.values()),
               f"a kernel was not launched in HDP mode: {hdp_launches}")
-        buckets6 = {}
-        for W, Dpad, P, prob in segs6:
-            buckets6.setdefault((W, Dpad, P), []).append(prob)
-        wp6 = {(W, P): len(v) for (W, P), v in by_class6.items()}
+        wp6 = {k: len(v) for k, v in rec6.classes().items()}
         log(f"[hdp] {len(results)} reads, {n_events6} events, {n_rows} site "
             f"rows, share called C {share_c:.4f} (bound {MIN_SHARE_C_HDP}), "
             f"{len(written)} files")
         log("[hdp] segments by (W, P): " + " ".join(
             f"{w},{p}:{n}" for (w, p), n in sorted(wp6.items()))
-            + f" ({len(segs6)} segments in {len(buckets6)} buckets)")
+            + f" ({sum(wp6.values())} segments in {len(rec6.buckets())} "
+            "buckets)")
         log("[hdp] stages " + " ".join(f"{s_}={v:.2f}s" for s_, v in stages.items())
             + f" write={t_write:.2f}s")
         log(f"[hdp] table upload {table_bytes / 2**20:.1f} MiB in "
@@ -946,82 +1080,57 @@ def main():
             f"peak device memory {peak / 2**30:.2f} GiB")
         log(f"[hdp] launches {hdp_launches}")
 
-        # ---- 6d. kernel time of each phase-6 bucket, by CUDA events
-        log_kernel_sums("hdp", kernel_sums(
-            hk, bfb, problem_tensors, _stack_chunks, buckets6, dev, threshold,
-            R, hdp_tables(*hdp6.density_arrays(), dev)), t_hdp)
-        del segs6, by_class6, buckets6
+        phase_mark("6a")
+        # ---- 6a. HDP kernels against their twins, one bucket per (W, P)
+        # class of 6c's aligners, the class's shortest problem
+        by_class6 = rec6.classes()
+        tables = hdp_tables(*hdp6.density_arrays(), dev)
+        hdp_rows, hdp_bounds = {}, {}
+        for (W, P), probs in sorted(by_class6.items()):
+            probs = probs[:1]
+            pth = problem_tensors(probs, W, dev, tables)
+            r = kernels_vs_twins(hk, bfb, pth, threshold, R)
+            hdp_rows[(W, P)] = r
+            hdp_bounds[(W, P)] = sweep_bounds(bfb, pth, r["n_kernel"])
+            floor = 1e-3 * barrier_us * max(pth.n_diag)
+            log(f"[hdp kernels P={P} W={W} K={cells_per_thread(P * W)}] "
+                f"{len(probs)} problems n_diag {min(pth.n_diag)}..{max(pth.n_diag)}: "
+                f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
+                f"bound {hdp_bounds[(W, P)]['sa_fwd_sweep'][0]:.4f} ms), "
+                f"sa_bwd_sweep_compact {r['bwd_ms']:.3f} ms (twin "
+                f"{r['bwd_plain_ms']:.1f} ms, bound "
+                f"{hdp_bounds[(W, P)]['sa_bwd_sweep_compact'][0]:.4f} ms), "
+                f"serial floor {floor:.3f} ms; |d total| "
+                f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
+                f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
+                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}")
+        ks6 = sorted({cells_per_thread(P * W) for W, P in hdp_rows})
+        log(f"[hdp kernels] instances held here K={ks6}; "
+            "tests/test_torch_kernels_cuda.py holds HDP at K=1, 2, 4, 8")
+        del tables, pth    # pth.hdp holds the tables too
 
+        phase_mark("6d")
+        # ---- 6d. kernel time of each phase-6 chunk, by CUDA events
+        log_kernel_sums("hdp", chunk_sums(
+            hk, bfb, problem_tensors, rec6.chunks(), dev, threshold, R,
+            hdp_tables(*hdp6.density_arrays(), dev)), t_hdp)
+        del by_class6, rec6
+
+        phase_mark("7")
         # ---- 7. EM training: the expectation instances (P = 1)
         em_cfg = dataclasses.replace(
             config, compute_expectations=True,
             max_segment_diagonals=EM_SEGMENT_DIAGONALS).for_batch(len(rgs))
         rgs7d = rgs6[:16]
-        cfg7d = dataclasses.replace(
-            em_cfg, emission_mode=bfb.MODE_HDP).for_batch(len(rgs7d))
 
-        # ---- 7a. expectation kernels against their twins, one bucket per
-        # W class of 7c's and 7d's own prep (the class's two shortest)
-        segs7 = prepare_all(rgs, reference, model, em_cfg)
-        segs7d = prepare_all(rgs7d, plain6, model6, cfg7d, hdp6)
-        check(all(P == 1 for _, _, P, _ in segs7 + segs7d),
-              "an EM segment has more than one path")
-        tables = hdp_tables(*hdp6.density_arrays(), dev)
-        exp_rows = {}
-        for tag, segs, tb in (("gauss", segs7, None), ("hdp", segs7d, tables)):
-            by_w = {}
-            for W, _, _, prob in segs:
-                by_w.setdefault(W, []).append(prob)
-            for W, probs in sorted(by_w.items()):
-                probs = sorted(probs, key=lambda q: q.n_diag)[:2]
-                pte = problem_tensors(probs, W, dev, tb, kmer_ids=True)
-                r = expect_vs_twins(hk, bfb, pte, threshold, R)
-                r["bounds"] = sweep_bounds(bfb, pte, r["n_kernel"], True)
-                r["floor"] = 1e-3 * barrier_us * max(pte.n_diag)
-                exp_rows[(tag, W)] = r
-                log(f"[em kernels {tag} W={W} K={cells_per_thread(W)}] "
-                    f"{len(probs)} problems n_diag {min(pte.n_diag)}.."
-                    f"{max(pte.n_diag)}: expect fwd {r['fwd_ms']:.3f} ms (twin "
-                    f"{r['fwd_plain_ms']:.1f} ms, bound "
-                    f"{r['bounds']['sa_fwd_sweep'][0]:.4f} ms), bwd "
-                    f"{r['bwd_ms']:.3f} ms (twin {r['bwd_plain_ms']:.1f} ms, "
-                    f"bound {r['bounds']['sa_bwd_sweep_compact'][0]:.4f} ms), "
-                    f"floor {r['floor']:.3f} ms; stacks, totals, survivors "
-                    f"equal ({r['n_kernel']}); texp rel {r['texp_rel']:.3e} "
-                    f"(abs {r['texp_abs']:.3e}, sum {r['texp_sum']:.1f}), kx "
-                    f"rel {r['kx_rel']:.3e} (tol {TOL_EXPECT})")
-        log(f"[em kernels] instances held here K="
-            f"{sorted({cells_per_thread(W) for _, W in exp_rows})}; "
-            "tests/test_torch_kernels_cuda.py holds K=1 and K=2 (W=1280)")
-        # the eight longest W=256 problems of 7c's prep: expectation and
-        # plain instances on the same problems, by CUDA events
-        long7 = sorted((p_ for W, _, _, p_ in segs7 if W == 256),
-                       key=lambda q: -q.n_diag)[:8]
-        check(len(long7) == 8, "fewer than 8 W=256 EM problems")
-        ptl = problem_tensors(long7, 256, dev, kmer_ids=True)
-        em_main = expect_vs_twins(hk, bfb, ptl, threshold, R)
-        em_main["bounds"] = sweep_bounds(bfb, ptl, em_main["n_kernel"], True)
-        em_main["floor"] = 1e-3 * barrier_us * max(ptl.n_diag)
-        plain_f, plain_b = sweep_ms(hk, bfb, ptl, threshold, R, 5)
-        log(f"[em kernels] 8 problems W=256 n_diag {min(ptl.n_diag)}.."
-            f"{max(ptl.n_diag)}: expect fwd {em_main['fwd_ms']:.3f} ms, bwd "
-            f"{em_main['bwd_ms']:.3f} ms (twins {em_main['fwd_plain_ms']:.1f}"
-            f" / {em_main['bwd_plain_ms']:.1f} ms); plain instances on the "
-            f"same problems fwd {plain_f:.3f} ms, bwd {plain_b:.3f} ms; "
-            f"bounds " + ", ".join(
-                f"{k} {v[0]:.4f} ms ({v[1]})"
-                for k, v in em_main["bounds"].items())
-            + f"; floor {em_main['floor']:.3f} ms; texp rel "
-            f"{em_main['texp_rel']:.3e}, kx rel {em_main['kx_rel']:.3e}")
-        del ptl, long7
-
+        phase_mark("7b")
         # ---- 7b. the expectation pass on the GPU against the CPU (twins)
-        small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:2]
+        small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:1]
         on_cpu = run_alignment_batch(small, reference, model, em_cfg,
                                      device=torch.device("cpu"))
         on_gpu = run_alignment_batch(small, reference, model, em_cfg,
                                      device=dev)
-        check(len(on_cpu) == len(on_gpu) == 2, "small EM batch lost a read")
+        check(len(on_cpu) == len(on_gpu) == 1, "small EM batch lost a read")
         worst_t = worst_k = 0.0
         for a, g in zip(on_cpu, on_gpu):
             check(abs(a.total_log_prob - g.total_log_prob) <= TOL_TOTAL,
@@ -1043,6 +1152,7 @@ def main():
             f"= cpu, |d texp| {worst_t:.3e}, |d kexp| {worst_k:.3e} (rtol "
             f"{TEXP_TOL['rtol']} / {KEXP_TOL['rtol']}, atol {TEXP_TOL['atol']})")
 
+        phase_mark("7c")
         # ---- 7c. em_train at full width on the 64 reads of phase 4
         start = synthetic_pore_model(SEED_MODEL)
         start.level_mean = start.level_mean + np.random.default_rng(
@@ -1052,13 +1162,15 @@ def main():
         hk.reset_launch_counts()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        mem7 = torch.cuda.memory_allocated()
         em_stages = []
         t0 = time.perf_counter()
-        em = em_train(rgs, reference, start, iterations=2, config=config,
-                      update_transitions=True, update_emissions=True,
-                      emission_prior_weight=5.0, checkpoint_dir=ck_dir,
-                      write_expectations=True, device=dev,
-                      stage_seconds=em_stages)
+        with Recorder(runner_mod) as rec7:
+            em = em_train(rgs, reference, start, iterations=2, config=config,
+                          update_transitions=True, update_emissions=True,
+                          emission_prior_weight=5.0, checkpoint_dir=ck_dir,
+                          write_expectations=True, device=dev,
+                          stage_seconds=em_stages)
         t_em = time.perf_counter() - t0
         em_launches = {
             "sa_fwd_sweep": hk.forward_sweep.expect_launches,
@@ -1113,23 +1225,25 @@ def main():
         log(f"[em] em_train {t_em:.2f} s: {2 * n_events / t_em:.0f} events/s "
             f"over both iterations; kernels stage "
             f"{2 * n_events / sum(st['kernels'] for st in em_stages):.0f} "
-            f"events/s; peak device memory {peak / 2**30:.2f} GiB")
+            f"events/s; peak device memory {peak / 2**30:.2f} GiB (allocated "
+            f"at the start {mem7 / 2**30:.2f} GiB)")
         log(f"[em] launches {em_launches} (plain instances {plain_launches})")
-        buckets7 = {}
-        for W, Dpad, P, prob in segs7:
-            buckets7.setdefault((W, Dpad, P), []).append(prob)
-        log_kernel_sums("em", kernel_sums(
-            hk, bfb, problem_tensors, _stack_chunks, buckets7, dev, threshold,
-            R, expect=True), t_em / 2)
-        del segs7, buckets7
+        # iteration 0's aligners (the two iterations make the same buckets)
+        half = len(rec7.made) // 2
+        made7 = rec7.made[:half]
+        check([(w, p, len(q)) for w, p, q, _ in made7]
+              == [(w, p, len(q)) for w, p, q, _ in rec7.made[half:]],
+              "em_train's two iterations made other buckets")
 
+        phase_mark("7d")
         # ---- 7d. threeStateHdp transition EM on the plain genome
         hk.reset_launch_counts()
         t0 = time.perf_counter()
-        em6 = em_train(rgs7d, plain6, model6, iterations=1,
-                       config=dataclasses.replace(config,
-                                                  emission_mode=bfb.MODE_HDP),
-                       hdp=hdp6, device=dev)
+        with Recorder(runner_mod) as rec7d:
+            em6 = em_train(rgs7d, plain6, model6, iterations=1,
+                           config=dataclasses.replace(
+                               config, emission_mode=bfb.MODE_HDP),
+                           hdp=hdp6, device=dev)
         t_em6 = time.perf_counter() - t0
         hdp_em_launches = {
             "sa_fwd_sweep": hk.forward_sweep.expect_launches,
@@ -1142,12 +1256,260 @@ def main():
         check(all(hdp_em_launches.values()),
               f"HDP EM launches {hdp_em_launches}")
         n_ev7d = sum(r.n_events for r, _ in rgs7d)
-        log(f"[em hdp] {len(rgs7d)} reads, {n_ev7d} events, {len(segs7d)} "
+        log(f"[em hdp] {len(rgs7d)} reads, {n_ev7d} events, "
+            f"{sum(len(q) for _, _, q, _ in rec7d.made)} "
             f"segments: log-likelihood {ll6:.2f}, transitions m->m "
             f"{em6.transitions_history[0][0, 0]:.5f}, kexp zero; "
             f"{t_em6:.2f} s ({n_ev7d / t_em6:.0f} events/s); launches "
             f"{hdp_em_launches}")
-        del tables
+        phase_mark("7a")
+        # ---- 7a. expectation kernels against their twins, one bucket per
+        # W class of 7c's (iteration 0) and 7d's aligners (the class's
+        # shortest problem)
+        check(all(P == 1 for _, P, _, _ in made7 + rec7d.made),
+              "an EM segment has more than one path")
+        tables = hdp_tables(*hdp6.density_arrays(), dev)
+        exp_rows = {}
+        for tag, made, tb in (("gauss", made7, None),
+                              ("hdp", rec7d.made, tables)):
+            for (W, _), probs in sorted(rec7.classes(made).items()):
+                probs = probs[:1]
+                pte = problem_tensors(probs, W, dev, tb, kmer_ids=True)
+                r = expect_vs_twins(hk, bfb, pte, threshold, R)
+                r["bounds"] = sweep_bounds(bfb, pte, r["n_kernel"], True)
+                r["floor"] = 1e-3 * barrier_us * max(pte.n_diag)
+                exp_rows[(tag, W)] = r
+                log(f"[em kernels {tag} W={W} K={cells_per_thread(W)}] "
+                    f"{len(probs)} problems n_diag {min(pte.n_diag)}.."
+                    f"{max(pte.n_diag)}: expect fwd {r['fwd_ms']:.3f} ms (twin "
+                    f"{r['fwd_plain_ms']:.1f} ms, bound "
+                    f"{r['bounds']['sa_fwd_sweep'][0]:.4f} ms), bwd "
+                    f"{r['bwd_ms']:.3f} ms (twin {r['bwd_plain_ms']:.1f} ms, "
+                    f"bound {r['bounds']['sa_bwd_sweep_compact'][0]:.4f} ms), "
+                    f"floor {r['floor']:.3f} ms; stacks, totals, survivors "
+                    f"equal ({r['n_kernel']}); texp rel {r['texp_rel']:.3e} "
+                    f"(abs {r['texp_abs']:.3e}, sum {r['texp_sum']:.1f}), kx "
+                    f"rel {r['kx_rel']:.3e} (tol {TOL_EXPECT})")
+        log(f"[em kernels] instances held here K="
+            f"{sorted({cells_per_thread(W) for _, W in exp_rows})}; "
+            "tests/test_torch_kernels_cuda.py holds K=1 and K=2 (W=1280)")
+        # the eight longest W=256 problems of 7c's iteration 0: expectation
+        # and plain instances on the same problems, by CUDA events
+        long7 = sorted((p_ for W, _, probs, _ in made7 if W == 256
+                        for p_ in probs), key=lambda q: -q.n_diag)[:8]
+        check(len(long7) == 8, "fewer than 8 W=256 EM problems")
+        ptl = problem_tensors(long7, 256, dev, kmer_ids=True)
+        em_main = expect_vs_twins(hk, bfb, ptl, threshold, R)
+        em_main["bounds"] = sweep_bounds(bfb, ptl, em_main["n_kernel"], True)
+        em_main["floor"] = 1e-3 * barrier_us * max(ptl.n_diag)
+        plain_f, plain_b = sweep_ms(hk, bfb, ptl, threshold, R, 5)
+        log(f"[em kernels] 8 problems W=256 n_diag {min(ptl.n_diag)}.."
+            f"{max(ptl.n_diag)}: expect fwd {em_main['fwd_ms']:.3f} ms, bwd "
+            f"{em_main['bwd_ms']:.3f} ms (twins {em_main['fwd_plain_ms']:.1f}"
+            f" / {em_main['bwd_plain_ms']:.1f} ms); plain instances on the "
+            f"same problems fwd {plain_f:.3f} ms, bwd {plain_b:.3f} ms; "
+            f"bounds " + ", ".join(
+                f"{k} {v[0]:.4f} ms ({v[1]})"
+                for k, v in em_main["bounds"].items())
+            + f"; floor {em_main['floor']:.3f} ms; texp rel "
+            f"{em_main['texp_rel']:.3e}, kx rel {em_main['kx_rel']:.3e}")
+        del ptl, long7, tables, pte    # pte.hdp holds the tables too
+
+        log_kernel_sums("em", chunk_sums(
+            hk, bfb, problem_tensors, rec7.chunks(made7), dev, threshold, R,
+            expect=True), t_em / 2)
+        del rec7, rec7d, made7
+
+        phase_mark("8")
+        # ---- 8. the probability-space path (SIGNALALIGN_TPU_PROB_KERNELS=1)
+        # 8a. both probability-space kernels against their twins at 3a's
+        # shape (W=256, ~4k diagonals) on the segments of eight error-free
+        # reads: phase 4's reads follow their basecall errors, and every
+        # segment of theirs exhausts the f32 window (as in the JAX
+        # kernels), so values are held where it does not; then both
+        # kernels and the log-space ones timed on 3a's own problems
+        rng8 = np.random.default_rng(SEED_CLEAN)
+        genome8 = reference.forward["synth"]
+        clean = [synthetic_read(
+            rng8, genome8, model, int(rng8.integers(0, len(genome8) - 2000)),
+            int(rng8.integers(1400, 1700)), f"clean{i}", sub_rate=0.0,
+            ins_rate=0.0, del_rate=0.0) for i in range(8)]
+        # a band of 150 expansion puts them in 3a's bucket: W=256, Dpad
+        # 4096, P=1
+        clean_p = [q for W, Dpad, P, q in prepare_all(
+            clean, reference, model,
+            dataclasses.replace(config, diagonal_expansion=150))
+            if (W, Dpad, P) == (256, 4096, 1)]
+        check(len(clean_p) == 8, f"{len(clean_p)} error-free W=256 problems")
+        ptc = problem_tensors(clean_p, 256, dev, prob=True)
+        pa = prob_vs_twins(hk, bfb, ptc, threshold, R)
+        check(not all(pa["tripped"]), "every error-free problem tripped")
+        pa["bounds"] = sweep_bounds(bfb, ptc, pa["n_kernel"], prob=True)
+        pa["floor"] = 1e-3 * barrier_us * max(ptc.n_diag)
+        pa["log_fwd_ms"], pa["log_bwd_ms"] = sweep_ms(
+            hk, bfb, problem_tensors(clean_p, 256, dev), threshold, R, 5)
+        log(f"[prob kernels] {len(ptc.n_diag)} problems of error-free reads, "
+            f"W=256, n_diag {min(ptc.n_diag)}..{max(ptc.n_diag)}: "
+            f"sa_fwd_sweep_prob {pa['fwd_ms']:.3f} ms (twin "
+            f"{pa['fwd_plain_ms']:.1f} ms, log-space kernel "
+            f"{pa['log_fwd_ms']:.3f} ms), sa_bwd_sweep_compact_prob "
+            f"{pa['bwd_ms']:.3f} ms (twin {pa['bwd_plain_ms']:.1f} ms, "
+            f"log-space {pa['log_bwd_ms']:.3f} ms); bounds " + ", ".join(
+                f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in pa["bounds"].items())
+            + f"; floor {pa['floor']:.3f} ms; tripped {pa['tripped']}; the "
+            f"others |d total| {max(pa['tf_err'], pa['tb_err']):.3e} nats, "
+            f"|d exp(fstack)| {pa['fdiff']:.3e}, |d posterior| "
+            f"{pa['pdiff']:.3e} (tol {TOL_POST}), survivors {pa['n_kernel']} "
+            f"vs {pa['n_twin']}")
+        del ptc
+        pa["3a_fwd_ms"], pa["3a_bwd_ms"] = sweep_ms(
+            hk, bfb, problem_tensors(p3, 256, dev, prob=True), threshold, R, 5,
+            prob=True)
+        pa["3a_log_fwd_ms"], pa["3a_log_bwd_ms"] = sweep_ms(
+            hk, bfb, problem_tensors(p3, 256, dev), threshold, R, 5)
+        pa["3a_bounds"] = sweep_bounds(bfb, problem_tensors(
+            p3, 256, dev, prob=True), p1["n_kernel"], prob=True)
+        log(f"[prob kernels] 3a's 8 problems (all trip): sa_fwd_sweep_prob "
+            f"{pa['3a_fwd_ms']:.3f} ms, log-space {pa['3a_log_fwd_ms']:.3f} ms; "
+            f"sa_bwd_sweep_compact_prob {pa['3a_bwd_ms']:.3f} ms, log-space "
+            f"{pa['3a_log_bwd_ms']:.3f} ms; bounds " + ", ".join(
+                f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in pa["3a_bounds"].items())
+            + f"; floor {p1_floor:.3f} ms")
+
+        phase_mark("8b")
+        # 8b. outlier segments: the guard flags the lanes that trip, and
+        # the re-run gives them the log-space path's results
+        outl = [bfb.prepare_problem(seq, ev, model, ScalingParams(),
+                                    DEFAULT_AMBIG_BASES, W=512, Dpad=1024,
+                                    P=1, anchor_pairs=[], expansion=60)
+                for seq, ev in outlier_segments(model)]
+        pb = prob_vs_twins(hk, bfb, problem_tensors(outl, 512, dev, prob=True),
+                           threshold, R)
+        check(pb["tripped"] == [True, False, True, False],
+              f"outlier segments tripped {pb['tripped']}")
+        res8 = hk.HopperAligner(outl, 512, dev, log_space=False).execute(threshold)
+        exact = hk.HopperAligner(outl, 512, dev).execute(threshold)
+        check([r["numerics_suspect"] for r in res8] == pb["tripped"],
+              "the aligner flags other lanes than the sweeps trip")
+        n_re = runner_mod.rerun_suspects(
+            [(0, 0, 0, q, 512, 1024, 1) for q in outl], res8, range(len(outl)),
+            dev, threshold)
+        check(n_re == 2 and res8[0] == exact[0] and res8[2] == exact[2],
+              "the re-run lanes differ from the log-space path")
+        worst8 = max(compare_pairs(exact[i]["pairs"], res8[i]["pairs"],
+                                   threshold) for i in (1, 3))
+        dtot8 = max(abs(exact[i]["total_f"] - res8[i]["total_f"])
+                    for i in (1, 3))
+        check(worst8 <= TOL_PATH and dtot8 <= TOL_TOTAL,
+              f"untripped outlier lanes: pairs {worst8}, totals {dtot8}")
+        log(f"[prob outliers] lanes tripped {pb['tripped']} (kernel = twin, "
+            f"flagged = tripped), {n_re} re-run equal to the log-space path; "
+            f"the others |d total| {dtot8:.3e} nats, |d p| {worst8:.3e}")
+
+        phase_mark("8c")
+        # 8c. phase 4's reads with the switch set, against phase 4's output
+        buckets4 = rec4.buckets()
+        n_seg4 = sum(map(len, buckets4.values()))
+        os.environ[runner_mod.PROB_SWITCH] = "1"
+        want_prob = sum(len(_stack_chunks(list(range(len(v))), *k))
+                        for k, v in buckets4.items()
+                        if runner_mod.prob_bucket(k[0], k[2], len(v), config,
+                                                  False))
+        want_log = sum(len(_stack_chunks(list(range(len(v))), *k))
+                       for k, v in buckets4.items()
+                       if not runner_mod.prob_bucket(k[0], k[2], len(v),
+                                                     config, False))
+        wide = [k for k in buckets4 if k[0] > bfb.PROB_MAX_W]
+        guard = []
+        rerun0 = runner_mod.rerun_suspects
+
+        def counted(tasks_, res_, ids, *a, **kw):
+            n = rerun0(tasks_, res_, ids, *a, **kw)
+            guard.append((n, len(ids)))
+            return n
+
+        runner_mod.rerun_suspects = counted
+        hk.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem8 = torch.cuda.memory_allocated()
+        stages = {}
+        try:
+            t0 = time.perf_counter()
+            results = run_alignment_batch(rgs, reference, model, config,
+                                          device=dev, stage_seconds=stages)
+            t_prob = time.perf_counter() - t0
+        finally:
+            del os.environ[runner_mod.PROB_SWITCH]
+            runner_mod.rerun_suspects = rerun0
+        prob_launches = {
+            "sa_fwd_sweep_prob": hk.forward_sweep_prob.launches,
+            "sa_bwd_sweep_compact_prob": hk.backward_sweep_compact_prob.launches,
+            "sa_fwd_sweep": hk.forward_sweep.launches,
+            "sa_bwd_sweep_compact": hk.backward_sweep_compact.launches}
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        written = write_outputs(results, model, os.path.join(tmp, "out8"), "both")
+        t_write = time.perf_counter() - t0
+        check(len(results) == len(rgs), f"{len(rgs) - len(results)} reads failed")
+        check(len(written) == len(main_results) * 2, f"{len(written)} files")
+        worst8, dtot8 = 0.0, 0.0
+        for a, g in zip(main_results, results):
+            check(a.read_label == g.read_label and g.max_total_gap < 1.0,
+                  f"{g.read_label}: gap {g.max_total_gap}")
+            dtot8 = max(dtot8, abs(a.total_log_prob - g.total_log_prob))
+            worst8 = max(worst8, compare_pairs(a.aligned_pairs, g.aligned_pairs,
+                                               threshold))
+        check(dtot8 <= 0.05 and worst8 <= TOL_PATH,
+              f"switch on vs phase 4: totals {dtot8} nats, pairs {worst8}")
+        n_flag, n_prob = guard[0] if guard else (0, 0)
+        check(prob_launches["sa_fwd_sweep_prob"] == want_prob > 0
+              and prob_launches["sa_bwd_sweep_compact_prob"] == want_prob
+              and prob_launches["sa_fwd_sweep"] >= want_log > 0 and wide
+              and n_prob > 0, f"launches {prob_launches}: want {want_prob} "
+              f"probability-space chunks, >= {want_log} log-space ones (W > "
+              f"512 buckets {wide}), {n_prob} segments in probability space")
+        log(f"[prob main] {len(results)} reads, {n_events} events: "
+            f"{n_prob} of {n_seg4} segments in probability space, "
+            f"{n_flag} flagged and re-run ({n_flag / max(n_prob, 1):.4f}); "
+            f"the others on the log-space kernels (W > 512 buckets {wide}); "
+            f"vs phase 4 |d total| {dtot8:.3e} nats, |d p| {worst8:.3e}")
+        log("[prob main] stages " + " ".join(
+            f"{s_}={v:.2f}s" for s_, v in stages.items())
+            + f" write={t_write:.2f}s")
+        log(f"[prob main] run_alignment_batch {t_prob:.2f} s: "
+            f"{n_events / t_prob:.0f} events/s (phase 4 in this run "
+            f"{n_events / t_main:.0f}; kernels stage {main_stages['kernels']:.2f}"
+            f" s there, {stages['kernels']:.2f} + rerun {stages.get('rerun', 0.0):.2f} s "
+            f"here); peak device memory {peak / 2**30:.2f} GiB (allocated at "
+            f"the start {mem8 / 2**30:.2f} GiB)")
+        log(f"[prob main] launches {prob_launches}")
+
+        phase_mark("8d")
+        # 8d. probability-space against log-space kernel time on every
+        # W <= 512 bucket of phase 4, in the runner's chunks, CUDA events
+        sums8 = {}
+        for (W, Dpad, P), probs in sorted(buckets4.items()):
+            if W > bfb.PROB_MAX_W:
+                continue
+            for chunk in _stack_chunks(list(range(len(probs))), W, Dpad, P):
+                sub = [probs[i] for i in chunk]
+                e = sums8.setdefault(W, [0, 0.0, 0.0, 0.0, 0.0])
+                e[0] += len(sub)
+                f_ms, b_ms = sweep_ms(hk, bfb, problem_tensors(
+                    sub, W, dev, prob=True), threshold, R, 1, prob=True)
+                lf_ms, lb_ms = sweep_ms(hk, bfb, problem_tensors(sub, W, dev),
+                                        threshold, R, 1)
+                e[1:] = [e[1] + f_ms, e[2] + b_ms, e[3] + lf_ms, e[4] + lb_ms]
+        for W, (n, f_ms, b_ms, lf_ms, lb_ms) in sorted(sums8.items()):
+            log(f"[prob sums] W={W}: {n} problems, probability-space fwd "
+                f"{f_ms:.3f} ms, bwd {b_ms:.3f} ms; log-space fwd {lf_ms:.3f} "
+                f"ms, bwd {lb_ms:.3f} ms")
+        tot8 = [sum(e[i] for e in sums8.values()) for i in range(1, 5)]
+        log(f"[prob sums] W <= 512: probability-space fwd {tot8[0]:.3f} ms, "
+            f"bwd {tot8[1]:.3f} ms; log-space fwd {tot8[2]:.3f} ms, bwd "
+            f"{tot8[3]:.3f} ms")
+        del buckets4, main_results, rec4
 
     def err(r, name):
         return max(r["tf_err"], r["fdiff"]) if name == "sa_fwd_sweep" \
@@ -1228,6 +1590,32 @@ def main():
                               for (t, W), r in exp_rows.items()},
             "bound_ms_by_W": {f"{t},{W}": r["bounds"][name][0]
                               for (t, W), r in exp_rows.items()}})
+    for name, src, ms, tot in (
+            ("sa_fwd_sweep_prob",
+             "signalalign_tpu/ops/banded_fb_pallas_batch.py:161", "fwd_", 0),
+            ("sa_bwd_sweep_compact_prob",
+             "signalalign_tpu/ops/banded_fb_pallas_batch.py:371", "bwd_", 1)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "signalalign_tpu_torch/csrc/banded_fb_prob.cu",
+            "replaces": src,
+            "launches": prob_launches[name],
+            "max_abs_err": max(err(r, name.replace("_prob", ""))
+                               for r in (pa, pb)),
+            "ms": pa[ms + "ms"], "plain_ms": pa[ms + "plain_ms"],
+            "bound_ms": pa["bounds"][name][0],
+            "bound_by": pa["bounds"][name][1],
+            # no PyTorch call computes this sweep
+            "library_ms": None,
+            "serial_floor_ms": pa["floor"],
+            "launches_by_phase": {"8c": prob_launches[name]},
+            "log_space_ms": pa["log_" + ms + "ms"],
+            "ms_3a": pa["3a_" + ms + "ms"],
+            "log_space_ms_3a": pa["3a_log_" + ms + "ms"],
+            "bound_ms_3a": pa["3a_bounds"][name][0],
+            "sums_w_le_512_ms": tot8[tot],
+            "log_space_sums_w_le_512_ms": tot8[tot + 2]})
+    phase_mark("end")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

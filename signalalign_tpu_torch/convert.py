@@ -105,14 +105,18 @@ def legality_bits(legal: np.ndarray) -> np.ndarray:
 def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
                     device: torch.device,
                     hdp: Optional[bfb.HdpTables] = None,
-                    kmer_ids: bool = False) -> bfb.ProblemTensors:
+                    kmer_ids: bool = False,
+                    prob: bool = False) -> bfb.ProblemTensors:
     """Stack one bucket's problems (P <= 8 paths, the bucket's P is their
     largest) into padded tensors on ``device`` (one host-to-device copy
     per tensor). A MODE_HDP bucket also gets per-(problem, path, position)
     k-mer ids and level means, and needs ``hdp``: the run's tables on
     ``device``, uploaded once (``hdp_tables``) and shared, not copied.
     ``kmer_ids`` gives a Gaussian bucket the k-mer ids too (the keys of
-    the EM emission moments). Mixed-mode buckets raise."""
+    the EM emission moments). ``prob`` adds what the probability-space
+    sweeps read (``bfb.ProbTensors``; P = 1 Gaussian buckets of W <=
+    ``bfb.PROB_MAX_W`` only), leaving the other tensors as they are.
+    Mixed-mode buckets raise."""
     if not problems:
         raise ValueError("empty bucket")
     modes = {p.mode for p in problems}
@@ -124,6 +128,9 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
             raise ValueError("a MODE_HDP bucket needs the HDP tables (hdp=)")
     elif hdp is not None:
         raise ValueError("HDP tables given for a MODE_MEAN_ONLY bucket")
+    P = max(p.ref_params.shape[1] for p in problems)
+    if prob:
+        bfb.check_prob(W, P, hdp_mode)
     for p in problems:
         _check_slice(p)
         if hdp_mode and (p.hdp_dens.shape != tuple(hdp.dens.shape)
@@ -137,7 +144,6 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
             raise ValueError(f"problem tables shorter than W={W}: prepare "
                              "it with the bucket's W")
     B = len(problems)
-    P = max(p.ref_params.shape[1] for p in problems)
     D1 = max(p.n_diag for p in problems) + 1
     LX = max(p.ref_params.shape[-1] for p in problems)
     LE = max(p.ev_params.shape[-1] for p in problems)
@@ -178,6 +184,7 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         return torch.from_numpy(a).to(device)
 
     x0 = dev(x0)
+    pt_prob = _prob_tensors(problems, ref, LE, dev) if prob else None
     if hdp_mode and hdp.dens.device != x0.device:
         raise ValueError(f"HDP tables on {hdp.dens.device}, bucket on "
                          f"{x0.device}")
@@ -186,4 +193,20 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         width=dev(width), ref=dev(ref), leg=dev(leg), ev=dev(ev),
         meta=dev(meta), par=dev(par),
         kid=dev(kid) if with_kid else None, mu=dev(mu) if hdp_mode else None,
-        hdp=hdp)
+        hdp=hdp, prob=pt_prob)
+
+
+def _prob_tensors(problems, ref: np.ndarray, LE: int, dev) -> bfb.ProbTensors:
+    """``bfb.ProbTensors`` of a P = 1 Gaussian bucket whose ``ref`` rows
+    are stacked: exp(c_m) and exp(c_y) taken in float32 as the JAX
+    aligner takes them (``banded_fb_pallas_batch.py:2296-2300``), the
+    best-case event row, the ``_pack16`` pack and the normaliser."""
+    ev_best = np.zeros((len(problems), LE), np.float32)
+    for i, p in enumerate(problems):
+        ev_best[i, :p.ev_best.shape[0]] = p.ev_best
+    return bfb.ProbTensors(
+        cexp=dev(np.ascontiguousarray(np.exp(ref[:, [2, 4], 0]))),
+        ev_best=dev(ev_best),
+        par=dev(np.stack([bfb.prob_pack(p) for p in problems])),
+        ev_norm=dev(np.array([p.ev_norm_total for p in problems],
+                             np.float64)))

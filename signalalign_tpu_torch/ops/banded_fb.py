@@ -15,6 +15,13 @@ the per-diagonal offsets are returned as increments whose float64 prefix
 sums restore absolute log-probabilities. It is the CPU path of the port
 and the plain version each Hopper kernel (``banded_fb_hopper``) is held
 against on the card.
+
+``sweep_forward_prob`` / ``sweep_backward_prob`` are the same DP in
+probability space at P = 1 (the JAX ``log_space=False`` kernels): f32
+probabilities rescaled to 2^100 per diagonal, event-normalised
+emissions, the same output contract; exact only while a band's range
+fits f32, which the callers check (``HopperAligner``'s
+``numerics_suspect``).
 """
 
 from __future__ import annotations
@@ -73,6 +80,13 @@ PACK_END = 12     # 3 end-state logs
 PACK_GAPX = 15    # gapX log emission
 PACK_VAR = 16     # the read's var (HDP descaling and density prefactor)
 NPACK = 17
+
+# ---- the probability-space DP (the JAX ``log_space=False`` kernels,
+# ``ops/banded_fb_pallas_batch.py:65-75``): each diagonal's max rescaled
+# to SCALE, so f32 covers ~157 nats below a diagonal's ridge
+SCALE = float(2.0 ** 100)
+LOG_SCALE = float(100.0 * np.log(2.0))
+PROB_MAX_W = 512     # the widest band the JAX runner sends to them
 
 
 @dataclasses.dataclass
@@ -302,8 +316,8 @@ def prepare_problem(
         hdp_grid = np.array([g0, dx], dtype=np.float32)
 
     # per-event best-case match log-emission over ALL model kmers (the
-    # JAX package's probability-space kernels subtract it; kept so the
-    # problem carries the same fields)
+    # probability-space sweeps subtract it inside each emission's exponent
+    # and add the sum back to the totals)
     ev_best = None
     ev_norm_total = 0.0
     if mode == MODE_MEAN_ONLY:
@@ -403,10 +417,51 @@ class ProblemTensors:
     kid: Optional[torch.Tensor] = None    # (B, P, LX) int32
     mu: Optional[torch.Tensor] = None     # (B, P, LX) f32
     hdp: Optional["HdpTables"] = None
+    # probability-space buckets only (``problem_tensors(..., prob=True)``)
+    prob: Optional["ProbTensors"] = None
 
     @property
     def device(self) -> torch.device:
         return self.x0.device
+
+
+@dataclasses.dataclass
+class ProbTensors:
+    """What the probability-space sweeps read beside ``ProblemTensors``
+    (P = 1, Gaussian): the JAX aligner's pre-exponentiated emission
+    constants and pack, and the event normaliser
+    (``banded_fb_pallas_batch.py:2295-2313``)."""
+    cexp: torch.Tensor     # (B, 2, LX) f32 exp(c_m), exp(c_y) (ref rows 2, 4)
+    ev_best: torch.Tensor  # (B, LE) f32 per-event best-case match log-emission
+    par: torch.Tensor      # (B, NPACK) f32 exp of ``par``'s logs (NEG -> 0)
+    ev_norm: torch.Tensor  # (B,) f64 sum of ev_best over each problem's events
+
+
+def prob_pack(problem: BandedProblem) -> np.ndarray:
+    """The JAX ``_pack16`` in the ``par`` layout: the exp of the
+    transition, start, end and gapX log parameters taken in float64, so
+    that NEG gives an exact 0 (PACK_VAR keeps the var)."""
+    out = np.full(NPACK, NEG, np.float64)
+    out[PACK_TRANS:PACK_TRANS + 9] = problem.log_trans
+    out[PACK_START:PACK_START + 3] = problem.start_logs
+    out[PACK_END:PACK_END + 3] = problem.end_logs
+    out[PACK_GAPX] = LOG_GAPX_EMISSION
+    with np.errstate(over="ignore"):
+        out = np.exp(out).astype(np.float32)
+    out[PACK_VAR] = problem.var
+    return out
+
+
+def check_prob(W: int, P: int, hdp: bool, expect: bool = False) -> None:
+    """The probability-space sweeps take what the JAX ``log_space=False``
+    kernels take (``PallasBatchAligner`` ``:2197-2212``): one path per
+    cell, Gaussian emissions, no expectation pass; and bands of at most
+    PROB_MAX_W offsets, the runner's gate."""
+    if P != 1 or hdp or expect or W > PROB_MAX_W:
+        raise ValueError(
+            f"the probability-space sweeps take P = 1 Gaussian buckets of "
+            f"W <= {PROB_MAX_W} without expectations (P={P}, W={W}, HDP "
+            f"{hdp}, expect {expect})")
 
 
 @dataclasses.dataclass
@@ -496,15 +551,15 @@ def _legal(pt: ProblemTensors, start, length):
     return ((win[:, None, None, :] >> bit[None, :, :, None]) & 1).bool()
 
 
-def _window(prev, shift, W: int):
+def _window(prev, shift, W: int, fill: float = NEG):
     """(B, S, P, W) diagonal -> (B, S, P, W+1) with out[..., i] =
-    prev[..., i+shift] where 0 <= i+shift < W and NEG elsewhere (the JAX
-    ``_window2``)."""
+    prev[..., i+shift] where 0 <= i+shift < W and ``fill`` elsewhere (the
+    JAX ``_window2``; 0 in probability space)."""
     idx = shift[:, None] + torch.arange(W + 1, device=prev.device)
     ok = (idx >= 0) & (idx < W)
     g = torch.gather(prev, 3, idx.clamp(0, W - 1)[:, None, None, :]
                      .expand(-1, prev.shape[1], prev.shape[2], -1))
-    return torch.where(ok[:, None, None, :], g, NEG)
+    return torch.where(ok[:, None, None, :], g, fill)
 
 
 def _legal_reduce(src, legal):
@@ -707,6 +762,193 @@ def sweep_backward(pt: ProblemTensors, store_full: bool = False):
         b_incr[:, d] = m
         b2, b1, m_prev = b1, cur, m
     return bstack, b_incr, _lse(cur, start)
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch DP in probability space (P = 1, MODE_MEAN_ONLY)
+# --------------------------------------------------------------------------
+
+def _prob_emissions(refw, pexw, evw, cw, gapx):
+    """Event-normalised match / stay probabilities and the gapX weight,
+    (B, W) each, from (B, NREF, 1, W) reference, (B, 2, W) exp-constant,
+    (B, NEV, W) event and (B, W) best-case windows: exp(c - z^2/2 -
+    ev_best), the JAX ``_fwd_kernel`` ``:253-261``, in its order."""
+    m_hat, inv_m, _, inv_y, _ = refw[:, :, 0].unbind(1)
+    ev_mean = evw[:, 0]
+    kvalid = inv_m > 0.0
+    ok = kvalid & (evw[:, 1] > 0.5)
+    am = (ev_mean - m_hat) * inv_m
+    ay = (ev_mean - m_hat) * inv_y
+    e_match = torch.where(ok, pexw[:, 0], 0.0) * torch.exp(-(0.5 * am * am + cw))
+    e_stay = torch.where(ok, pexw[:, 1], 0.0) * torch.exp(-(0.5 * ay * ay + cw))
+    return e_match, e_stay, torch.where(kvalid, gapx, 0.0)
+
+
+def _prob_frames(lr):
+    """The max-frame leapfrog's damping of diagonals d-1 and d-2 (forward;
+    d+1 and d+2 backward) from lr = log(FRAME(d-1) / FRAME(d-2)): both
+    exp(<= 0), (B, 1) each."""
+    return (torch.exp(torch.clamp(lr, max=0.0))[:, None],
+            torch.exp(-torch.clamp(lr, min=0.0))[:, None])
+
+
+def _prob_rescale(cur, m):
+    """cur (B, 3, W) rescaled so that its max m becomes SCALE, as 1/m then
+    * SCALE (SCALE/m overflows f32 on a near-dead diagonal); with the
+    normalised log match row (NEG where the probability is 0) and the
+    log frame factor log(m) - LOG_SCALE."""
+    cur = (cur * (1.0 / m)[:, None, None]) * SCALE
+    row = torch.clamp(torch.log(cur[:, MATCH]) - LOG_SCALE, min=NEG)
+    return cur, row, torch.log(m) - LOG_SCALE
+
+
+def _prob_lse(cur, w):
+    """log(sum of the (B, 3, W) diagonal weighted by the (B, 3) state
+    probabilities) - LOG_SCALE, summed state by state as the JAX kernels."""
+    s = ((cur[:, MATCH] * w[:, 0, None]).sum(dim=1)
+         + (cur[:, GAP_X] * w[:, 1, None]).sum(dim=1)
+         + (cur[:, GAP_Y] * w[:, 2, None]).sum(dim=1))
+    return torch.log(s) - LOG_SCALE
+
+
+def sweep_forward_prob(pt: ProblemTensors):
+    """The probability-space forward sweep of a P = 1 Gaussian bucket:
+    the JAX ``_fwd_kernel`` (``ops/banded_fb_pallas_batch.py:230-344``),
+    one diagonal at a time. Values are f32 probabilities, each diagonal's
+    max rescaled to SCALE, the step taken in the larger frame of d-1 and
+    d-2 (both damped into it), emissions event-normalised by ev_best.
+
+    Returns (fstack (B, D1, 1, W) = log(value) - LOG_SCALE of the match
+    row, NEG where the value is 0; f_incr (B, D1) the frame increments
+    lr(d), whose prefix sums are the log frames, 0 past n_diag; lse_f (B,)
+    the end-weighted log-sum at each problem's n_diag): the contract of
+    ``sweep_forward``, with totals short of ``ev_norm``. NaN propagates
+    as in the JAX kernel (a tripped lane)."""
+    B, D1 = pt.x0.shape
+    W = pt.W
+    dev = pt.device
+    _, lY, nd, efp, reflen, evlen = _unpack(pt)[:6]
+    pr = pt.prob
+    t = pr.par[:, PACK_TRANS:PACK_TRANS + 9, None]
+    start = pr.par[:, PACK_START:PACK_START + 3]
+    end = pr.par[:, PACK_END:PACK_END + 3]
+    gapx = pr.par[:, PACK_GAPX, None]
+    x0 = pt.x0.long()
+    width = pt.width.long()
+    o = torch.arange(W, device=dev)
+    no_diag = torch.full((B,), W + 5, dtype=torch.long, device=dev)
+
+    fstack = torch.full((B, D1, 1, W), NEG, device=dev)
+    f_incr = torch.zeros(B, D1, device=dev)
+    lse_f = torch.zeros(B, device=dev)
+    prev1 = prev2 = torch.zeros(B, 3, W, device=dev)
+    lr = torch.zeros(B, device=dev)
+    finals = set(pt.n_diag)
+    for d in range(D1):
+        if d == 0:
+            # the start cell (0, 0), and nothing else
+            cur = torch.zeros(B, 3, W, device=dev)
+            cur[:, :, 0] = start * SCALE
+        else:
+            xd = x0[:, d]
+            refw, _ = _cols(pt.ref, xd, reflen, W)
+            pexw, _ = _cols(pr.cexp, xd, reflen, W)
+            ecol = lY - d + xd + efp
+            evw, _ = _cols(pt.ev, ecol, evlen, W)
+            cw, _ = _cols(pr.ev_best, ecol, evlen, W)
+            e_match, e_stay, e_gapx = _prob_emissions(refw, pexw, evw, cw,
+                                                      gapx)
+            w1, w2 = _prob_frames(lr)
+            shift2 = xd - x0[:, d - 2] - 1 if d >= 2 else no_diag
+            a = _window(prev1[:, :, None], xd - x0[:, d - 1] - 1, W, 0.0)[:, :, 0]
+            c = _window(prev2[:, :, None], shift2, W, 0.0)[:, :, 0]
+            gx = (a[:, MATCH, :W] * (t[:, T_MX] * w1)
+                  + a[:, GAP_X, :W] * (t[:, T_XX] * w1)) * e_gapx
+            mm = ((c[:, MATCH, :W] * t[:, T_MM] + c[:, GAP_X, :W] * t[:, T_XM]
+                   + c[:, GAP_Y, :W] * t[:, T_YM]) * w2) * e_match
+            gy = (a[:, MATCH, 1:] * (t[:, T_MY] * w1)
+                  + a[:, GAP_Y, 1:] * (t[:, T_YY] * w1)) * e_stay
+            inband = (o < width[:, d, None]) & (d <= nd)[:, None]
+            cur = torch.where(inband[:, None], torch.stack([mm, gx, gy], 1),
+                              0.0)
+        mx = cur.amax(dim=(1, 2))
+        cur, row, lm = _prob_rescale(cur, torch.where(mx > 0.0, mx, SCALE))
+        lr = torch.clamp(-lr, min=0.0) + lm
+        fstack[:, d, 0] = row
+        f_incr[:, d] = torch.where(d <= nd, lr, 0.0)
+        if d in finals:
+            lse_f = torch.where(nd == d, _prob_lse(cur, end), lse_f)
+        prev2, prev1 = prev1, cur
+    return fstack, f_incr, lse_f
+
+
+def sweep_backward_prob(pt: ProblemTensors):
+    """The probability-space backward sweep of a P = 1 Gaussian bucket:
+    the JAX ``_bwd_kernel`` (``ops/banded_fb_pallas_batch.py:444-553``),
+    from each problem's n_diag (the end row: end * SCALE, frame factor 1)
+    down to 0, with the leapfrog frames of d+1 and d+2.
+
+    Returns (bstack (B, D1, 1, W) log match rows as in
+    ``sweep_forward_prob``, b_incr (B, D1) frame increments (0 past
+    n_diag; their suffix sums are the log frames), lse_b (B,) the
+    start-weighted log-sum at d = 0); totals short of ``ev_norm``."""
+    B, D1 = pt.x0.shape
+    W = pt.W
+    dev = pt.device
+    _, lY, nd, efp, reflen, evlen = _unpack(pt)[:6]
+    pr = pt.prob
+    t = pr.par[:, PACK_TRANS:PACK_TRANS + 9, None]
+    start = pr.par[:, PACK_START:PACK_START + 3]
+    end = pr.par[:, PACK_END:PACK_END + 3]
+    gapx = pr.par[:, PACK_GAPX, None]
+    x0 = pt.x0.long()
+    width = pt.width.long()
+    o = torch.arange(W, device=dev)
+    no_diag = torch.full((B,), W + 5, dtype=torch.long, device=dev)
+
+    bstack = torch.full((B, D1, 1, W), NEG, device=dev)
+    b_incr = torch.zeros(B, D1, device=dev)
+    b1 = b2 = cur = torch.zeros(B, 3, W, device=dev)
+    lr = torch.zeros(B, device=dev)
+    for d in range(D1 - 1, -1, -1):
+        xd = x0[:, d]
+        # TO cells: match (x+1, y+1) and gapX (x+1, y) at x+1, gapY (x, y+1)
+        # at x, the first two with event y+1
+        refx1, _ = _cols(pt.ref, xd + 1, reflen, W)
+        refx0, _ = _cols(pt.ref, xd, reflen, W)
+        pex1, _ = _cols(pr.cexp, xd + 1, reflen, W)
+        pex0, _ = _cols(pr.cexp, xd, reflen, W)
+        ecol = lY - d + xd + efp - 1
+        evy1, _ = _cols(pt.ev, ecol, evlen, W)
+        cw, _ = _cols(pr.ev_best, ecol, evlen, W)
+        e_match_to = _prob_emissions(refx1, pex1, evy1, cw, gapx)[0]
+        e_stay_same = _prob_emissions(refx0, pex0, evy1, cw, gapx)[1]
+        gapx_ok = torch.where(refx1[:, 1, 0] > 0.0, gapx, 0.0)
+        u1 = xd - x0[:, d + 1] if d + 1 < D1 else no_diag
+        u2 = xd + 1 - x0[:, d + 2] if d + 2 < D1 else no_diag
+        a = _window(b1[:, :, None], u1, W, 0.0)[:, :, 0]
+        c = _window(b2[:, :, None], u2, W, 0.0)[:, :, 0]
+        w1, w2 = _prob_frames(lr)
+        gx_red = (a[:, GAP_X, 1:] * w1) * gapx_ok
+        mm_red = (c[:, MATCH, :W] * w2) * e_match_to
+        gy_term = (a[:, GAP_Y, :W] * w1) * e_stay_same
+        cur = torch.stack([
+            gx_red * t[:, T_MX] + mm_red * t[:, T_MM] + gy_term * t[:, T_MY],
+            gx_red * t[:, T_XX] + mm_red * t[:, T_XM],
+            mm_red * t[:, T_YM] + gy_term * t[:, T_YY]], dim=1)
+        fin = nd == d
+        cur = torch.where(fin[:, None, None], end[:, :, None] * SCALE, cur)
+        inband = (o < width[:, d, None]) & (d <= nd)[:, None]
+        cur = torch.where(inband[:, None], cur, 0.0)
+        mx = cur.amax(dim=(1, 2))
+        cur, row, lm = _prob_rescale(
+            cur, torch.where(fin, SCALE, torch.where(mx > 0.0, mx, SCALE)))
+        # a problem's sweep starts at its n_diag with lr = 0
+        lr = torch.where(d <= nd, torch.clamp(-lr, min=0.0) + lm, 0.0)
+        bstack[:, d, 0] = row
+        b_incr[:, d] = lr
+        b2, b1 = b1, cur
+    return bstack, b_incr, _prob_lse(cur, start)
 
 
 def forward_offsets(f_incr, lse_f, n_diag):

@@ -15,6 +15,12 @@ missing table or a refused launch raises. Each wrapper counts its kernel
 launches in ``<wrapper>.launches`` and those of its expectation instance
 (``expect=True``) in ``<wrapper>.expect_launches``.
 
+``forward_sweep_prob`` and ``backward_sweep_compact_prob`` launch the
+probability-space kernels ``sa_fwd_sweep_prob`` and
+``sa_bwd_sweep_compact_prob`` (``csrc/banded_fb_prob.cu``; P = 1
+Gaussian buckets of W <= 512 made with ``problem_tensors(...,
+prob=True)``), with the same CPU twins rule and their own counters.
+
 ``HopperAligner`` is the counterpart of the JAX package's
 ``PallasAligner.execute`` (``ops/banded_fb_pallas.py``), of
 ``PallasBatchAligner.execute_async`` (``ops/banded_fb_pallas_batch.py``;
@@ -27,6 +33,9 @@ posterior + survivor compaction, then either the survivors decoded to
 aligned pairs or their posteriors summed per site on the device; in the
 expectation pass the backward also sums the transition posteriors and
 the per-position emission moments, which ``kexp_by_kmer`` keys by k-mer.
+With ``log_space=False`` it is the counterpart of
+``PallasBatchAligner(log_space=False)``: the probability-space sweeps,
+and every result carries ``numerics_suspect``.
 """
 
 from __future__ import annotations
@@ -154,6 +163,31 @@ forward_sweep.expect_launches = 0
 
 # ------------------------------------------------------------- backward
 
+def _compact_ref(pt: bfb.ProblemTensors, fm, bm, bo, cvecf, threshold: float,
+                 R: int):
+    """The posterior exp(max(fm + bm + cvecf + Bo, NEG)) of normalised
+    (B, D1, P, W) forward and backward match rows, thresholded at the
+    cells that may report and compacted in (band offset, path) order into
+    R slots per diagonal: (slot_cell, slot_val, cnt)."""
+    c = (cvecf + bo).float()
+    p = torch.exp(torch.clamp(fm + bm + c[:, :, None, None], min=bfb.NEG))
+    surv = bfb.cell_mask(pt) & (p >= threshold)
+    B, D1 = pt.x0.shape
+    # (B, D1, P, W) -> (B, D1, W*P): flat index o*P + p is the cell id
+    surv = surv.transpose(2, 3).reshape(B, D1, -1)
+    p = p.transpose(2, 3).reshape(B, D1, -1)
+    rank = torch.cumsum(surv, dim=2) - 1
+    cnt = surv.sum(dim=2, dtype=torch.int32)
+    keep = surv & (rank < R)
+    slot_cell = torch.full((B, D1, R), -1, dtype=torch.int32, device=pt.device)
+    slot_val = torch.zeros(B, D1, R, dtype=torch.float32, device=pt.device)
+    bi, di, ci = keep.nonzero(as_tuple=True)
+    ri = rank[keep]
+    slot_cell[bi, di, ri] = ci.int()
+    slot_val[bi, di, ri] = p[keep]
+    return slot_cell, slot_val, cnt
+
+
 def backward_sweep_compact_ref(pt: bfb.ProblemTensors, fstack, cvecf,
                                threshold: float, R: int,
                                expect: bool = False):
@@ -172,25 +206,9 @@ def backward_sweep_compact_ref(pt: bfb.ProblemTensors, fstack, cvecf,
         bfb.check_expect(pt.P)
     bstack, b_incr, lse_b = bfb.sweep_backward(pt, store_full=expect)
     bo, _ = bfb.backward_offsets(b_incr, lse_b)
-    c = (cvecf + bo).float()
     fm, bm = ((fstack[:, :, bfb.MATCH], bstack[:, :, bfb.MATCH]) if expect
               else (fstack, bstack))
-    p = torch.exp(torch.clamp(fm + bm + c[:, :, None, None], min=bfb.NEG))
-    surv = bfb.cell_mask(pt) & (p >= threshold)
-    B, D1 = pt.x0.shape
-    # (B, D1, P, W) -> (B, D1, W*P): flat index o*P + p is the cell id
-    surv = surv.transpose(2, 3).reshape(B, D1, -1)
-    p = p.transpose(2, 3).reshape(B, D1, -1)
-    rank = torch.cumsum(surv, dim=2) - 1
-    cnt = surv.sum(dim=2, dtype=torch.int32)
-    keep = surv & (rank < R)
-    slot_cell = torch.full((B, D1, R), -1, dtype=torch.int32, device=pt.device)
-    slot_val = torch.zeros(B, D1, R, dtype=torch.float32, device=pt.device)
-    bi, di, ci = keep.nonzero(as_tuple=True)
-    ri = rank[keep]
-    slot_cell[bi, di, ri] = ci.int()
-    slot_val[bi, di, ri] = p[keep]
-    out = (b_incr, lse_b, slot_cell, slot_val, cnt)
+    out = (b_incr, lse_b) + _compact_ref(pt, fm, bm, bo, cvecf, threshold, R)
     if not expect:
         return out
     return out + bfb.expectation_sums(pt, fstack, bstack,
@@ -249,10 +267,126 @@ backward_sweep_compact.launches = 0
 backward_sweep_compact.expect_launches = 0
 
 
+# ------------------------------------------- probability-space sweeps
+
+def _check_prob(pt: bfb.ProblemTensors) -> None:
+    if pt.prob is None:
+        raise ValueError("no probability-space tensors: problem_tensors(..., "
+                         "prob=True)")
+    bfb.check_prob(pt.W, pt.P, pt.hdp is not None)
+    B, LX, LE = pt.x0.shape[0], pt.ref.shape[-1], pt.ev.shape[-1]
+    pr = pt.prob
+    for name, t, shape, dtype in (
+            ("prob.cexp", pr.cexp, (B, 2, LX), torch.float32),
+            ("prob.ev_best", pr.ev_best, (B, LE), torch.float32),
+            ("prob.par", pr.par, (B, bfb.NPACK), torch.float32),
+            ("prob.ev_norm", pr.ev_norm, (B,), torch.float64)):
+        _check_out(name, t, shape, dtype, pt.device)
+
+
+def _launch_prob(name: str, pt: bfb.ProblemTensors, tensors, ints,
+                 floats=()) -> None:
+    """Call C entry point ``name`` of csrc/banded_fb_prob.cu with the
+    pointers of ``pt``'s tensors and its probability-space tensors, then
+    of ``tensors``, then ``ints``, ``floats`` and the current stream;
+    raises if the launch was refused."""
+    fn = getattr(cuda_build.load(), name)
+    pr = pt.prob
+    ptrs = [t.data_ptr() for t in (pt.x0, pt.width, pt.ref, pt.ev, pt.meta,
+                                   pr.cexp, pr.ev_best, pr.par, *tensors)]
+    with torch.cuda.device(pt.device):
+        rc = fn(*ptrs, *ints, *floats,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed (W={pt.W}): CUDA error {rc}")
+
+
+def forward_sweep_prob_ref(pt: bfb.ProblemTensors):
+    """Plain twin of ``forward_sweep_prob``: ``bfb.sweep_forward_prob``,
+    (fstack (B, D1, 1, W) f32, f_incr (B, D1) f32, lse_f (B,) f32)."""
+    _check_prob(pt)
+    return bfb.sweep_forward_prob(pt)
+
+
+def forward_sweep_prob(pt: bfb.ProblemTensors):
+    """Probability-space forward sweep of every problem of ``pt`` (one
+    CUDA block each; ``sa_fwd_sweep_prob``). Returns (fstack, f_incr,
+    lse_f) as ``forward_sweep_prob_ref``; on CUDA the fstack rows past a
+    problem's n_diag are left unwritten. Totals lack ``pt.prob.ev_norm``.
+    """
+    if pt.device.type == "cpu":
+        return forward_sweep_prob_ref(pt)
+    _check_cuda(pt)
+    _check_prob(pt)
+    B, D1 = pt.x0.shape
+    dev = pt.device
+    fstack = torch.empty(B, D1, 1, pt.W, dtype=torch.float32, device=dev)
+    f_incr = torch.empty(B, D1, dtype=torch.float32, device=dev)
+    lse_f = torch.empty(B, dtype=torch.float32, device=dev)
+    _launch_prob("sa_fwd_sweep_prob", pt, (fstack, f_incr, lse_f),
+                 (B, D1, pt.W, pt.ref.shape[-1], pt.ev.shape[-1]))
+    forward_sweep_prob.launches += 1
+    return fstack, f_incr, lse_f
+
+
+forward_sweep_prob.launches = 0
+
+
+def backward_sweep_compact_prob_ref(pt: bfb.ProblemTensors, fstack, cvecf,
+                                    threshold: float, R: int):
+    """Plain twin of ``backward_sweep_compact_prob``: the full
+    probability-space backward sweep (``bfb.sweep_backward_prob``), then
+    the posterior, threshold and compaction of
+    ``backward_sweep_compact_ref``."""
+    _check_prob(pt)
+    bstack, b_incr, lse_b = bfb.sweep_backward_prob(pt)
+    bo, _ = bfb.backward_offsets(b_incr, lse_b)
+    return (b_incr, lse_b) + _compact_ref(pt, fstack, bstack, bo, cvecf,
+                                          threshold, R)
+
+
+def backward_sweep_compact_prob(pt: bfb.ProblemTensors, fstack, cvecf,
+                                threshold: float, R: int):
+    """Probability-space backward sweep with the posterior
+    exp(max(fm + bm + cvecf(d) + Bo(d), NEG)), the threshold and the
+    survivor compaction fused in (``sa_bwd_sweep_compact_prob``);
+    ``fstack`` from ``forward_sweep_prob``, ``cvecf`` (B, D1) float64 =
+    Fo(d) - total_f with the event-normalised total. Returns (b_incr,
+    lse_b, slot_cell, slot_val, cnt) as ``backward_sweep_compact``: ``cnt``
+    counts every survivor of a diagonal, past R too (a tripped problem's
+    +inf or NaN cvecf makes every in-band cell survive or none); no slot
+    past R is written."""
+    if pt.device.type == "cpu":
+        return backward_sweep_compact_prob_ref(pt, fstack, cvecf, threshold,
+                                               R)
+    _check_cuda(pt)
+    _check_prob(pt)
+    B, D1 = pt.x0.shape
+    dev = pt.device
+    _check_out("fstack", fstack, (B, D1, 1, pt.W), torch.float32, dev)
+    _check_out("cvecf", cvecf, (B, D1), torch.float64, dev)
+    b_incr = torch.empty(B, D1, dtype=torch.float32, device=dev)
+    lse_b = torch.empty(B, dtype=torch.float32, device=dev)
+    slot_cell = torch.empty(B, D1, R, dtype=torch.int32, device=dev)
+    slot_val = torch.empty(B, D1, R, dtype=torch.float32, device=dev)
+    cnt = torch.empty(B, D1, dtype=torch.int32, device=dev)
+    _launch_prob("sa_bwd_sweep_compact_prob", pt,
+                 (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt),
+                 (B, D1, pt.W, pt.ref.shape[-1], pt.ev.shape[-1], R),
+                 (float(threshold),))
+    backward_sweep_compact_prob.launches += 1
+    return b_incr, lse_b, slot_cell, slot_val, cnt
+
+
+backward_sweep_compact_prob.launches = 0
+
+
 def reset_launch_counts() -> None:
     for fn in (forward_sweep, backward_sweep_compact):
         fn.launches = 0
         fn.expect_launches = 0
+    forward_sweep_prob.launches = 0
+    backward_sweep_compact_prob.launches = 0
 
 
 # --------------------------------------------------------------- aligner
@@ -292,58 +426,92 @@ class HopperAligner:
     already on ``device`` (``convert.hdp_tables``). ``expect`` makes a
     P = 1 bucket run the EM expectation pass (``run``, ``execute`` and
     ``expect`` then add the expectations); its tensors carry the k-mer ids
-    that key the emission moments."""
+    that key the emission moments.
+
+    ``log_space=False`` runs the probability-space sweeps (the JAX
+    ``PallasBatchAligner(log_space=False)``), which take P = 1 Gaussian
+    buckets of W <= 512 without expectations only. Their f32 window
+    covers ~157 nats below each diagonal's ridge: a problem whose forward
+    and backward totals are not within 1 nat, or whose survivors overflow
+    a diagonal's slots, is flagged ``numerics_suspect``, reports no
+    pairs, and must be re-run on the exact (log-space) sweeps."""
 
     def __init__(self, problems: Sequence[bfb.BandedProblem], W: int,
                  device: torch.device,
                  hdp_tables: Optional[bfb.HdpTables] = None,
-                 expect: bool = False):
+                 expect: bool = False, log_space: bool = True):
         self.problems = list(problems)
+        if not log_space and expect:
+            bfb.check_prob(W, 1, hdp_tables is not None, expect)
         self.pt = problem_tensors(self.problems, W, device, hdp_tables,
-                                  kmer_ids=expect)
+                                  kmer_ids=expect, prob=not log_space)
         if expect:
             bfb.check_expect(self.pt.P)
         self.with_expectations = expect
+        self.log_space = log_space
 
     def _survivors(self, threshold: float):
         """Both sweeps on the device; returns device tensors (problem b,
         diagonal d, cell, val) of every survivor in (problem, diagonal,
         offset, path) order, survivors per problem n, float64 total_f /
-        total_b, and in an expectation pass texp (B, 7) and kx (B, 3,
-        LX)."""
+        total_b, the per-problem bool ``numerics_suspect`` (the JAX form:
+        not |total_f - total_b| < 1, or, in probability space, a
+        survivor-slot overflow; a suspect probability-space problem keeps
+        no survivors), and in an expectation pass texp (B, 7) and kx (B,
+        3, LX)."""
         pt = self.pt
         R = survivor_slots(threshold)
         expect = self.with_expectations
-        fstack, f_incr, lse_f = forward_sweep(pt, expect)
-        fo, total_f = bfb.forward_offsets(f_incr, lse_f, pt.meta[:, bfb.M_NDIAG])
+        nds = pt.meta[:, bfb.M_NDIAG]
+        if self.log_space:
+            fstack, f_incr, lse_f = forward_sweep(pt, expect)
+        else:
+            fstack, f_incr, lse_f = forward_sweep_prob(pt)
+        # the probability-space totals are event-normalised: cvecf uses
+        # them as they are, and only the reported totals get ev_norm
+        fo, total_f = bfb.forward_offsets(f_incr, lse_f, nds)
         cvecf = (fo - total_f[:, None]).contiguous()
-        outs = backward_sweep_compact(pt, fstack, cvecf, threshold, R, expect)
+        if self.log_space:
+            outs = backward_sweep_compact(pt, fstack, cvecf, threshold, R,
+                                          expect)
+        else:
+            outs = backward_sweep_compact_prob(pt, fstack, cvecf, threshold,
+                                               R)
         b_incr, lse_b, slot_cell, slot_val, cnt = outs[:5]
         del fstack
         _, total_b = bfb.backward_offsets(b_incr, lse_b)
-        cmax = int(cnt.max())
-        if cmax > R:
-            raise RuntimeError(f"{cmax} survivors on one diagonal exceed "
-                               f"the {R} slots")
+        suspect = ~((total_f - total_b).abs() < 1.0)
+        if self.log_space:
+            cmax = int(cnt.max())
+            if cmax > R:
+                raise RuntimeError(f"{cmax} survivors on one diagonal exceed "
+                                   f"the {R} slots")
+        else:
+            suspect |= cnt.amax(dim=1) > R
+            cnt = torch.where(suspect[:, None], 0, cnt)
+            total_f = total_f + pt.prob.ev_norm
+            total_b = total_b + pt.prob.ev_norm
         # flatten: the first cnt slots of every (problem, diagonal), in order
         keep = torch.arange(R, device=cnt.device) < cnt[:, :, None]
         b, d, _ = keep.nonzero(as_tuple=True)
         return (b, d, slot_cell[keep], slot_val[keep], cnt.sum(dim=1),
-                total_f, total_b) + tuple(outs[5:])
+                total_f, total_b, suspect) + tuple(outs[5:])
 
     def run(self, threshold: float = 0.01) -> Dict[str, np.ndarray]:
         """Both sweeps and the survivor flattening; returns host arrays:
         diagonal "d", cell "cell" (o*P + p) and posterior "val" of every
         survivor in (problem, diagonal, offset, path) order, survivors per
-        problem "n", and float64 "total_f" / "total_b". The expectation
+        problem "n", float64 "total_f" / "total_b" and the per-problem
+        bool "suspect" (``_survivors``). The expectation
         pass adds "texp" (B, 3, 3) [from, to] and, in a Gaussian bucket,
         "kexp" (B, 3, num_kmers) [Σp, Σp·dx, Σp·dx²] by k-mer, float64."""
         outs = self._survivors(threshold)
-        _, d, cell, val, n, total_f, total_b = outs[:7]
+        _, d, cell, val, n, total_f, total_b, suspect = outs[:8]
         arrays = [("d", d.int()), ("cell", cell), ("val", val), ("n", n),
-                  ("total_f", total_f), ("total_b", total_b)]
+                  ("total_f", total_f), ("total_b", total_b),
+                  ("suspect", suspect)]
         if self.with_expectations:
-            texp7, kx = outs[7:]
+            texp7, kx = outs[8:]
             arrays.append(("texp", bfb.texp_matrix(texp7)))
             if self.pt.hdp is None:
                 arrays.append(("kexp", bfb.kexp_by_kmer(
@@ -351,8 +519,9 @@ class HopperAligner:
         return {k: v.cpu().numpy() for k, v in arrays}
 
     def decode(self, arrays: Dict[str, np.ndarray]) -> List[Dict]:
-        """Per-problem {"pairs", "total_f", "total_b"} from ``run``'s
-        arrays, and from an expectation pass's "texp" (3, 3) and "kexp":
+        """Per-problem {"pairs", "total_f", "total_b", "numerics_suspect"}
+        from ``run``'s arrays, and from an expectation pass's "texp" (3, 3)
+        and "kexp":
         (3, num_kmers), or zeros (3, 1) in MODE_HDP (the TPU kernel's
         contract: HDP emissions train from assignments, not moments)."""
         results = []
@@ -365,7 +534,8 @@ class HopperAligner:
                                       arrays["cell"][sl].astype(np.int64),
                                       arrays["val"][sl], self.pt.P),
                 "total_f": float(arrays["total_f"][i]),
-                "total_b": float(arrays["total_b"][i])})
+                "total_b": float(arrays["total_b"][i]),
+                "numerics_suspect": bool(arrays["suspect"][i])})
             if "texp" in arrays:
                 results[-1]["texp"] = arrays["texp"][i]
                 results[-1]["kexp"] = (arrays["kexp"][i] if "kexp" in arrays
@@ -373,8 +543,8 @@ class HopperAligner:
         return results
 
     def execute(self, threshold: float = 0.01) -> List[Dict]:
-        """Per-problem {"pairs", "total_f", "total_b"} (and the
-        expectations, see ``decode``)."""
+        """Per-problem {"pairs", "total_f", "total_b", "numerics_suspect"}
+        (and the expectations, see ``decode``)."""
         return self.decode(self.run(threshold))
 
     def expect(self, threshold: float = 0.01) -> List[Dict]:
@@ -396,7 +566,7 @@ class HopperAligner:
         and the totals are fetched. This equals folding the reported pairs
         (``variant_caller.marginals_from_pairs``): the same threshold, no
         quantisation. Returns per problem {"site_probs" (P, n_sites)
-        float64, "total_f", "total_b"}.
+        float64, "total_f", "total_b", "numerics_suspect"}.
         """
         pt = self.pt
         B, P = len(self.problems), pt.P
@@ -405,7 +575,8 @@ class HopperAligner:
         for i, xs in enumerate(sites):
             slot[i, np.asarray(xs, dtype=np.int64)] = np.arange(len(xs))
         slot = torch.from_numpy(slot).to(pt.device)
-        b, d, cell, val, _, total_f, total_b = self._survivors(threshold)[:7]
+        b, d, cell, val, _, total_f, total_b, suspect = \
+            self._survivors(threshold)[:8]
         cell = cell.long()
         x = pt.x0[b, d].long() + cell // P
         s = slot[b, x]
@@ -415,6 +586,8 @@ class HopperAligner:
         table = table.view(B, NS, P).cpu().numpy().astype(np.float64)
         total_f = total_f.cpu().numpy()
         total_b = total_b.cpu().numpy()
+        suspect = suspect.cpu().numpy()
         return [{"site_probs": table[i, :len(xs)].T,
-                 "total_f": float(total_f[i]), "total_b": float(total_b[i])}
+                 "total_f": float(total_f[i]), "total_b": float(total_b[i]),
+                 "numerics_suspect": bool(suspect[i])}
                 for i, xs in enumerate(sites)]

@@ -9,9 +9,12 @@ segment and path-class splits, ``prepare_problem``), bucketed by shape,
 and each bucket runs through ``HopperAligner``: the Hopper kernels on a
 CUDA device, their plain twins on the CPU. In HDP mode the HDP's tables
 are converted to float32 once, shared by every problem, and uploaded to
-the device once per call. The JAX runner's small-bucket
-gate, lane packing, XLA fallback and per-device stripe queues exist for
-TPU reasons and have no counterpart here.
+the device once per call. The opt-in probability-space branch
+(``SIGNALALIGN_TPU_PROB_KERNELS=1``) runs where the JAX runner runs its
+probability-space kernels, with its residual guard and exact re-run. The
+JAX runner's small-bucket gate otherwise, lane packing, XLA fallback and
+per-device stripe queues exist for TPU reasons and have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -58,6 +61,11 @@ from signalalign_tpu_torch.utils.alphabet import (max_paths_per_kmer,
 # forward-stack bytes one aligner call may hold on the device; larger
 # buckets run in several calls
 STACK_BYTES = 8 << 30
+# the JAX runner's switch for its probability-space kernels (read where
+# it reads it), and the smallest bucket it sends to them: smaller ones
+# take its per-read-row kernels (runner.py:417-448)
+PROB_SWITCH = "SIGNALALIGN_TPU_PROB_KERNELS"
+PROB_MIN_BUCKET = 32
 
 
 def _path_blocks(w_chars: str, k: int, anchors, lX: int, lY: int,
@@ -185,6 +193,48 @@ def _stack_chunks(idxs: List[int], W: int, Dpad: int, P: int,
     return [idxs[i:i + per] for i in range(0, len(idxs), per)]
 
 
+def prob_bucket(W: int, P: int, n: int, config: AlignmentConfig,
+                site_mode: bool) -> bool:
+    """Whether a bucket of ``n`` segments runs on the probability-space
+    sweeps: exactly where the JAX runner runs its ``log_space=False``
+    kernels (``runner.py:444-448, 513-517``). That is with
+    ``PROB_SWITCH`` set to "1", at P = 1, W <= 512, Gaussian emissions,
+    no expectation pass, not in site mode (which skips P = 1 segments),
+    and for buckets of at least PROB_MIN_BUCKET segments."""
+    return (os.environ.get(PROB_SWITCH) == "1" and P == 1
+            and W <= bfb.PROB_MAX_W
+            and config.emission_mode == bfb.MODE_MEAN_ONLY
+            and not config.compute_expectations and not site_mode
+            and n >= PROB_MIN_BUCKET)
+
+
+def rerun_suspects(tasks, seg_results: List[dict], ids: Sequence[int],
+                   device: torch.device, threshold: float,
+                   verbose: bool = False) -> int:
+    """The residual guard of the probability-space sweeps (the JAX
+    runner's ``runner.py:596-614``): every segment of ``ids`` whose result
+    is flagged ``numerics_suspect`` runs again on the exact, log-space
+    sweeps on ``device``, bucket by bucket, and its result is replaced.
+    ``tasks[i]`` = (read index, x1, y1, problem, W, Dpad, P). Returns the
+    number of segments re-run."""
+    rerun = defaultdict(list)
+    for i in ids:
+        if seg_results[i]["numerics_suspect"]:
+            rerun[tuple(tasks[i][4:7])].append(i)
+    n = sum(map(len, rerun.values()))
+    if verbose:
+        print(f"[runner] re-running {n} of {len(ids)} probability-space "
+              "segments on the log-space sweeps (numerics residual check)",
+              file=sys.stderr)
+    for (W, Dpad, P), idxs in rerun.items():
+        for chunk in _stack_chunks(idxs, W, Dpad, P):
+            res = HopperAligner([tasks[i][3] for i in chunk], W,
+                                device).execute(threshold)
+            for i, r in zip(chunk, res):
+                seg_results[i] = r
+    return n
+
+
 def _site_cells(problem: bfb.BandedProblem, k: int, codes: str) -> np.ndarray:
     """1-based cells x whose k-mer's LAST base is an ambiguity code: the
     only cells that report in MarginalizeFullVariants
@@ -226,13 +276,22 @@ def run_alignment_batch(
     ``emission_expectations`` (3, num_kmers; zeros in MODE_HDP) and
     ``likelihood`` (sum of total_f * n_diag over its segments).
 
+    With ``SIGNALALIGN_TPU_PROB_KERNELS=1`` in the environment (the JAX
+    runner's switch) the buckets ``prob_bucket`` admits run on the
+    probability-space sweeps, and every segment they flag
+    ``numerics_suspect`` is re-run on the log-space sweeps on ``device``
+    (the JAX runner's residual guard and exact re-run, ``runner.py:
+    596-614``), so the results equal the default run's within f32
+    round-off.
+
     A bucket with more than 8 paths per cell, or an expectation pass over
     a bucket with more than one, raises before anything launches.
     ``stage_seconds``, when given, receives the wall seconds of each
     stage: "prep" (host), "hdp_upload" (HDP mode: the tables to the
     device), "kernels" (upload, both sweeps, survivor or site-sum fetch,
     expectation sums; ends in a device synchronisation), "decode"
-    (survivors to pairs) and "assemble".
+    (survivors to pairs), "rerun" (when the probability-space sweeps ran:
+    the flagged segments again, kernels and decode) and "assemble".
     """
     config = config or AlignmentConfig()
     _check_slice(config, hdp)
@@ -304,6 +363,7 @@ def run_alignment_batch(
         mark("hdp_upload")
 
     seg_results: List[Optional[dict]] = [None] * len(tasks)
+    prob_ids: List[int] = []    # segments run in probability space
     for (W, Dpad, P), idxs in buckets.items():
         if site_mode and P == 1:
             # a site cell has >= 2 paths, so a P = 1 segment reports no
@@ -311,9 +371,10 @@ def run_alignment_batch(
             for i in idxs:
                 seg_results[i] = {"total_f": 0.0, "total_b": 0.0}
             continue
+        prob = prob_bucket(W, P, len(idxs), config, site_mode)
         for chunk in _stack_chunks(idxs, W, Dpad, P, 3 if expect else 1):
             aligner = HopperAligner([tasks[i][3] for i in chunk], W, device,
-                                    tables, expect=expect)
+                                    tables, expect=expect, log_space=not prob)
             if site_mode:
                 res = aligner.site_sums([cells[i] for i in chunk],
                                         config.threshold)
@@ -325,6 +386,13 @@ def run_alignment_batch(
                 mark("decode")
             for i, r in zip(chunk, res):
                 seg_results[i] = r
+        if prob:
+            prob_ids += idxs
+
+    if prob_ids:
+        rerun_suspects(tasks, seg_results, prob_ids, device,
+                       config.threshold, verbose)
+        mark("rerun")
 
     out: List[ReadAlignment] = []
     k1 = k - 1

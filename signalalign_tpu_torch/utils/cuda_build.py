@@ -40,10 +40,13 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points of csrc/banded_fb.cu: (argtypes, restype)
+# C entry points of csrc/banded_fb.cu and csrc/banded_fb_prob.cu:
+# (argtypes, restype)
 _SIGNATURES = {
     "sa_fwd_sweep": ([_P] * 14 + [_I] * 9 + [_F] * 3 + [_P], _I),
     "sa_bwd_sweep_compact": ([_P] * 20 + [_I] * 10 + [_F] * 4 + [_P], _I),
+    "sa_fwd_sweep_prob": ([_P] * 11 + [_I] * 5 + [_P], _I),
+    "sa_bwd_sweep_compact_prob": ([_P] * 15 + [_I] * 6 + [_F] + [_P], _I),
     # csrc/barrier_probe.cu (a timing probe, not a port of a TPU kernel)
     "sa_barrier_probe": ([_I] * 3 + [_P] * 2, _I),
 }

@@ -15,7 +15,8 @@ width classes) has a real flowcell's diversity:
 
 ``synthetic_hdp`` builds an HDP emission model over a pore model's
 k-mers, and ``write_nhdp_text`` writes a small one as an ``.nhdp`` file
-that both packages' ``load_nhdp`` read.
+that both packages' ``load_nhdp`` read. ``outlier_segments`` makes
+segments whose range exhausts the probability-space DP's f32 window.
 """
 
 from __future__ import annotations
@@ -238,3 +239,33 @@ def build_synthetic_batch(model: PoreModel, n_reads: int = 100,
                                      label=f"synth{ri}", stay_p=stay_p)
         (ambig_rgs if ri < n_ambig else rgs).append((read, guide))
     return rgs, reference, ambig_rgs, ambig_reference, fasta_path
+
+
+def outlier_segments(model: PoreModel) -> List[Tuple[str, np.ndarray]]:
+    """(sequence, events) of four segments that test the residual guard
+    of the probability-space sweeps (seed 7): a random sequence of 300
+    bases; per k-mer one event drawn from its level, then stays (each
+    with probability 0.3) drawn with 3x its level sd. In segments 0 and 2
+    the events 101-179 are replaced by the level of a random k-mer + 30
+    pA: a run that no path explains, which spreads the band's log values
+    past the ~157 nats an f32 probability can hold (its totals come out
+    NaN), while the log-space DP aligns it. Events: (mean, noise,
+    duration, start) columns."""
+    rng = np.random.default_rng(7)
+    out = []
+    for i in range(4):
+        seq = "".join(rng.choice(list(BASES), size=300))
+        means = []
+        for kid in model.alphabet.seq_to_kmer_ids(seq):
+            mu, sd = model.level_mean[kid], model.level_sd[kid]
+            means.append(mu + rng.normal(0, sd))
+            while rng.random() < 0.3:
+                means.append(mu + rng.normal(0, 3 * sd))
+        means = np.array(means)
+        bad = rng.integers(0, model.num_kmers, 79)
+        if i % 2 == 0:
+            means[101:180] = model.level_mean[bad] + 30.0
+        m = len(means)
+        out.append((seq, np.stack([means, np.ones(m), np.full(m, .005),
+                                   np.arange(m) * .005], 1)))
+    return out

@@ -1,9 +1,10 @@
 """Each Hopper kernel of the port against its plain PyTorch twin on the
 card, for P = 1 and for P = 2, 4 and 8 paths per cell, with every
 kernel instance (1, 2, 4 and 8 cells per thread), with Gaussian and with
-HDP emissions, and the EM expectation instances (P = 1, one and two
-cells per thread, Gaussian and HDP). Needs a CUDA GPU and nvcc; skipped
-without a GPU. On a GPU host:
+HDP emissions, the EM expectation instances (P = 1, one and two cells
+per thread, Gaussian and HDP), and the probability-space kernels (P = 1,
+W = 256 and 512, and segments that exhaust their f32 range). Needs a
+CUDA GPU and nvcc; skipped without a GPU. On a GPU host:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
@@ -25,7 +26,8 @@ from signalalign_tpu_torch.models.pore_model import ScalingParams
 from signalalign_tpu_torch.ops import banded_fb as bfb
 from signalalign_tpu_torch.ops import banded_fb_hopper as hk
 from signalalign_tpu_torch.utils.alphabet import DEFAULT_AMBIG_BASES
-from signalalign_tpu_torch.utils.synthetic import (synthetic_hdp,
+from signalalign_tpu_torch.utils.synthetic import (outlier_segments,
+                                                   synthetic_hdp,
                                                    synthetic_pore_model)
 
 pytestmark = pytest.mark.cuda
@@ -279,3 +281,111 @@ def test_expect_refuses_more_than_one_path(dev):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hk.forward_sweep(pt, expect=True)
     assert hk.forward_sweep.expect_launches == n0
+
+
+# ---------------------------------------------- probability-space kernels
+
+def outlier_problems():
+    """``outlier_segments``' four segments (the even ones carry a run of
+    outlier events) at W=512, without anchors."""
+    model = synthetic_pore_model(0)
+    return [bfb.prepare_problem(seq, ev, model, ScalingParams(),
+                                DEFAULT_AMBIG_BASES, W=512, Dpad=1024, P=1,
+                                anchor_pairs=[], expansion=60)
+            for seq, ev in outlier_segments(model)]
+
+
+@pytest.fixture(scope="module", params=["narrow", "w512", "outliers"])
+def prob_case(request):
+    """(problems, W, the lanes that trip) for the probability-space
+    kernels: six W=256 P=1 problems, two whose bands pass 256 offsets
+    (W=512, the widest the runner gives them), or the four outlier
+    segments, of which the two with the outlier run trip."""
+    if request.param == "narrow":
+        return (_problems(6, (200, 600), (100, 160), 256, 2048, 4)[0], 256,
+                [False] * 6)
+    if request.param == "w512":
+        probs = _problems(2, (1000, 1100), (200, 550), 512, 4096, 9)[0]
+        assert max(int(p.width.max()) for p in probs) > 256
+        return probs, 512, [False] * 2
+    return outlier_problems(), 512, [True, False, True, False]
+
+
+def _prob_both(pt):
+    """Both probability-space sweeps, kernel and twin, on ``pt``: the
+    forwards, the twin's float64 offsets and totals, the backwards on the
+    twin's stack; and the rows of each problem (d <= n_diag) and its
+    lanes that did not trip (finite totals within 1 nat)."""
+    nds = pt.meta[:, bfb.M_NDIAG]
+    R = hk.survivor_slots(THR)
+    fk = hk.forward_sweep_prob(pt)
+    fr = hk.forward_sweep_prob_ref(pt)
+    fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
+    cvecf = (fo - tf[:, None]).contiguous()
+    bk = hk.backward_sweep_compact_prob(pt, fr[0], cvecf, THR, R)
+    br = hk.backward_sweep_compact_prob_ref(pt, fr[0], cvecf, THR, R)
+    torch.cuda.synchronize()
+    _, tb = bfb.backward_offsets(br[0], br[1])
+    rows = torch.arange(pt.x0.shape[1], device=pt.device)[None, :] <= nds[:, None]
+    ok = (tf - tb).abs() < 1.0
+    return fk, fr, bk, br, rows, ok, R
+
+
+def test_prob_kernels_match_twins(dev, prob_case):
+    """Totals within 1e-2 nats, exp(fstack) within 1e-4, the survivor
+    sets equal except threshold-edge cells and posteriors within 1e-4 on
+    the lanes that did not trip; on the tripped lanes kernel and twin
+    trip alike; one launch each."""
+    problems, W, trips = prob_case
+    pt = problem_tensors(problems, W, dev, prob=True)
+    n0 = (hk.forward_sweep_prob.launches,
+          hk.backward_sweep_compact_prob.launches)
+    fk, fr, bk, br, rows, ok, R = _prob_both(pt)
+    assert (hk.forward_sweep_prob.launches,
+            hk.backward_sweep_compact_prob.launches) == (n0[0] + 1, n0[1] + 1)
+    nds = pt.meta[:, bfb.M_NDIAG]
+    _, tf_k = bfb.forward_offsets(fk[1], fk[2], nds)
+    _, tf_r = bfb.forward_offsets(fr[1], fr[2], nds)
+    _, tb_k = bfb.backward_offsets(bk[0], bk[1])
+    _, tb_r = bfb.backward_offsets(br[0], br[1])
+    assert torch.equal(~((tf_k - tb_k).abs() < 1.0), ~ok)
+    assert (~ok).tolist() == trips
+    assert (tf_k - tf_r)[ok].abs().max().item() <= 1e-2
+    assert (tb_k - tb_r)[ok].abs().max().item() <= 1e-2
+    live = rows & ok[:, None]
+    assert (fk[0].exp() - fr[0].exp())[:, :, 0][live].abs().max().item() <= 1e-4
+    assert int(bk[4][ok].max()) <= R
+
+    def surv(off, val, cnt):
+        keep = (torch.arange(R, device=dev) < cnt[:, :, None]) \
+            & ok[:, None, None]
+        b, d, _ = keep.nonzero(as_tuple=True)
+        return {(int(x), int(y), int(o)): float(v) for x, y, o, v in zip(
+            b.tolist(), d.tolist(), off[keep].tolist(), val[keep].tolist())}
+
+    sk, sr = surv(*bk[2:]), surv(*br[2:])
+    for key in set(sk) ^ set(sr):
+        assert abs(sk.get(key, sr.get(key)) - THR) <= 1e-4
+    assert max(abs(sk[k] - sr[k]) for k in set(sk) & set(sr)) <= 1e-4
+
+
+def test_prob_aligner_on_gpu_matches_cpu(dev, prob_case):
+    """HopperAligner(log_space=False) on the card against the CPU
+    (twins): the same lanes flagged numerics_suspect (they report no
+    pairs); the others' totals within 1e-2 nats and pairs within 1e-3."""
+    problems, W, trips = prob_case
+    cpu_dev = torch.device("cpu")
+    gpu = hk.HopperAligner(problems, W, dev, log_space=False).execute(THR)
+    cpu = hk.HopperAligner(problems, W, cpu_dev, log_space=False).execute(THR)
+    assert [g["numerics_suspect"] for g in gpu] \
+        == [c["numerics_suspect"] for c in cpu] == trips
+    for g, c in zip(gpu, cpu):
+        if g["numerics_suspect"]:
+            assert g["pairs"] == [] == c["pairs"]
+            continue
+        assert abs(g["total_f"] - c["total_f"]) <= 1e-2
+        dg = {(x, y, k): p for p, x, y, k in g["pairs"]}
+        dc = {(x, y, k): p for p, x, y, k in c["pairs"]}
+        for key in set(dg) ^ set(dc):
+            assert abs(dg.get(key, dc.get(key)) / 1e7 - THR) <= 1e-3
+        assert all(abs(dg[k] - dc[k]) <= 1e-3 * 1e7 for k in set(dg) & set(dc))
