@@ -10,11 +10,11 @@ Phases (any failure stops the run with a non-zero exit):
      then the whole main path on the GPU against the CPU (twins) on the
      batch's two shortest reads;
   3c. the kernels with P = 2, 4 and 8 paths per cell against their twins
-     on the card, at the shapes phase 5 gives them: phase 5's own host
-     prep, one bucket per (W, P) class it makes (the class's two shortest
-     problems), so that every kernel instance (cells per thread K = 1, 2,
-     4, 8) is held; with totals, |d exp(fstack)|, the survivor sets with
-     their paths, |d posterior| and the times;
+     on the card, at the shapes phase 5 gives them: one bucket per (W, P)
+     class of phase 5's aligners (the class's shortest problem), so that
+     every kernel instance (cells per thread K = 1, 2, 4, 8) is held, bit
+     for bit; with totals, |d exp(fstack)|, the survivor sets with their
+     paths, |d posterior| and the times;
   3d. site-mode calling ("CT") and P > 1 pair output on the GPU against
      the CPU (twins) on the two shortest reads of the phase-5 batch;
   4. the main path at a realistic size: 64 synthetic reads (about 1M
@@ -34,8 +34,8 @@ Phases (any failure stops the run with a non-zero exit):
      the trainer's grid (30-180 pA, 1,200 points; 2 x 224 MB tables) and
      the same 64 reads against the CG -> PG edition (P: C or E):
      6a. both kernels in HDP mode against their twins on the card, one
-         bucket per (W, P) class of phase 6's own prep (its two shortest
-         problems), with the times;
+         bucket per (W, P) class of 6c's aligners (its shortest problem),
+         the P > 1 classes bit for bit, with the times;
      6b. HDP calls ("CE") and HDP pair output on the GPU against the CPU
          on the batch's two shortest reads;
      6c. run_alignment_batch(..., hdp=, call_variants="CE") on the 64
@@ -88,10 +88,12 @@ The last two lines are a JSON object per kernel and the result line
 
     python3 chip_smoke.py --kernel-sums [TREE]
 
-times only the Gaussian kernels of the port in TREE (a checkout; by
-default this one) on phase 3a's problems and every bucket of phases 4
-and 5, and prints one JSON line (no result line): run it for two
-checkouts in turns (A, B, B, A) in one job to compare their kernels.
+times only the kernels of the port in TREE (a checkout; by default this
+one) on phase 3a's problems (plain and expectation instances) and every
+bucket of phases 4 (plain and expectation instances), 5 and 6 (the P > 1
+classes, Gaussian and HDP), by (W, P) class, and prints one JSON line (no
+result line): run it for two checkouts in turns (A, B, B, A) in one job
+to compare their kernels.
 """
 
 import dataclasses
@@ -206,9 +208,11 @@ def compare_calls(a, b):
 
 def kernels_vs_twins(hk, bfb, pt, threshold, R, reps=5):
     """Both kernels against their twins on one bucket; fails beyond the
-    tolerances. Returns the kernels' mean CUDA-event times over ``reps``
-    launches after two warm-up calls, the twins' times, the errors and
-    the survivor counts."""
+    tolerances, and for P > 1 unless every output is equal bit for bit
+    (fstack rows, offsets, the totals' log-sum terms, survivor counts,
+    cells and posteriors). Returns the kernels' mean CUDA-event times over
+    ``reps`` launches after two warm-up calls, the twins' times, the
+    errors and the survivor counts."""
     dev = pt.device
     nds = pt.meta[:, bfb.M_NDIAG]
     t0 = time.perf_counter()
@@ -219,6 +223,9 @@ def kernels_vs_twins(hk, bfb, pt, threshold, R, reps=5):
     _, tf_k = bfb.forward_offsets(fi_k, lf_k, nds)
     fo_ref, tf_ref = bfb.forward_offsets(fi_ref, lf_ref, nds)
     rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    equal = (torch.equal(f_k[rows], f_ref[rows])
+             and torch.equal(fi_k[rows], fi_ref[rows])
+             and torch.equal(lf_k, lf_ref))
     fdiff = (f_k.exp() - f_ref.exp()).abs().amax(dim=(2, 3))[rows].max().item()
     tf_err = (tf_k - tf_ref).abs().max().item()
     check(tf_err <= TOL_TOTAL and fdiff <= TOL_POST,
@@ -244,10 +251,16 @@ def kernels_vs_twins(hk, bfb, pt, threshold, R, reps=5):
     check(tb_err <= TOL_TOTAL and pdiff <= TOL_POST,
           f"sa_bwd_sweep_compact (P={pt.P}) disagrees with its twin: "
           f"|d total_b| {tb_err}, |d posterior| {pdiff}")
+    equal = (equal and torch.equal(bk[0][rows], bref[0][rows])
+             and torch.equal(bk[1], bref[1])
+             and torch.equal(bk[4][rows], bref[4][rows]) and sk == sr)
+    check(equal or pt.P == 1, f"the P={pt.P} kernels (W={pt.W}) differ from "
+          "their twins: not bit for bit")
     return {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "bwd_ms": bwd_ms,
             "bwd_plain_ms": bwd_plain_ms, "tf_err": tf_err, "tb_err": tb_err,
             "fdiff": fdiff, "pdiff": pdiff, "n_kernel": len(sk),
-            "n_twin": len(sr), "paths": sorted({c % pt.P for _, _, c in sk})}
+            "n_twin": len(sr), "paths": sorted({c % pt.P for _, _, c in sk}),
+            "bit_equal": equal}
 
 
 def expect_vs_twins(hk, bfb, pt, threshold, R, reps=5):
@@ -380,9 +393,14 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     (the forward's fstack rows up to n_diag, the backward's ``n_surv``
     survivor slots), and the backward's read of fstack only at in-band
     cells. Transcendentals: counted per in-band cell from the kernels'
-    formulas (two per logaddexp, P + 1 per legal logsumexp, one per
-    posterior and per HDP spline, the backward's spline once per legal
-    target path). ``expect``: the expectation instances, which write (and
+    formulas (two per logaddexp, one per posterior and per HDP spline; the
+    backward evaluates two splines a cell, its stay and its match-to as a
+    target). At P = 2 the per-pair instances compute the forward's four
+    source logaddexps per source path and both logsumexps over all P
+    paths (P + 1 each); at P > 2 the source terms come once per cell and
+    each logsumexp costs one exponential per legal path pair of these
+    problems' legality words plus one logarithm where a path is legal.
+    ``expect``: the expectation instances, which write (and
     read at in-band cells) three states per diagonal, compute seven more
     exponentials per in-band cell and write texp (B, 7) and kx (B, 3,
     reflen) in float64. ``prob``: the probability-space kernels (P = 1),
@@ -397,7 +415,8 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     meta = pt.meta.cpu().numpy()
     leg = pt.leg.cpu().numpy().view(np.uint64)
     hdp = pt.hdp is not None
-    cells = rows = legal = ref_cols = ev_cols = 0
+    cells = rows = ref_cols = ev_cols = 0
+    lse = {0: [0, 0], 1: [0, 0]}   # forward, backward: [exps, logs]
     o = np.arange(W)
     for b in range(B):
         n = int(meta[b, bfb.M_NDIAG]) + 1
@@ -406,11 +425,20 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
         rows += n
         ref_cols += int(meta[b, bfb.M_REFLEN])
         ev_cols += int(meta[b, bfb.M_EVLEN])
-        if hdp:
+        if P > 1:
             inb = o[None, :] < w[:, None]
-            x = np.clip((x0[b, :n, None] + o[None, :] + 1)[inb], 0,
-                        leg.shape[1] - 1)
-            legal += int(_POPCOUNT8[leg[b, x].view(np.uint8)].sum())
+            for sweep in (0, 1):   # the forward reads column x, the backward x+1
+                x = np.clip((x0[b, :n, None] + o[None, :] + sweep)[inb], 0,
+                            leg.shape[1] - 1)
+                if sweep:          # backward: a source path's legal targets
+                    q = np.arange(P, dtype=np.uint64)[None, :]
+                    per_cell = sum((leg[b, x, None] >> (np.uint64(8 * p_) + q))
+                                   & np.uint64(1) for p_ in range(P))
+                else:              # forward: a target path's legal sources
+                    per_cell = _POPCOUNT8[leg[b, x].view(np.uint8)
+                                          .reshape(-1, 8)[:, :P]]
+                lse[sweep][0] += int(per_cell.sum())
+                lse[sweep][1] += int((per_cell > 0).sum())
     n_ref_rows = 2 if hdp else bfb.NREF
     in_bytes = (2 * rows * 4                           # x0, width
                 + n_ref_rows * P * ref_cols * 4        # ref rows
@@ -436,9 +464,17 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     if expect:
         bwd_bytes += B * 7 * 8 + 3 * ref_cols * 8      # texp, kx
     cp = cells * P
-    fwd_ops = cp * (8 if P == 1 else 8 * P + 4) + (cp if hdp else 0)
-    bwd_ops = cp * (9 if P == 1 else 2 * P + 11) + (cp + legal if hdp else 0) \
-        + (7 * cp if expect else 0)
+    if P == 2:
+        # the per-pair instances: six per source path and a gapY logaddexp
+        # forward, both logsumexps over every path, the HDP match-to
+        # spline per legal pair
+        fwd_ops = cp * (6 * P + 2) + 2 * (P + 1) * cp + (cp if hdp else 0)
+        bwd_ops = cp * 9 + 2 * (P + 1) * cp + (cp + lse[1][0] if hdp else 0)
+    else:
+        # the two logsumexps over legal paths of each cell (none at P = 1)
+        fwd_ops = cp * 8 + 2 * sum(lse[0]) + (cp if hdp else 0)
+        bwd_ops = cp * 9 + 2 * sum(lse[1]) + (2 * cp if hdp else 0) \
+            + (7 * cp if expect else 0)
     names = ("sa_fwd_sweep", "sa_bwd_sweep_compact")
     if prob:
         fwd_ops, bwd_ops = 3 * cp, 4 * cp
@@ -511,13 +547,15 @@ def chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
 
 
 def kernel_sums(hk, bfb, problem_tensors, stack_chunks, buckets, dev,
-                threshold, R):
+                threshold, R, tables=None, expect=False):
     """``chunk_sums`` over {(W, Dpad, P): problems} cut into the runner's
-    chunks."""
+    chunks (three stack rows per diagonal with ``expect``)."""
     chunks = [(W, P, [probs[i] for i in chunk])
               for (W, Dpad, P), probs in sorted(buckets.items())
-              for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P)]
-    return chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R)
+              for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P,
+                                        3 if expect else 1)]
+    return chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
+                      tables, expect)
 
 
 class Recorder:
@@ -613,13 +651,46 @@ def device_line():
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def hdp_batch(tmp):
+    """Phase 6's configuration: the 6-mer ACEGOT model, its synthetic HDP
+    and the 64 reads with the CG -> PG edition of their genome; returns
+    (model, HDP, reads, plain reference, edited reference, config)."""
+    from signalalign_tpu_torch.ops import banded_fb as bfb
+    from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
+    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                       synthetic_hdp,
+                                                       synthetic_pore_model)
+    model6 = synthetic_pore_model(SEED_MODEL, alphabet="ACEGOT", k=6)
+    hdp6 = synthetic_hdp(model6, SEED_HDP)
+    _, plain6, rgs6, ref6, _ = build_synthetic_batch(
+        model6, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
+        genome_len=400_000, fasta_path=os.path.join(tmp, "genome6.fa"),
+        ambig_frac=1.0, ambig_motif=("CG", "PG"))
+    cfg6 = AlignmentConfig(emission_mode=bfb.MODE_HDP,
+                           ambig_map=AMB_HDP).for_batch(len(rgs6))
+    return model6, hdp6, rgs6, plain6, ref6, cfg6
+
+
+def by_class_json(by_wp):
+    """{"W,P": [problems, fwd ms, bwd ms, fwd us per diagonal (min, max),
+    bwd us per diagonal (min, max)]} of a ``chunk_sums`` result."""
+    out = {}
+    for (W, P), (n, f_ms, b_ms, us) in sorted(by_wp.items()):
+        uf, ub = [u for u, _ in us], [u for _, u in us]
+        out[f"{W},{P}"] = [n, f_ms, b_ms, [min(uf), max(uf)],
+                           [min(ub), max(ub)]]
+    return out
+
+
 def gaussian_kernel_sums(tree):
-    """``--kernel-sums [TREE]``: the Gaussian kernels of the port in TREE
-    (a checkout; by default this one), timed by CUDA events on phase 3a's
-    problems (mean of 5 launches after two warm-up calls) and on every
-    bucket of phases 4 and 5 (one launch each, summed as in 5b). Prints one
-    JSON line and no result line. Run it for two checkouts in turns (A, B,
-    B, A) in one job on one card to compare their kernels."""
+    """``--kernel-sums [TREE]``: the kernels of the port in TREE (a
+    checkout; by default this one), timed by CUDA events on phase 3a's
+    problems (mean of 5 launches after two warm-up calls; the plain and
+    the expectation instances) and on every bucket of phases 4 (plain and
+    expectation instances), 5 (Gaussian, P <= 8) and 6 (HDP, P <= 8),
+    one launch each, summed as in 5b and by (W, P) class. Prints one JSON
+    line and no result line. Run it for two checkouts in turns (A, B, B,
+    A) in one job on one card to compare their kernels."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: --kernel-sums needs a CUDA GPU")
     tree = os.path.abspath(tree)
@@ -628,7 +699,7 @@ def gaussian_kernel_sums(tree):
     check(os.path.abspath(signalalign_tpu_torch.__file__).startswith(
         os.path.join(tree, "signalalign_tpu_torch")),
         f"imported {signalalign_tpu_torch.__file__}, not the port in {tree}")
-    from signalalign_tpu_torch.convert import problem_tensors
+    from signalalign_tpu_torch.convert import hdp_tables, problem_tensors
     from signalalign_tpu_torch.ops import banded_fb as bfb
     from signalalign_tpu_torch.ops import banded_fb_hopper as hk
     from signalalign_tpu_torch.pipeline.runner import _stack_chunks
@@ -644,25 +715,40 @@ def gaussian_kernel_sums(tree):
             model, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
             genome_len=400_000, fasta_path=os.path.join(tmp, "genome.fa"),
             ambig_frac=1.0)
+        model6, hdp6, rgs6, _, ref6, cfg6 = hdp_batch(tmp)
     config = AlignmentConfig()
     threshold = config.threshold
     R = hk.survivor_slots(threshold)
     out = {"tree": tree, "device": device_line()}
-    pt = problem_tensors(long_p1_problems(rgs, reference, model, config),
-                         256, dev)
+    p3 = long_p1_problems(rgs, reference, model, config)
+    pt = problem_tensors(p3, 256, dev)
     out["3a_fwd_ms"], out["3a_bwd_ms"] = sweep_ms(hk, bfb, pt, threshold, R, 5)
+    pt = problem_tensors(p3, 256, dev, kmer_ids=True)
+    out["3a_expect_fwd_ms"], out["3a_expect_bwd_ms"] = sweep_ms(
+        hk, bfb, pt, threshold, R, 5, expect=True)
     del pt
-    for phase, ref, cfg in (
-            ("4", reference, config.for_batch(len(rgs))),
-            ("5", amb_ref, AlignmentConfig(ambig_map=AMB).for_batch(len(rgs)))):
+    tables = hdp_tables(*hdp6.density_arrays(), dev)
+    for phase, rgs_, ref, model_, cfg, tb in (
+            ("4", rgs, reference, model, config.for_batch(len(rgs)), None),
+            ("5", rgs, amb_ref, model,
+             AlignmentConfig(ambig_map=AMB).for_batch(len(rgs)), None),
+            ("6", rgs6, ref6, model6, cfg6, tables)):
         buckets = {}
-        for W, Dpad, P, prob in prepare_all(rgs, ref, model, cfg):
+        for W, Dpad, P, prob in prepare_all(rgs_, ref, model_, cfg, hdp6
+                                            if tb is not None else None):
             buckets.setdefault((W, Dpad, P), []).append(prob)
         by_wp = kernel_sums(hk, bfb, problem_tensors, _stack_chunks, buckets,
-                            dev, threshold, R)
+                            dev, threshold, R, tb)
         out[f"phase{phase}_fwd_sum_ms"] = sum(e[1] for e in by_wp.values())
         out[f"phase{phase}_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
         out[f"phase{phase}_buckets"] = len(buckets)
+        out[f"phase{phase}_by_W_P"] = by_class_json(by_wp)
+        if phase == "4":
+            by_wp = kernel_sums(hk, bfb, problem_tensors, _stack_chunks,
+                                buckets, dev, threshold, R, expect=True)
+            out["phase4_expect_fwd_sum_ms"] = sum(e[1] for e in by_wp.values())
+            out["phase4_expect_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
+        del buckets, by_wp
     log(json.dumps(out))
 
 
@@ -728,7 +814,6 @@ def main():
     from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
     from signalalign_tpu_torch.utils import cuda_build
     from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
-                                                       synthetic_hdp,
                                                        synthetic_pore_model)
     from signalalign_tpu_torch.models.expectations import \
         ExpectationsAccumulator
@@ -967,7 +1052,8 @@ def main():
                 f"{1e-3 * barrier_us * max(ptp.n_diag):.3f} ms; |d total| "
                 f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
                 f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
-                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}")
+                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}; "
+                f"bit for bit {r['bit_equal']}")
         ks = {cells_per_thread(P * W) for W, P in paths_rows}
         check(ks == {1, 2, 4, 8}, f"phase 5's buckets hold cells per thread "
               f"{sorted(ks)}, not every kernel instance 1, 2, 4, 8")
@@ -985,14 +1071,7 @@ def main():
         phase_mark("6")
         # ---- 6. HDP methylation calling (the flagship workload)
         t0 = time.perf_counter()
-        model6 = synthetic_pore_model(SEED_MODEL, alphabet="ACEGOT", k=6)
-        hdp6 = synthetic_hdp(model6, SEED_HDP)
-        _, plain6, rgs6, ref6, _ = build_synthetic_batch(
-            model6, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
-            genome_len=400_000, fasta_path=os.path.join(tmp, "genome6.fa"),
-            ambig_frac=1.0, ambig_motif=("CG", "PG"))
-        cfg6 = AlignmentConfig(emission_mode=bfb.MODE_HDP,
-                               ambig_map=AMB_HDP).for_batch(len(rgs6))
+        model6, hdp6, rgs6, plain6, ref6, cfg6 = hdp_batch(tmp)
         table_bytes = 2 * hdp6.densities.size * 4
         log(f"[hdp] model {model6.alphabet.letters} k={model6.kmer_length} "
             f"({model6.num_kmers} k-mers), HDP grid {hdp6.grid[0]:.0f}-"
@@ -1103,7 +1182,8 @@ def main():
                 f"serial floor {floor:.3f} ms; |d total| "
                 f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
                 f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
-                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}")
+                f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}; "
+                f"bit for bit {r['bit_equal']}")
         ks6 = sorted({cells_per_thread(P * W) for W, P in hdp_rows})
         log(f"[hdp kernels] instances held here K={ks6}; "
             "tests/test_torch_kernels_cuda.py holds HDP at K=1, 2, 4, 8")
@@ -1290,6 +1370,9 @@ def main():
                     f"equal ({r['n_kernel']}); texp rel {r['texp_rel']:.3e} "
                     f"(abs {r['texp_abs']:.3e}, sum {r['texp_sum']:.1f}), kx "
                     f"rel {r['kx_rel']:.3e} (tol {TOL_EXPECT})")
+        # the loop's names hold the HDP tables (pte.hdp too): free them
+        # before phase 8 measures its own peak
+        del tb, tables, pte
         log(f"[em kernels] instances held here K="
             f"{sorted({cells_per_thread(W) for _, W in exp_rows})}; "
             "tests/test_torch_kernels_cuda.py holds K=1 and K=2 (W=1280)")
@@ -1313,7 +1396,7 @@ def main():
                 for k, v in em_main["bounds"].items())
             + f"; floor {em_main['floor']:.3f} ms; texp rel "
             f"{em_main['texp_rel']:.3e}, kx rel {em_main['kx_rel']:.3e}")
-        del ptl, long7, tables, pte    # pte.hdp holds the tables too
+        del ptl, long7
 
         log_kernel_sums("em", chunk_sums(
             hk, bfb, problem_tensors, rec7.chunks(made7), dev, threshold, R,

@@ -30,10 +30,13 @@
 // diagonal depends on the two before it, so one problem is one block that
 // walks its own n_diag diagonals in order, with two block barriers per
 // diagonal (one inside the max reduction, one before the next diagonal
-// reads the ring). The work per diagonal is small (P*W cells, ~10 + 4P
+// reads the ring). At P = 1 the work per diagonal is small (W cells, ~9
 // transcendentals each), so the barrier latency, not device-memory
 // bandwidth or arithmetic, sets the time of one problem; throughput comes
-// from many problems in flight (one block each).
+// from many problems in flight (one block each). At P > 2 each cell adds
+// two logsumexps over its legal paths (an exponential per legal path
+// pair, a logarithm per logsumexp) and, forward, the three logaddexp
+// terms its successors read.
 //
 // What the design does about it: the two live diagonals of all three
 // states sit in a shared-memory ring (6 P W floats, 192 KB at P*W = 8192);
@@ -45,6 +48,26 @@
 // kernel folds the posterior, the threshold and the survivor compaction
 // into the sweep (a warp ballot + per-warp counts published by the
 // diagonal's second barrier), so no posterior stack is ever written.
+//
+// The P > 2 instances (template flag PATHS) compute every term that does
+// not depend on the path at the other end of a transition once per cell,
+// not once per (source, target) pair. The forward's ring holds, in place
+// of a cell's three states, the three terms later diagonals read from it
+// (src_terms: gapX and gapY of d+1, match of d+2 before its m_prev), so a
+// target cell's logsumexp over its source paths reads the legal ones'
+// terms from shared memory, with no logaddexp inside; reads outside the
+// window take the terms of NEG states, computed once per block, and the
+// end logsumexp takes the last diagonal's states from registers. The backward first writes each
+// cell's target terms (gapX TO and match TO on its own path, with the
+// match-to emission, the HDP spline among them) into the two planes of
+// the oldest ring slot that are dead at that step, then, after one more
+// barrier (a warp's when P divides 32: an offset's P cells are then in
+// one warp), reduces each source cell over the legal targets from there.
+// Every operation and its order are those of the twin's, so the results
+// stay equal bit for bit. P = 1 and 2 keep the per-pair instances: at two
+// paths a block of at most 16 warps waits on latency, and the terms'
+// nested logaddexp behind the max barrier and the backward's extra stage
+// measured up to 17% slower there (PERF.md §6); EXPECT is unchanged.
 //
 // HDP emissions (log((1/var) * Hermite spline of the descaled mean) over
 // the k-mer's density/slope rows on a uniform grid, hdp_log_emission
@@ -134,6 +157,44 @@ __device__ __forceinline__ float legal_lse(const float* v, int P) {
   return mx + logf(fmaxf(s, 1e-37f));
 }
 
+// logsumexp over the paths j < P of v(j) = row[j] - sub (fill - sub for
+// every j where row is null: a read outside the band window), NEG where
+// bit j of lb is clear: legal_lse's result bit for bit, from the legal
+// paths alone (the P > 2 instances; values read from shared memory). An
+// illegal path's NEG keeps the max at NEG or above and adds expf(NEG -
+// mx) to the sum: exactly 0 when mx > NEG (the next float above NEG is
+// 2^76 away), so it is skipped; when mx == NEG every term is 0 or 1 and
+// the result NEG + logf(s) rounds to NEG for any s in [1, 8]. The legal
+// paths add in path order, as in the twin, and a warp runs each loop as
+// often as its lane with the most legal paths (one or two, mostly).
+__device__ __forceinline__ float legal_lse_row(const float* row, float fill,
+                                               float sub, unsigned lb, int P) {
+  auto v = [&](unsigned m) {   // the value of the lowest path left in m
+    return (row ? row[__ffs(m) - 1] : fill) - sub;
+  };
+  float mx = __popc(lb) == P ? -INFINITY : NEG;
+  for (unsigned m = lb; m; m &= m - 1) mx = fmaxf(mx, v(m));
+  if (mx == NEG) return NEG;
+  float s = 0.f;
+  for (unsigned m = lb; m; m &= m - 1) s += expf(v(m) - mx);
+  return mx + logf(fmaxf(s, 1e-37f));
+}
+
+// The terms a forward cell with normalised states (m, x, y) gives the
+// diagonals after it, whatever their path (the P > 2 forward keeps these
+// in its ring in place of the states): gapX of d+1 from (x-1, y), gapY of
+// d+1 from (x, y-1) and match of d+2 from (x-1, y-1) before that
+// diagonal's m_prev, in the twin's order of operations.
+constexpr int SRC_X = 0, SRC_Y = 1, SRC_M = 2;   // planes of that ring
+struct SrcTerms {
+  float x, y, m;
+};
+__device__ __forceinline__ SrcTerms src_terms(float m, float x, float y,
+                                              const float* t) {
+  return {lae(m + t[T_MX], x + t[T_XX]), lae(m + t[T_MY], y + t[T_YY]),
+          lae(lae(m + t[T_MM], x + t[T_XM]), y + t[T_YM])};
+}
+
 // HDP tables of a bucket: per-(problem, path, position) k-mer ids and
 // unscaled level means (the layout of the ref rows), and the (nk, ng)
 // density and slope tables on the grid g0 + i * dx, i < ng (gN = its last
@@ -214,6 +275,35 @@ __device__ float block_lse(const float* slot, const float* logs, int N,
   return logf(sm) + mx;
 }
 
+// block_lse over the three states of this thread's K cells (cell c =
+// threadIdx.x + k * blockDim.x) held in registers, in block_lse's order
+template <int K>
+__device__ float block_lse_cells(const float (&vm)[K], const float (&vx)[K],
+                                 const float (&vy)[K], const float* logs,
+                                 int N, float* part) {
+  float mx = NEG;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (threadIdx.x + k * blockDim.x < N) {
+      mx = fmaxf(mx, fmaxf(vm[k] + logs[0], NEG));
+      mx = fmaxf(mx, fmaxf(vx[k] + logs[1], NEG));
+      mx = fmaxf(mx, fmaxf(vy[k] + logs[2], NEG));
+    }
+  __syncthreads();
+  mx = block_reduce<false>(mx, part);
+  float sm = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (threadIdx.x + k * blockDim.x < N) {
+      sm += expf(fmaxf(vm[k] + logs[0], NEG) - mx);
+      sm += expf(fmaxf(vx[k] + logs[1], NEG) - mx);
+      sm += expf(fmaxf(vy[k] + logs[2], NEG) - mx);
+    }
+  __syncthreads();
+  sm = block_reduce<true>(sm, part);
+  return logf(sm) + mx;
+}
+
 struct Problem {
   const int* x0;
   const int* width;
@@ -281,7 +371,7 @@ __device__ __forceinline__ float rd(const float* slot, int s, int i, int p,
 
 // ---------------------------------------------------------------- forward
 
-template <int K, bool HDP, bool EXPECT>
+template <int K, bool HDP, bool EXPECT, bool PATHS>
 __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_,
@@ -292,12 +382,26 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
     float* __restrict__ lse_f, int D1, int W, int P_, int LX, int LE) {
   extern __shared__ float smem[];
   const int N = P_ * W;
-  float* ring = smem;              // [2 slots][3 states][N], cell o*P + p
+  // [2 slots][3 states][N], cell o*P + p; PATHS: [2 slots][3 source
+  // terms SRC_X, SRC_Y, SRC_M][N]
+  float* ring = smem;
   float* part = smem + 6 * N;      // [32] reduction partials
   __shared__ Problem pr;
   if (threadIdx.x == 0)
     pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE);
-  for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) ring[i] = NEG;
+  // PATHS: the terms of a cell whose states are NEG: every cell outside
+  // the band, and every read outside the window
+  SrcTerms neg{NEG, NEG, NEG};
+  if constexpr (PATHS) {
+    neg = src_terms(NEG, NEG, NEG,
+                    par_ + (size_t)blockIdx.x * NPACK + PACK_TRANS);
+    for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) {
+      const int pl = (i / N) % 3;
+      ring[i] = pl == SRC_X ? neg.x : pl == SRC_Y ? neg.y : neg.m;
+    }
+  } else {
+    for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) ring[i] = NEG;
+  }
   __syncthreads();
 
   const int b = blockIdx.x;
@@ -310,7 +414,15 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
 
   // diagonal 0: the single start cell (0, 0) on path 0, in slot 0
   if (threadIdx.x == 0) {
-    for (int s = 0; s < 3; ++s) ring[s * N] = pr.start[s];
+    if constexpr (PATHS) {
+      const SrcTerms st = src_terms(pr.start[MATCH], pr.start[GAP_X],
+                                    pr.start[GAP_Y], pr.t);
+      ring[SRC_X * N] = st.x;
+      ring[SRC_Y * N] = st.y;
+      ring[SRC_M * N] = st.m;
+    } else {
+      for (int s = 0; s < 3; ++s) ring[s * N] = pr.start[s];
+    }
     inc[0] = 0.f;
   }
   if constexpr (EXPECT) {
@@ -324,6 +436,18 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
 
   const float* tr = pr.t;
   float m_prev = 0.f;
+  // this thread's cells of the diagonal in hand; PATHS: after the loop,
+  // the normalised states of diagonal nd (the ring holds terms)
+  float vm[K], vx[K], vy[K];
+  if constexpr (PATHS) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool c0 = threadIdx.x + k * blockDim.x == 0;
+      vm[k] = c0 ? pr.start[MATCH] : NEG;
+      vx[k] = c0 ? pr.start[GAP_X] : NEG;
+      vy[k] = c0 ? pr.start[GAP_Y] : NEG;
+    }
+  }
   for (int d = 1; d <= nd; ++d) {
     float* cur = ring + (d & 1) * 3 * N;        // holds d-2 until written
     const float* p1 = ring + ((d - 1) & 1) * 3 * N;
@@ -335,7 +459,6 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
     const int rs = clampi(xd, 0, pr.reflen - W);
     const int es = clampi(pr.lY - d + xd + pr.efp, 0, pr.evlen - W);
 
-    float vm[K], vx[K], vy[K];
     float tmax = NEG;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -373,26 +496,40 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
         // gapX from (x-1, y) and match from (x-1, y-1), over the legal
         // source paths q
         const int il = o + s1, im = o + s2;
-        float srx[MAX_P], srm[MAX_P];
+        if constexpr (PATHS) {
+          // one pass over the terms the source cells wrote
+          const float* rx = il >= 0 && il < W ? p1 + SRC_X * N + il * P
+                                              : nullptr;
+          const float* rm = im >= 0 && im < W ? p2 + SRC_M * N + im * P
+                                              : nullptr;
+          gx = legal_lse_row(rx, neg.x, 0.f, lb, P) + e_gapx;
+          mm = legal_lse_row(rm, neg.m, m_prev, lb, P) + e_match;
+          // gapY from (x, y-1), same path
+          const int iy = il + 1;
+          gy = (iy >= 0 && iy < W ? p1[SRC_Y * N + iy * P + p] : neg.y) +
+               e_stay;
+        } else {
+          float srx[MAX_P], srm[MAX_P];
 #pragma unroll
-        for (int q = 0; q < MAX_P; ++q) {
-          if (q < P) {
-            const bool leg = (lb >> q) & 1u;
-            const float sx = lae(rd(p1, MATCH, il, q, W, N, P) + tr[T_MX],
-                                 rd(p1, GAP_X, il, q, W, N, P) + tr[T_XX]);
-            const float sm =
-                lae(lae(rd(p2, MATCH, im, q, W, N, P) + tr[T_MM],
-                        rd(p2, GAP_X, im, q, W, N, P) + tr[T_XM]),
-                    rd(p2, GAP_Y, im, q, W, N, P) + tr[T_YM]) - m_prev;
-            srx[q] = leg ? sx : NEG;
-            srm[q] = leg ? sm : NEG;
+          for (int q = 0; q < MAX_P; ++q) {
+            if (q < P) {
+              const bool leg = (lb >> q) & 1u;
+              const float sx = lae(rd(p1, MATCH, il, q, W, N, P) + tr[T_MX],
+                                   rd(p1, GAP_X, il, q, W, N, P) + tr[T_XX]);
+              const float sm =
+                  lae(lae(rd(p2, MATCH, im, q, W, N, P) + tr[T_MM],
+                          rd(p2, GAP_X, im, q, W, N, P) + tr[T_XM]),
+                      rd(p2, GAP_Y, im, q, W, N, P) + tr[T_YM]) - m_prev;
+              srx[q] = leg ? sx : NEG;
+              srm[q] = leg ? sm : NEG;
+            }
           }
+          gx = (P == 1 ? srx[0] : legal_lse(srx, P)) + e_gapx;
+          mm = (P == 1 ? srm[0] : legal_lse(srm, P)) + e_match;
+          // gapY from (x, y-1), same path
+          gy = lae(rd(p1, MATCH, il + 1, p, W, N, P) + tr[T_MY],
+                   rd(p1, GAP_Y, il + 1, p, W, N, P) + tr[T_YY]) + e_stay;
         }
-        gx = (P == 1 ? srx[0] : legal_lse(srx, P)) + e_gapx;
-        mm = (P == 1 ? srm[0] : legal_lse(srm, P)) + e_match;
-        // gapY from (x, y-1), same path
-        gy = lae(rd(p1, MATCH, il + 1, p, W, N, P) + tr[T_MY],
-                 rd(p1, GAP_Y, il + 1, p, W, N, P) + tr[T_YY]) + e_stay;
       }
       vm[k] = mm;
       vx[k] = gx;
@@ -410,9 +547,19 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
         const float mm = fmaxf(vm[k] - m, NEG);
         const float gx = fmaxf(vx[k] - m, NEG);
         const float gy = fmaxf(vy[k] - m, NEG);
-        cur[MATCH * N + c] = mm;
-        cur[GAP_X * N + c] = gx;
-        cur[GAP_Y * N + c] = gy;
+        if constexpr (PATHS) {
+          const SrcTerms st = src_terms(mm, gx, gy, tr);
+          cur[SRC_X * N + c] = st.x;
+          cur[SRC_Y * N + c] = st.y;
+          cur[SRC_M * N + c] = st.m;
+          vm[k] = mm;
+          vx[k] = gx;
+          vy[k] = gy;
+        } else {
+          cur[MATCH * N + c] = mm;
+          cur[GAP_X * N + c] = gx;
+          cur[GAP_Y * N + c] = gy;
+        }
         if constexpr (EXPECT) {
           float* fd = fs + (size_t)d * 3 * N + p * W + o;
           fd[MATCH * N] = mm;
@@ -427,14 +574,16 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
     m_prev = m;
     __syncthreads();
   }
-  const float l = block_lse(ring + (nd & 1) * 3 * N, pr.end, N, part);
+  float l;
+  if constexpr (PATHS) l = block_lse_cells<K>(vm, vx, vy, pr.end, N, part);
+  else l = block_lse(ring + (nd & 1) * 3 * N, pr.end, N, part);
   if (threadIdx.x == 0) lse_f[b] = l;
 }
 
 
 // ----------------------------------------------- backward + compaction
 
-template <int K, bool HDP, bool EXPECT>
+template <int K, bool HDP, bool EXPECT, bool PATHS>
 __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_,
@@ -492,6 +641,44 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
     const int r1 = clampi(xd + 1, 0, pr.reflen - W);
     const int r0 = clampi(xd, 0, pr.reflen - W);
     const int es = clampi(pr.lY - d + xd + pr.efp - 1, 0, pr.evlen - W);
+    if constexpr (PATHS) {
+      // the target-side terms of this thread's cells (o, p), once each:
+      // gapX TO (x+1, y) and match TO (x+1, y+1) on path p, which every
+      // source path q of offset o reduces over below. They go to the gapX
+      // and gapY planes of `cur`, dead at this step: diagonal d+2's gapX
+      // and gapY were read at d+1, and only its match is read here.
+      if (!fin) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int c = threadIdx.x + k * blockDim.x;
+          const int o = c / P, p = c - o * P;
+          if (c < N && o < wd) {
+            const int xr1 = r1 + o, je = es + o;
+            const float ev_mean = pr.ev[je];
+            const bool evok = pr.ev[pr.LE + je] > 0.5f;
+            const float m_hat1 = pr.rf(0, p, xr1), inv_m1 = pr.rf(1, p, xr1);
+            float e_match_to;
+            if constexpr (HDP) {
+              e_match_to = (inv_m1 > 0.f && evok)
+                               ? pr.hdp(p, xr1, m_hat1, ev_mean, h) : NEG;
+            } else {
+              const float c_m1 = pr.rf(2, p, xr1);
+              const float am = (ev_mean - m_hat1) * inv_m1;
+              e_match_to = (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am
+                                                  : NEG;
+            }
+            const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
+            cur[GAP_X * N + c] =
+                rd(b1, GAP_X, o + u1 + 1, p, W, N, P) + gapx_valid;
+            cur[GAP_Y * N + c] =
+                rd(b2, MATCH, o + u2, p, W, N, P) + e_match_to - m_prev;
+          }
+        }
+      }
+      // an offset's P cells share a warp when P divides 32
+      if (32 % P == 0) __syncwarp();
+      else __syncthreads();
+    }
     float vm[K], vx[K], vy[K];
     float tmax = NEG;
 #pragma unroll
@@ -524,36 +711,46 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
           // gapX TO (x+1, y) and match TO (x+1, y+1), over the target
           // paths p that may follow q: legal[p, q] at x+1
           const unsigned long long lw = pr.leg[xr1];
-          float tgx[MAX_P], tmm[MAX_P];
+          float gx_red, mm_red;
+          if constexpr (PATHS) {
+            unsigned lb = 0;   // bit p: legal[p, q] at x+1
 #pragma unroll
-          for (int p = 0; p < MAX_P; ++p) {
-            if (p < P) {
-              const bool leg = (lw >> (p * MAX_P + q)) & 1ull;
-              float inv_m1, e_match_to;
-              if constexpr (HDP) {
-                const float m_hat1 = pr.rf(0, p, xr1);
-                inv_m1 = pr.rf(1, p, xr1);
-                // only a legal target's emission is read below
-                e_match_to = (inv_m1 > 0.f && evok && leg)
-                                 ? pr.hdp(p, xr1, m_hat1, ev_mean, h) : NEG;
-              } else {
-                const float m_hat1 = pr.rf(0, p, xr1);
-                inv_m1 = pr.rf(1, p, xr1);
-                const float c_m1 = pr.rf(2, p, xr1);
-                const float am = (ev_mean - m_hat1) * inv_m1;
-                e_match_to = (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am
-                                                    : NEG;
+            for (int p = 0; p < MAX_P; ++p)
+              lb |= (unsigned)((lw >> (p * MAX_P + q)) & 1ull) << p;
+            gx_red = legal_lse_row(cur + GAP_X * N + o * P, NEG, 0.f, lb, P);
+            mm_red = legal_lse_row(cur + GAP_Y * N + o * P, NEG, 0.f, lb, P);
+          } else {
+            float tgx[MAX_P], tmm[MAX_P];
+#pragma unroll
+            for (int p = 0; p < MAX_P; ++p) {
+              if (p < P) {
+                const bool leg = (lw >> (p * MAX_P + q)) & 1ull;
+                float inv_m1, e_match_to;
+                if constexpr (HDP) {
+                  const float m_hat1 = pr.rf(0, p, xr1);
+                  inv_m1 = pr.rf(1, p, xr1);
+                  // only a legal target's emission is read below
+                  e_match_to = (inv_m1 > 0.f && evok && leg)
+                                   ? pr.hdp(p, xr1, m_hat1, ev_mean, h) : NEG;
+                } else {
+                  const float m_hat1 = pr.rf(0, p, xr1);
+                  inv_m1 = pr.rf(1, p, xr1);
+                  const float c_m1 = pr.rf(2, p, xr1);
+                  const float am = (ev_mean - m_hat1) * inv_m1;
+                  e_match_to = (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am
+                                                      : NEG;
+                }
+                const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
+                tgx[p] = leg ? rd(b1, GAP_X, o + u1 + 1, p, W, N, P) + gapx_valid
+                             : NEG;
+                tmm[p] = leg ? rd(b2, MATCH, o + u2, p, W, N, P) + e_match_to
+                                   - m_prev
+                             : NEG;
               }
-              const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
-              tgx[p] = leg ? rd(b1, GAP_X, o + u1 + 1, p, W, N, P) + gapx_valid
-                           : NEG;
-              tmm[p] = leg ? rd(b2, MATCH, o + u2, p, W, N, P) + e_match_to
-                                 - m_prev
-                           : NEG;
             }
+            gx_red = P == 1 ? tgx[0] : legal_lse(tgx, P);
+            mm_red = P == 1 ? tmm[0] : legal_lse(tmm, P);
           }
-          const float gx_red = P == 1 ? tgx[0] : legal_lse(tgx, P);
-          const float mm_red = P == 1 ? tmm[0] : legal_lse(tmm, P);
           if constexpr (EXPECT) {
             // transitions out of (x, y) at d; the to-cell reductions are
             // normalised to Bo(d+1), which `bo` still holds here
@@ -711,32 +908,38 @@ struct Bucket {
   int B, D1, W, P, LX, LE;
 };
 
-template <int K, bool HDP, bool EXPECT>
+template <int K, bool HDP, bool EXPECT, bool PATHS>
 int fwd_launch(const Bucket& a, float* fstack, float* f_incr, float* lse_f,
                cudaStream_t stream) {
   const int N = a.P * a.W;
   const size_t smem = (6 * (size_t)N + 32) * sizeof(float);
-  cudaFuncSetAttribute(sa_fwd_sweep_kernel<K, HDP, EXPECT>,
+  cudaFuncSetAttribute(sa_fwd_sweep_kernel<K, HDP, EXPECT, PATHS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_fwd_sweep_kernel<K, HDP, EXPECT><<<a.B, threads_for(N), smem, stream>>>(
+  sa_fwd_sweep_kernel<K, HDP, EXPECT, PATHS>
+      <<<a.B, threads_for(N), smem, stream>>>(
       a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, f_incr,
       lse_f, a.D1, a.W, a.P, a.LX, a.LE);
   return (int)cudaGetLastError();
 }
 
-template <bool HDP, bool EXPECT>
+// PATHS: the P > 2 instances (EXPECT runs at P = 1 only)
+template <bool HDP, bool EXPECT, bool PATHS>
 int fwd_dispatch(const Bucket& a, float* fstack, float* f_incr, float* lse_f,
                  cudaStream_t s) {
   if constexpr (EXPECT) {
     return cells_per_thread(a.P * a.W) == 1
-               ? fwd_launch<1, HDP, true>(a, fstack, f_incr, lse_f, s)
-               : fwd_launch<2, HDP, true>(a, fstack, f_incr, lse_f, s);
+               ? fwd_launch<1, HDP, true, false>(a, fstack, f_incr, lse_f, s)
+               : fwd_launch<2, HDP, true, false>(a, fstack, f_incr, lse_f, s);
   } else {
     switch (cells_per_thread(a.P * a.W)) {
-      case 1: return fwd_launch<1, HDP, false>(a, fstack, f_incr, lse_f, s);
-      case 2: return fwd_launch<2, HDP, false>(a, fstack, f_incr, lse_f, s);
-      case 4: return fwd_launch<4, HDP, false>(a, fstack, f_incr, lse_f, s);
-      default: return fwd_launch<8, HDP, false>(a, fstack, f_incr, lse_f, s);
+      case 1:
+        return fwd_launch<1, HDP, false, PATHS>(a, fstack, f_incr, lse_f, s);
+      case 2:
+        return fwd_launch<2, HDP, false, PATHS>(a, fstack, f_incr, lse_f, s);
+      case 4:
+        return fwd_launch<4, HDP, false, PATHS>(a, fstack, f_incr, lse_f, s);
+      default:
+        return fwd_launch<8, HDP, false, PATHS>(a, fstack, f_incr, lse_f, s);
     }
   }
 }
@@ -753,15 +956,15 @@ struct BwdOut {
   double* kx;
 };
 
-template <int K, bool HDP, bool EXPECT>
+template <int K, bool HDP, bool EXPECT, bool PATHS>
 int bwd_launch(const Bucket& a, const float* fstack, const double* cvecf,
                const BwdOut& o, int R, float threshold, cudaStream_t stream) {
   const int N = a.P * a.W;
   const size_t smem =
       (6 * (size_t)N + 32) * sizeof(float) + K * 32 * sizeof(int);
-  cudaFuncSetAttribute(sa_bwd_sweep_compact_kernel<K, HDP, EXPECT>,
+  cudaFuncSetAttribute(sa_bwd_sweep_compact_kernel<K, HDP, EXPECT, PATHS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_bwd_sweep_compact_kernel<K, HDP, EXPECT>
+  sa_bwd_sweep_compact_kernel<K, HDP, EXPECT, PATHS>
       <<<a.B, threads_for(N), smem, stream>>>(
           a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
           cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt, o.texp,
@@ -769,23 +972,23 @@ int bwd_launch(const Bucket& a, const float* fstack, const double* cvecf,
   return (int)cudaGetLastError();
 }
 
-template <bool HDP, bool EXPECT>
+template <bool HDP, bool EXPECT, bool PATHS>
 int bwd_dispatch(const Bucket& a, const float* fstack, const double* cvecf,
                  const BwdOut& o, int R, float threshold, cudaStream_t s) {
   if constexpr (EXPECT) {
     return cells_per_thread(a.P * a.W) == 1
-               ? bwd_launch<1, HDP, true>(a, fstack, cvecf, o, R, threshold, s)
-               : bwd_launch<2, HDP, true>(a, fstack, cvecf, o, R, threshold, s);
+        ? bwd_launch<1, HDP, true, false>(a, fstack, cvecf, o, R, threshold, s)
+        : bwd_launch<2, HDP, true, false>(a, fstack, cvecf, o, R, threshold, s);
   } else {
     switch (cells_per_thread(a.P * a.W)) {
-      case 1: return bwd_launch<1, HDP, false>(a, fstack, cvecf, o, R,
-                                               threshold, s);
-      case 2: return bwd_launch<2, HDP, false>(a, fstack, cvecf, o, R,
-                                               threshold, s);
-      case 4: return bwd_launch<4, HDP, false>(a, fstack, cvecf, o, R,
-                                               threshold, s);
-      default: return bwd_launch<8, HDP, false>(a, fstack, cvecf, o, R,
-                                                threshold, s);
+      case 1: return bwd_launch<1, HDP, false, PATHS>(a, fstack, cvecf, o, R,
+                                                      threshold, s);
+      case 2: return bwd_launch<2, HDP, false, PATHS>(a, fstack, cvecf, o, R,
+                                                      threshold, s);
+      case 4: return bwd_launch<4, HDP, false, PATHS>(a, fstack, cvecf, o, R,
+                                                      threshold, s);
+      default: return bwd_launch<8, HDP, false, PATHS>(a, fstack, cvecf, o, R,
+                                                       threshold, s);
     }
   }
 }
@@ -826,10 +1029,13 @@ extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (expect)
-    return dens ? fwd_dispatch<true, true>(a, fstack, f_incr, lse_f, s)
-                : fwd_dispatch<false, true>(a, fstack, f_incr, lse_f, s);
-  return dens ? fwd_dispatch<true, false>(a, fstack, f_incr, lse_f, s)
-              : fwd_dispatch<false, false>(a, fstack, f_incr, lse_f, s);
+    return dens ? fwd_dispatch<true, true, false>(a, fstack, f_incr, lse_f, s)
+                : fwd_dispatch<false, true, false>(a, fstack, f_incr, lse_f, s);
+  if (P > 2)
+    return dens ? fwd_dispatch<true, false, true>(a, fstack, f_incr, lse_f, s)
+                : fwd_dispatch<false, false, true>(a, fstack, f_incr, lse_f, s);
+  return dens ? fwd_dispatch<true, false, false>(a, fstack, f_incr, lse_f, s)
+              : fwd_dispatch<false, false, false>(a, fstack, f_incr, lse_f, s);
 }
 
 extern "C" int sa_bwd_sweep_compact(
@@ -850,9 +1056,14 @@ extern "C" int sa_bwd_sweep_compact(
   const BwdOut o{b_incr, lse_b, slot_cell, slot_val, cnt, texp, kx};
   cudaStream_t s = (cudaStream_t)stream;
   if (expect)
-    return dens ? bwd_dispatch<true, true>(a, fstack, cvecf, o, R, threshold, s)
-                : bwd_dispatch<false, true>(a, fstack, cvecf, o, R, threshold,
-                                            s);
-  return dens ? bwd_dispatch<true, false>(a, fstack, cvecf, o, R, threshold, s)
-              : bwd_dispatch<false, false>(a, fstack, cvecf, o, R, threshold, s);
+    return dens
+        ? bwd_dispatch<true, true, false>(a, fstack, cvecf, o, R, threshold, s)
+        : bwd_dispatch<false, true, false>(a, fstack, cvecf, o, R, threshold, s);
+  if (P > 2)
+    return dens
+        ? bwd_dispatch<true, false, true>(a, fstack, cvecf, o, R, threshold, s)
+        : bwd_dispatch<false, false, true>(a, fstack, cvecf, o, R, threshold, s);
+  return dens
+      ? bwd_dispatch<true, false, false>(a, fstack, cvecf, o, R, threshold, s)
+      : bwd_dispatch<false, false, false>(a, fstack, cvecf, o, R, threshold, s);
 }

@@ -385,6 +385,18 @@ def extract_aligned_pairs(problem: BandedProblem, post: np.ndarray,
 # --------------------------------------------------------------------------
 
 MAX_P = 8   # paths per cell the legality words hold (8 bits per target path)
+MAX_CELLS = 8192   # P * W cells of one diagonal the kernels hold
+
+
+def check_shape(W: int, P: int) -> None:
+    """The kernels take segments of P <= MAX_P paths per cell and P * W <=
+    MAX_CELLS cells per diagonal; a larger one raises, naming its shape
+    (P > 8 waits for its route in ROADMAP §2)."""
+    if P > MAX_P or P * W > MAX_CELLS:
+        raise NotImplementedError(
+            f"segment of P={P} paths per cell at W={W} ({P * W} cells per "
+            f"diagonal): the kernels take P <= {MAX_P} and P * W <= "
+            f"{MAX_CELLS} (the P > 8 route is queued in ROADMAP §2)")
 
 
 @dataclasses.dataclass

@@ -89,12 +89,14 @@ def _path_blocks(w_chars: str, k: int, anchors, lX: int, lY: int,
     return blocks
 
 
-def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
-                 reference: ProcessedReference, model: PoreModel,
-                 config: AlignmentConfig, hdp: Optional[NanoporeHDP] = None,
-                 strand_template: bool = True):
-    """Host-side prep of one read -> (target, params, events, ev_start,
-    [((x1, y1), problem, W, Dpad, P)])."""
+def read_window(read: NanoporeReadData, guide: GuideAlignment,
+                reference: ProcessedReference, model: PoreModel,
+                config: AlignmentConfig, strand_template: bool = True):
+    """The host steps every entry point takes before it splits a read:
+    the target, scaling, drift-adjusted events, the guide's event window
+    and its anchors -> (target, params, events, ev_start, window_events,
+    anchors, splits), ``splits`` the ``get_split_points`` segments (x1,
+    y1, x2, y2) (the JAX ``align_read``, ``signal_align.py:134-189``)."""
     k = model.kmer_length
     qstart, qend = guide.query_start, guide.query_end
     if read.rna:
@@ -136,16 +138,48 @@ def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
 
     splits = get_split_points(anchors, lX, lY, config.split_bigger_than,
                               True, True)
-    tasks = []
-    j = 0
+    return target, params, events, ev_start, window_events, anchors, splits
+
+
+def split_anchors(anchors, splits):
+    """Each ``get_split_points`` segment with its anchors, shifted to the
+    segment's origin: [((x1, y1, x2, y2), anchors)]."""
+    out, j = [], 0
     for (x1, y1, x2, y2) in splits:
-        seg_anchors = []
-        while j < len(anchors):
-            ax, ay = anchors[j]
-            if ax + ay >= x2 + y2:
-                break
-            seg_anchors.append((ax - x1, ay - y1))
+        seg = []
+        while j < len(anchors) and sum(anchors[j]) < x2 + y2:
+            seg.append((anchors[j][0] - x1, anchors[j][1] - y1))
             j += 1
+        out.append(((x1, y1, x2, y2), seg))
+    return out
+
+
+def segment_shape(seg_chars: str, n_events: int, anchors, k: int,
+                  config: AlignmentConfig) -> Tuple[int, int, int]:
+    """(W, Dpad, P) of one segment: its band's width and diagonal count
+    bucketed, and its paths per cell. A shape the kernels do not take
+    raises (``bfb.check_shape``)."""
+    slX = len(seg_chars) - k + 1
+    xmyL, xmyR = build_band(anchors, slX, n_events, config.diagonal_expansion)
+    W = _bucket_w(int(band_widths(xmyL, xmyR).max()))
+    P = max_paths_per_kmer(seg_chars, k, config.ambig_map)
+    bfb.check_shape(W, P)
+    return W, _bucket_d(slX + n_events), P
+
+
+def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
+                 reference: ProcessedReference, model: PoreModel,
+                 config: AlignmentConfig, hdp: Optional[NanoporeHDP] = None,
+                 strand_template: bool = True):
+    """Host-side prep of one read -> (target, params, events, ev_start,
+    [((x1, y1), problem, W, Dpad, P)]). A segment of a shape the kernels
+    do not take (more than 8 paths per cell) raises NotImplementedError,
+    and the runner drops the read."""
+    k = model.kmer_length
+    target, params, events, ev_start, window_events, anchors, splits = \
+        read_window(read, guide, reference, model, config, strand_template)
+    tasks = []
+    for (x1, y1, x2, y2), seg_anchors in split_anchors(anchors, splits):
         # width-capped sub-splitting: confine band bulges to small blocks
         for (sx1, sy1, sx2, sy2, sub_anchors) in split_segment_by_width(
                 seg_anchors, x2 - x1, y2 - y1,
@@ -162,11 +196,8 @@ def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
                 slY = len(seg_events)
                 if slX < 1 or slY < 1:
                     continue
-                xmyL, xmyR = build_band(p_anchors, slX, slY,
-                                        config.diagonal_expansion)
-                W = _bucket_w(int(band_widths(xmyL, xmyR).max()))
-                Dpad = _bucket_d(slX + slY)
-                P = max_paths_per_kmer(seg_chars, k, config.ambig_map)
+                W, Dpad, P = segment_shape(seg_chars, slY, p_anchors, k,
+                                           config)
                 problem = bfb.prepare_problem(
                     seg_chars, seg_events, model, params, config.ambig_map,
                     W=W, Dpad=Dpad, P=P, mode=config.emission_mode,
@@ -284,8 +315,10 @@ def run_alignment_batch(
     596-614``), so the results equal the default run's within f32
     round-off.
 
-    A bucket with more than 8 paths per cell, or an expectation pass over
-    a bucket with more than one, raises before anything launches.
+    A read with a segment of more than 8 paths per cell is dropped, as a
+    read whose prep fails is (``verbose`` prints a ``FAILED`` line for
+    it), and the rest of the batch aligns. An expectation pass over a
+    bucket of more than one path raises before anything launches.
     ``stage_seconds``, when given, receives the wall seconds of each
     stage: "prep" (host), "hdp_upload" (HDP mode: the tables to the
     device), "kernels" (upload, both sweeps, survivor or site-sum fetch,
@@ -348,12 +381,8 @@ def run_alignment_batch(
     buckets: Dict[Tuple[int, int, int], List[int]] = defaultdict(list)
     for i, t in enumerate(tasks):
         buckets[(t[4], t[5], t[6])].append(i)
-    for (W, Dpad, P) in buckets:
-        if P > bfb.MAX_P:
-            raise NotImplementedError(
-                f"bucket of P={P} paths per cell (W={W}): the port runs "
-                f"P <= {bfb.MAX_P}; three-way ambiguity codes exceed it")
-        if expect:
+    if expect:
+        for (_, _, P) in buckets:
             bfb.check_expect(P)
     tables = None
     if config.emission_mode == bfb.MODE_HDP:

@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from signalalign_tpu_torch.io.guide import GuideAlignment
-from signalalign_tpu_torch.io.output import build_full_rows, build_vc_rows
+from signalalign_tpu_torch.io.output import (build_full_rows, build_vc_rows,
+                                             posterior_score)
 from signalalign_tpu_torch.io.read import NanoporeReadData
 from signalalign_tpu_torch.io.reference import ProcessedReference
 from signalalign_tpu_torch.models.pore_model import PoreModel, ScalingParams
@@ -120,12 +121,68 @@ def align_read(read: NanoporeReadData, guide: GuideAlignment,
                config: Optional[AlignmentConfig] = None, hdp=None, *,
                device: torch.device,
                strand_template: bool = True) -> ReadAlignment:
-    """Align one read strand against its guide window (a batch of one);
-    ``hdp`` gives MODE_HDP its emissions."""
-    from signalalign_tpu_torch.pipeline.runner import run_alignment_batch
-    out = run_alignment_batch([(read, guide)], reference, model, config, hdp,
-                              device=device, strand_template=strand_template,
-                              verbose=True)
-    if not out:
-        raise ValueError(f"{read.read_label}: alignment failed")
-    return out[0]
+    """Align one read strand against its guide window as the JAX
+    ``align_read`` does (``signal_align.py:125-274``), as signalMachine
+    does: one problem per ``get_split_points`` segment, without the batch
+    runner's width, diagonal-count and path-class sub-splits, each run on
+    ``device`` through ``HopperAligner`` (the kernels on CUDA, their twins
+    on the CPU); pairs, totals and, with ``compute_expectations``, the
+    expectations accumulated over the segments in order. ``hdp`` gives
+    MODE_HDP its emissions. A segment the kernels do not take (P > 8, or
+    P * W > 8192) raises NotImplementedError naming its shape."""
+    from signalalign_tpu_torch.convert import hdp_tables
+    from signalalign_tpu_torch.ops.banded_fb_hopper import HopperAligner
+    from signalalign_tpu_torch.pipeline.runner import (_check_slice,
+                                                       read_window,
+                                                       segment_shape,
+                                                       split_anchors)
+    config = config or AlignmentConfig()
+    _check_slice(config, hdp)
+    k = model.kmer_length
+    expect = config.compute_expectations
+    target, params, events, ev_start, window_events, anchors, splits = \
+        read_window(read, guide, reference, model, config, strand_template)
+    tables = (hdp_tables(*hdp.density_arrays(), device)
+              if config.emission_mode == bfb.MODE_HDP else None)
+    all_pairs: List[Tuple[int, int, int, str]] = []
+    texp = np.zeros((3, 3))
+    kexp = np.zeros((3, model.alphabet.num_kmers))
+    likelihood = total_lp = gap = 0.0
+    for (x1, y1, x2, y2), seg_anchors in split_anchors(anchors, splits):
+        seg_chars = target[x1:x2 + k - 1]
+        seg_events = window_events[y1:y2]
+        W, Dpad, P = segment_shape(seg_chars, len(seg_events), seg_anchors,
+                                   k, config)
+        if expect:
+            bfb.check_expect(P)
+        problem = bfb.prepare_problem(
+            seg_chars, seg_events, model, params, config.ambig_map, W=W,
+            Dpad=Dpad, P=P, mode=config.emission_mode,
+            anchor_pairs=seg_anchors, expansion=config.diagonal_expansion,
+            hdp=hdp)
+        r = HopperAligner([problem], W, device, tables,
+                          expect=expect).execute(config.threshold)[0]
+        total_lp += r["total_f"]
+        gap = max(gap, abs(r["total_f"] - r["total_b"]))
+        if expect:
+            texp += r["texp"]
+            kexp += r["kexp"]
+            likelihood += r["total_f"] * problem.n_diag
+        all_pairs += [(prob, x + x1, y + y1, kmer)
+                      for prob, x, y, kmer in r["pairs"]]
+    all_pairs.sort(key=lambda r: (r[1] + r[2], r[1]))
+    if strand_template:
+        fwd_out, ref_shift = guide.output_frame(read.rna)
+    else:
+        fwd_out = guide.forward
+        ref_shift = guide.window_end if guide.forward else guide.window_start
+    return ReadAlignment(
+        read_label=read.read_label, contig=guide.contig, forward=fwd_out,
+        strand_template=strand_template, aligned_pairs=all_pairs,
+        score=posterior_score(all_pairs), target=target,
+        event_offset=ev_start, ref_offset=ref_shift, params=params,
+        events=events, total_log_prob=total_lp, rna=read.rna,
+        max_total_gap=gap,
+        transition_expectations=texp if expect else None,
+        likelihood=likelihood,
+        emission_expectations=kexp if expect else None)

@@ -54,16 +54,21 @@ def _hdp_model():
     return HDP_MODEL
 
 
-def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False):
+def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False, dense=None,
+              prep_w=None):
     """n problems with random lengths in ``sizes`` whose anchors (every 20
     events) leave out ``gap``, so the band bulges there. For P > 1 the
-    sequence carries the ambiguity code (Y, or P with ``hdp``) every 40
-    positions and a cluster of log2(P) codes in one 5-mer every 400
-    (events read each code as C). Returns (problems, the HDP or None)."""
+    sequence carries the ambiguity code (Y, or P with ``hdp``; B for
+    P = 3) every 40 positions and a cluster of log2(P) codes in one 5-mer
+    every 400 (events read each code as C); ``dense`` = (start, stop)
+    puts the code at every other position there, where most path pairs
+    of neighbouring cells are illegal. ``prep_w`` prepares the problems
+    at another band width than W. Returns (problems, the HDP or None)."""
     model, h = _hdp_model() if hdp else (synthetic_pore_model(0), None)
-    code = "P" if hdp else "Y"
+    code = "B" if P == 3 else "P" if hdp else "Y"
     rng = np.random.default_rng(seed)
-    cluster = {1: "", 2: "Y", 4: "YGY", 8: "YGYGY"}[P].replace("Y", code)
+    cluster = {1: "", 2: "Y", 3: "Y", 4: "YGY", 8: "YGYGY"}[P].replace(
+        "Y", code)
     out = []
     for i in range(n):
         seq = list(rng.choice(list("ACGT"), size=int(rng.integers(*sizes))))
@@ -72,6 +77,8 @@ def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False):
                 seq[j] = code
             for j in range(200, len(seq) - 8, 400):
                 seq[j:j + len(cluster)] = cluster
+        if dense:
+            seq[dense[0]:dense[1]:2] = code * len(range(*dense, 2))
         seq = "".join(seq)
         ids = model.alphabet.seq_to_kmer_ids(seq.replace(code, "C"))
         ev = np.stack([model.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
@@ -81,8 +88,9 @@ def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False):
                    if not gap[0] < j < gap[1]]
         out.append(bfb.prepare_problem(
             seq, ev, model, ScalingParams(shift=0.1 * i), DEFAULT_AMBIG_BASES,
-            W=W, Dpad=Dpad, P=P, anchor_pairs=anchors, expansion=10,
-            mode=bfb.MODE_HDP if hdp else bfb.MODE_MEAN_ONLY, hdp=h))
+            W=prep_w or W, Dpad=Dpad, P=P, anchor_pairs=anchors,
+            expansion=10, mode=bfb.MODE_HDP if hdp else bfb.MODE_MEAN_ONLY,
+            hdp=h))
     assert max(int(p.n_paths.max()) for p in out) == P
     return out, h
 
@@ -202,6 +210,87 @@ def test_aligner_on_gpu_matches_cpu(dev, bucket):
         for key in set(dg) ^ set(dc):
             assert abs(dg.get(key, dc.get(key)) / 1e7 - THR) <= 1e-3
         assert all(abs(dg[k] - dc[k]) <= 1e-3 * 1e7 for k in set(dg) & set(dc))
+
+
+PATH_CASES = ["p2", "p3w512", "p4w1024", "p8w128", "p8", "p8w512", "p8w768",
+              "p2w4096", "edges", "clamp", "illegal"]
+
+
+@pytest.fixture(scope="module",
+                params=PATH_CASES + ["hdp_" + c for c in PATH_CASES])
+def paths_case(request):
+    """(problems, W, HDP or None) for P > 1, Gaussian or HDP (hdp_), at
+    every cells-per-thread instance: pP[wW] (W = 256 by default) gives K =
+    1 (P*W <= 1024), 2 (p3w512, p8), 4 (p4w1024, p8w512) or 8 (p8w768,
+    p2w4096). P = 2 runs the per-pair instances (those of P = 1), P > 2
+    the redesigned ones. ``edges``: P = 8 problems whose band
+    fills W at its bulge (W = their widest band), so reads fall outside
+    the window at both band edges; ``clamp``: P = 4 problems prepared at
+    W = 128 and run at W = 256, so the reference and event windows clamp
+    at reflen - W and evlen - W; ``illegal``: P = 8 problems with the
+    code at every other position over 60 positions, where most path
+    pairs of neighbouring cells are illegal."""
+    name = request.param
+    hdp = name.startswith("hdp_")
+    name = name[4:] if hdp else name
+    if name == "edges":
+        probe, _ = _problems(2, (700, 900), (100, 300), 512, 2048, 18, P=8,
+                             hdp=hdp)
+        W = max(int(p.width.max()) for p in probe)
+        probs = _problems(2, (700, 900), (100, 300), W, 2048, 18, P=8,
+                          hdp=hdp)
+        assert max(int(p.width.max()) for p in probs[0]) == W
+        return _case(probs, W)
+    if name == "clamp":
+        probs = _problems(3, (500, 700), (100, 160), 256, 2048, 19, P=4,
+                          hdp=hdp, prep_w=128)
+        # x0 passes reflen - W on each problem's last diagonals
+        assert all(p.x0[:p.n_diag + 1].max() > p.ref_params.shape[-1] - 256
+                   for p in probs[0])
+        return _case(probs, 256)
+    if name == "illegal":
+        probs = _problems(3, (500, 700), (100, 300), 256, 2048, 20, P=8,
+                          hdp=hdp, dense=(100, 160))
+        legal = np.concatenate([p.legal.reshape(64, -1)[:, 101:160]
+                                for p in probs[0]], axis=1)
+        assert legal.mean() < 0.25
+        return _case(probs, 256)
+    P, _, W = name[1:].partition("w")
+    P, W = int(P), int(W or 256)
+    # (sizes, anchor gap, Dpad): bands up to ~W wide
+    sizes, gap, dpad = {128: ((400, 600), (100, 150), 2048),
+                        768: ((1300, 1400), (200, 850), 4096),
+                        1024: ((1300, 1400), (200, 850), 4096),
+                        4096: ((1300, 1400), (200, 850), 4096)}.get(
+                            W, ((700, 900), (100, 300), 2048))
+    return _case(_problems(2, sizes, gap, W, dpad, 30 + P, P=P, hdp=hdp), W)
+
+
+def test_paths_kernels_equal_twins_bit_for_bit(dev, paths_case):
+    """Both kernels at P > 1 (for P > 2 the source-side terms in the
+    forward's ring, the target-side terms staged once per (offset, path)
+    in the backward, the logsumexps over legal paths only) against their
+    twins: fstack, offsets, totals' terms and survivors equal bit for
+    bit."""
+    pt = _tensors(paths_case, dev)
+    assert pt.P > 1
+    nds = pt.meta[:, bfb.M_NDIAG]
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    nds, fk, fr = _forward_both(pt)
+    assert torch.equal(fk[0][rows], fr[0][rows])
+    assert torch.equal(fk[1][rows], fr[1][rows]) and torch.equal(fk[2], fr[2])
+    fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
+    cvecf = (fo - tf[:, None]).contiguous()
+    R = hk.survivor_slots(THR)
+    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R)
+    br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, THR, R)
+    torch.cuda.synchronize()
+    assert torch.equal(bk[0][rows], br[0][rows]) and torch.equal(bk[1], br[1])
+    assert torch.equal(bk[4][rows], br[4][rows]) and int(bk[4].max()) <= R
+    keep = torch.arange(R, device=dev) < bk[4][:, :, None]
+    assert keep.any()
+    assert torch.equal(bk[2][keep], br[2][keep])
+    assert torch.equal(bk[3][keep], br[3][keep])
 
 
 @pytest.fixture(scope="module",

@@ -19,7 +19,8 @@ from signalalign_tpu_torch.io.reference import ProcessedReference
 from signalalign_tpu_torch.ops.banded_fb import MODE_HDP
 from signalalign_tpu_torch.pipeline.runner import (run_alignment_batch,
                                                    write_outputs)
-from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
+from signalalign_tpu_torch.pipeline.signal_align import (AlignmentConfig,
+                                                         align_read)
 from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
                                                    synthetic_hdp,
                                                    synthetic_pore_model,
@@ -213,10 +214,11 @@ def test_outside_the_slice_raises(batch, port, tmp_path):
         write_outputs([], model, str(tmp_path), "variants")
 
 
-def test_p_greater_than_one_raises(tmp_path):
-    """A bucket of more than 8 paths per cell raises naming P before any
-    sweep runs: the motif edition puts the three-way code B (CGT) at every
-    C of a CG, so a CGCGCG window holds three B in one 5-mer (27 paths)."""
+def test_p_greater_than_one_raises(tmp_path, capsys):
+    """A read with a segment of more than 8 paths per cell is dropped with
+    a FAILED line naming P, before any sweep runs: the motif edition puts
+    the three-way code B (CGT) at every C of a CG, so a CGCGCG window holds
+    three B in one 5-mer (27 paths). The port's align_read raises for it."""
     model = synthetic_pore_model(1)
     rgs, _, _, _, fasta = build_synthetic_batch(
         model, n_reads=1, ev_min=300, ev_max=400, seed=2, genome_len=5000,
@@ -229,7 +231,10 @@ def test_p_greater_than_one_raises(tmp_path):
     reference = ProcessedReference(fasta, motifs=[("CG", "BG")])
     read, guide = synthetic_read(np.random.default_rng(3), genome, model,
                                  900, 300, "b27")
+    config = AlignmentConfig(ambig_map={"B": "CGT"})
+    assert run_alignment_batch([(read, guide)], reference, model, config,
+                               device=CPU, verbose=True) == []
+    assert "[runner] FAILED b27: NotImplementedError: segment of P=27" \
+        in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="P=27"):
-        run_alignment_batch([(read, guide)], reference, model,
-                            AlignmentConfig(ambig_map={"B": "CGT"}),
-                            device=CPU)
+        align_read(read, guide, reference, model, config, device=CPU)
