@@ -395,11 +395,10 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     cells. Transcendentals: counted per in-band cell from the kernels'
     formulas (two per logaddexp, one per posterior and per HDP spline; the
     backward evaluates two splines a cell, its stay and its match-to as a
-    target). At P = 2 the per-pair instances compute the forward's four
-    source logaddexps per source path and both logsumexps over all P
-    paths (P + 1 each); at P > 2 the source terms come once per cell and
-    each logsumexp costs one exponential per legal path pair of these
-    problems' legality words plus one logarithm where a path is legal.
+    target). The function needs the source terms once per cell, and each
+    logsumexp one exponential per legal path pair of these problems'
+    legality words plus one logarithm where a path is legal; that is
+    counted at every P > 1, whichever instance the P is dispatched to.
     ``expect``: the expectation instances, which write (and
     read at in-band cells) three states per diagonal, compute seven more
     exponentials per in-band cell and write texp (B, 7) and kx (B, 3,
@@ -464,17 +463,10 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     if expect:
         bwd_bytes += B * 7 * 8 + 3 * ref_cols * 8      # texp, kx
     cp = cells * P
-    if P == 2:
-        # the per-pair instances: six per source path and a gapY logaddexp
-        # forward, both logsumexps over every path, the HDP match-to
-        # spline per legal pair
-        fwd_ops = cp * (6 * P + 2) + 2 * (P + 1) * cp + (cp if hdp else 0)
-        bwd_ops = cp * 9 + 2 * (P + 1) * cp + (cp + lse[1][0] if hdp else 0)
-    else:
-        # the two logsumexps over legal paths of each cell (none at P = 1)
-        fwd_ops = cp * 8 + 2 * sum(lse[0]) + (cp if hdp else 0)
-        bwd_ops = cp * 9 + 2 * sum(lse[1]) + (2 * cp if hdp else 0) \
-            + (7 * cp if expect else 0)
+    # the two logsumexps over legal paths of each cell (none at P = 1)
+    fwd_ops = cp * 8 + 2 * sum(lse[0]) + (cp if hdp else 0)
+    bwd_ops = cp * 9 + 2 * sum(lse[1]) + (2 * cp if hdp else 0) \
+        + (7 * cp if expect else 0)
     names = ("sa_fwd_sweep", "sa_bwd_sweep_compact")
     if prob:
         fwd_ops, bwd_ops = 3 * cp, 4 * cp
@@ -682,7 +674,7 @@ def by_class_json(by_wp):
     return out
 
 
-def gaussian_kernel_sums(tree):
+def kernel_sums_of_tree(tree):
     """``--kernel-sums [TREE]``: the kernels of the port in TREE (a
     checkout; by default this one), timed by CUDA events on phase 3a's
     problems (mean of 5 launches after two warm-up calls; the plain and
@@ -1045,10 +1037,12 @@ def main():
             log(f"[kernels P={P} W={W} K={cells_per_thread(P * W)}] "
                 f"{len(probs)} problems n_diag {min(ptp.n_diag)}..{max(ptp.n_diag)}: "
                 f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
-                f"bound {bd['sa_fwd_sweep'][0]:.4f} ms), "
+                f"bound {bd['sa_fwd_sweep'][0]:.4f} ms by "
+                f"{bd['sa_fwd_sweep'][1]}), "
                 f"sa_bwd_sweep_compact {r['bwd_ms']:.3f} ms (twin "
                 f"{r['bwd_plain_ms']:.1f} ms, bound "
-                f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms), serial floor "
+                f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms by "
+                f"{bd['sa_bwd_sweep_compact'][1]}), serial floor "
                 f"{1e-3 * barrier_us * max(ptp.n_diag):.3f} ms; |d total| "
                 f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
                 f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
@@ -1170,15 +1164,17 @@ def main():
             pth = problem_tensors(probs, W, dev, tables)
             r = kernels_vs_twins(hk, bfb, pth, threshold, R)
             hdp_rows[(W, P)] = r
-            hdp_bounds[(W, P)] = sweep_bounds(bfb, pth, r["n_kernel"])
+            hdp_bounds[(W, P)] = bd = sweep_bounds(bfb, pth, r["n_kernel"])
             floor = 1e-3 * barrier_us * max(pth.n_diag)
             log(f"[hdp kernels P={P} W={W} K={cells_per_thread(P * W)}] "
                 f"{len(probs)} problems n_diag {min(pth.n_diag)}..{max(pth.n_diag)}: "
                 f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
-                f"bound {hdp_bounds[(W, P)]['sa_fwd_sweep'][0]:.4f} ms), "
+                f"bound {bd['sa_fwd_sweep'][0]:.4f} ms by "
+                f"{bd['sa_fwd_sweep'][1]}), "
                 f"sa_bwd_sweep_compact {r['bwd_ms']:.3f} ms (twin "
                 f"{r['bwd_plain_ms']:.1f} ms, bound "
-                f"{hdp_bounds[(W, P)]['sa_bwd_sweep_compact'][0]:.4f} ms), "
+                f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms by "
+                f"{bd['sa_bwd_sweep_compact'][1]}), "
                 f"serial floor {floor:.3f} ms; |d total| "
                 f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
                 f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
@@ -1707,7 +1703,7 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernel-sums"]:
-        gaussian_kernel_sums(sys.argv[2] if len(sys.argv) > 2
+        kernel_sums_of_tree(sys.argv[2] if len(sys.argv) > 2
                              else os.path.dirname(os.path.abspath(__file__)))
     else:
         main()

@@ -127,6 +127,7 @@ constexpr int M_LX = 0, M_LY = 1, M_NDIAG = 2, M_EVPAD = 3, M_REFLEN = 4,
 constexpr int PACK_TRANS = 0, PACK_START = 9, PACK_END = 12, PACK_GAPX = 15,
               PACK_VAR = 16;
 constexpr int MAX_P = 8;                        // legality: 8 bits per path
+constexpr int PAIR_P = 2;   // the per-pair instances' paths (P > 2: PATHS)
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_K = 8;                        // cells per thread
 constexpr int MAX_CELLS = MAX_K * MAX_THREADS;  // P * W
@@ -140,19 +141,19 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// logsumexp of v[0..P) (entries an illegal transition masked to NEG):
-// the max, then the exp-sum in path order, as the twin's _legal_reduce.
-// At P = 1 it returns v[0] bit for bit (expf(0) = 1, logf(1) = 0), but
-// its expf/logf cost 12-18% of a P = 1 sweep (H100, 700 W), so the
-// callers skip it there.
+// logsumexp of v[0..P), P <= PAIR_P (entries an illegal transition
+// masked to NEG): the max, then the exp-sum in path order, as the twin's
+// _legal_reduce. At P = 1 it returns v[0] bit for bit (expf(0) = 1,
+// logf(1) = 0), but its expf/logf cost 12-18% of a P = 1 sweep (H100,
+// 700 W), so the callers skip it there.
 __device__ __forceinline__ float legal_lse(const float* v, int P) {
   float mx = v[0];
 #pragma unroll
-  for (int q = 1; q < MAX_P; ++q)
+  for (int q = 1; q < PAIR_P; ++q)
     if (q < P) mx = fmaxf(mx, v[q]);
   float s = 0.f;
 #pragma unroll
-  for (int q = 0; q < MAX_P; ++q)
+  for (int q = 0; q < PAIR_P; ++q)
     if (q < P) s += expf(v[q] - mx);
   return mx + logf(fmaxf(s, 1e-37f));
 }
@@ -509,9 +510,9 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
           gy = (iy >= 0 && iy < W ? p1[SRC_Y * N + iy * P + p] : neg.y) +
                e_stay;
         } else {
-          float srx[MAX_P], srm[MAX_P];
+          float srx[PAIR_P], srm[PAIR_P];
 #pragma unroll
-          for (int q = 0; q < MAX_P; ++q) {
+          for (int q = 0; q < PAIR_P; ++q) {
             if (q < P) {
               const bool leg = (lb >> q) & 1u;
               const float sx = lae(rd(p1, MATCH, il, q, W, N, P) + tr[T_MX],
@@ -720,9 +721,9 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
             gx_red = legal_lse_row(cur + GAP_X * N + o * P, NEG, 0.f, lb, P);
             mm_red = legal_lse_row(cur + GAP_Y * N + o * P, NEG, 0.f, lb, P);
           } else {
-            float tgx[MAX_P], tmm[MAX_P];
+            float tgx[PAIR_P], tmm[PAIR_P];
 #pragma unroll
-            for (int p = 0; p < MAX_P; ++p) {
+            for (int p = 0; p < PAIR_P; ++p) {
               if (p < P) {
                 const bool leg = (lw >> (p * MAX_P + q)) & 1ull;
                 float inv_m1, e_match_to;
@@ -1031,7 +1032,7 @@ extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
   if (expect)
     return dens ? fwd_dispatch<true, true, false>(a, fstack, f_incr, lse_f, s)
                 : fwd_dispatch<false, true, false>(a, fstack, f_incr, lse_f, s);
-  if (P > 2)
+  if (P > PAIR_P)
     return dens ? fwd_dispatch<true, false, true>(a, fstack, f_incr, lse_f, s)
                 : fwd_dispatch<false, false, true>(a, fstack, f_incr, lse_f, s);
   return dens ? fwd_dispatch<true, false, false>(a, fstack, f_incr, lse_f, s)
@@ -1059,7 +1060,7 @@ extern "C" int sa_bwd_sweep_compact(
     return dens
         ? bwd_dispatch<true, true, false>(a, fstack, cvecf, o, R, threshold, s)
         : bwd_dispatch<false, true, false>(a, fstack, cvecf, o, R, threshold, s);
-  if (P > 2)
+  if (P > PAIR_P)
     return dens
         ? bwd_dispatch<true, false, true>(a, fstack, cvecf, o, R, threshold, s)
         : bwd_dispatch<false, false, true>(a, fstack, cvecf, o, R, threshold, s);
