@@ -4,7 +4,10 @@
 
 Phases (any failure stops the run with a non-zero exit):
   1. the device: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. the kernel build from signalalign_tpu_torch/csrc with nvcc;
+  2. the kernel build from signalalign_tpu_torch/csrc with nvcc, and the
+     latency of one diagonal's synchronisation (csrc/barrier_probe.cu):
+     the per-pair instances' one barrier at 1 to 16 warps, the P > 2
+     instances' two at 1 to 32;
   3. each kernel against its plain PyTorch twin on the card, on 8 problems
      of the phase-4 batch (W=256, about 4k diagonals), with its time;
      then the whole main path on the GPU against the CPU (twins) on the
@@ -12,9 +15,11 @@ Phases (any failure stops the run with a non-zero exit):
   3c. the kernels with P = 2, 4 and 8 paths per cell against their twins
      on the card, at the shapes phase 5 gives them: one bucket per (W, P)
      class of phase 5's aligners (the class's shortest problem), so that
-     every kernel instance (cells per thread K = 1, 2, 4, 8) is held, bit
+     every P > 2 instance (cells per thread K = 1, 2, 4, 8) is held, bit
      for bit; with totals, |d exp(fstack)|, the survivor sets with their
-     paths, |d posterior| and the times;
+     paths, |d posterior| and the times; then a P = 16 segment (two X
+     sites in one k-mer of the shortest read) the same way, and that read
+     through run_alignment_batch on the GPU against the CPU;
   3d. site-mode calling ("CT") and P > 1 pair output on the GPU against
      the CPU (twins) on the two shortest reads of the phase-5 batch;
   4. the main path at a realistic size: 64 synthetic reads (about 1M
@@ -82,18 +87,27 @@ Phases (any failure stops the run with a non-zero exit):
 Each kernel's line carries its bound: the larger of the bytes it must
 move over the HBM rate and its transcendentals over the SFU rate, with
 the serial-diagonal floor (longest problem's diagonals times the measured
-latency of a diagonal's two block barriers, phase 2) beside it.
+latency of one diagonal's synchronisation at the launched block's warp
+count, phase 2) beside it.
 The last two lines are a JSON object per kernel and the result line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 
     python3 chip_smoke.py --kernel-sums [TREE]
 
 times only the kernels of the port in TREE (a checkout; by default this
-one) on phase 3a's problems (plain and expectation instances) and every
-bucket of phases 4 (plain and expectation instances), 5 and 6 (the P > 1
-classes, Gaussian and HDP), by (W, P) class, and prints one JSON line (no
-result line): run it for two checkouts in turns (A, B, B, A) in one job
-to compare their kernels.
+one) on phase 3a's problems (plain, expectation and probability-space
+instances) and every bucket of phases 4 (plain and expectation
+instances, and the probability-space pair on W <= 512), 5 and 6 (every
+(W, P) class, Gaussian and HDP) and 7c (the expectation instances on
+em_train's buckets), by class, and prints one JSON line (no result
+line): run it for two checkouts in turns (A, B, B, A) in one job to
+compare their kernels.
+
+    python3 chip_smoke.py --k-scan
+
+times every per-pair instance (cells per thread K = 1, 2, 4, 8) on the
+per-pair classes of phases 4, 5, 6 and 7c and prints one JSON line beside
+the dispatch table's K: the measurement behind that table.
 """
 
 import dataclasses
@@ -370,13 +384,6 @@ def prob_vs_twins(hk, bfb, pt, threshold, R, reps=5):
     return out
 
 
-def cells_per_thread(n):
-    """The kernel instance K (cells per thread) that csrc/banded_fb.cu
-    launches for n = P * W cells."""
-    k = -(-n // 1024)
-    return next(i for i in (1, 2, 4, 8) if k <= i)
-
-
 _POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
 
 
@@ -386,7 +393,7 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     the transcendentals its in-band cells need over the SFU rate.
 
     Bytes: every input read once over each problem's own extents (x0 and
-    width up to n_diag, the reference rows and legality words over reflen,
+    width up to n_diag, the reference rows and legality masks over reflen,
     the event rows over evlen; of the reference rows only m_hat and inv_m
     in HDP mode, plus the k-mer ids and level means and one 16-byte knot
     pair per distinct k-mer of a valid slot), every output written once
@@ -397,14 +404,14 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     backward evaluates two splines a cell, its stay and its match-to as a
     target). The function needs the source terms once per cell, and each
     logsumexp one exponential per legal path pair of these problems'
-    legality words plus one logarithm where a path is legal; that is
+    legality masks plus one logarithm where a path is legal; that is
     counted at every P > 1, whichever instance the P is dispatched to.
     ``expect``: the expectation instances, which write (and
     read at in-band cells) three states per diagonal, compute seven more
     exponentials per in-band cell and write texp (B, 7) and kx (B, 3,
     reflen) in float64. ``prob``: the probability-space kernels (P = 1),
     which read three reference rows, the two exp-constant rows, the
-    best-case event row and a second pack and no legality words, and
+    best-case event row and a second pack and no legality masks, and
     spend two exponentials and a logarithm per in-band cell forward, and
     those and the posterior's exponential backward."""
     B, D1 = pt.x0.shape
@@ -412,7 +419,7 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     x0 = pt.x0.cpu().numpy()
     width = pt.width.cpu().numpy()
     meta = pt.meta.cpu().numpy()
-    leg = pt.leg.cpu().numpy().view(np.uint64)
+    leg = pt.leg.cpu().numpy().view(np.uint32)       # (B, LX, P)
     hdp = pt.hdp is not None
     cells = rows = ref_cols = ev_cols = 0
     lse = {0: [0, 0], 1: [0, 0]}   # forward, backward: [exps, logs]
@@ -429,19 +436,21 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
             for sweep in (0, 1):   # the forward reads column x, the backward x+1
                 x = np.clip((x0[b, :n, None] + o[None, :] + sweep)[inb], 0,
                             leg.shape[1] - 1)
+                masks = leg[b, x]                    # (in-band cells, P)
                 if sweep:          # backward: a source path's legal targets
-                    q = np.arange(P, dtype=np.uint64)[None, :]
-                    per_cell = sum((leg[b, x, None] >> (np.uint64(8 * p_) + q))
-                                   & np.uint64(1) for p_ in range(P))
+                    for q in range(P):
+                        per_cell = ((masks >> np.uint32(q)) & 1).sum(axis=1)
+                        lse[1][0] += int(per_cell.sum())
+                        lse[1][1] += int((per_cell > 0).sum())
                 else:              # forward: a target path's legal sources
-                    per_cell = _POPCOUNT8[leg[b, x].view(np.uint8)
-                                          .reshape(-1, 8)[:, :P]]
-                lse[sweep][0] += int(per_cell.sum())
-                lse[sweep][1] += int((per_cell > 0).sum())
+                    per_cell = _POPCOUNT8[masks.view(np.uint8)].reshape(
+                        -1, P, 4).sum(axis=2)
+                    lse[0][0] += int(per_cell.sum())
+                    lse[0][1] += int((per_cell > 0).sum())
     n_ref_rows = 2 if hdp else bfb.NREF
     in_bytes = (2 * rows * 4                           # x0, width
                 + n_ref_rows * P * ref_cols * 4        # ref rows
-                + ref_cols * 8                         # legality words
+                + ref_cols * P * 4                     # legality masks
                 + bfb.NEV * ev_cols * 4                # event rows
                 + B * (bfb.NMETA + bfb.NPACK) * 4)     # meta, par
     if prob:
@@ -481,28 +490,64 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
 
 
 def barrier_latency_us(cuda_build):
-    """Microseconds of one diagonal's synchronisation in the sweeps (a
-    block max reduction and a second barrier, 1024 threads), measured by
-    csrc/barrier_probe.cu with one block per SM."""
+    """Microseconds of one diagonal's synchronisation in the sweeps,
+    measured by csrc/barrier_probe.cu with one block per SM: {(step,
+    warps): us}, step "one" (the per-pair instances: the warp maxima
+    double-buffered, one barrier) at 1 to 16 warps, "two" (the P > 2 and
+    probability-space instances: a block max reduction and a second
+    barrier) at 1 to 32 warps."""
     lib = cuda_build.load()
     out = torch.empty(132, device="cuda")
     iters = 20000
+    lat = {}
+    for one, top in ((1, 16), (0, 32)):
+        for warps in range(1, top + 1):
+            def probe():
+                rc = lib.sa_barrier_probe(
+                    132, 32 * warps, iters, one, out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+                check(rc == 0, f"sa_barrier_probe launch failed: CUDA error "
+                      f"{rc}")
+            ms, _ = cuda_ms(probe, 3)
+            lat[("one" if one else "two", warps)] = 1e3 * ms / iters
+    return lat
 
-    def probe():
-        rc = lib.sa_barrier_probe(132, 1024, iters, out.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"sa_barrier_probe launch failed: CUDA error {rc}")
-    probe()
-    ms, _ = cuda_ms(probe, 3)
-    return 1e3 * ms / iters
+
+def block_warps(hk, W, P, expect=False, backward=False):
+    """(step, warps) of the instance the forward (or ``backward``) sweep
+    launches for a bucket of P paths at width W: a per-pair instance's one
+    barrier at ceil(P W / K) threads, or a P > 2 instance's two at min(P W,
+    1024)."""
+    k = hk.cells_per_thread(W, P, expect, backward)
+    check(k != 0, f"the sweeps take no bucket of P={P} at W={W}")
+    if k > 0:
+        return "one", -(-(-(-P * W // k)) // 32)
+    return "two", min(32, -(-P * W // 32))
 
 
-def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False):
+def serial_floor_ms(hk, barrier, pt, expect=False, prob=False,
+                    backward=False):
+    """The serial-diagonal floor of a sweep on a bucket: its longest
+    problem's diagonals times one diagonal's synchronisation at the
+    block's warp count (the probability-space kernels: two barriers, W
+    threads)."""
+    key = (("two", -(-pt.W // 32)) if prob
+           else block_warps(hk, pt.W, pt.P, expect, backward))
+    return 1e-3 * barrier[key] * max(pt.n_diag)
+
+
+def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False,
+             k_cells=0):
     """Mean CUDA-event milliseconds (forward, backward) of both kernels on
     ``pt`` over ``reps`` launches each, after two warm-up calls; with
     ``expect`` their expectation instances, with ``prob`` the
-    probability-space kernels (``pt`` made with ``prob=True``)."""
-    kw = {"expect": True} if expect else {}   # as in kernel_sums
+    probability-space kernels (``pt`` made with ``prob=True``), with
+    ``k_cells`` the per-pair instance of that many cells per thread."""
+    # the arguments go in only when set, so that --kernel-sums also runs
+    # a port whose functions predate them
+    kw = {"expect": True} if expect else {}
+    if k_cells:
+        kw["k_cells"] = k_cells
     fwd, bwd = ((hk.forward_sweep_prob, hk.backward_sweep_compact_prob)
                 if prob else (hk.forward_sweep, hk.backward_sweep_compact))
     f_ms, (f, fi, lf) = cuda_ms(lambda: fwd(pt, **kw), reps)
@@ -513,12 +558,13 @@ def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False):
 
 
 def chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
-               tables=None, expect=False):
+               tables=None, expect=False, k_cells=0):
     """Both kernels on every chunk again ([(W, P, problems)], the runner's
     aligners), timed by CUDA events (one launch each after two warm-up
     calls): {(W, P): [problems, fwd ms, bwd ms, [(us per diagonal of each
     launch's longest problem, fwd, bwd)]]}. ``expect``: the expectation
-    instances."""
+    instances; ``k_cells``: the per-pair instance of that many cells per
+    thread."""
     # the tables and the expectation arguments go in only when given, so
     # that --kernel-sums also runs a port whose functions predate them
     extra = () if tables is None else (tables,)
@@ -526,7 +572,8 @@ def chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
     for W, P, probs in chunks:
         ptb = problem_tensors(probs, W, dev, *extra,
                               **({"kmer_ids": True} if expect else {}))
-        f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1, expect)
+        f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1, expect,
+                              k_cells=k_cells)
         # one block per problem: a launch lasts about as long as its
         # longest problem
         nd = max(ptb.n_diag)
@@ -538,16 +585,22 @@ def chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
     return by_wp
 
 
+def bucket_chunks(stack_chunks, buckets, expect=False):
+    """{(W, Dpad, P): problems} cut into the runner's chunks (three stack
+    rows per diagonal with ``expect``): [(W, P, problems)]."""
+    return [(W, P, [probs[i] for i in chunk])
+            for (W, Dpad, P), probs in sorted(buckets.items())
+            for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P,
+                                      3 if expect else 1)]
+
+
 def kernel_sums(hk, bfb, problem_tensors, stack_chunks, buckets, dev,
                 threshold, R, tables=None, expect=False):
     """``chunk_sums`` over {(W, Dpad, P): problems} cut into the runner's
-    chunks (three stack rows per diagonal with ``expect``)."""
-    chunks = [(W, P, [probs[i] for i in chunk])
-              for (W, Dpad, P), probs in sorted(buckets.items())
-              for chunk in stack_chunks(list(range(len(probs))), W, Dpad, P,
-                                        3 if expect else 1)]
-    return chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
-                      tables, expect)
+    chunks."""
+    return chunk_sums(hk, bfb, problem_tensors,
+                      bucket_chunks(stack_chunks, buckets, expect), dev,
+                      threshold, R, tables, expect)
 
 
 class Recorder:
@@ -677,9 +730,10 @@ def by_class_json(by_wp):
 def kernel_sums_of_tree(tree):
     """``--kernel-sums [TREE]``: the kernels of the port in TREE (a
     checkout; by default this one), timed by CUDA events on phase 3a's
-    problems (mean of 5 launches after two warm-up calls; the plain and
-    the expectation instances) and on every bucket of phases 4 (plain and
-    expectation instances), 5 (Gaussian, P <= 8) and 6 (HDP, P <= 8),
+    problems (mean of 5 launches after two warm-up calls; the plain,
+    expectation and probability-space instances) and on every bucket of
+    phases 4 (plain and expectation instances; the probability-space pair
+    on W <= 512), 5 (Gaussian), 6 (HDP) and 7c (expectation instances),
     one launch each, summed as in 5b and by (W, P) class. Prints one JSON
     line and no result line. Run it for two checkouts in turns (A, B, B,
     A) in one job on one card to compare their kernels."""
@@ -718,6 +772,9 @@ def kernel_sums_of_tree(tree):
     pt = problem_tensors(p3, 256, dev, kmer_ids=True)
     out["3a_expect_fwd_ms"], out["3a_expect_bwd_ms"] = sweep_ms(
         hk, bfb, pt, threshold, R, 5, expect=True)
+    pt = problem_tensors(p3, 256, dev, prob=True)
+    out["3a_prob_fwd_ms"], out["3a_prob_bwd_ms"] = sweep_ms(
+        hk, bfb, pt, threshold, R, 5, prob=True)
     del pt
     tables = hdp_tables(*hdp6.density_arrays(), dev)
     for phase, rgs_, ref, model_, cfg, tb in (
@@ -740,7 +797,103 @@ def kernel_sums_of_tree(tree):
                                 buckets, dev, threshold, R, expect=True)
             out["phase4_expect_fwd_sum_ms"] = sum(e[1] for e in by_wp.values())
             out["phase4_expect_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
+            # the probability-space pair on the W <= 512 buckets (8d)
+            pf = pb = 0.0
+            for W, P, probs in bucket_chunks(_stack_chunks, buckets):
+                if W <= bfb.PROB_MAX_W:
+                    f_ms, b_ms = sweep_ms(hk, bfb, problem_tensors(
+                        probs, W, dev, prob=True), threshold, R, 1, prob=True)
+                    pf, pb = pf + f_ms, pb + b_ms
+            out["phase4_prob_fwd_sum_ms"] = pf
+            out["phase4_prob_bwd_sum_ms"] = pb
         del buckets, by_wp
+    # the expectation instances on em_train's own buckets (7c: segments of
+    # at most EM_SEGMENT_DIAGONALS diagonals)
+    em_cfg = dataclasses.replace(
+        config, compute_expectations=True,
+        max_segment_diagonals=EM_SEGMENT_DIAGONALS).for_batch(len(rgs))
+    buckets = {}
+    for W, Dpad, P, prob in prepare_all(rgs, reference, model, em_cfg):
+        buckets.setdefault((W, Dpad, P), []).append(prob)
+    by_wp = kernel_sums(hk, bfb, problem_tensors, _stack_chunks, buckets, dev,
+                        threshold, R, expect=True)
+    out["phase7c_expect_fwd_sum_ms"] = sum(e[1] for e in by_wp.values())
+    out["phase7c_expect_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
+    out["phase7c_by_W_P"] = by_class_json(by_wp)
+    log(json.dumps(out))
+
+
+def k_scan():
+    """``--k-scan``: every per-pair instance (K = 1, 2, 4, 8 cells per
+    thread, where a class's cells fit the instance's thread budget) on
+    every chunk of the per-pair classes of phases 4 (P = 1), 5 (Gaussian
+    P = 2), 6 (HDP P <= 2) and 7c (the expectation instances), timed by
+    CUDA events as in 5b and summed by (W, P) class. Prints one JSON line
+    (the sums of each K beside the dispatch table's K; the measurement
+    behind pair_k in csrc/banded_fb.cu) and no result line."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: --k-scan needs a CUDA GPU")
+    from signalalign_tpu_torch.convert import hdp_tables, problem_tensors
+    from signalalign_tpu_torch.ops import banded_fb as bfb
+    from signalalign_tpu_torch.ops import banded_fb_hopper as hk
+    from signalalign_tpu_torch.pipeline.runner import _stack_chunks
+    from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
+    from signalalign_tpu_torch.utils import cuda_build
+    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                       synthetic_pore_model)
+    dev = torch.device("cuda")
+    cuda_build.load()
+    model = synthetic_pore_model(SEED_MODEL)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, reference, rgs, amb_ref, _ = build_synthetic_batch(
+            model, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
+            genome_len=400_000, fasta_path=os.path.join(tmp, "genome.fa"),
+            ambig_frac=1.0)
+        model6, hdp6, rgs6, _, ref6, cfg6 = hdp_batch(tmp)
+    config = AlignmentConfig()
+    threshold = config.threshold
+    R = hk.survivor_slots(threshold)
+    tables = hdp_tables(*hdp6.density_arrays(), dev)
+    em_cfg = dataclasses.replace(
+        config, compute_expectations=True,
+        max_segment_diagonals=EM_SEGMENT_DIAGONALS).for_batch(len(rgs))
+    out = {"device": device_line(), "k_scan": {}, "table": {}}
+    for phase, rgs_, ref, model_, cfg, tb, ps, expect in (
+            ("4", rgs, reference, model, config.for_batch(len(rgs)), None,
+             (1,), False),
+            ("5", rgs, amb_ref, model,
+             AlignmentConfig(ambig_map=AMB).for_batch(len(rgs)), None, (2,),
+             False),
+            ("6", rgs6, ref6, model6, cfg6, tables, (1, 2), False),
+            ("7c", rgs, reference, model, em_cfg, None, (1,), True)):
+        buckets = {}
+        for W, Dpad, P, prob in prepare_all(rgs_, ref, model_, cfg, hdp6
+                                            if tb is not None else None):
+            if P in ps and hk.cells_per_thread(W, P, expect) > 0:
+                buckets.setdefault((W, Dpad, P), []).append(prob)
+        by_class = {}
+        for W, P, probs in bucket_chunks(_stack_chunks, buckets, expect):
+            by_class.setdefault((W, P), []).append((W, P, probs))
+        scan, table = {}, {}
+        for (W, P), chunks in sorted(by_class.items()):
+            row = scan[f"{W},{P}"] = {}
+            table[f"{W},{P}"] = [hk.cells_per_thread(W, P, expect, bwd)
+                                 for bwd in (False, True)]
+            for K in (1, 2, 4, 8):
+                try:
+                    e = chunk_sums(hk, bfb, problem_tensors, chunks, dev,
+                                   threshold, R, tb, expect, K)[(W, P)]
+                except RuntimeError:     # outside the instance's budget
+                    continue
+                row[str(K)] = [e[0], e[1], e[2]]
+            log(f"[k-scan {phase}] W={W} P={P}: " + ", ".join(
+                f"K={k} {v[1]:.3f} / {v[2]:.3f} ms" for k, v in row.items())
+                + f" ({row[next(iter(row))][0]} problems; table K="
+                f"{table[f'{W},{P}'][0]} forward, "
+                f"{table[f'{W},{P}'][1]} backward)")
+        out["k_scan"][phase] = scan
+        out["table"][phase] = table
+        del buckets, by_class
     log(json.dumps(out))
 
 
@@ -815,7 +968,10 @@ def main():
     from signalalign_tpu_torch.pipeline import runner as runner_mod
     from signalalign_tpu_torch.utils.alphabet import DEFAULT_AMBIG_BASES
     from signalalign_tpu_torch.utils.synthetic import (outlier_segments,
-                                                       synthetic_read)
+                                                       synthetic_read,
+                                                       write_genome_fasta)
+    from signalalign_tpu_torch.io.reference import ProcessedReference
+    from signalalign_tpu_torch.pipeline.runner import prepare_read
     check("jax" not in sys.modules and "signalalign_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
 
@@ -827,9 +983,12 @@ def main():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
     cuda_build.load()
-    barrier_us = barrier_latency_us(cuda_build)
-    log(f"[build] one diagonal's two block barriers (1024 threads, a block "
-        f"per SM): {barrier_us:.4f} us")
+    barrier = barrier_latency_us(cuda_build)
+    for step, top in (("one", 16), ("two", 32)):
+        log(f"[build] one diagonal's synchronisation, {step} barrier(s), a "
+            f"block per SM, us at 1, 2, 4, 8, 16{', 32' if top > 16 else ''} "
+            "warps: " + ", ".join(f"{barrier[(step, w)]:.4f}" for w in
+                                   (1, 2, 4, 8, 16, 32) if w <= top))
 
     with tempfile.TemporaryDirectory() as tmp:
         model = synthetic_pore_model(SEED_MODEL)
@@ -848,10 +1007,12 @@ def main():
         # ---- 3a. kernels against their twins on the card
         p3 = long_p1_problems(rgs, reference, model, config)
         pt = problem_tensors(p3, 256, dev)
-        log(f"[kernels] 8 problems W=256 n_diag {min(pt.n_diag)}..{max(pt.n_diag)}")
+        log(f"[kernels] 8 problems W=256 n_diag {min(pt.n_diag)}..{max(pt.n_diag)}"
+            f", instance K={hk.cells_per_thread(256, 1)} "
+            f"({block_warps(hk, 256, 1)[1]} warps)")
         p1 = kernels_vs_twins(hk, bfb, pt, threshold, R)
         p1_bounds = sweep_bounds(bfb, pt, p1["n_kernel"])
-        p1_floor = 1e-3 * barrier_us * max(pt.n_diag)
+        p1_floor = serial_floor_ms(hk, barrier, pt)
         log(f"[kernels] sa_fwd_sweep {p1['fwd_ms']:.3f} ms, twin "
             f"{p1['fwd_plain_ms']:.1f} ms; |d total_f| {p1['tf_err']:.3e} nats "
             f"(tol {TOL_TOTAL}), |d exp(fstack)| {p1['fdiff']:.3e} (tol {TOL_POST})")
@@ -1034,7 +1195,7 @@ def main():
             r = kernels_vs_twins(hk, bfb, ptp, threshold, R)
             paths_rows[(W, P)] = r
             paths_bounds[(W, P)] = bd = sweep_bounds(bfb, ptp, r["n_kernel"])
-            log(f"[kernels P={P} W={W} K={cells_per_thread(P * W)}] "
+            log(f"[kernels P={P} W={W} K={hk.cells_per_thread(W, P)}] "
                 f"{len(probs)} problems n_diag {min(ptp.n_diag)}..{max(ptp.n_diag)}: "
                 f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
                 f"bound {bd['sa_fwd_sweep'][0]:.4f} ms by "
@@ -1043,14 +1204,56 @@ def main():
                 f"{r['bwd_plain_ms']:.1f} ms, bound "
                 f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms by "
                 f"{bd['sa_bwd_sweep_compact'][1]}), serial floor "
-                f"{1e-3 * barrier_us * max(ptp.n_diag):.3f} ms; |d total| "
+                f"{serial_floor_ms(hk, barrier, ptp):.3f} ms; |d total| "
                 f"{max(r['tf_err'], r['tb_err']):.3e} nats, |d exp(fstack)| "
                 f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
                 f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}; "
                 f"bit for bit {r['bit_equal']}")
-        ks = {cells_per_thread(P * W) for W, P in paths_rows}
-        check(ks == {1, 2, 4, 8}, f"phase 5's buckets hold cells per thread "
-              f"{sorted(ks)}, not every kernel instance 1, 2, 4, 8")
+        ks = {-hk.cells_per_thread(W, P) for W, P in paths_rows
+              if hk.cells_per_thread(W, P) < 0}
+        check(ks == {1, 2, 4, 8}, f"phase 5's buckets hold the P > 2 "
+              f"instances of cells per thread {sorted(ks)}, not every one of "
+              "1, 2, 4, 8")
+        # a P = 16 segment: two X (ACGT) sites in one k-mer of the
+        # shortest read's window, held bit for bit like the classes above;
+        # then that read through run_alignment_batch, on the GPU and CPU
+        small = sorted(rgs, key=lambda rg: rg[0].events.shape[0])[:1]
+        g16 = small[0][1]
+        site = (g16.window_start + g16.window_end) // 2
+        plain = reference.forward["synth"]
+        fa16 = os.path.join(tmp, "x16.fa")
+        write_genome_fasta(plain[:site] + "XX" + plain[site + 2:], fa16)
+        ref16 = ProcessedReference(fa16)
+        segs16 = [(W, q) for _, q, W, _, P in prepare_read(
+            *small[0], ref16, model, config)[4] if P == 16]
+        check(len(segs16) >= 1, "no P = 16 segment in the X-edited read")
+        W16 = segs16[0][0]
+        pt16 = problem_tensors([segs16[0][1]], W16, dev)
+        r = kernels_vs_twins(hk, bfb, pt16, threshold, R)
+        check(r["bit_equal"], "the P = 16 kernels differ from their twins")
+        paths_rows[(W16, 16)] = r
+        paths_bounds[(W16, 16)] = bd = sweep_bounds(bfb, pt16, r["n_kernel"])
+        on_cpu = run_alignment_batch(small, ref16, model, config,
+                                     device=torch.device("cpu"))
+        on_gpu = run_alignment_batch(small, ref16, model, config, device=dev)
+        check(len(on_cpu) == len(on_gpu) == 1, "the P = 16 read was dropped")
+        d16 = abs(on_cpu[0].total_log_prob - on_gpu[0].total_log_prob)
+        w16 = compare_pairs(on_cpu[0].aligned_pairs, on_gpu[0].aligned_pairs,
+                            threshold)
+        check(d16 <= TOL_TOTAL and w16 <= TOL_PATH,
+              f"the P = 16 read: totals {d16}, pairs {w16}")
+        log(f"[kernels P=16 W={W16} K={hk.cells_per_thread(W16, 16)}] 1 "
+            f"problem n_diag {pt16.n_diag[0]} (two X sites in one k-mer): "
+            f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f}"
+            f" ms, bound {bd['sa_fwd_sweep'][0]:.4f} ms), sa_bwd_sweep_compact "
+            f"{r['bwd_ms']:.3f} ms (twin {r['bwd_plain_ms']:.1f} ms, bound "
+            f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms), serial floor "
+            f"{serial_floor_ms(hk, barrier, pt16):.3f} ms; bit for bit "
+            f"{r['bit_equal']}, survivors {r['n_kernel']} on paths "
+            f"{r['paths']}; the read through run_alignment_batch: gpu = cpu, "
+            f"|d total| {d16:.3e} nats, |d p| {w16:.3e} (tol {TOL_PATH}), "
+            f"{len(on_gpu[0].aligned_pairs)} pairs")
+        del pt16, segs16, ref16
         check(sum(min(2, len(v)) for (_, P), v in by_class.items() if P == 8)
               >= 2, "fewer than two P=8 problems")
 
@@ -1165,8 +1368,8 @@ def main():
             r = kernels_vs_twins(hk, bfb, pth, threshold, R)
             hdp_rows[(W, P)] = r
             hdp_bounds[(W, P)] = bd = sweep_bounds(bfb, pth, r["n_kernel"])
-            floor = 1e-3 * barrier_us * max(pth.n_diag)
-            log(f"[hdp kernels P={P} W={W} K={cells_per_thread(P * W)}] "
+            floor = serial_floor_ms(hk, barrier, pth)
+            log(f"[hdp kernels P={P} W={W} K={hk.cells_per_thread(W, P)}] "
                 f"{len(probs)} problems n_diag {min(pth.n_diag)}..{max(pth.n_diag)}: "
                 f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f} ms, "
                 f"bound {bd['sa_fwd_sweep'][0]:.4f} ms by "
@@ -1180,8 +1383,8 @@ def main():
                 f"{r['fdiff']:.3e}, |d posterior| {r['pdiff']:.3e}, survivors "
                 f"{r['n_kernel']} vs {r['n_twin']} on paths {r['paths']}; "
                 f"bit for bit {r['bit_equal']}")
-        ks6 = sorted({cells_per_thread(P * W) for W, P in hdp_rows})
-        log(f"[hdp kernels] instances held here K={ks6}; "
+        ks6 = sorted({hk.cells_per_thread(W, P) for W, P in hdp_rows})
+        log(f"[hdp kernels] instances held here K={ks6} (negative: P > 2); "
             "tests/test_torch_kernels_cuda.py holds HDP at K=1, 2, 4, 8")
         del tables, pth    # pth.hdp holds the tables too
 
@@ -1353,16 +1556,21 @@ def main():
                 pte = problem_tensors(probs, W, dev, tb, kmer_ids=True)
                 r = expect_vs_twins(hk, bfb, pte, threshold, R)
                 r["bounds"] = sweep_bounds(bfb, pte, r["n_kernel"], True)
-                r["floor"] = 1e-3 * barrier_us * max(pte.n_diag)
+                r["floor"] = [serial_floor_ms(hk, barrier, pte, True,
+                                              backward=bwd)
+                              for bwd in (False, True)]
                 exp_rows[(tag, W)] = r
-                log(f"[em kernels {tag} W={W} K={cells_per_thread(W)}] "
+                log(f"[em kernels {tag} W={W} K="
+                    f"{hk.cells_per_thread(W, 1, True)}/"
+                    f"{hk.cells_per_thread(W, 1, True, True)}] "
                     f"{len(probs)} problems n_diag {min(pte.n_diag)}.."
                     f"{max(pte.n_diag)}: expect fwd {r['fwd_ms']:.3f} ms (twin "
                     f"{r['fwd_plain_ms']:.1f} ms, bound "
                     f"{r['bounds']['sa_fwd_sweep'][0]:.4f} ms), bwd "
                     f"{r['bwd_ms']:.3f} ms (twin {r['bwd_plain_ms']:.1f} ms, "
                     f"bound {r['bounds']['sa_bwd_sweep_compact'][0]:.4f} ms), "
-                    f"floor {r['floor']:.3f} ms; stacks, totals, survivors "
+                    f"floor {r['floor'][0]:.3f} / {r['floor'][1]:.3f} ms; "
+                    "stacks, totals, survivors "
                     f"equal ({r['n_kernel']}); texp rel {r['texp_rel']:.3e} "
                     f"(abs {r['texp_abs']:.3e}, sum {r['texp_sum']:.1f}), kx "
                     f"rel {r['kx_rel']:.3e} (tol {TOL_EXPECT})")
@@ -1370,8 +1578,8 @@ def main():
         # before phase 8 measures its own peak
         del tb, tables, pte
         log(f"[em kernels] instances held here K="
-            f"{sorted({cells_per_thread(W) for _, W in exp_rows})}; "
-            "tests/test_torch_kernels_cuda.py holds K=1 and K=2 (W=1280)")
+            f"{sorted({hk.cells_per_thread(W, 1, True) for _, W in exp_rows})}"
+            "; tests/test_torch_kernels_cuda.py holds every K")
         # the eight longest W=256 problems of 7c's iteration 0: expectation
         # and plain instances on the same problems, by CUDA events
         long7 = sorted((p_ for W, _, probs, _ in made7 if W == 256
@@ -1380,7 +1588,9 @@ def main():
         ptl = problem_tensors(long7, 256, dev, kmer_ids=True)
         em_main = expect_vs_twins(hk, bfb, ptl, threshold, R)
         em_main["bounds"] = sweep_bounds(bfb, ptl, em_main["n_kernel"], True)
-        em_main["floor"] = 1e-3 * barrier_us * max(ptl.n_diag)
+        em_main["floor"] = [serial_floor_ms(hk, barrier, ptl, True,
+                                            backward=bwd)
+                            for bwd in (False, True)]
         plain_f, plain_b = sweep_ms(hk, bfb, ptl, threshold, R, 5)
         log(f"[em kernels] 8 problems W=256 n_diag {min(ptl.n_diag)}.."
             f"{max(ptl.n_diag)}: expect fwd {em_main['fwd_ms']:.3f} ms, bwd "
@@ -1390,7 +1600,8 @@ def main():
             f"bounds " + ", ".join(
                 f"{k} {v[0]:.4f} ms ({v[1]})"
                 for k, v in em_main["bounds"].items())
-            + f"; floor {em_main['floor']:.3f} ms; texp rel "
+            + f"; floor {em_main['floor'][0]:.3f} / "
+            f"{em_main['floor'][1]:.3f} ms; texp rel "
             f"{em_main['texp_rel']:.3e}, kx rel {em_main['kx_rel']:.3e}")
         del ptl, long7
 
@@ -1424,7 +1635,7 @@ def main():
         pa = prob_vs_twins(hk, bfb, ptc, threshold, R)
         check(not all(pa["tripped"]), "every error-free problem tripped")
         pa["bounds"] = sweep_bounds(bfb, ptc, pa["n_kernel"], prob=True)
-        pa["floor"] = 1e-3 * barrier_us * max(ptc.n_diag)
+        pa["floor"] = serial_floor_ms(hk, barrier, ptc, prob=True)
         pa["log_fwd_ms"], pa["log_bwd_ms"] = sweep_ms(
             hk, bfb, problem_tensors(clean_p, 256, dev), threshold, R, 5)
         log(f"[prob kernels] {len(ptc.n_diag)} problems of error-free reads, "
@@ -1658,7 +1869,7 @@ def main():
             "bound_ms": em_main["bounds"][name][0],
             "bound_by": em_main["bounds"][name][1],
             "library_ms": None,
-            "serial_floor_ms": em_main["floor"],
+            "serial_floor_ms": em_main["floor"][ms == "bwd_"],
             "launches_by_phase": by_phase,
             "plain_instance_ms": plain_f if ms == "fwd_" else plain_b,
             "max_rel_err_texp": max(r["texp_rel"] for r in exp_rows.values()),
@@ -1702,7 +1913,9 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--kernel-sums"]:
+    if sys.argv[1:2] == ["--k-scan"]:
+        k_scan()
+    elif sys.argv[1:2] == ["--kernel-sums"]:
         kernel_sums_of_tree(sys.argv[2] if len(sys.argv) > 2
                              else os.path.dirname(os.path.abspath(__file__)))
     else:

@@ -94,12 +94,16 @@ def _check_slice(p: bfb.BandedProblem) -> None:
 
 
 def legality_bits(legal: np.ndarray) -> np.ndarray:
-    """(P, P, LX) bool ``legal[p_to, q_from, x]`` -> (LX,) int64 with bit
-    p_to*MAX_P + q_from set where the transition is legal."""
+    """(P, P, LX) bool ``legal[p_to, q_from, x]`` -> (LX, P) int32 masks,
+    one per (position, target path): bit q_from of ``[x, p_to]`` is set
+    where the transition is legal (P <= MAX_P = 32)."""
     P = legal.shape[0]
-    bit = (np.arange(P)[:, None] * bfb.MAX_P + np.arange(P)[None, :])
-    words = (legal.astype(np.uint64) << bit[:, :, None].astype(np.uint64))
-    return words.sum(axis=(0, 1), dtype=np.uint64).view(np.int64)
+    if P > bfb.MAX_P:
+        raise ValueError(f"P={P} paths: a legality mask holds {bfb.MAX_P}")
+    bit = np.uint32(1) << np.arange(P, dtype=np.uint32)
+    masks = (legal.astype(np.uint32) * bit[None, :, None]).sum(
+        axis=1, dtype=np.uint32)
+    return np.ascontiguousarray(masks.T).view(np.int32)
 
 
 def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
@@ -107,7 +111,7 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
                     hdp: Optional[bfb.HdpTables] = None,
                     kmer_ids: bool = False,
                     prob: bool = False) -> bfb.ProblemTensors:
-    """Stack one bucket's problems (P <= 8 paths, the bucket's P is their
+    """Stack one bucket's problems (P <= 32 paths, the bucket's P is their
     largest) into padded tensors on ``device`` (one host-to-device copy
     per tensor). A MODE_HDP bucket also gets per-(problem, path, position)
     k-mer ids and level means, and needs ``hdp``: the run's tables on
@@ -150,7 +154,8 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
     x0 = np.zeros((B, D1), np.int32)
     width = np.zeros((B, D1), np.int32)
     ref = np.zeros((B, bfb.NREF, P, LX), np.float32)
-    leg = np.zeros((B, LX), np.int64)
+    leg = np.zeros((B, LX, P), np.int32)
+    leg_src = np.zeros((B, LX, P), np.int32)
     ev = np.zeros((B, bfb.NEV, LE), np.float32)
     meta = np.zeros((B, bfb.NMETA), np.int32)
     par = np.zeros((B, bfb.NPACK), np.float32)
@@ -165,7 +170,9 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         lx = p.ref_params.shape[-1]
         le = p.ev_params.shape[-1]
         ref[i, :, :p.ref_params.shape[1], :lx] = p.ref_params[:bfb.NREF]
-        leg[i, :lx] = legality_bits(p.legal)
+        leg[i, :lx, :p.legal.shape[0]] = legality_bits(p.legal)
+        leg_src[i, :lx, :p.legal.shape[0]] = legality_bits(
+            p.legal.transpose(1, 0, 2))
         ev[i, 0, :le] = p.ev_params[0]
         ev[i, 1, :le] = p.ev_params[3]
         meta[i, [bfb.M_LX, bfb.M_LY, bfb.M_NDIAG, bfb.M_EVPAD, bfb.M_REFLEN,
@@ -190,7 +197,8 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
                          f"{x0.device}")
     return bfb.ProblemTensors(
         W=W, P=P, n_diag=[p.n_diag for p in problems], x0=x0,
-        width=dev(width), ref=dev(ref), leg=dev(leg), ev=dev(ev),
+        width=dev(width), ref=dev(ref), leg=dev(leg),
+        leg_src=dev(leg_src), ev=dev(ev),
         meta=dev(meta), par=dev(par),
         kid=dev(kid) if with_kid else None, mu=dev(mu) if hdp_mode else None,
         hdp=hdp, prob=pt_prob)

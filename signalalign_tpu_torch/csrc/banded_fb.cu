@@ -1,6 +1,6 @@
 // Hand-written Hopper kernels for the banded forward-backward of
 // signalalign_tpu_torch: MODE_MEAN_ONLY Gaussian or MODE_HDP spline
-// emissions, 1 <= P <= 8 paths per cell (degenerate reference positions
+// emissions, 1 <= P <= 32 paths per cell (degenerate reference positions
 // expand into paths).
 //
 // sa_fwd_sweep replaces the TPU forward kernels
@@ -22,52 +22,80 @@
 // not copy the TPU layout (x-frame lanes, 128-lane stripes, paths in
 // lanes with lane rolls and legality planes, ring re-basing, TwoSum
 // scans): cell (d, p, o) is x = x0[d] + o, y = d - x on path p; a block
-// holds all P paths of a problem, legality is one 64-bit word per
-// reference position (bit p_to*8 + q_from), and the backward offset is a
-// plain double.
+// holds all P paths of a problem, legality is one 32-bit mask per
+// (reference position, target path) (bit q: legal from source path q),
+// and the backward offset is a plain double.
 //
 // What bounds them on this card: the serial chain of anti-diagonals. A
 // diagonal depends on the two before it, so one problem is one block that
-// walks its own n_diag diagonals in order, with two block barriers per
-// diagonal (one inside the max reduction, one before the next diagonal
-// reads the ring). At P = 1 the work per diagonal is small (W cells, ~9
-// transcendentals each), so the barrier latency, not device-memory
-// bandwidth or arithmetic, sets the time of one problem; throughput comes
-// from many problems in flight (one block each). At P > 2 each cell adds
-// two logsumexps over its legal paths (an exponential per legal path
-// pair, a logarithm per logsumexp) and, forward, the three logaddexp
-// terms its successors read.
+// walks its own n_diag diagonals in order. At P <= 2 the work per
+// diagonal is small (W or 2W cells, ~9 transcendentals each), so latency,
+// not device-memory bandwidth or arithmetic, sets the time of one
+// problem: the block barriers, and every load whose result a diagonal
+// waits for; throughput comes from many problems in flight (one block
+// each). At P > 2 each cell adds two logsumexps over its legal paths (an
+// exponential per legal path pair, a logarithm per logsumexp) and,
+// forward, the three logaddexp terms its successors read.
 //
-// What the design does about it: the two live diagonals of all three
-// states sit in a shared-memory ring (6 P W floats, 192 KB at P*W = 8192);
-// each thread keeps its K <= 8 cells of the new diagonal in registers
-// until the max reduction's barrier has passed (every read of the ring is
-// done by then) and only then overwrites the oldest diagonal. Emissions
-// are computed inline from the per-position tables (no emission stack in
-// device memory) and each block stops at its own n_diag. The backward
-// kernel folds the posterior, the threshold and the survivor compaction
-// into the sweep (a warp ballot + per-warp counts published by the
-// diagonal's second barrier), so no posterior stack is ever written.
+// Two designs, picked per bucket by the dispatch at the end of this file.
 //
-// The P > 2 instances (template flag PATHS) compute every term that does
-// not depend on the path at the other end of a transition once per cell,
-// not once per (source, target) pair. The forward's ring holds, in place
-// of a cell's three states, the three terms later diagonals read from it
-// (src_terms: gapX and gapY of d+1, match of d+2 before its m_prev), so a
-// target cell's logsumexp over its source paths reads the legal ones'
-// terms from shared memory, with no logaddexp inside; reads outside the
-// window take the terms of NEG states, computed once per block, and the
-// end logsumexp takes the last diagonal's states from registers. The backward first writes each
-// cell's target terms (gapX TO and match TO on its own path, with the
-// match-to emission, the HDP spline among them) into the two planes of
-// the oldest ring slot that are dead at that step, then, after one more
-// barrier (a warp's when P divides 32: an offset's P cells are then in
-// one warp), reduces each source cell over the legal targets from there.
+// The per-pair instances (P <= PAIR_P = 2 and P * W <= PAIR_CELLS; the
+// EXPECT ones) wait on one block barrier per diagonal:
+// - a ring of three slots holds *raw* (un-normalised) states, stored
+//   clamped at NEG: diagonal d goes to slot d mod 3, whose last reader
+//   (diagonal d-1) finished before the barrier of d-1. A reader
+//   normalises at read time by subtracting the diagonal's max m: for a
+//   stored v >= NEG, v - m equals the twin's fmaxf(raw - m, NEG) bit for
+//   bit (NEG - m rounds to NEG), so the stacks, increments and totals
+//   equal the twin's. One subtraction a read: the clamp and the select
+//   of diagonal 0's raw start logs at every read cost the forward 18%
+//   (H100, PERF.md §6);
+// - the per-warp maxima are double-buffered by diagonal parity: after a
+//   diagonal's single barrier every thread forms its max m(d) from them,
+//   then writes the diagonal's stack rows and offset from registers;
+// - the backward forms diagonal d's posteriors, ballots and warp counts
+//   after barrier d, and the barrier of d-1 publishes the counts: d's
+//   survivor slots are written one step later, in the same cell order;
+// - what the next diagonal waits on from device memory is loaded before
+//   the barrier: the band origin and width two diagonals ahead, and in
+//   the backward each cell's forward state(s) and cvecf one ahead. The
+//   reference rows, events and legality masks are loaded at the diagonal,
+//   as the P > 2 instances do: their lines serve ~64 diagonals from L1,
+//   and staging them a diagonal ahead in registers measured slower;
+// - EXPECT's per-position moment sums live in a shared-memory window over
+//   the band's positions (one slot per position mod W, tagged with its
+//   position) and are added to device memory, without waiting, when a
+//   position leaves the window or the sweep ends: still one writer per
+//   position per diagonal, in diagonal order, so the double sums keep
+//   their order and are deterministic (a read-modify-write of kx in
+//   device memory per cell had put an L2 round trip on every diagonal);
+// - cells per thread K come from a table measured on an H100 (pair_k):
+//   the most threads the instance's register budget allows won at every
+//   class. A block of one warp synchronises with __syncwarp and reduces
+//   with shuffles alone.
+// What bounds them is the dependent chain of each cell's logaddexps
+// (precise expf and log1pf) and the issue slots of a problem's few warps,
+// more than the barrier: the one-barrier ring without any read-time
+// normalisation measured only 7% below the two-barrier design.
+//
+// The P > 2 instances (PATHS) compute every term that does not depend on
+// the path at the other end of a transition once per cell, not once per
+// (source, target) pair, with two barriers per diagonal. The forward's
+// ring holds, in place of a cell's three states, the three terms later
+// diagonals read from it (src_terms: gapX and gapY of d+1, match of d+2
+// before its m_prev), so a target cell's logsumexp over its source paths
+// reads the legal ones' terms from shared memory, with no logaddexp
+// inside; reads outside the window take the terms of NEG states,
+// computed once per block, and the end logsumexp takes the last
+// diagonal's states from registers. The backward first writes each cell's
+// target terms (gapX TO and match TO on its own path, with the match-to
+// emission, the HDP spline among them) into the two planes of the oldest
+// ring slot that are dead at that step, then, after one more barrier (a
+// warp's when P divides 32: an offset's P cells are then in one warp),
+// reduces each source cell over the legal targets from there. They also
+// take P <= 2 buckets too wide for the per-pair instances' shared memory.
 // Every operation and its order are those of the twin's, so the results
-// stay equal bit for bit. P = 1 and 2 keep the per-pair instances: at two
-// paths a block of at most 16 warps waits on latency, and the terms'
-// nested logaddexp behind the max barrier and the backward's extra stage
-// measured up to 17% slower there (PERF.md §6); EXPECT is unchanged.
+// stay equal bit for bit.
 //
 // HDP emissions (log((1/var) * Hermite spline of the descaled mean) over
 // the k-mer's density/slope rows on a uniform grid, hdp_log_emission
@@ -77,38 +105,35 @@
 // trees and `ebnd` boundary rows, only because Mosaic has no gather
 // (emission_stream.py:1-29); here each spline is four loads from the
 // k-mer's table rows in device memory (two density, two slope values at
-// the interval's knots). What bounds the HDP instances is still the
-// serial diagonal chain, now lengthened by that gather chain: the tables
-// (2 x 224 MB at 46,656 k-mers x 1,200 points) do not fit the 50 MB L2,
-// but within a block the k-mer row is fixed per (position, path) and
-// neighbouring diagonals read nearby knots, so the loads mostly hit L1/L2.
-// The backward evaluates the match-to emission once per legal (source,
-// target) path pair (up to P^2 per offset); illegal pairs skip it. The
-// Gaussian instances compile without any of it (if constexpr), to the
-// code of the Gaussian-only kernels.
+// the interval's knots). The tables (2 x 224 MB at 46,656 k-mers x 1,200
+// points) do not fit the 50 MB L2, but within a block the k-mer row is
+// fixed per (position, path) and neighbouring diagonals read nearby
+// knots, so the loads mostly hit L1/L2. The backward evaluates the
+// match-to emission once per legal (source, target) path pair at P <= 2
+// and once per (offset, path) at P > 2; illegal pairs skip it. The
+// Gaussian instances compile without any of it (if constexpr).
 //
-// The EM expectation pass (template flag EXPECT, P = 1 only, K in {1, 2})
-// replaces the `expect` mode of _fwd_kernel_log / _bwd_kernel_log: the
-// forward writes all three normalised states of each diagonal (fstack
-// (B, D1, 3, W)); the backward, at each FROM diagonal d < n_diag, already
-// holds the to-cell reductions gx_red, mm_red and gy_term of every cell,
-// so it adds the seven transition posteriors exp(f_s + t + red + normA),
-// normA = cvecf[d] + Bo(d+1), into per-thread double sums (one block
-// reduction at the end, in a fixed order: texp (B, 7)), and in the
-// Gaussian instance the into-match posterior's moments [p, p dx, p dx^2],
-// dx = (event mean - m_hat(x+1)) / var, into kx[b, :, x+1] in device
-// memory (double). A position has one writer per diagonal and the
-// diagonal's barriers order successive writers, so kx needs no atomics and
-// its sums are deterministic. The HDP instance accumulates texp only (the
-// TPU kernel's contract: HDP emissions train from assignments, not
-// Gaussian moments). The non-expect instances compile without any of it
-// (if constexpr).
+// The EM expectation pass (template flag EXPECT, P = 1 only) replaces the
+// `expect` mode of _fwd_kernel_log / _bwd_kernel_log: the forward writes
+// all three normalised states of each diagonal (fstack (B, D1, 3, W)); the
+// backward, at each FROM diagonal d < n_diag, already holds the to-cell
+// reductions gx_red, mm_red and gy_term of every cell, so it adds the
+// seven transition posteriors exp(f_s + t + red + normA), normA = cvecf[d]
+// + Bo(d+1), into per-thread double sums (one block reduction at the end,
+// in a fixed order: texp (B, 7)), and in the Gaussian instance the
+// into-match posterior's moments [p, p dx, p dx^2], dx = (event mean -
+// m_hat(x+1)) / var, into kx[b, :, x+1] (the window above). The HDP
+// instance accumulates texp only (the TPU kernel's contract: HDP
+// emissions train from assignments, not Gaussian moments). The non-expect
+// instances compile without any of it (if constexpr).
 //
 // Numerics: float32 values with precise expf/logf/log1pf (no fast math),
 // built with --fmad=false so each operation rounds as in the plain twin,
 // the logaddexp formulation of torch.logaddexp and the twin's legal
 // logsumexp over paths (max, then exp-sum in path order); the backward
 // running offset and the forward normaliser stream cvecf are float64.
+// Only the end-of-sweep logsumexp (block_lse_cells) and EXPECT's texp sum
+// in thread order, so they depend on K.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,11 +151,19 @@ constexpr int M_LX = 0, M_LY = 1, M_NDIAG = 2, M_EVPAD = 3, M_REFLEN = 4,
               M_EVLEN = 5;
 constexpr int PACK_TRANS = 0, PACK_START = 9, PACK_END = 12, PACK_GAPX = 15,
               PACK_VAR = 16;
-constexpr int MAX_P = 8;                        // legality: 8 bits per path
+constexpr int MAX_P = 32;                       // legality: one bit per path
 constexpr int PAIR_P = 2;   // the per-pair instances' paths (P > 2: PATHS)
+// the per-pair instances' cells: 9 P W floats of ring in shared memory
+constexpr int PAIR_CELLS = 2048;
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_K = 8;                        // cells per thread
 constexpr int MAX_CELLS = MAX_K * MAX_THREADS;  // P * W
+
+// threads a per-pair instance of K cells per thread is built for (its
+// register budget: 65,536 / threads); the dispatch keeps within it
+__host__ __device__ constexpr int pair_threads(int K) {
+  return K >= 8 ? 256 : 512;
+}
 
 __device__ __forceinline__ float lae(float a, float b) {
   float m = fmaxf(a, b);
@@ -165,7 +198,7 @@ __device__ __forceinline__ float legal_lse(const float* v, int P) {
 // illegal path's NEG keeps the max at NEG or above and adds expf(NEG -
 // mx) to the sum: exactly 0 when mx > NEG (the next float above NEG is
 // 2^76 away), so it is skipped; when mx == NEG every term is 0 or 1 and
-// the result NEG + logf(s) rounds to NEG for any s in [1, 8]. The legal
+// the result NEG + logf(s) rounds to NEG for any s in [1, 32]. The legal
 // paths add in path order, as in the twin, and a warp runs each loop as
 // often as its lane with the most legal paths (one or two, mostly).
 __device__ __forceinline__ float legal_lse_row(const float* row, float fill,
@@ -240,6 +273,12 @@ __device__ __forceinline__ float hdp_log_emission(float x, int k, float var,
   return v > 0.f ? logf(fmaxf(v, 1e-37f)) : NEG;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 // Block-wide max or sum; blockDim.x is a multiple of 32. Contains one
 // barrier; the caller separates a reuse of `part` from earlier readers.
 template <bool SUM>
@@ -309,7 +348,10 @@ struct Problem {
   const int* x0;
   const int* width;
   const float* ref;                 // (NREF, P, LX)
-  const unsigned long long* leg;    // (LX,) legality words
+  // (LX, P) legality masks: the forward's by target path (bit q: legal
+  // from source path q), the backward's by source path (bit p: legal to
+  // target path p)
+  const unsigned* leg;
   const float* ev;                  // (NEV, LE)
   int lX, lY, nd, efp, reflen, evlen, P, LX, LE;
   float t[9], start[3], end[3], gapx;
@@ -319,7 +361,7 @@ struct Problem {
   float var;
 
   __device__ void load(const int* x0_, const int* width_, const float* ref_,
-                       const unsigned long long* leg_, const float* ev_,
+                       const unsigned* leg_, const float* ev_,
                        const int* meta_, const float* par_, const HdpTab& h,
                        int D1, int P_, int LX_, int LE_) {
     const int b = blockIdx.x;
@@ -328,7 +370,7 @@ struct Problem {
     ref = ref_ + (size_t)b * NREF * P_ * LX_;
     kid = h.kid ? h.kid + (size_t)b * P_ * LX_ : nullptr;
     mu = h.mu ? h.mu + (size_t)b * P_ * LX_ : nullptr;
-    leg = leg_ + (size_t)b * LX_;
+    leg = leg_ + (size_t)b * LX_ * P_;
     ev = ev_ + (size_t)b * NEV * LE_;
     P = P_;
     LX = LX_;
@@ -355,6 +397,11 @@ struct Problem {
     return ref[((size_t)r * P + p) * LX + x];
   }
 
+  // legality mask of path p at column x (see `leg`)
+  __device__ __forceinline__ unsigned lg(int x, int p) const {
+    return leg[(size_t)x * P + p];
+  }
+
   // HDP log emission of path p at column x for an event of mean ev_mean:
   // descaled mean mu + (ev_mean - m_hat) / var (the XLA formula)
   __device__ __forceinline__ float hdp(int p, int x, float m_hat,
@@ -370,84 +417,66 @@ __device__ __forceinline__ float rd(const float* slot, int s, int i, int p,
   return (i >= 0 && i < W) ? slot[s * N + i * P + p] : NEG;
 }
 
-// ---------------------------------------------------------------- forward
 
-template <int K, bool HDP, bool EXPECT, bool PATHS>
-__global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
+// ------------------------------------------------ P > 2 (PATHS) instances
+
+template <int K, bool HDP>
+__global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
-    const float* __restrict__ ref_,
-    const unsigned long long* __restrict__ leg_,
+    const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
     const float* __restrict__ ev_, const int* __restrict__ meta_,
     const float* __restrict__ par_, const HdpTab h,
     float* __restrict__ fstack, float* __restrict__ f_incr,
     float* __restrict__ lse_f, int D1, int W, int P_, int LX, int LE) {
   extern __shared__ float smem[];
   const int N = P_ * W;
-  // [2 slots][3 states][N], cell o*P + p; PATHS: [2 slots][3 source
-  // terms SRC_X, SRC_Y, SRC_M][N]
+  // [2 slots][3 source terms SRC_X, SRC_Y, SRC_M][N], cell o*P + p
   float* ring = smem;
   float* part = smem + 6 * N;      // [32] reduction partials
   __shared__ Problem pr;
   if (threadIdx.x == 0)
     pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE);
-  // PATHS: the terms of a cell whose states are NEG: every cell outside
-  // the band, and every read outside the window
-  SrcTerms neg{NEG, NEG, NEG};
-  if constexpr (PATHS) {
-    neg = src_terms(NEG, NEG, NEG,
-                    par_ + (size_t)blockIdx.x * NPACK + PACK_TRANS);
-    for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) {
-      const int pl = (i / N) % 3;
-      ring[i] = pl == SRC_X ? neg.x : pl == SRC_Y ? neg.y : neg.m;
-    }
-  } else {
-    for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) ring[i] = NEG;
+  // the terms of a cell whose states are NEG: every cell outside the
+  // band, and every read outside the window
+  const SrcTerms neg = src_terms(NEG, NEG, NEG,
+                                 par_ + (size_t)blockIdx.x * NPACK + PACK_TRANS);
+  for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) {
+    const int pl = (i / N) % 3;
+    ring[i] = pl == SRC_X ? neg.x : pl == SRC_Y ? neg.y : neg.m;
   }
   __syncthreads();
 
   const int b = blockIdx.x;
   const int P = pr.P;
-  // (D1, P, W); EXPECT: (D1, 3, P, W)
-  float* fs = fstack + (size_t)b * D1 * N * (EXPECT ? 3 : 1);
+  float* fs = fstack + (size_t)b * D1 * N;   // (D1, P, W)
   float* inc = f_incr + (size_t)b * D1;
   const int nd = pr.nd;
   for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) inc[d] = 0.f;
 
   // diagonal 0: the single start cell (0, 0) on path 0, in slot 0
   if (threadIdx.x == 0) {
-    if constexpr (PATHS) {
-      const SrcTerms st = src_terms(pr.start[MATCH], pr.start[GAP_X],
-                                    pr.start[GAP_Y], pr.t);
-      ring[SRC_X * N] = st.x;
-      ring[SRC_Y * N] = st.y;
-      ring[SRC_M * N] = st.m;
-    } else {
-      for (int s = 0; s < 3; ++s) ring[s * N] = pr.start[s];
-    }
+    const SrcTerms st = src_terms(pr.start[MATCH], pr.start[GAP_X],
+                                  pr.start[GAP_Y], pr.t);
+    ring[SRC_X * N] = st.x;
+    ring[SRC_Y * N] = st.y;
+    ring[SRC_M * N] = st.m;
     inc[0] = 0.f;
   }
-  if constexpr (EXPECT) {
-    for (int c = threadIdx.x; c < 3 * N; c += blockDim.x)
-      fs[c] = c % N == 0 ? pr.start[c / N] : NEG;
-  } else {
-    for (int c = threadIdx.x; c < N; c += blockDim.x)
-      fs[c] = c == 0 ? pr.start[MATCH] : NEG;
-  }
+  for (int c = threadIdx.x; c < N; c += blockDim.x)
+    fs[c] = c == 0 ? pr.start[MATCH] : NEG;
   __syncthreads();
 
   const float* tr = pr.t;
   float m_prev = 0.f;
-  // this thread's cells of the diagonal in hand; PATHS: after the loop,
-  // the normalised states of diagonal nd (the ring holds terms)
+  // this thread's cells of the diagonal in hand; after the loop, the
+  // normalised states of diagonal nd (the ring holds terms)
   float vm[K], vx[K], vy[K];
-  if constexpr (PATHS) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const bool c0 = threadIdx.x + k * blockDim.x == 0;
-      vm[k] = c0 ? pr.start[MATCH] : NEG;
-      vx[k] = c0 ? pr.start[GAP_X] : NEG;
-      vy[k] = c0 ? pr.start[GAP_Y] : NEG;
-    }
+  for (int k = 0; k < K; ++k) {
+    const bool c0 = threadIdx.x + k * blockDim.x == 0;
+    vm[k] = c0 ? pr.start[MATCH] : NEG;
+    vx[k] = c0 ? pr.start[GAP_X] : NEG;
+    vy[k] = c0 ? pr.start[GAP_Y] : NEG;
   }
   for (int d = 1; d <= nd; ++d) {
     float* cur = ring + (d & 1) * 3 * N;        // holds d-2 until written
@@ -469,24 +498,18 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
       if (c < N && o < wd) {
         const int xr = rs + o, je = es + o;
         bool kvalid;
-        unsigned lb;
         float e_match, e_stay;
+        const float m_hat = pr.rf(0, p, xr), inv_m = pr.rf(1, p, xr);
+        const float ev_mean = pr.ev[je];
+        kvalid = inv_m > 0.f;
+        const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
+        const unsigned lb = pr.lg(xr, p);
         if constexpr (HDP) {
-          const float m_hat = pr.rf(0, p, xr), inv_m = pr.rf(1, p, xr);
-          const float ev_mean = pr.ev[je];
-          kvalid = inv_m > 0.f;
-          const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
-          lb = (unsigned)(pr.leg[xr] >> (p * MAX_P)) & 0xffu;
           // stay = match (emissions_signal_getHdpKmerDensity)
           e_match = e_stay = ok ? pr.hdp(p, xr, m_hat, ev_mean, h) : NEG;
         } else {
-          const float m_hat = pr.rf(0, p, xr), inv_m = pr.rf(1, p, xr),
-                      c_m = pr.rf(2, p, xr), inv_y = pr.rf(3, p, xr),
+          const float c_m = pr.rf(2, p, xr), inv_y = pr.rf(3, p, xr),
                       c_y = pr.rf(4, p, xr);
-          const float ev_mean = pr.ev[je];
-          kvalid = inv_m > 0.f;
-          const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
-          lb = (unsigned)(pr.leg[xr] >> (p * MAX_P)) & 0xffu;
           const float am = (ev_mean - m_hat) * inv_m;
           const float ay = (ev_mean - m_hat) * inv_y;
           e_match = ok ? c_m - 0.5f * am * am : NEG;
@@ -495,42 +518,18 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
         const float e_gapx = kvalid ? pr.gapx : NEG;
 
         // gapX from (x-1, y) and match from (x-1, y-1), over the legal
-        // source paths q
+        // source paths q: one pass over the terms the source cells wrote
         const int il = o + s1, im = o + s2;
-        if constexpr (PATHS) {
-          // one pass over the terms the source cells wrote
-          const float* rx = il >= 0 && il < W ? p1 + SRC_X * N + il * P
-                                              : nullptr;
-          const float* rm = im >= 0 && im < W ? p2 + SRC_M * N + im * P
-                                              : nullptr;
-          gx = legal_lse_row(rx, neg.x, 0.f, lb, P) + e_gapx;
-          mm = legal_lse_row(rm, neg.m, m_prev, lb, P) + e_match;
-          // gapY from (x, y-1), same path
-          const int iy = il + 1;
-          gy = (iy >= 0 && iy < W ? p1[SRC_Y * N + iy * P + p] : neg.y) +
-               e_stay;
-        } else {
-          float srx[PAIR_P], srm[PAIR_P];
-#pragma unroll
-          for (int q = 0; q < PAIR_P; ++q) {
-            if (q < P) {
-              const bool leg = (lb >> q) & 1u;
-              const float sx = lae(rd(p1, MATCH, il, q, W, N, P) + tr[T_MX],
-                                   rd(p1, GAP_X, il, q, W, N, P) + tr[T_XX]);
-              const float sm =
-                  lae(lae(rd(p2, MATCH, im, q, W, N, P) + tr[T_MM],
-                          rd(p2, GAP_X, im, q, W, N, P) + tr[T_XM]),
-                      rd(p2, GAP_Y, im, q, W, N, P) + tr[T_YM]) - m_prev;
-              srx[q] = leg ? sx : NEG;
-              srm[q] = leg ? sm : NEG;
-            }
-          }
-          gx = (P == 1 ? srx[0] : legal_lse(srx, P)) + e_gapx;
-          mm = (P == 1 ? srm[0] : legal_lse(srm, P)) + e_match;
-          // gapY from (x, y-1), same path
-          gy = lae(rd(p1, MATCH, il + 1, p, W, N, P) + tr[T_MY],
-                   rd(p1, GAP_Y, il + 1, p, W, N, P) + tr[T_YY]) + e_stay;
-        }
+        const float* rx = il >= 0 && il < W ? p1 + SRC_X * N + il * P
+                                            : nullptr;
+        const float* rm = im >= 0 && im < W ? p2 + SRC_M * N + im * P
+                                            : nullptr;
+        gx = legal_lse_row(rx, neg.x, 0.f, lb, P) + e_gapx;
+        mm = legal_lse_row(rm, neg.m, m_prev, lb, P) + e_match;
+        // gapY from (x, y-1), same path
+        const int iy = il + 1;
+        gy = (iy >= 0 && iy < W ? p1[SRC_Y * N + iy * P + p] : neg.y) +
+             e_stay;
       }
       vm[k] = mm;
       vx[k] = gx;
@@ -548,54 +547,34 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_sweep_kernel(
         const float mm = fmaxf(vm[k] - m, NEG);
         const float gx = fmaxf(vx[k] - m, NEG);
         const float gy = fmaxf(vy[k] - m, NEG);
-        if constexpr (PATHS) {
-          const SrcTerms st = src_terms(mm, gx, gy, tr);
-          cur[SRC_X * N + c] = st.x;
-          cur[SRC_Y * N + c] = st.y;
-          cur[SRC_M * N + c] = st.m;
-          vm[k] = mm;
-          vx[k] = gx;
-          vy[k] = gy;
-        } else {
-          cur[MATCH * N + c] = mm;
-          cur[GAP_X * N + c] = gx;
-          cur[GAP_Y * N + c] = gy;
-        }
-        if constexpr (EXPECT) {
-          float* fd = fs + (size_t)d * 3 * N + p * W + o;
-          fd[MATCH * N] = mm;
-          fd[GAP_X * N] = gx;
-          fd[GAP_Y * N] = gy;
-        } else {
-          fs[(size_t)d * N + p * W + o] = mm;
-        }
+        const SrcTerms st = src_terms(mm, gx, gy, tr);
+        cur[SRC_X * N + c] = st.x;
+        cur[SRC_Y * N + c] = st.y;
+        cur[SRC_M * N + c] = st.m;
+        vm[k] = mm;
+        vx[k] = gx;
+        vy[k] = gy;
+        fs[(size_t)d * N + p * W + o] = mm;
       }
     }
     if (threadIdx.x == 0) inc[d] = m;
     m_prev = m;
     __syncthreads();
   }
-  float l;
-  if constexpr (PATHS) l = block_lse_cells<K>(vm, vx, vy, pr.end, N, part);
-  else l = block_lse(ring + (nd & 1) * 3 * N, pr.end, N, part);
+  const float l = block_lse_cells<K>(vm, vx, vy, pr.end, N, part);
   if (threadIdx.x == 0) lse_f[b] = l;
 }
 
-
-// ----------------------------------------------- backward + compaction
-
-template <int K, bool HDP, bool EXPECT, bool PATHS>
-__global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
+template <int K, bool HDP>
+__global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
-    const float* __restrict__ ref_,
-    const unsigned long long* __restrict__ leg_,
+    const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
     const float* __restrict__ ev_, const int* __restrict__ meta_,
     const float* __restrict__ par_, const HdpTab h,
     const float* __restrict__ fstack,
     const double* __restrict__ cvecf, float* __restrict__ b_incr,
     float* __restrict__ lse_b, int* __restrict__ slot_cell,
-    float* __restrict__ slot_val, int* __restrict__ cnt,
-    double* __restrict__ texp, double* __restrict__ kx, int D1, int W,
+    float* __restrict__ slot_val, int* __restrict__ cnt, int D1, int W,
     int P_, int LX, int LE, int R, float threshold) {
   extern __shared__ float smem[];
   const int N = P_ * W;
@@ -610,7 +589,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
 
   const int b = blockIdx.x;
   const int P = pr.P;
-  const float* fs = fstack + (size_t)b * D1 * N * (EXPECT ? 3 : 1);
+  const float* fs = fstack + (size_t)b * D1 * N;
   const double* cv = cvecf + (size_t)b * D1;
   float* inc = b_incr + (size_t)b * D1;
   int* so = slot_cell + (size_t)b * D1 * R;
@@ -627,9 +606,6 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
   const float* tr = pr.t;
   float m_prev = 0.f;
   double bo = 0.0;   // running backward offset: Bo(d) = sum of m over >= d
-  // EXPECT: this thread's sums of the seven transition posteriors, in the
-  // order of texp's rows (mx, xx, mm, xm, ym, my, yy)
-  double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   for (int d = nd; d >= 0; --d) {
     float* cur = ring + (d & 1) * 3 * N;          // holds d+2 until written
     const float* b1 = ring + ((d + 1) & 1) * 3 * N;
@@ -642,44 +618,42 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
     const int r1 = clampi(xd + 1, 0, pr.reflen - W);
     const int r0 = clampi(xd, 0, pr.reflen - W);
     const int es = clampi(pr.lY - d + xd + pr.efp - 1, 0, pr.evlen - W);
-    if constexpr (PATHS) {
-      // the target-side terms of this thread's cells (o, p), once each:
-      // gapX TO (x+1, y) and match TO (x+1, y+1) on path p, which every
-      // source path q of offset o reduces over below. They go to the gapX
-      // and gapY planes of `cur`, dead at this step: diagonal d+2's gapX
-      // and gapY were read at d+1, and only its match is read here.
-      if (!fin) {
+    // the target-side terms of this thread's cells (o, p), once each:
+    // gapX TO (x+1, y) and match TO (x+1, y+1) on path p, which every
+    // source path q of offset o reduces over below. They go to the gapX
+    // and gapY planes of `cur`, dead at this step: diagonal d+2's gapX
+    // and gapY were read at d+1, and only its match is read here.
+    if (!fin) {
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int c = threadIdx.x + k * blockDim.x;
-          const int o = c / P, p = c - o * P;
-          if (c < N && o < wd) {
-            const int xr1 = r1 + o, je = es + o;
-            const float ev_mean = pr.ev[je];
-            const bool evok = pr.ev[pr.LE + je] > 0.5f;
-            const float m_hat1 = pr.rf(0, p, xr1), inv_m1 = pr.rf(1, p, xr1);
-            float e_match_to;
-            if constexpr (HDP) {
-              e_match_to = (inv_m1 > 0.f && evok)
-                               ? pr.hdp(p, xr1, m_hat1, ev_mean, h) : NEG;
-            } else {
-              const float c_m1 = pr.rf(2, p, xr1);
-              const float am = (ev_mean - m_hat1) * inv_m1;
-              e_match_to = (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am
-                                                  : NEG;
-            }
-            const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
-            cur[GAP_X * N + c] =
-                rd(b1, GAP_X, o + u1 + 1, p, W, N, P) + gapx_valid;
-            cur[GAP_Y * N + c] =
-                rd(b2, MATCH, o + u2, p, W, N, P) + e_match_to - m_prev;
+      for (int k = 0; k < K; ++k) {
+        const int c = threadIdx.x + k * blockDim.x;
+        const int o = c / P, p = c - o * P;
+        if (c < N && o < wd) {
+          const int xr1 = r1 + o, je = es + o;
+          const float ev_mean = pr.ev[je];
+          const bool evok = pr.ev[pr.LE + je] > 0.5f;
+          const float m_hat1 = pr.rf(0, p, xr1), inv_m1 = pr.rf(1, p, xr1);
+          float e_match_to;
+          if constexpr (HDP) {
+            e_match_to = (inv_m1 > 0.f && evok)
+                             ? pr.hdp(p, xr1, m_hat1, ev_mean, h) : NEG;
+          } else {
+            const float c_m1 = pr.rf(2, p, xr1);
+            const float am = (ev_mean - m_hat1) * inv_m1;
+            e_match_to = (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am
+                                                : NEG;
           }
+          const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
+          cur[GAP_X * N + c] =
+              rd(b1, GAP_X, o + u1 + 1, p, W, N, P) + gapx_valid;
+          cur[GAP_Y * N + c] =
+              rd(b2, MATCH, o + u2, p, W, N, P) + e_match_to - m_prev;
         }
       }
-      // an offset's P cells share a warp when P divides 32
-      if (32 % P == 0) __syncwarp();
-      else __syncthreads();
     }
+    // an offset's P cells share a warp when P divides 32
+    if (32 % P == 0) __syncwarp();
+    else __syncthreads();
     float vm[K], vx[K], vy[K];
     float tmax = NEG;
 #pragma unroll
@@ -711,82 +685,11 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
           const float gy_term = rd(b1, GAP_Y, o + u1, q, W, N, P) + e_stay_same;
           // gapX TO (x+1, y) and match TO (x+1, y+1), over the target
           // paths p that may follow q: legal[p, q] at x+1
-          const unsigned long long lw = pr.leg[xr1];
-          float gx_red, mm_red;
-          if constexpr (PATHS) {
-            unsigned lb = 0;   // bit p: legal[p, q] at x+1
-#pragma unroll
-            for (int p = 0; p < MAX_P; ++p)
-              lb |= (unsigned)((lw >> (p * MAX_P + q)) & 1ull) << p;
-            gx_red = legal_lse_row(cur + GAP_X * N + o * P, NEG, 0.f, lb, P);
-            mm_red = legal_lse_row(cur + GAP_Y * N + o * P, NEG, 0.f, lb, P);
-          } else {
-            float tgx[PAIR_P], tmm[PAIR_P];
-#pragma unroll
-            for (int p = 0; p < PAIR_P; ++p) {
-              if (p < P) {
-                const bool leg = (lw >> (p * MAX_P + q)) & 1ull;
-                float inv_m1, e_match_to;
-                if constexpr (HDP) {
-                  const float m_hat1 = pr.rf(0, p, xr1);
-                  inv_m1 = pr.rf(1, p, xr1);
-                  // only a legal target's emission is read below
-                  e_match_to = (inv_m1 > 0.f && evok && leg)
-                                   ? pr.hdp(p, xr1, m_hat1, ev_mean, h) : NEG;
-                } else {
-                  const float m_hat1 = pr.rf(0, p, xr1);
-                  inv_m1 = pr.rf(1, p, xr1);
-                  const float c_m1 = pr.rf(2, p, xr1);
-                  const float am = (ev_mean - m_hat1) * inv_m1;
-                  e_match_to = (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am
-                                                      : NEG;
-                }
-                const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
-                tgx[p] = leg ? rd(b1, GAP_X, o + u1 + 1, p, W, N, P) + gapx_valid
-                             : NEG;
-                tmm[p] = leg ? rd(b2, MATCH, o + u2, p, W, N, P) + e_match_to
-                                   - m_prev
-                             : NEG;
-              }
-            }
-            gx_red = P == 1 ? tgx[0] : legal_lse(tgx, P);
-            mm_red = P == 1 ? tmm[0] : legal_lse(tmm, P);
-          }
-          if constexpr (EXPECT) {
-            // transitions out of (x, y) at d; the to-cell reductions are
-            // normalised to Bo(d+1), which `bo` still holds here
-            const float normA = (float)(cv[d] + bo);
-            const float* fd = fs + (size_t)d * 3 * N + q * W + o;
-            const float f_m = fd[MATCH * N], f_x = fd[GAP_X * N],
-                        f_y = fd[GAP_Y * N];
-            const float p_mx = expf(f_m + tr[T_MX] + gx_red + normA);
-            const float p_xx = expf(f_x + tr[T_XX] + gx_red + normA);
-            const float p_mm = expf(f_m + tr[T_MM] + mm_red + normA);
-            const float p_xm = expf(f_x + tr[T_XM] + mm_red + normA);
-            const float p_ym = expf(f_y + tr[T_YM] + mm_red + normA);
-            const float p_my = expf(f_m + tr[T_MY] + gy_term + normA);
-            const float p_yy = expf(f_y + tr[T_YY] + gy_term + normA);
-            acc[0] += (double)p_mx;
-            acc[1] += (double)p_xx;
-            acc[2] += (double)p_mm;
-            acc[3] += (double)p_xm;
-            acc[4] += (double)p_ym;
-            acc[5] += (double)p_my;
-            acc[6] += (double)p_yy;
-            if constexpr (!HDP) {
-              // moments of the into-match posterior at (x+1, y+1)
-              const float mtp = p_mm + p_xm + p_ym;
-              if (mtp != 0.f) {
-                const float dxv = pr.rf(1, q, xr1) > 0.f
-                                      ? (ev_mean - pr.rf(0, q, xr1)) / pr.var
-                                      : 0.f;
-                double* kb = kx + (size_t)b * 3 * LX + xr1;
-                kb[0] += (double)mtp;
-                kb[LX] += (double)(mtp * dxv);
-                kb[2 * (size_t)LX] += (double)(mtp * dxv * dxv);
-              }
-            }
-          }
+          const unsigned lb = pr.lg(xr1, q);   // bit p: legal[p, q] at x+1
+          const float gx_red =
+              legal_lse_row(cur + GAP_X * N + o * P, NEG, 0.f, lb, P);
+          const float mm_red =
+              legal_lse_row(cur + GAP_Y * N + o * P, NEG, 0.f, lb, P);
           bm = lae(lae(gx_red + tr[T_MX], mm_red + tr[T_MM]),
                    gy_term + tr[T_MY]);
           bx = lae(gx_red + tr[T_XX], mm_red + tr[T_XM]);
@@ -820,9 +723,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
         cur[GAP_Y * N + c] = fmaxf(vy[k] - m, NEG);
         const int x = xd + o, y = d - x;
         if (o < wd && x > 0 && y > 0 && x <= pr.lX && y <= pr.lY) {
-          float fm;
-          if constexpr (EXPECT) fm = fs[(size_t)d * 3 * N + q * W + o];
-          else fm = fs[(size_t)d * N + q * W + o];
+          const float fm = fs[(size_t)d * N + q * W + o];
           p = expf(fmaxf(fm + bmn + cd, NEG));
           surv = p >= threshold;
         }
@@ -858,7 +759,606 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
   }
   const float l = block_lse(ring, pr.start, N, part);   // diagonal 0 = slot 0
   if (threadIdx.x == 0) lse_b[b] = l;
+}
+
+// ------------------------------------------------- P <= 2 (per-pair) instances
+
+// One forward cell's inputs at its column: the reference rows of its path
+// (Gaussian: m_hat, inv_m, c_m, inv_y, c_y; HDP: m_hat, inv_m and the
+// k-mer id and level mean), its event's mean and mask, and its legality
+// mask (bit q: legal from source path q).
+struct FwdIn {
+  float m_hat, inv_m, c_m, inv_y, c_y, mu, ev_mean;
+  int kid;
+  bool ev_ok;
+  unsigned lb;
+};
+
+template <bool HDP>
+__device__ __forceinline__ FwdIn load_fwd_in(const Problem& pr, int p, int xr,
+                                             int je) {
+  FwdIn a;
+  const size_t i = (size_t)p * pr.LX + xr;
+  const size_t rows = (size_t)pr.P * pr.LX;
+  a.m_hat = __ldg(pr.ref + i);
+  a.inv_m = __ldg(pr.ref + rows + i);
+  if constexpr (HDP) {
+    a.mu = __ldg(pr.mu + i);
+    a.kid = __ldg(pr.kid + i);
+  } else {
+    a.c_m = __ldg(pr.ref + 2 * rows + i);
+    a.inv_y = __ldg(pr.ref + 3 * rows + i);
+    a.c_y = __ldg(pr.ref + 4 * rows + i);
+  }
+  a.ev_mean = __ldg(pr.ev + je);
+  a.ev_ok = __ldg(pr.ev + pr.LE + je) > 0.5f;
+  a.lb = __ldg(pr.leg + (size_t)xr * pr.P + p);
+  return a;
+}
+
+// state s of band offset i on path p of a ring slot of raw states stored
+// clamped at NEG, normalised by its diagonal's max m: NEG outside the
+// band. For a stored v >= NEG, v - m equals the twin's fmaxf(raw - m,
+// NEG) bit for bit: NEG - m rounds to NEG for any |m| below half an ulp
+// of 1e30 (2^75), and a finite v - m stays above NEG.
+__device__ __forceinline__ float rdn(const float* slot, int s, int i, int p,
+                                     int W, int N, int P, float m) {
+  return (i >= 0 && i < W) ? slot[s * N + i * P + p] - m : NEG;
+}
+
+// The diagonal's one barrier: the block's (a warp's, for a block of one
+// warp) after each warp's max went to part[par * 32 + warp]; returns the
+// block max of `wmax` (this warp's max).
+__device__ __forceinline__ float diag_barrier_max(float wmax, const float* part,
+                                                  int par, int nw) {
+  if (nw == 1) {
+    __syncwarp();
+    return wmax;
+  }
+  __syncthreads();
+  float m = part[par * 32];
+  for (int w = 1; w < nw; ++w) m = fmaxf(m, part[par * 32 + w]);
+  return m;
+}
+
+template <int K, bool HDP, bool EXPECT>
+__global__ void __launch_bounds__(pair_threads(K)) sa_fwd_pair_kernel(
+    const int* __restrict__ x0_, const int* __restrict__ width_,
+    const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
+    const float* __restrict__ ev_, const int* __restrict__ meta_,
+    const float* __restrict__ par_, const HdpTab h,
+    float* __restrict__ fstack, float* __restrict__ f_incr,
+    float* __restrict__ lse_f, int D1, int W, int P_, int LX, int LE) {
+  extern __shared__ float smem[];
+  const int N = P_ * W;
+  // [3 slots][3 states][N] raw states clamped at NEG, cell o*P + p
+  float* ring = smem;
+  float* part = smem + 9 * N;      // [2 parities][32] per-warp maxima
+  __shared__ Problem pr;
+  if (threadIdx.x == 0)
+    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE);
+  for (int i = threadIdx.x; i < 9 * N; i += blockDim.x) ring[i] = NEG;
+  __syncthreads();
+
+  const int b = blockIdx.x;
+  const int P = P_;
+  const int nd = pr.nd, last = D1 - 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  // (D1, P, W); EXPECT: (D1, 3, P, W)
+  float* fs = fstack + (size_t)b * D1 * N * (EXPECT ? 3 : 1);
+  float* inc = f_incr + (size_t)b * D1;
+  for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) inc[d] = 0.f;
   if constexpr (EXPECT) {
+    for (int c = threadIdx.x; c < 3 * N; c += blockDim.x)
+      fs[c] = c % N == 0 ? pr.start[c / N] : NEG;
+  } else {
+    for (int c = threadIdx.x; c < N; c += blockDim.x)
+      fs[c] = c == 0 ? pr.start[MATCH] : NEG;
+  }
+  // diagonal 0: the single start cell (0, 0) on path 0, in slot 0; its
+  // max is 0. A start log of -inf reads as NEG, which gives the twin's
+  // results: every logaddexp that reads it has a finite other term.
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 3; ++s) ring[s * N] = fmaxf(pr.start[s], NEG);
+    inc[0] = 0.f;
+  }
+  // band origins of d-2, d-1, d (with its width) and d+1 (with its
+  // width): each loaded two diagonals ahead
+  int xm2 = 0, xm1 = pr.x0[0];
+  int xd = pr.x0[min(1, last)], wd = pr.width[min(1, last)];
+  int xn = pr.x0[min(2, last)], wn = pr.width[min(2, last)];
+  const float* t = pr.t;
+  float m1 = 0.f, m2 = 0.f;   // the maxima of diagonals d-1 and d-2
+  // this thread's cells of diagonal d: raw until its barrier, normalised
+  // after; after the loop, those of diagonal nd
+  float vm[K], vx[K], vy[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool c0 = threadIdx.x + k * blockDim.x == 0;
+    vm[k] = c0 ? pr.start[MATCH] : NEG;
+    vx[k] = c0 ? pr.start[GAP_X] : NEG;
+    vy[k] = c0 ? pr.start[GAP_Y] : NEG;
+  }
+  __syncthreads();
+
+  for (int d = 1; d <= nd; ++d) {
+    const float* p1 = ring + ((d + 2) % 3) * 3 * N;   // diagonal d-1
+    const float* p2 = ring + ((d + 1) % 3) * 3 * N;   // diagonal d-2
+    float* cur = ring + (d % 3) * 3 * N;
+    const int s1 = xd - xm1 - 1;
+    const int s2 = d >= 2 ? xd - xm2 - 1 : W + 5;
+    const int rs = clampi(xd, 0, pr.reflen - W);
+    const int es = clampi(pr.lY - d + xd + pr.efp, 0, pr.evlen - W);
+
+    float tmax = NEG;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
+      float mm = NEG, gx = NEG, gy = NEG;
+      const int o = c / P, p = c - o * P;
+      if (c < N && o < wd) {
+        const FwdIn a = load_fwd_in<HDP>(pr, p, rs + o, es + o);
+        const bool kvalid = a.inv_m > 0.f;
+        const bool ok = kvalid && a.ev_ok;
+        float e_match, e_stay;
+        if constexpr (HDP) {
+          // stay = match (emissions_signal_getHdpKmerDensity)
+          e_match = e_stay =
+              ok ? hdp_log_emission(a.mu + (a.ev_mean - a.m_hat) / pr.var,
+                                    a.kid, pr.var, h)
+                 : NEG;
+        } else {
+          const float am = (a.ev_mean - a.m_hat) * a.inv_m;
+          const float ay = (a.ev_mean - a.m_hat) * a.inv_y;
+          e_match = ok ? a.c_m - 0.5f * am * am : NEG;
+          e_stay = ok ? a.c_y - 0.5f * ay * ay : NEG;
+        }
+        const float e_gapx = kvalid ? pr.gapx : NEG;
+
+        // gapX from (x-1, y) and match from (x-1, y-1), over the legal
+        // source paths q
+        const int il = o + s1, im = o + s2;
+        float srx[PAIR_P], srm[PAIR_P];
+#pragma unroll
+        for (int q = 0; q < PAIR_P; ++q) {
+          if (q < P) {
+            const bool leg = (a.lb >> q) & 1u;
+            const float sx =
+                lae(rdn(p1, MATCH, il, q, W, N, P, m1) + t[T_MX],
+                    rdn(p1, GAP_X, il, q, W, N, P, m1) + t[T_XX]);
+            const float sm =
+                lae(lae(rdn(p2, MATCH, im, q, W, N, P, m2) + t[T_MM],
+                        rdn(p2, GAP_X, im, q, W, N, P, m2) + t[T_XM]),
+                    rdn(p2, GAP_Y, im, q, W, N, P, m2) + t[T_YM]) - m1;
+            srx[q] = leg ? sx : NEG;
+            srm[q] = leg ? sm : NEG;
+          }
+        }
+        gx = (P == 1 ? srx[0] : legal_lse(srx, P)) + e_gapx;
+        mm = (P == 1 ? srm[0] : legal_lse(srm, P)) + e_match;
+        // gapY from (x, y-1), same path
+        gy = lae(rdn(p1, MATCH, il + 1, p, W, N, P, m1) + t[T_MY],
+                 rdn(p1, GAP_Y, il + 1, p, W, N, P, m1) + t[T_YY]) + e_stay;
+      }
+      vm[k] = mm;
+      vx[k] = gx;
+      vy[k] = gy;
+      tmax = fmaxf(tmax, fmaxf(mm, fmaxf(gx, gy)));
+      if (c < N) {
+        cur[MATCH * N + c] = fmaxf(mm, NEG);
+        cur[GAP_X * N + c] = fmaxf(gx, NEG);
+        cur[GAP_Y * N + c] = fmaxf(gy, NEG);
+      }
+    }
+    tmax = warp_max(tmax);
+    if (nw > 1 && lane == 0) part[(d & 1) * 32 + warp] = tmax;
+    // the band of d+2, issued before the barrier and read after it
+    const int xnn = pr.x0[min(d + 2, last)], wnn = pr.width[min(d + 2, last)];
+    float m = diag_barrier_max(tmax, part, d & 1, nw);
+    m = m > NEG * 0.5f ? m : 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
+      vm[k] = fmaxf(vm[k] - m, NEG);
+      vx[k] = fmaxf(vx[k] - m, NEG);
+      vy[k] = fmaxf(vy[k] - m, NEG);
+      if (c < N) {
+        const int o = c / P, p = c - o * P;
+        if constexpr (EXPECT) {
+          float* fd = fs + (size_t)d * 3 * N + p * W + o;
+          fd[MATCH * N] = vm[k];
+          fd[GAP_X * N] = vx[k];
+          fd[GAP_Y * N] = vy[k];
+        } else {
+          fs[(size_t)d * N + p * W + o] = vm[k];
+        }
+      }
+    }
+    if (threadIdx.x == 0) inc[d] = m;
+    m2 = m1;
+    m1 = m;
+    xm2 = xm1;
+    xm1 = xd;
+    xd = xn;
+    wd = wn;
+    xn = xnn;
+    wn = wnn;
+  }
+  const float l = block_lse_cells<K>(vm, vx, vy, pr.end, N, part);
+  if (threadIdx.x == 0) lse_f[b] = l;
+}
+
+// One backward cell's inputs at its columns: its event's mean and mask;
+// its stay target (x, y+1) on its own path q (m_hat, inv_m, and Gaussian
+// inv_y, c_y or HDP k-mer id and level mean, at x); its match and gapX
+// targets on every path p < P at x+1 (m_hat, inv_m, and Gaussian c_m or
+// HDP k-mer id and level mean); and which of those may follow q (bit p:
+// legal[p, q] at x+1).
+struct BwdIn {
+  float ev_mean;
+  bool ev_ok;
+  float m_hat0, inv_m0, inv_y0, c_y0, mu0;
+  int kid0;
+  float m_hat1[PAIR_P], inv_m1[PAIR_P], c_m1[PAIR_P], mu1[PAIR_P];
+  int kid1[PAIR_P];
+  unsigned lw;
+};
+
+template <bool HDP>
+__device__ __forceinline__ BwdIn load_bwd_in(const Problem& pr, int q,
+                                             int xr0, int xr1, int je) {
+  BwdIn a;
+  const int P = pr.P;
+  const size_t rows = (size_t)P * pr.LX;
+  a.ev_mean = __ldg(pr.ev + je);
+  a.ev_ok = __ldg(pr.ev + pr.LE + je) > 0.5f;
+  const size_t i0 = (size_t)q * pr.LX + xr0;
+  a.m_hat0 = __ldg(pr.ref + i0);
+  a.inv_m0 = __ldg(pr.ref + rows + i0);
+  if constexpr (HDP) {
+    a.mu0 = __ldg(pr.mu + i0);
+    a.kid0 = __ldg(pr.kid + i0);
+  } else {
+    a.inv_y0 = __ldg(pr.ref + 3 * rows + i0);
+    a.c_y0 = __ldg(pr.ref + 4 * rows + i0);
+  }
+  a.lw = __ldg(pr.leg + (size_t)xr1 * P + q);
+#pragma unroll
+  for (int p = 0; p < PAIR_P; ++p) {
+    if (p < P) {
+      const size_t i1 = (size_t)p * pr.LX + xr1;
+      a.m_hat1[p] = __ldg(pr.ref + i1);
+      a.inv_m1[p] = __ldg(pr.ref + rows + i1);
+      if constexpr (HDP) {
+        a.mu1[p] = __ldg(pr.mu + i1);
+        a.kid1[p] = __ldg(pr.kid + i1);
+      } else {
+        a.c_m1[p] = __ldg(pr.ref + 2 * rows + i1);
+      }
+    }
+  }
+  return a;
+}
+
+template <int K, bool HDP, bool EXPECT>
+__global__ void __launch_bounds__(pair_threads(K)) sa_bwd_pair_kernel(
+    const int* __restrict__ x0_, const int* __restrict__ width_,
+    const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
+    const float* __restrict__ ev_, const int* __restrict__ meta_,
+    const float* __restrict__ par_, const HdpTab h,
+    const float* __restrict__ fstack,
+    const double* __restrict__ cvecf, float* __restrict__ b_incr,
+    float* __restrict__ lse_b, int* __restrict__ slot_cell,
+    float* __restrict__ slot_val, int* __restrict__ cnt,
+    double* __restrict__ texp, double* __restrict__ kx, int D1, int W,
+    int P_, int LX, int LE, int R, float threshold) {
+  constexpr bool MOMENTS = EXPECT && !HDP;
+  constexpr int NF = EXPECT ? 3 : 1;   // forward states a cell reads
+  extern __shared__ double smem_d[];
+  const int N = P_ * W;
+  // MOMENTS: [3][W] the window of per-position moment sums, slot x mod W
+  double* kxw = smem_d;
+  float* ring = reinterpret_cast<float*>(smem_d + (MOMENTS ? 3 * W : 0));
+  // [3 slots][3 states][N] raw states clamped at NEG, cell o*P + p
+  float* part = ring + 9 * N;                        // [2 parities][32]
+  int* wcnt = reinterpret_cast<int*>(part + 64);     // [2 parities][K][32]
+  int* ktag = wcnt + 2 * K * 32;                     // MOMENTS: [W] positions
+  __shared__ Problem pr;
+  if (threadIdx.x == 0)
+    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE);
+  for (int i = threadIdx.x; i < 9 * N; i += blockDim.x) ring[i] = NEG;
+  if constexpr (MOMENTS)
+    for (int i = threadIdx.x; i < W; i += blockDim.x) ktag[i] = -1;
+  __syncthreads();
+
+  const int b = blockIdx.x;
+  const int P = P_;
+  const int nd = pr.nd, last = D1 - 1;
+  const float* fs = fstack + (size_t)b * D1 * N * NF;
+  const double* cv = cvecf + (size_t)b * D1;
+  float* inc = b_incr + (size_t)b * D1;
+  int* so = slot_cell + (size_t)b * D1 * R;
+  float* sv = slot_val + (size_t)b * D1 * R;
+  int* cn = cnt + (size_t)b * D1;
+  double* kb = MOMENTS ? kx + (size_t)b * 3 * LX : nullptr;
+  for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) {
+    inc[d] = 0.f;
+    cn[d] = 0;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+
+  // this thread's forward states of diagonal d-1 (the posterior's match,
+  // and EXPECT's three), loaded during diagonal d
+  float fin_[K][NF];
+  auto stage = [&](int dn, int wdn) {
+    const float* fd = fs + (size_t)dn * N * NF;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
+      const int o = c / P, q = c - o * P;
+      if (c < N && o < wdn) {
+#pragma unroll
+        for (int s = 0; s < NF; ++s) fin_[k][s] = __ldg(fd + s * N + q * W + o);
+      }
+    }
+  };
+  // band origins of d+2, d+1, d (with its width), d-1 (with its width),
+  // each loaded two diagonals ahead; cvecf of d, loaded one ahead
+  int xp2 = pr.x0[min(nd + 2, last)], xp1 = pr.x0[min(nd + 1, last)];
+  int xd = pr.x0[nd], wd = pr.width[nd];
+  int xn = pr.x0[max(nd - 1, 0)], wn = pr.width[max(nd - 1, 0)];
+  double cv_d = cv[nd];
+  stage(nd, wd);
+  const float* t = pr.t;
+  float m1 = 0.f, m2 = 0.f;   // the maxima of diagonals d+1 and d+2
+  double bo = 0.0;   // running backward offset: Bo(d) = sum of m over >= d
+  // EXPECT: this thread's sums of the seven transition posteriors, in the
+  // order of texp's rows (mx, xx, mm, xm, ym, my, yy)
+  double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  // this thread's cells of diagonal d (raw until its barrier, then
+  // normalised), and its survivors of the diagonal before (d+1): value
+  // per chunk and rank inside its warp (-1 for none), whose slots are
+  // written once the next barrier has published the warp counts
+  float vm[K], vx[K], vy[K], pk[K];
+  int rk[K];
+
+  for (int d = nd; d >= 0; --d) {
+    const bool fin = d == nd;
+    const float* b1 = ring + ((d + 1) % 3) * 3 * N;   // diagonal d+1
+    const float* b2 = ring + ((d + 2) % 3) * 3 * N;   // diagonal d+2
+    float* cur = ring + (d % 3) * 3 * N;
+    const int u1 = d + 1 < D1 ? xd - xp1 : W + 5;
+    const int u2 = d + 2 < D1 ? xd + 1 - xp2 : W + 5;
+    const int r1 = clampi(xd + 1, 0, pr.reflen - W);
+    const int r0 = clampi(xd, 0, pr.reflen - W);
+    const int es = clampi(pr.lY - d + xd + pr.efp - 1, 0, pr.evlen - W);
+    float fpost[K];   // the forward match of each cell, for the posterior
+    float tmax = NEG;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
+      float bm = NEG, bx = NEG, by = NEG;
+      const int o = c / P, q = c - o * P;   // q: this cell's (source) path
+      fpost[k] = fin_[k][MATCH];
+      if (c < N && o < wd) {
+        if (fin) {
+          bm = pr.end[MATCH];
+          bx = pr.end[GAP_X];
+          by = pr.end[GAP_Y];
+        } else {
+          const BwdIn a = load_bwd_in<HDP>(pr, q, r0 + o, r1 + o, es + o);
+          const float ev_mean = a.ev_mean;
+          const bool evok = a.ev_ok;
+          // gapY TO cell (x, y+1) on the same path
+          float e_stay_same;
+          if constexpr (HDP) {
+            e_stay_same =
+                (a.inv_m0 > 0.f && evok)
+                    ? hdp_log_emission(a.mu0 + (ev_mean - a.m_hat0) / pr.var,
+                                       a.kid0, pr.var, h)
+                    : NEG;
+          } else {
+            const float ay = (ev_mean - a.m_hat0) * a.inv_y0;
+            e_stay_same =
+                (a.inv_m0 > 0.f && evok) ? a.c_y0 - 0.5f * ay * ay : NEG;
+          }
+          const float gy_term =
+              rdn(b1, GAP_Y, o + u1, q, W, N, P, m1) + e_stay_same;
+          // gapX TO (x+1, y) and match TO (x+1, y+1), over the target
+          // paths p that may follow q: legal[p, q] at x+1
+          float tgx[PAIR_P], tmm[PAIR_P];
+#pragma unroll
+          for (int p = 0; p < PAIR_P; ++p) {
+            if (p < P) {
+              const bool leg = (a.lw >> p) & 1u;
+              const float inv_m1 = a.inv_m1[p];
+              float e_match_to;
+              if constexpr (HDP) {
+                // only a legal target's emission is read below
+                e_match_to =
+                    (inv_m1 > 0.f && evok && leg)
+                        ? hdp_log_emission(
+                              a.mu1[p] + (ev_mean - a.m_hat1[p]) / pr.var,
+                              a.kid1[p], pr.var, h)
+                        : NEG;
+              } else {
+                const float am = (ev_mean - a.m_hat1[p]) * inv_m1;
+                e_match_to =
+                    (inv_m1 > 0.f && evok) ? a.c_m1[p] - 0.5f * am * am : NEG;
+              }
+              const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
+              tgx[p] = leg ? rdn(b1, GAP_X, o + u1 + 1, p, W, N, P, m1) +
+                                 gapx_valid
+                           : NEG;
+              tmm[p] = leg ? rdn(b2, MATCH, o + u2, p, W, N, P, m2) +
+                                 e_match_to - m1
+                           : NEG;
+            }
+          }
+          const float gx_red = P == 1 ? tgx[0] : legal_lse(tgx, P);
+          const float mm_red = P == 1 ? tmm[0] : legal_lse(tmm, P);
+          if constexpr (EXPECT) {
+            // transitions out of (x, y) at d; the to-cell reductions are
+            // normalised to Bo(d+1), which `bo` still holds here
+            const float normA = (float)(cv_d + bo);
+            const float f_m = fin_[k][MATCH], f_x = fin_[k][GAP_X],
+                        f_y = fin_[k][GAP_Y];
+            const float p_mx = expf(f_m + t[T_MX] + gx_red + normA);
+            const float p_xx = expf(f_x + t[T_XX] + gx_red + normA);
+            const float p_mm = expf(f_m + t[T_MM] + mm_red + normA);
+            const float p_xm = expf(f_x + t[T_XM] + mm_red + normA);
+            const float p_ym = expf(f_y + t[T_YM] + mm_red + normA);
+            const float p_my = expf(f_m + t[T_MY] + gy_term + normA);
+            const float p_yy = expf(f_y + t[T_YY] + gy_term + normA);
+            acc[0] += (double)p_mx;
+            acc[1] += (double)p_xx;
+            acc[2] += (double)p_mm;
+            acc[3] += (double)p_xm;
+            acc[4] += (double)p_ym;
+            acc[5] += (double)p_my;
+            acc[6] += (double)p_yy;
+            if constexpr (MOMENTS) {
+              // moments of the into-match posterior at (x+1, y+1), P = 1
+              const float mtp = p_mm + p_xm + p_ym;
+              if (mtp != 0.f) {
+                const float dxv = a.inv_m1[0] > 0.f
+                                      ? (ev_mean - a.m_hat1[0]) / pr.var
+                                      : 0.f;
+                const int pos = r1 + o, sl = pos % W;
+                if (ktag[sl] != pos) {
+                  // the slot's position left the window: its sums go out
+                  if (ktag[sl] >= 0)
+                    for (int r = 0; r < 3; ++r)
+                      atomicAdd(kb + (size_t)r * LX + ktag[sl],
+                                kxw[r * W + sl]);
+                  ktag[sl] = pos;
+                  for (int r = 0; r < 3; ++r) kxw[r * W + sl] = 0.0;
+                }
+                kxw[sl] += (double)mtp;
+                kxw[W + sl] += (double)(mtp * dxv);
+                kxw[2 * W + sl] += (double)(mtp * dxv * dxv);
+              }
+            }
+          }
+          bm = lae(lae(gx_red + t[T_MX], mm_red + t[T_MM]),
+                   gy_term + t[T_MY]);
+          bx = lae(gx_red + t[T_XX], mm_red + t[T_XM]);
+          by = lae(mm_red + t[T_YM], gy_term + t[T_YY]);
+        }
+      }
+      vm[k] = bm;
+      vx[k] = bx;
+      vy[k] = by;
+      tmax = fmaxf(tmax, fmaxf(bm, fmaxf(bx, by)));
+      if (c < N) {
+        cur[MATCH * N + c] = fmaxf(bm, NEG);
+        cur[GAP_X * N + c] = fmaxf(bx, NEG);
+        cur[GAP_Y * N + c] = fmaxf(by, NEG);
+      }
+    }
+    tmax = warp_max(tmax);
+    if (nw > 1 && lane == 0) part[(d & 1) * 32 + warp] = tmax;
+    // diagonal d-1's forward states, its cvecf and the band of d-2,
+    // issued before the barrier and read after it
+    double cv_n = cv_d;
+    int xnn = xn, wnn = wn;
+    if (d > 0) {
+      stage(d - 1, wn);
+      cv_n = cv[d - 1];
+      xnn = pr.x0[max(d - 2, 0)];
+      wnn = pr.width[max(d - 2, 0)];
+    }
+    float m = diag_barrier_max(tmax, part, d & 1, nw);
+    m = fin ? 0.f : (m > NEG * 0.5f ? m : 0.f);
+    bo += (double)m;                                     // Bo(d)
+    // absolute log posterior = f + b + cvecf[d] + Bo(d), b normalised
+    const float cd = (float)(cv_d + bo);
+    // the survivors of d+1, ranked in cell (= offset, then path) order:
+    // chunk, warp, lane; the barrier published their warp counts
+    if (!fin) {
+      const int* wc = wcnt + ((d + 1) & 1) * K * 32;
+      bool mine = threadIdx.x == 0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) mine |= rk[k] >= 0;
+      if (mine) {
+        int before = 0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          int base = before;
+          for (int w = 0; w < warp; ++w) base += wc[k * 32 + w];
+          const int r = base + rk[k];
+          if (rk[k] >= 0 && r < R) {
+            so[(size_t)(d + 1) * R + r] = threadIdx.x + k * blockDim.x;
+            sv[(size_t)(d + 1) * R + r] = pk[k];
+          }
+          for (int w = 0; w < nw; ++w) before += wc[k * 32 + w];
+        }
+        if (threadIdx.x == 0) cn[d + 1] = before;
+      }
+    }
+    int* wc = wcnt + (d & 1) * K * 32;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = threadIdx.x + k * blockDim.x;
+      vm[k] = fmaxf(vm[k] - m, NEG);
+      vx[k] = fmaxf(vx[k] - m, NEG);
+      vy[k] = fmaxf(vy[k] - m, NEG);
+      bool surv = false;
+      float p = 0.f;
+      if (c < N) {
+        const int o = c / P;
+        const int x = xd + o, y = d - x;
+        if (o < wd && x > 0 && y > 0 && x <= pr.lX && y <= pr.lY) {
+          p = expf(fmaxf(fpost[k] + vm[k] + cd, NEG));
+          surv = p >= threshold;
+        }
+      }
+      const unsigned ball = __ballot_sync(0xffffffffu, surv);
+      if (lane == 0) wc[k * 32 + warp] = __popc(ball);
+      pk[k] = p;
+      rk[k] = surv ? __popc(ball & ((1u << lane) - 1u)) : -1;
+    }
+    if (threadIdx.x == 0) inc[d] = m;
+    m2 = m1;
+    m1 = m;
+    xp2 = xp1;
+    xp1 = xd;
+    xd = xn;
+    wd = wn;
+    xn = xnn;
+    wn = wnn;
+    cv_d = cv_n;
+  }
+  // publish diagonal 0's warp counts, then its survivor slots
+  __syncthreads();
+  {
+    int before = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      int base = before;
+      for (int w = 0; w < warp; ++w) base += wcnt[k * 32 + w];
+      const int r = base + rk[k];
+      if (rk[k] >= 0 && r < R) {
+        so[r] = threadIdx.x + k * blockDim.x;
+        sv[r] = pk[k];
+      }
+      for (int w = 0; w < nw; ++w) before += wcnt[k * 32 + w];
+    }
+    if (threadIdx.x == 0) cn[0] = before;
+  }
+  const float l = block_lse_cells<K>(vm, vx, vy, pr.start, N, part);
+  if (threadIdx.x == 0) lse_b[b] = l;
+  if constexpr (EXPECT) {
+    if constexpr (MOMENTS) {
+      // the positions still in the window (block_lse_cells' barriers
+      // ordered their last sums before these reads)
+      for (int sl = threadIdx.x; sl < W; sl += blockDim.x)
+        if (ktag[sl] >= 0)
+          for (int r = 0; r < 3; ++r)
+            atomicAdd(kb + (size_t)r * LX + ktag[sl], kxw[r * W + sl]);
+    }
     // texp: warp sums, then the warps in order
     __shared__ double tpart[7][32];
 #pragma unroll
@@ -877,23 +1377,40 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_sweep_compact_kernel(
   }
 }
 
-int threads_for(int N) {
-  return N >= MAX_THREADS ? MAX_THREADS : ((N + 31) / 32) * 32;
-}
+// ------------------------------------------------------------- dispatch
 
-// cells per thread, rounded up to an instantiated K
-int cells_per_thread(int N) {
+int round_warps(int n) { return ((n + 31) / 32) * 32; }
+
+// cells per thread of a P > 2 instance, rounded up to an instantiated K
+int paths_k(int N) {
   const int k = (N + MAX_THREADS - 1) / MAX_THREADS;
   return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8;
+}
+
+bool pair_bucket(int W, int P) { return P <= PAIR_P && P * W <= PAIR_CELLS; }
+
+// K fits a per-pair instance's thread budget at N cells
+bool pair_k_ok(int K, int N) {
+  return (K == 1 || K == 2 || K == 4 || K == 8) &&
+         round_warps((N + K - 1) / K) <= pair_threads(K);
+}
+
+// Cells per thread of the per-pair instances by P * W: the fastest K of
+// chip_smoke.py --k-scan on an H100 (PERF.md §6), the most threads K's
+// budget allows, except for the EXPECT backward (98 registers a thread at
+// K = 1), which fits twice the blocks on an SM at K = 2 and measured
+// faster there above 128 cells.
+int pair_k(int N, bool expect_bwd) {
+  return N <= (expect_bwd ? 128 : 512) ? 1 : N <= 1024 ? 2 : 4;
 }
 
 bool shape_ok(int W, int P) {
   return W >= 1 && P >= 1 && P <= MAX_P && P * W <= MAX_CELLS;
 }
 
-// the expectation instances: P = 1, at most two cells per thread
+// the expectation instances: P = 1, at most PAIR_CELLS cells
 bool expect_shape_ok(int W, int P) {
-  return P == 1 && W >= 1 && W <= 2 * MAX_THREADS;
+  return P == 1 && W >= 1 && W <= PAIR_CELLS;
 }
 
 // The device pointers and sizes of one bucket.
@@ -901,7 +1418,7 @@ struct Bucket {
   const int* x0;
   const int* width;
   const float* ref;
-  const unsigned long long* leg;
+  const unsigned* leg;
   const float* ev;
   const int* meta;
   const float* par;
@@ -909,39 +1426,58 @@ struct Bucket {
   int B, D1, W, P, LX, LE;
 };
 
-template <int K, bool HDP, bool EXPECT, bool PATHS>
-int fwd_launch(const Bucket& a, float* fstack, float* f_incr, float* lse_f,
-               cudaStream_t stream) {
+template <typename Kern>
+int launch_setup(Kern kern, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int K, bool HDP, bool EXPECT>
+int fwd_pair_launch(const Bucket& a, float* fstack, float* f_incr,
+                    float* lse_f, cudaStream_t stream) {
   const int N = a.P * a.W;
-  const size_t smem = (6 * (size_t)N + 32) * sizeof(float);
-  cudaFuncSetAttribute(sa_fwd_sweep_kernel<K, HDP, EXPECT, PATHS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_fwd_sweep_kernel<K, HDP, EXPECT, PATHS>
-      <<<a.B, threads_for(N), smem, stream>>>(
-      a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, f_incr,
-      lse_f, a.D1, a.W, a.P, a.LX, a.LE);
+  const size_t smem = (9 * (size_t)N + 64) * sizeof(float);
+  launch_setup(sa_fwd_pair_kernel<K, HDP, EXPECT>, smem);
+  sa_fwd_pair_kernel<K, HDP, EXPECT>
+      <<<a.B, round_warps((N + K - 1) / K), smem, stream>>>(
+          a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
+          f_incr, lse_f, a.D1, a.W, a.P, a.LX, a.LE);
   return (int)cudaGetLastError();
 }
 
-// PATHS: the P > 2 instances (EXPECT runs at P = 1 only)
-template <bool HDP, bool EXPECT, bool PATHS>
-int fwd_dispatch(const Bucket& a, float* fstack, float* f_incr, float* lse_f,
-                 cudaStream_t s) {
-  if constexpr (EXPECT) {
-    return cells_per_thread(a.P * a.W) == 1
-               ? fwd_launch<1, HDP, true, false>(a, fstack, f_incr, lse_f, s)
-               : fwd_launch<2, HDP, true, false>(a, fstack, f_incr, lse_f, s);
-  } else {
-    switch (cells_per_thread(a.P * a.W)) {
-      case 1:
-        return fwd_launch<1, HDP, false, PATHS>(a, fstack, f_incr, lse_f, s);
-      case 2:
-        return fwd_launch<2, HDP, false, PATHS>(a, fstack, f_incr, lse_f, s);
-      case 4:
-        return fwd_launch<4, HDP, false, PATHS>(a, fstack, f_incr, lse_f, s);
-      default:
-        return fwd_launch<8, HDP, false, PATHS>(a, fstack, f_incr, lse_f, s);
-    }
+template <int K, bool HDP>
+int fwd_paths_launch(const Bucket& a, float* fstack, float* f_incr,
+                     float* lse_f, cudaStream_t stream) {
+  const int N = a.P * a.W;
+  const size_t smem = (6 * (size_t)N + 32) * sizeof(float);
+  launch_setup(sa_fwd_paths_kernel<K, HDP>, smem);
+  sa_fwd_paths_kernel<K, HDP>
+      <<<a.B, N >= MAX_THREADS ? MAX_THREADS : round_warps(N), smem,
+         stream>>>(a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h,
+                   fstack, f_incr, lse_f, a.D1, a.W, a.P, a.LX, a.LE);
+  return (int)cudaGetLastError();
+}
+
+template <bool HDP, bool EXPECT>
+int fwd_pair_dispatch(const Bucket& a, int K, float* fstack, float* f_incr,
+                      float* lse_f, cudaStream_t s) {
+  switch (K) {
+    case 1: return fwd_pair_launch<1, HDP, EXPECT>(a, fstack, f_incr, lse_f, s);
+    case 2: return fwd_pair_launch<2, HDP, EXPECT>(a, fstack, f_incr, lse_f, s);
+    case 4: return fwd_pair_launch<4, HDP, EXPECT>(a, fstack, f_incr, lse_f, s);
+    default:
+      return fwd_pair_launch<8, HDP, EXPECT>(a, fstack, f_incr, lse_f, s);
+  }
+}
+
+template <bool HDP>
+int fwd_paths_dispatch(const Bucket& a, float* fstack, float* f_incr,
+                       float* lse_f, cudaStream_t s) {
+  switch (paths_k(a.P * a.W)) {
+    case 1: return fwd_paths_launch<1, HDP>(a, fstack, f_incr, lse_f, s);
+    case 2: return fwd_paths_launch<2, HDP>(a, fstack, f_incr, lse_f, s);
+    case 4: return fwd_paths_launch<4, HDP>(a, fstack, f_incr, lse_f, s);
+    default: return fwd_paths_launch<8, HDP>(a, fstack, f_incr, lse_f, s);
   }
 }
 
@@ -957,40 +1493,69 @@ struct BwdOut {
   double* kx;
 };
 
-template <int K, bool HDP, bool EXPECT, bool PATHS>
-int bwd_launch(const Bucket& a, const float* fstack, const double* cvecf,
-               const BwdOut& o, int R, float threshold, cudaStream_t stream) {
+template <int K, bool HDP, bool EXPECT>
+int bwd_pair_launch(const Bucket& a, const float* fstack, const double* cvecf,
+                    const BwdOut& o, int R, float threshold,
+                    cudaStream_t stream) {
   const int N = a.P * a.W;
-  const size_t smem =
-      (6 * (size_t)N + 32) * sizeof(float) + K * 32 * sizeof(int);
-  cudaFuncSetAttribute(sa_bwd_sweep_compact_kernel<K, HDP, EXPECT, PATHS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  sa_bwd_sweep_compact_kernel<K, HDP, EXPECT, PATHS>
-      <<<a.B, threads_for(N), smem, stream>>>(
+  constexpr bool MOMENTS = EXPECT && !HDP;
+  const size_t smem = (MOMENTS ? 3 * (size_t)a.W * sizeof(double) : 0) +
+                      (9 * (size_t)N + 64) * sizeof(float) +
+                      (2 * K * 32 + (MOMENTS ? a.W : 0)) * sizeof(int);
+  launch_setup(sa_bwd_pair_kernel<K, HDP, EXPECT>, smem);
+  sa_bwd_pair_kernel<K, HDP, EXPECT>
+      <<<a.B, round_warps((N + K - 1) / K), smem, stream>>>(
           a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
           cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt, o.texp,
           o.kx, a.D1, a.W, a.P, a.LX, a.LE, R, threshold);
   return (int)cudaGetLastError();
 }
 
-template <bool HDP, bool EXPECT, bool PATHS>
-int bwd_dispatch(const Bucket& a, const float* fstack, const double* cvecf,
-                 const BwdOut& o, int R, float threshold, cudaStream_t s) {
-  if constexpr (EXPECT) {
-    return cells_per_thread(a.P * a.W) == 1
-        ? bwd_launch<1, HDP, true, false>(a, fstack, cvecf, o, R, threshold, s)
-        : bwd_launch<2, HDP, true, false>(a, fstack, cvecf, o, R, threshold, s);
-  } else {
-    switch (cells_per_thread(a.P * a.W)) {
-      case 1: return bwd_launch<1, HDP, false, PATHS>(a, fstack, cvecf, o, R,
-                                                      threshold, s);
-      case 2: return bwd_launch<2, HDP, false, PATHS>(a, fstack, cvecf, o, R,
-                                                      threshold, s);
-      case 4: return bwd_launch<4, HDP, false, PATHS>(a, fstack, cvecf, o, R,
-                                                      threshold, s);
-      default: return bwd_launch<8, HDP, false, PATHS>(a, fstack, cvecf, o, R,
-                                                       threshold, s);
-    }
+template <int K, bool HDP>
+int bwd_paths_launch(const Bucket& a, const float* fstack, const double* cvecf,
+                     const BwdOut& o, int R, float threshold,
+                     cudaStream_t stream) {
+  const int N = a.P * a.W;
+  const size_t smem =
+      (6 * (size_t)N + 32) * sizeof(float) + K * 32 * sizeof(int);
+  launch_setup(sa_bwd_paths_kernel<K, HDP>, smem);
+  sa_bwd_paths_kernel<K, HDP>
+      <<<a.B, N >= MAX_THREADS ? MAX_THREADS : round_warps(N), smem,
+         stream>>>(a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h,
+                   fstack, cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val,
+                   o.cnt, a.D1, a.W, a.P, a.LX, a.LE, R, threshold);
+  return (int)cudaGetLastError();
+}
+
+template <bool HDP, bool EXPECT>
+int bwd_pair_dispatch(const Bucket& a, int K, const float* fstack,
+                      const double* cvecf, const BwdOut& o, int R,
+                      float threshold, cudaStream_t s) {
+  switch (K) {
+    case 1: return bwd_pair_launch<1, HDP, EXPECT>(a, fstack, cvecf, o, R,
+                                                   threshold, s);
+    case 2: return bwd_pair_launch<2, HDP, EXPECT>(a, fstack, cvecf, o, R,
+                                                   threshold, s);
+    case 4: return bwd_pair_launch<4, HDP, EXPECT>(a, fstack, cvecf, o, R,
+                                                   threshold, s);
+    default: return bwd_pair_launch<8, HDP, EXPECT>(a, fstack, cvecf, o, R,
+                                                    threshold, s);
+  }
+}
+
+template <bool HDP>
+int bwd_paths_dispatch(const Bucket& a, const float* fstack,
+                       const double* cvecf, const BwdOut& o, int R,
+                       float threshold, cudaStream_t s) {
+  switch (paths_k(a.P * a.W)) {
+    case 1: return bwd_paths_launch<1, HDP>(a, fstack, cvecf, o, R,
+                                            threshold, s);
+    case 2: return bwd_paths_launch<2, HDP>(a, fstack, cvecf, o, R,
+                                            threshold, s);
+    case 4: return bwd_paths_launch<4, HDP>(a, fstack, cvecf, o, R,
+                                            threshold, s);
+    default: return bwd_paths_launch<8, HDP>(a, fstack, cvecf, o, R,
+                                             threshold, s);
   }
 }
 
@@ -1001,70 +1566,102 @@ bool hdp_ok(const HdpTab& h) {
   return h.kid && h.mu && h.slopes && h.nk >= 1 && h.ng >= 2 && h.dx > 0.f;
 }
 
+// The per-pair K a launch uses: `k_cells` when it is not 0 (a measurement
+// of another instance), else the table's; -1 for a K the bucket cannot
+// take (a P > 2 or wide bucket, or outside the K's thread budget).
+int launch_k(int W, int P, int k_cells, bool expect_bwd) {
+  if (!pair_bucket(W, P)) return k_cells == 0 ? 0 : -1;
+  if (k_cells == 0) return pair_k(P * W, expect_bwd);
+  return pair_k_ok(k_cells, P * W) ? k_cells : -1;
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. Every pointer is a device pointer of a
 // contiguous tensor; the kernels launch on `stream`, allocate nothing and
-// do not synchronise. kid, mu, dens and slopes are the HDP tables (kid
-// and mu (B, P, LX), dens and slopes (nk, ng) on the grid g0 + i * dx with
-// last knot gN), all null for a Gaussian bucket. `expect` != 0 runs the
-// EM expectation instances: fstack is (B, D1, 3, P, W), and the backward
-// writes texp (B, 7) and adds into kx (B, 3, LX), which the caller zeroes
-// (both null otherwise). Each returns cudaGetLastError() after its launch,
-// or cudaErrorInvalidValue for a shape it does not take (P > 8 or
-// P * W > 8192; with `expect`, P > 1 or W > 2048), an incomplete set of
-// HDP tables or missing expectation outputs.
+// do not synchronise. leg holds (B, LX, P) uint32 legality masks: the
+// forward's by target path (ProblemTensors.leg), the backward's by source
+// path (ProblemTensors.leg_src).
+// kid, mu, dens and slopes are the HDP tables (kid and mu (B, P, LX),
+// dens and slopes (nk, ng) on the grid g0 + i * dx with last knot gN),
+// all null for a Gaussian bucket. `expect` != 0 runs the EM expectation
+// instances: fstack is (B, D1, 3, P, W), and the backward writes texp (B,
+// 7) and adds into kx (B, 3, LX), which the caller zeroes (both null
+// otherwise). `k_cells` != 0 launches the per-pair instance of that many
+// cells per thread in place of the dispatch table's (to time the
+// instances against each other). Each returns cudaGetLastError() after
+// its launch, or cudaErrorInvalidValue for a shape it does not take (P >
+// 32 or P * W > 8192; with `expect`, P > 1 or W > 2048), a `k_cells` the
+// bucket cannot take, an incomplete set of HDP tables or missing
+// expectation outputs.
+
+// The cells per thread the forward (`backward` 0) or the backward sweep
+// launches a bucket of P paths at width W with: K of a per-pair instance,
+// -K of a P > 2 (PATHS) one; 0 for a shape they do not take.
+extern "C" int sa_cells_per_thread(int W, int P, int expect, int backward) {
+  if (!shape_ok(W, P) || (expect && !expect_shape_ok(W, P))) return 0;
+  return pair_bucket(W, P) ? pair_k(P * W, expect && backward)
+                           : -paths_k(P * W);
+}
 
 extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
-                            const unsigned long long* leg, const float* ev,
+                            const unsigned* leg, const float* ev,
                             const int* meta, const float* par, const int* kid,
                             const float* mu, const float* dens,
                             const float* slopes, float* fstack,
                             float* f_incr, float* lse_f, int B, int D1, int W,
-                            int P, int LX, int LE, int expect, int nk, int ng,
-                            float g0, float dx, float gN, void* stream) {
+                            int P, int LX, int LE, int expect, int k_cells,
+                            int nk, int ng, float g0, float dx, float gN,
+                            void* stream) {
   const Bucket a{x0, width, ref, leg, ev, meta, par,
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
-  if (!shape_ok(W, P) || !hdp_ok(a.h) || (expect && !expect_shape_ok(W, P)))
+  const int K = launch_k(W, P, k_cells, false);
+  if (!shape_ok(W, P) || !hdp_ok(a.h) || K < 0 ||
+      (expect && !expect_shape_ok(W, P)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (K == 0)
+    return dens ? fwd_paths_dispatch<true>(a, fstack, f_incr, lse_f, s)
+                : fwd_paths_dispatch<false>(a, fstack, f_incr, lse_f, s);
   if (expect)
-    return dens ? fwd_dispatch<true, true, false>(a, fstack, f_incr, lse_f, s)
-                : fwd_dispatch<false, true, false>(a, fstack, f_incr, lse_f, s);
-  if (P > PAIR_P)
-    return dens ? fwd_dispatch<true, false, true>(a, fstack, f_incr, lse_f, s)
-                : fwd_dispatch<false, false, true>(a, fstack, f_incr, lse_f, s);
-  return dens ? fwd_dispatch<true, false, false>(a, fstack, f_incr, lse_f, s)
-              : fwd_dispatch<false, false, false>(a, fstack, f_incr, lse_f, s);
+    return dens
+        ? fwd_pair_dispatch<true, true>(a, K, fstack, f_incr, lse_f, s)
+        : fwd_pair_dispatch<false, true>(a, K, fstack, f_incr, lse_f, s);
+  return dens
+      ? fwd_pair_dispatch<true, false>(a, K, fstack, f_incr, lse_f, s)
+      : fwd_pair_dispatch<false, false>(a, K, fstack, f_incr, lse_f, s);
 }
 
 extern "C" int sa_bwd_sweep_compact(
-    const int* x0, const int* width, const float* ref,
-    const unsigned long long* leg, const float* ev, const int* meta,
-    const float* par, const int* kid, const float* mu, const float* dens,
-    const float* slopes, const float* fstack, const double* cvecf,
-    float* b_incr, float* lse_b, int* slot_cell, float* slot_val, int* cnt,
-    double* texp, double* kx, int B, int D1, int W, int P, int LX, int LE,
-    int R, int expect, int nk, int ng, float threshold, float g0, float dx,
+    const int* x0, const int* width, const float* ref, const unsigned* leg,
+    const float* ev, const int* meta, const float* par, const int* kid,
+    const float* mu, const float* dens, const float* slopes,
+    const float* fstack, const double* cvecf, float* b_incr, float* lse_b,
+    int* slot_cell, float* slot_val, int* cnt, double* texp, double* kx,
+    int B, int D1, int W, int P, int LX, int LE, int R, int expect,
+    int k_cells, int nk, int ng, float threshold, float g0, float dx,
     float gN, void* stream) {
   const Bucket a{x0, width, ref, leg, ev, meta, par,
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
-  if (!shape_ok(W, P) || !hdp_ok(a.h) ||
+  const int K = launch_k(W, P, k_cells, expect);
+  if (!shape_ok(W, P) || !hdp_ok(a.h) || K < 0 ||
       (expect && (!expect_shape_ok(W, P) || !texp || !kx)))
     return (int)cudaErrorInvalidValue;
   const BwdOut o{b_incr, lse_b, slot_cell, slot_val, cnt, texp, kx};
   cudaStream_t s = (cudaStream_t)stream;
+  if (K == 0)
+    return dens
+        ? bwd_paths_dispatch<true>(a, fstack, cvecf, o, R, threshold, s)
+        : bwd_paths_dispatch<false>(a, fstack, cvecf, o, R, threshold, s);
   if (expect)
-    return dens
-        ? bwd_dispatch<true, true, false>(a, fstack, cvecf, o, R, threshold, s)
-        : bwd_dispatch<false, true, false>(a, fstack, cvecf, o, R, threshold, s);
-  if (P > PAIR_P)
-    return dens
-        ? bwd_dispatch<true, false, true>(a, fstack, cvecf, o, R, threshold, s)
-        : bwd_dispatch<false, false, true>(a, fstack, cvecf, o, R, threshold, s);
-  return dens
-      ? bwd_dispatch<true, false, false>(a, fstack, cvecf, o, R, threshold, s)
-      : bwd_dispatch<false, false, false>(a, fstack, cvecf, o, R, threshold, s);
+    return dens ? bwd_pair_dispatch<true, true>(a, K, fstack, cvecf, o, R,
+                                                threshold, s)
+                : bwd_pair_dispatch<false, true>(a, K, fstack, cvecf, o, R,
+                                                 threshold, s);
+  return dens ? bwd_pair_dispatch<true, false>(a, K, fstack, cvecf, o, R,
+                                               threshold, s)
+              : bwd_pair_dispatch<false, false>(a, K, fstack, cvecf, o, R,
+                                                threshold, s);
 }

@@ -3,7 +3,7 @@ field for field with ``signalalign_tpu.ops.banded_fb``) and the plain
 PyTorch DP.
 
 The DP is the ``MODE_MEAN_ONLY`` and ``MODE_HDP`` specialisation of the
-JAX ``_banded_sweeps_core`` for 1 <= P <= 8 paths per cell: a Python loop
+JAX ``_banded_sweeps_core`` for 1 <= P <= 32 paths per cell: a Python loop
 over anti-diagonals, vectorised over problems x paths x band offsets, in
 the band-offset frame (cell (d, p, o) is x = x0[d] + o, y = d - x on path
 p). gapX and match take the legal logsumexp over source paths, gapY
@@ -384,19 +384,19 @@ def extract_aligned_pairs(problem: BandedProblem, post: np.ndarray,
 # device layout of one bucket
 # --------------------------------------------------------------------------
 
-MAX_P = 8   # paths per cell the legality words hold (8 bits per target path)
+MAX_P = 32   # paths per cell a legality mask holds (one bit per source path)
 MAX_CELLS = 8192   # P * W cells of one diagonal the kernels hold
 
 
 def check_shape(W: int, P: int) -> None:
     """The kernels take segments of P <= MAX_P paths per cell and P * W <=
     MAX_CELLS cells per diagonal; a larger one raises, naming its shape
-    (P > 8 waits for its route in ROADMAP §2)."""
+    (a P-blocked sweep for larger ones is queued in ROADMAP §3)."""
     if P > MAX_P or P * W > MAX_CELLS:
         raise NotImplementedError(
             f"segment of P={P} paths per cell at W={W} ({P * W} cells per "
             f"diagonal): the kernels take P <= {MAX_P} and P * W <= "
-            f"{MAX_CELLS} (the P > 8 route is queued in ROADMAP §2)")
+            f"{MAX_CELLS} (a P-blocked sweep is queued in ROADMAP §3)")
 
 
 @dataclasses.dataclass
@@ -408,7 +408,9 @@ class ProblemTensors:
     along their last axis to the bucket's longest problem, and each
     problem's own lengths sit in ``meta`` (M_REFLEN, M_EVLEN) so windows
     clamp exactly as the JAX package's per-problem dynamic slices do.
-    ``leg[b, x]`` packs ``legal[p_to, q_from, x]`` into bit p_to*8+q_from.
+    ``leg[b, x, p_to]`` holds ``legal[p_to, q_from, x]`` in bit q_from,
+    ``leg_src[b, x, q_from]`` the same in bit p_to (the backward kernel's
+    reads: the legal targets of a source path in one word).
     Path slots a position does not use have zero ``ref`` rows (inv_m = 0
     marks them invalid, as in the JAX emissions).
     """
@@ -418,7 +420,8 @@ class ProblemTensors:
     x0: torch.Tensor       # (B, D1) int32 band origin per diagonal
     width: torch.Tensor    # (B, D1) int32 band width per diagonal
     ref: torch.Tensor      # (B, NREF, P, LX) f32
-    leg: torch.Tensor      # (B, LX) int64 legality bits
+    leg: torch.Tensor      # (B, LX, P) int32 legality masks by target path
+    leg_src: torch.Tensor  # (B, LX, P) int32 legality masks by source path
     ev: torch.Tensor       # (B, NEV, LE) f32
     meta: torch.Tensor     # (B, NMETA) int32
     par: torch.Tensor      # (B, NPACK) f32
@@ -554,13 +557,12 @@ def _cols(table, start, length, W: int):
     return win.reshape(*table.shape[:-1], W), idx
 
 
-def _legal(pt: ProblemTensors, start, length):
-    """(B, P_to, P_from, W) bool legality window at columns [s, s+W)."""
-    win, _ = _cols(pt.leg, start, length, pt.W)
-    P = pt.P
-    bit = (torch.arange(P, device=win.device)[:, None] * MAX_P
-           + torch.arange(P, device=win.device)[None, :])
-    return ((win[:, None, None, :] >> bit[None, :, :, None]) & 1).bool()
+def _legal(legT, start, length, W: int):
+    """(B, P_to, P_from, W) bool legality window at columns [s, s+W) of
+    the masks ``legT`` (B, P, LX) (``ProblemTensors.leg`` transposed)."""
+    win, _ = _cols(legT, start, length, W)
+    bit = torch.arange(legT.shape[1], device=win.device)
+    return ((win[:, :, None, :] >> bit[None, None, :, None]) & 1).bool()
 
 
 def _window(prev, shift, W: int, fill: float = NEG):
@@ -671,10 +673,11 @@ def sweep_forward(pt: ProblemTensors, store_full: bool = False):
     prev2 = torch.full((B, 3, P, W), NEG, device=dev)
     m_prev = torch.zeros(B, device=dev)
     finals = set(pt.n_diag)
+    legT = pt.leg.transpose(1, 2).contiguous()
     for d in range(1, D1):
         xd = x0[:, d]
         refw, _ = _cols(pt.ref, xd, reflen, W)
-        legw = _legal(pt, xd, reflen)
+        legw = _legal(legT, xd, reflen, W)
         evw, _ = _cols(pt.ev, lY - d + xd + efp, evlen, W)
         e_match, e_stay, e_gapx = _emissions(refw, evw, gapx,
                                              _hdp_window(pt, xd, reflen))
@@ -732,6 +735,7 @@ def sweep_backward(pt: ProblemTensors, store_full: bool = False):
     b2 = torch.full((B, 3, P, W), NEG, device=dev)
     m_prev = torch.zeros(B, device=dev)
     cur = b1
+    legT = pt.leg.transpose(1, 2).contiguous()
     for d in range(D1 - 1, -1, -1):
         xd = x0[:, d]
         # TO-cell windows: match/gapX targets at x+1 (every legal target
@@ -739,7 +743,7 @@ def sweep_backward(pt: ProblemTensors, store_full: bool = False):
         refx1, _ = _cols(pt.ref, xd + 1, reflen, W)
         refx0, _ = _cols(pt.ref, xd, reflen, W)
         # legal[p_to, q_from] at x+1, read from the source path q
-        leg_t = _legal(pt, xd + 1, reflen).transpose(1, 2)
+        leg_t = _legal(legT, xd + 1, reflen, W).transpose(1, 2)
         evy1, _ = _cols(pt.ev, lY - d + xd + efp - 1, evlen, W)
         e_match_to = _emissions(refx1, evy1, gapx,
                                 _hdp_window(pt, xd + 1, reflen))[0]
@@ -1085,10 +1089,11 @@ def expectation_sums(pt: ProblemTensors, fstack, bstack, cvec_d1, cvec_d2,
     var = pt.par[:, PACK_VAR, None, None]
     texp = torch.zeros(B, 7, dtype=torch.float64, device=dev)
     kx = torch.zeros(B, 3, pt.ref.shape[-1], dtype=torch.float64, device=dev)
+    legT = pt.leg.transpose(1, 2).contiguous()
     for d in range(1, D1):
         xd = x0[:, d]
         refw, idx = _cols(pt.ref, xd, reflen, W)
-        legw = _legal(pt, xd, reflen)[:, :, 0]          # (B, 1, W) at P = 1
+        legw = _legal(legT, xd, reflen, W)[:, :, 0]     # (B, 1, W) at P = 1
         evw, _ = _cols(pt.ev, lY - d + xd + efp, evlen, W)
         e_match, e_stay, e_gapx = _emissions(refw, evw, gapx,
                                              _hdp_window(pt, xd, reflen))

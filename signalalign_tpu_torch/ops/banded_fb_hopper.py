@@ -1,5 +1,5 @@
 """The port's two Hopper kernels, their plain twins, and the aligner that
-drives them over one bucket of problems with 1 <= P <= 8 paths per cell,
+drives them over one bucket of problems with 1 <= P <= 32 paths per cell,
 Gaussian (MODE_MEAN_ONLY) or HDP (MODE_HDP) emissions, and, at P = 1,
 the EM expectation pass.
 
@@ -55,7 +55,8 @@ def _check_cuda(pt: bfb.ProblemTensors) -> None:
         raise ValueError(f"tensors on {pt.device}: the kernels run on CUDA")
     i32, f32 = torch.int32, torch.float32
     tensors = [("x0", pt.x0, i32), ("width", pt.width, i32),
-               ("ref", pt.ref, f32), ("leg", pt.leg, torch.int64),
+               ("ref", pt.ref, f32), ("leg", pt.leg, i32),
+               ("leg_src", pt.leg_src, i32),
                ("ev", pt.ev, f32), ("meta", pt.meta, i32),
                ("par", pt.par, f32)]
     hdp = pt.hdp is not None
@@ -76,7 +77,9 @@ def _check_cuda(pt: bfb.ProblemTensors) -> None:
     B, D1 = pt.x0.shape
     LX = pt.ref.shape[-1]
     if (pt.width.shape != (B, D1) or pt.ref.shape[:3] != (B, bfb.NREF, pt.P)
-            or pt.leg.shape != (B, LX) or pt.ev.shape[:2] != (B, bfb.NEV)
+            or pt.leg.shape != (B, LX, pt.P)
+            or pt.leg_src.shape != (B, LX, pt.P)
+            or pt.ev.shape[:2] != (B, bfb.NEV)
             or pt.meta.shape != (B, bfb.NMETA)
             or pt.par.shape != (B, bfb.NPACK)):
         raise ValueError("ProblemTensors shapes disagree")
@@ -93,17 +96,18 @@ def _check_out(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
                          f"tensor on {dev}")
 
 
-def _launch(name: str, pt: bfb.ProblemTensors, tensors, ints,
-            floats=()) -> None:
+def _launch(name: str, pt: bfb.ProblemTensors, leg: torch.Tensor, tensors,
+            ints, floats=()) -> None:
     """Call C entry point ``name`` with the pointers of ``pt``'s tensors
-    and HDP tables (null for a Gaussian bucket), then of ``tensors``, then
-    ``ints``, the HDP table sizes, ``floats``, the HDP grid and the
-    current stream of ``pt``'s device; raises if the launch was refused."""
+    (``leg`` for its legality masks) and HDP tables (null for a Gaussian
+    bucket), then of ``tensors``, then ``ints``, the HDP table sizes,
+    ``floats``, the HDP grid and the current stream of ``pt``'s device;
+    raises if the launch was refused."""
     fn = getattr(cuda_build.load(), name)
     h = pt.hdp
     hdp_ptrs = ([t.data_ptr() for t in (pt.kid, pt.mu, h.dens, h.slopes)]
                 if h is not None else [None] * 4)
-    ptrs = [t.data_ptr() for t in (pt.x0, pt.width, pt.ref, pt.leg, pt.ev,
+    ptrs = [t.data_ptr() for t in (pt.x0, pt.width, pt.ref, leg, pt.ev,
                                    pt.meta, pt.par)]
     ptrs += hdp_ptrs + [None if t is None else t.data_ptr() for t in tensors]
     sizes = (h.K, h.NG) if h is not None else (0, 0)
@@ -127,13 +131,27 @@ def forward_sweep_ref(pt: bfb.ProblemTensors, expect: bool = False):
     return bfb.sweep_forward(pt, store_full=expect)
 
 
-def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False):
+def cells_per_thread(W: int, P: int, expect: bool = False,
+                     backward: bool = False) -> int:
+    """The kernel instance the forward (or ``backward``) sweep launches
+    for a bucket of P paths at width W: K cells per thread of a per-pair
+    instance (P <= 2 and P * W <= 2048, the dispatch table of
+    ``csrc/banded_fb.cu``), -K of a P > 2 one, 0 for a shape they do not
+    take. Loads (and on first use builds) the kernels."""
+    return cuda_build.load().sa_cells_per_thread(W, P, int(expect),
+                                                 int(backward))
+
+
+def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False,
+                  k_cells: int = 0):
     """Forward sweep of every problem of ``pt`` (one CUDA block each).
 
     Returns (fstack, f_incr, lse_f) as ``forward_sweep_ref``; on CUDA the
     fstack rows past a problem's n_diag are left unwritten. ``expect``
     (P = 1, W <= 2048) keeps all three states of each diagonal for the
-    expectation pass.
+    expectation pass. ``k_cells`` (a per-pair bucket only) launches the
+    instance of that many cells per thread in place of the dispatch
+    table's, to time or test the instances against each other.
     """
     if pt.device.type == "cpu":
         return forward_sweep_ref(pt, expect)
@@ -147,9 +165,9 @@ def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False):
                          dtype=torch.float32, device=dev)
     f_incr = torch.empty(B, D1, dtype=torch.float32, device=dev)
     lse_f = torch.empty(B, dtype=torch.float32, device=dev)
-    _launch("sa_fwd_sweep", pt, (fstack, f_incr, lse_f),
+    _launch("sa_fwd_sweep", pt, pt.leg, (fstack, f_incr, lse_f),
             (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1],
-             int(expect)))
+             int(expect), k_cells))
     if expect:
         forward_sweep.expect_launches += 1
     else:
@@ -217,7 +235,8 @@ def backward_sweep_compact_ref(pt: bfb.ProblemTensors, fstack, cvecf,
 
 
 def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
-                           threshold: float, R: int, expect: bool = False):
+                           threshold: float, R: int, expect: bool = False,
+                           k_cells: int = 0):
     """Backward sweep with the posterior, threshold and survivor
     compaction fused in; ``cvecf`` (B, D1) float64 is Fo(d) - total_f.
 
@@ -227,7 +246,8 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     stack of ``forward_sweep(pt, expect=True)``) adds texp (B, 7) float64,
     the transition posterior sums in ``bfb.TEXP_ROWS`` order, and kx (B,
     3, LX) float64, the into-match posteriors' moments [Σp, Σp·dx, Σp·dx²]
-    at each TO position (zero in MODE_HDP).
+    at each TO position (zero in MODE_HDP). ``k_cells`` as in
+    ``forward_sweep``.
     """
     if pt.device.type == "cpu":
         return backward_sweep_compact_ref(pt, fstack, cvecf, threshold, R,
@@ -250,11 +270,11 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     if expect:
         texp = torch.empty(B, 7, dtype=torch.float64, device=dev)
         kx = torch.zeros(B, 3, LX, dtype=torch.float64, device=dev)
-    _launch("sa_bwd_sweep_compact", pt,
+    _launch("sa_bwd_sweep_compact", pt, pt.leg_src,
             (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt, texp,
              kx),
-            (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1], R, int(expect)),
-            (float(threshold),))
+            (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1], R, int(expect),
+             k_cells), (float(threshold),))
     out = (b_incr, lse_b, slot_cell, slot_val, cnt)
     if expect:
         backward_sweep_compact.expect_launches += 1
@@ -421,7 +441,7 @@ def decode_pairs(problem: bfb.BandedProblem, d: np.ndarray, cell: np.ndarray,
 
 
 class HopperAligner:
-    """One bucket of problems with 1 <= P <= 8 paths per cell on one
+    """One bucket of problems with 1 <= P <= 32 paths per cell on one
     device. A MODE_HDP bucket takes ``hdp_tables``: the run's HDP tables,
     already on ``device`` (``convert.hdp_tables``). ``expect`` makes a
     P = 1 bucket run the EM expectation pass (``run``, ``execute`` and

@@ -1,7 +1,7 @@
 """Multi-read signal alignment in the port: the Gaussian (MODE_MEAN_ONLY)
 and HDP (MODE_HDP) branches of
 ``signalalign_tpu.pipeline.runner.run_alignment_batch`` for segments of
-1 <= P <= 8 paths per cell, with pair output, site-mode
+1 <= P <= 32 paths per cell, with pair output, site-mode
 variant/methylation calling, or (P = 1) the EM expectation pass.
 
 Reads are prepared on the host (scaling, anchors, band geometry,
@@ -173,7 +173,7 @@ def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
                  strand_template: bool = True):
     """Host-side prep of one read -> (target, params, events, ev_start,
     [((x1, y1), problem, W, Dpad, P)]). A segment of a shape the kernels
-    do not take (more than 8 paths per cell) raises NotImplementedError,
+    do not take (more than 32 paths per cell) raises NotImplementedError,
     and the runner drops the read."""
     k = model.kmer_length
     target, params, events, ev_start, window_events, anchors, splits = \
@@ -283,7 +283,7 @@ def run_alignment_batch(
     config: Optional[AlignmentConfig] = None,
     hdp: Optional[NanoporeHDP] = None,
     *,
-    device: torch.device,
+    device: torch.device = torch.device("cuda"),
     strand_template: bool = True,
     call_variants: Optional[str] = None,
     verbose: bool = False,
@@ -315,7 +315,7 @@ def run_alignment_batch(
     596-614``), so the results equal the default run's within f32
     round-off.
 
-    A read with a segment of more than 8 paths per cell is dropped, as a
+    A read with a segment of more than 32 paths per cell is dropped, as a
     read whose prep fails is (``verbose`` prints a ``FAILED`` line for
     it), and the rest of the batch aligns. An expectation pass over a
     bucket of more than one path raises before anything launches.

@@ -119,7 +119,7 @@ def _bucket_d(d: int) -> int:
 def align_read(read: NanoporeReadData, guide: GuideAlignment,
                reference: ProcessedReference, model: PoreModel,
                config: Optional[AlignmentConfig] = None, hdp=None, *,
-               device: torch.device,
+               device: torch.device = torch.device("cuda"),
                strand_template: bool = True) -> ReadAlignment:
     """Align one read strand against its guide window as the JAX
     ``align_read`` does (``signal_align.py:125-274``), as signalMachine
@@ -128,7 +128,7 @@ def align_read(read: NanoporeReadData, guide: GuideAlignment,
     ``device`` through ``HopperAligner`` (the kernels on CUDA, their twins
     on the CPU); pairs, totals and, with ``compute_expectations``, the
     expectations accumulated over the segments in order. ``hdp`` gives
-    MODE_HDP its emissions. A segment the kernels do not take (P > 8, or
+    MODE_HDP its emissions. A segment the kernels do not take (P > 32, or
     P * W > 8192) raises NotImplementedError naming its shape."""
     from signalalign_tpu_torch.convert import hdp_tables
     from signalalign_tpu_torch.ops.banded_fb_hopper import HopperAligner

@@ -63,7 +63,8 @@ def normalize_transitions_expectations(texp: np.ndarray) -> np.ndarray:
 
 
 def run_alignment_batch_grouped(batch, reference, model, config, hdp=None,
-                                *, device: torch.device,
+                                *,
+                                device: torch.device = torch.device("cuda"),
                                 strand_template: bool = True,
                                 stage_seconds: Optional[Dict[str, float]]
                                 = None):
@@ -122,7 +123,7 @@ def em_train(
     assert_monotonic: bool = False,
     strand_template: bool = True,
     *,
-    device: torch.device,
+    device: torch.device = torch.device("cuda"),
     stage_seconds: Optional[List[Dict[str, float]]] = None,
 ) -> EMResult:
     """Unified per-iteration Baum-Welch EM over a read batch on ``device``.
@@ -249,7 +250,7 @@ def em_train_transitions(
     verbose: bool = False,
     assert_monotonic: bool = False,
     *,
-    device: torch.device,
+    device: torch.device = torch.device("cuda"),
 ) -> EMResult:
     """Transition-only Baum-Welch EM (train_transitions,
     trainModels.py:922-985). Thin wrapper over em_train."""

@@ -265,14 +265,14 @@ def test_wrappers_use_twins_on_cpu_and_never_fall_back(problems):
 
 
 def test_outside_the_slice_raises():
-    """More than 8 paths per cell (three three-way codes in one 5-mer: 27
+    """More than 32 paths per cell (three four-way codes in one 5-mer: 64
     paths) and non-Gaussian emissions raise; EM expectations run (texp
     and kexp of a Gaussian problem from the same entry point)."""
     args, kw = _ambiguous_args()
-    seq = args[0][:20] + "BBB" + args[0][23:]
-    p27 = bfb.prepare_problem(*_port_args((seq, *args[1:])), **dict(kw, P=27))
-    with pytest.raises(NotImplementedError, match="P=27"):
-        problem_tensors([p27], 64, CPU)
+    seq = args[0][:20] + "XXX" + args[0][23:]
+    p64 = bfb.prepare_problem(*_port_args((seq, *args[1:])), **dict(kw, P=64))
+    with pytest.raises(NotImplementedError, match="P=64"):
+        problem_tensors([p64], 64, CPU)
     args, kw = _problem_args()[0]
     p = bfb.prepare_problem(*_port_args(args), **dict(kw, mode=bfb.MODE_FULL))
     with pytest.raises(NotImplementedError, match="MODE_MEAN_ONLY"):

@@ -1,10 +1,11 @@
 """Each Hopper kernel of the port against its plain PyTorch twin on the
-card, for P = 1 and for P = 2, 4 and 8 paths per cell, with every
-kernel instance (1, 2, 4 and 8 cells per thread), with Gaussian and with
-HDP emissions, the EM expectation instances (P = 1, one and two cells
-per thread, Gaussian and HDP), and the probability-space kernels (P = 1,
-W = 256 and 512, and segments that exhaust their f32 range). Needs a
-CUDA GPU and nvcc; skipped without a GPU. On a GPU host:
+card, for P = 1 and for P = 2, 4, 8 and 16 paths per cell, with every
+kernel instance (1, 2, 4 and 8 cells per thread; the per-pair instances
+of P <= 2 at each K by ``k_cells``), with Gaussian and with HDP
+emissions, the EM expectation instances (P = 1, every K, Gaussian and
+HDP), and the probability-space kernels (P = 1, W = 256 and 512, and
+segments that exhaust their f32 range). Needs a CUDA GPU and nvcc;
+skipped without a GPU. On a GPU host:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
@@ -67,8 +68,8 @@ def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False, dense=None,
     model, h = _hdp_model() if hdp else (synthetic_pore_model(0), None)
     code = "B" if P == 3 else "P" if hdp else "Y"
     rng = np.random.default_rng(seed)
-    cluster = {1: "", 2: "Y", 3: "Y", 4: "YGY", 8: "YGYGY"}[P].replace(
-        "Y", code)
+    cluster = {1: "", 2: "Y", 3: "Y", 4: "YGY", 8: "YGYGY",
+               16: "YYGYY"}[P].replace("Y", code)
     out = []
     for i in range(n):
         seq = list(rng.choice(list("ACGT"), size=int(rng.integers(*sizes))))
@@ -213,7 +214,7 @@ def test_aligner_on_gpu_matches_cpu(dev, bucket):
 
 
 PATH_CASES = ["p2", "p3w512", "p4w1024", "p8w128", "p8", "p8w512", "p8w768",
-              "p2w4096", "edges", "clamp", "illegal"]
+              "p2w4096", "p16", "edges", "clamp", "illegal"]
 
 
 @pytest.fixture(scope="module",
@@ -221,9 +222,9 @@ PATH_CASES = ["p2", "p3w512", "p4w1024", "p8w128", "p8", "p8w512", "p8w768",
 def paths_case(request):
     """(problems, W, HDP or None) for P > 1, Gaussian or HDP (hdp_), at
     every cells-per-thread instance: pP[wW] (W = 256 by default) gives K =
-    1 (P*W <= 1024), 2 (p3w512, p8), 4 (p4w1024, p8w512) or 8 (p8w768,
-    p2w4096). P = 2 runs the per-pair instances (those of P = 1), P > 2
-    the redesigned ones. ``edges``: P = 8 problems whose band
+    1 (P*W <= 1024), 2 (p3w512, p8), 4 (p4w1024, p8w512, p16) or 8
+    (p8w768, p2w4096). P = 2 runs the per-pair instances (those of P =
+    1) up to 2048 cells, P > 2 and wider P = 2 buckets the P > 2 ones. ``edges``: P = 8 problems whose band
     fills W at its bulge (W = their widest band), so reads fall outside
     the window at both band edges; ``clamp``: P = 4 problems prepared at
     W = 128 and run at W = 256, so the reference and event windows clamp
@@ -359,6 +360,96 @@ def test_expect_aligner_on_gpu_matches_cpu(dev, expect_bucket):
         assert abs(g["total_f"] - c["total_f"]) <= 1e-2
         np.testing.assert_allclose(g["texp"], c["texp"], rtol=2e-4, atol=5e-3)
         np.testing.assert_allclose(g["kexp"], c["kexp"], rtol=2e-3, atol=5e-3)
+
+
+PAIR_CASES = ["p1", "p2", "hdp_p1", "hdp_p2"]
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_pair_instances_equal_twins_bit_for_bit(dev, case, k):
+    """Each per-pair instance (one barrier a diagonal, raw-state ring,
+    inputs staged a diagonal ahead) at K cells per thread, forced by
+    ``k_cells``, on W=256 problems of P = 1 or 2, Gaussian or HDP:
+    fstack, offsets, survivor counts, cells and posteriors equal the
+    twins' bit for bit; the end logsumexps, which sum in thread order,
+    within 1e-2 nats."""
+    hdp = case.startswith("hdp_")
+    P = int(case[-1])
+    problems, h = _problems(3, (500, 700), (100, 200), 256, 2048, 40 + P,
+                            P=P, hdp=hdp)
+    pt = problem_tensors(problems, 256, dev, _hdp_tables(h, dev))
+    nds = pt.meta[:, bfb.M_NDIAG]
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    fk = hk.forward_sweep(pt, k_cells=k)
+    fr = hk.forward_sweep_ref(pt)
+    torch.cuda.synchronize()
+    assert torch.equal(fk[0][rows], fr[0][rows])
+    assert torch.equal(fk[1][rows], fr[1][rows])
+    assert (fk[2] - fr[2]).abs().max().item() <= 1e-2
+    fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
+    cvecf = (fo - tf[:, None]).contiguous()
+    R = hk.survivor_slots(THR)
+    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R, k_cells=k)
+    br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, THR, R)
+    torch.cuda.synchronize()
+    assert torch.equal(bk[0][rows], br[0][rows])
+    assert (bk[1] - br[1]).abs().max().item() <= 1e-2
+    assert torch.equal(bk[4][rows], br[4][rows]) and int(bk[4].max()) <= R
+    keep = torch.arange(R, device=dev) < bk[4][:, :, None]
+    assert keep.any()
+    assert torch.equal(bk[2][keep], br[2][keep])
+    assert torch.equal(bk[3][keep], br[3][keep])
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("hdp", [False, True], ids=["gauss", "hdp"])
+def test_expect_instances_at_every_k(dev, hdp, k):
+    """The expectation instances at K cells per thread (``k_cells``) on
+    W=256 problems: three-state stacks, offsets and survivors equal the
+    twins' bit for bit, texp and kx within 1e-5 relative (float64 sums in
+    another association)."""
+    problems, h = _problems(4, (300, 600), (100, 160), 256, 2048, 4,
+                            hdp=hdp)
+    pt = problem_tensors(problems, 256, dev, _hdp_tables(h, dev),
+                         kmer_ids=True)
+    nds = pt.meta[:, bfb.M_NDIAG]
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    fk = hk.forward_sweep(pt, expect=True, k_cells=k)
+    fr = hk.forward_sweep_ref(pt, expect=True)
+    torch.cuda.synchronize()
+    assert torch.equal(fk[0][rows], fr[0][rows])
+    assert torch.equal(fk[1][rows], fr[1][rows])
+    fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
+    cvecf = (fo - tf[:, None]).contiguous()
+    R = hk.survivor_slots(THR)
+    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R, expect=True,
+                                   k_cells=k)
+    br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, THR, R, expect=True)
+    torch.cuda.synchronize()
+    assert torch.equal(bk[0][rows], br[0][rows])
+    assert torch.equal(bk[4][rows], br[4][rows])
+    keep = torch.arange(R, device=dev) < bk[4][:, :, None]
+    assert torch.equal(bk[2][keep], br[2][keep])
+    assert torch.equal(bk[3][keep], br[3][keep])
+    assert _rel(bk[5], br[5]) <= 1e-5
+    if h is None:
+        assert _rel(bk[6], br[6]) <= 1e-5 and bk[6].abs().max() > 0
+    else:
+        assert not bk[6].any()
+
+
+def test_k_cells_outside_the_budget_is_refused(dev):
+    """A per-pair instance whose threads would pass its budget (K = 1 at
+    2048 cells) and a P > 2 bucket with ``k_cells`` are refused before
+    any launch."""
+    problems, _ = _problems(2, (1300, 1400), (200, 850), 2048, 4096, 7)
+    pt = problem_tensors(problems, 2048, dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hk.forward_sweep(pt, k_cells=1)
+    problems, _ = _problems(2, (700, 900), (100, 300), 256, 2048, 14, P=4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hk.forward_sweep(problem_tensors(problems, 256, dev), k_cells=2)
 
 
 def test_expect_refuses_more_than_one_path(dev):

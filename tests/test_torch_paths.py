@@ -22,7 +22,8 @@ from signalalign_tpu.ops.fb_oracle import (CellPaths, Emissions,
 from signalalign_tpu.pipeline.variant_caller import (marginals_from_pairs,
                                                      marginals_from_site_probs)
 from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
-from signalalign_tpu_torch.convert import (pore_model_from_numpy,
+from signalalign_tpu_torch.convert import (legality_bits,
+                                           pore_model_from_numpy,
                                            problem_from_numpy, problem_tensors)
 from signalalign_tpu_torch.models import pore_model as port_pm
 from signalalign_tpu_torch.ops import banded_fb as bfb
@@ -50,8 +51,8 @@ def _models(seed=0, alphabet="ACGT", k=5):
 MODEL, PORT_MODEL = _models()
 K = MODEL.kmer_length
 # ambiguity clusters that set the largest path count of a segment: one Y
-# (2 paths), two Y in a 5-mer (4) and three (8)
-CLUSTERS = {2: "Y", 4: "YGY", 8: "YGYGY"}
+# (2 paths), two Y in a 5-mer (4), three (8) and four (16)
+CLUSTERS = {2: "Y", 4: "YGY", 8: "YGYGY", 16: "YYGYY"}
 
 
 def _problem_args(P, i, seed):
@@ -146,6 +147,26 @@ def test_prepare_problem_matches_jax(P):
             assert a == b, f.name
 
 
+@pytest.mark.parametrize("P", [2, 8, 16])
+def test_legality_masks_hold_the_jax_legal_planes(P):
+    """convert.legality_bits against the JAX package's legal planes: one
+    int32 mask per (position, target path p) whose bit q is legal[p, q,
+    x], and problem_tensors carries them as (B, LX, P)."""
+    args, kw = _problem_args(P, 1, 300 + P)
+    jp = jbfb.prepare_problem(*args, **kw)
+    assert int(jp.n_paths.max()) == P
+    LX = jp.legal.shape[-1]
+    masks = legality_bits(jp.legal)
+    assert masks.dtype == np.int32 and masks.shape == (LX, P)
+    bit = np.arange(P, dtype=np.uint32)
+    legal = (masks.view(np.uint32).T[:, None, :] >> bit[None, :, None]) & 1
+    assert np.array_equal(legal.astype(bool), jp.legal)
+    assert jp.legal.any() and not jp.legal.all()
+    pt = problem_tensors([problem_from_numpy(jp)], W, CPU)
+    assert pt.leg.shape == (1, pt.ref.shape[-1], P)
+    assert np.array_equal(pt.leg[0, :LX].numpy(), masks)
+
+
 def test_problem_tensors_carry_the_path_tables(bucket):
     """problem_tensors field for field: per-path reference rows, the
     legality bits (which decode back to legal[p_to, q_from, x]), events,
@@ -153,14 +174,14 @@ def test_problem_tensors_carry_the_path_tables(bucket):
     P, _, tp = bucket
     pt = problem_tensors(tp, W, CPU)
     assert pt.P == P and pt.ref.shape[:3] == (len(tp), bfb.NREF, P)
-    bit = np.arange(P)[:, None] * bfb.MAX_P + np.arange(P)[None, :]
+    bit = np.arange(P)
     for i, p in enumerate(tp):
         lx = p.ref_params.shape[-1]
         assert np.array_equal(pt.ref[i, :, :, :lx].numpy(),
                               p.ref_params[:bfb.NREF])
         assert not pt.ref[i, :, :, lx:].any()
-        words = pt.leg[i, :lx].numpy().view(np.uint64)
-        legal = (words[None, None, :] >> bit[:, :, None].astype(np.uint64)) & 1
+        masks = pt.leg[i, :lx].numpy().T              # (P_to, LX)
+        legal = (masks[:, None, :] >> bit[None, :, None]) & 1
         assert np.array_equal(legal.astype(bool), p.legal)
         le = p.ev_params.shape[-1]
         assert np.array_equal(pt.ev[i, 0, :le].numpy(), p.ev_params[0])

@@ -215,10 +215,11 @@ def test_outside_the_slice_raises(batch, port, tmp_path):
 
 
 def test_p_greater_than_one_raises(tmp_path, capsys):
-    """A read with a segment of more than 8 paths per cell is dropped with
-    a FAILED line naming P, before any sweep runs: the motif edition puts
-    the three-way code B (CGT) at every C of a CG, so a CGCGCG window holds
-    three B in one 5-mer (27 paths). The port's align_read raises for it."""
+    """A read with a segment of more than 32 paths per cell is dropped
+    with a FAILED line naming P, before any sweep runs: the motif edition
+    puts the four-way code X (ACGT) at every C of a CG, so a CGCGCG window
+    holds three X in one 5-mer (64 paths). The port's align_read raises
+    for it."""
     model = synthetic_pore_model(1)
     rgs, _, _, _, fasta = build_synthetic_batch(
         model, n_reads=1, ev_min=300, ev_max=400, seed=2, genome_len=5000,
@@ -228,13 +229,13 @@ def test_p_greater_than_one_raises(tmp_path, capsys):
     genome = body[:1000] + "ACGCGCGTA" + body[1009:]
     with open(fasta, "w") as fh:
         fh.write(">synth\n" + genome + "\n")
-    reference = ProcessedReference(fasta, motifs=[("CG", "BG")])
+    reference = ProcessedReference(fasta, motifs=[("CG", "XG")])
     read, guide = synthetic_read(np.random.default_rng(3), genome, model,
-                                 900, 300, "b27")
-    config = AlignmentConfig(ambig_map={"B": "CGT"})
+                                 900, 300, "x64")
+    config = AlignmentConfig(ambig_map={"X": "ACGT"})
     assert run_alignment_batch([(read, guide)], reference, model, config,
                                device=CPU, verbose=True) == []
-    assert "[runner] FAILED b27: NotImplementedError: segment of P=27" \
+    assert "[runner] FAILED x64: NotImplementedError: segment of P=64" \
         in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="P=27"):
+    with pytest.raises(NotImplementedError, match="P=64"):
         align_read(read, guide, reference, model, config, device=CPU)
