@@ -19,7 +19,9 @@ Phases (any failure stops the run with a non-zero exit):
      for bit; with totals, |d exp(fstack)|, the survivor sets with their
      paths, |d posterior| and the times; then a P = 16 segment (two X
      sites in one k-mer of the shortest read) the same way, and that read
-     through run_alignment_batch on the GPU against the CPU;
+     through run_alignment_batch on the GPU against the CPU; then two P =
+     1 segments whose band is wider than the per-pair instances take (W =
+     2304: the P > 2 instances at P = 1), bit for bit;
   3d. site-mode calling ("CT") and P > 1 pair output on the GPU against
      the CPU (twins) on the two shortest reads of the phase-5 batch;
   4. the main path at a realistic size: 64 synthetic reads (about 1M
@@ -102,12 +104,6 @@ instances, and the probability-space pair on W <= 512), 5 and 6 (every
 em_train's buckets), by class, and prints one JSON line (no result
 line): run it for two checkouts in turns (A, B, B, A) in one job to
 compare their kernels.
-
-    python3 chip_smoke.py --k-scan
-
-times every per-pair instance (cells per thread K = 1, 2, 4, 8) on the
-per-pair classes of phases 4, 5, 6 and 7c and prints one JSON line beside
-the dispatch table's K: the measurement behind that table.
 """
 
 import dataclasses
@@ -159,12 +155,38 @@ TEXP_TOL = dict(rtol=2e-4, atol=5e-3)
 KEXP_TOL = dict(rtol=2e-3, atol=5e-3)
 SEED_EM_NOISE = 99      # the level-mean noise of 7c's start model
 SEED_CLEAN = 11         # 8a's error-free reads
+SEED_WIDE = 12          # 3c's wide P = 1 segments
+WIDE_P1_W = 2304        # their bucket width: past the per-pair instances
 EM_SEGMENT_DIAGONALS = 3200   # em_train's segment cap
 # H100 SXM peaks for the bounds: HBM bytes per second, and transcendental
 # results per second (16 special-function results per clock per SM, 132
 # SMs, 1,980 MHz boost clock)
 HBM_BYTES_PER_S = 3.35e12
 SFU_PER_S = 16 * 132 * 1.98e9
+
+
+def wide_p1_problems(bfb, model, ScalingParams, ambig):
+    """Two P = 1 segments whose band is wider than the per-pair
+    instances take (3c): seeded sequences of 2,500-2,600 bases, events
+    drawn from the model's level means (sd 1.2 pA), anchors every 20
+    events but for events 150-2,400, over which the band bulges past
+    2,048 offsets (the runner's bucket of such a band: W = WIDE_P1_W)."""
+    rng = np.random.default_rng(SEED_WIDE)
+    out = []
+    for i in range(2):
+        seq = "".join(rng.choice(list("ACGT"),
+                                 size=int(rng.integers(2500, 2600))))
+        ids = model.alphabet.seq_to_kmer_ids(seq)
+        ev = np.stack([model.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
+                       np.ones(len(ids)), np.full(len(ids), .005),
+                       np.arange(len(ids)) * .005], 1)
+        anchors = [(j, j) for j in range(8, len(ids) - 8, 20)
+                   if not 150 < j < 2400]
+        out.append(bfb.prepare_problem(
+            seq, ev, model, ScalingParams(shift=0.1 * i), ambig,
+            W=WIDE_P1_W, Dpad=6144, P=1, anchor_pairs=anchors, expansion=10,
+            mode=bfb.MODE_MEAN_ONLY))
+    return out
 
 
 def log(msg=""):
@@ -536,18 +558,14 @@ def serial_floor_ms(hk, barrier, pt, expect=False, prob=False,
     return 1e-3 * barrier[key] * max(pt.n_diag)
 
 
-def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False,
-             k_cells=0):
+def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False):
     """Mean CUDA-event milliseconds (forward, backward) of both kernels on
     ``pt`` over ``reps`` launches each, after two warm-up calls; with
     ``expect`` their expectation instances, with ``prob`` the
-    probability-space kernels (``pt`` made with ``prob=True``), with
-    ``k_cells`` the per-pair instance of that many cells per thread."""
-    # the arguments go in only when set, so that --kernel-sums also runs
-    # a port whose functions predate them
+    probability-space kernels (``pt`` made with ``prob=True``)."""
+    # the argument goes in only when set, so that --kernel-sums also runs
+    # a port whose functions predate it
     kw = {"expect": True} if expect else {}
-    if k_cells:
-        kw["k_cells"] = k_cells
     fwd, bwd = ((hk.forward_sweep_prob, hk.backward_sweep_compact_prob)
                 if prob else (hk.forward_sweep, hk.backward_sweep_compact))
     f_ms, (f, fi, lf) = cuda_ms(lambda: fwd(pt, **kw), reps)
@@ -558,13 +576,12 @@ def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False,
 
 
 def chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
-               tables=None, expect=False, k_cells=0):
+               tables=None, expect=False):
     """Both kernels on every chunk again ([(W, P, problems)], the runner's
     aligners), timed by CUDA events (one launch each after two warm-up
     calls): {(W, P): [problems, fwd ms, bwd ms, [(us per diagonal of each
     launch's longest problem, fwd, bwd)]]}. ``expect``: the expectation
-    instances; ``k_cells``: the per-pair instance of that many cells per
-    thread."""
+    instances."""
     # the tables and the expectation arguments go in only when given, so
     # that --kernel-sums also runs a port whose functions predate them
     extra = () if tables is None else (tables,)
@@ -572,8 +589,7 @@ def chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
     for W, P, probs in chunks:
         ptb = problem_tensors(probs, W, dev, *extra,
                               **({"kmer_ids": True} if expect else {}))
-        f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1, expect,
-                              k_cells=k_cells)
+        f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1, expect)
         # one block per problem: a launch lasts about as long as its
         # longest problem
         nd = max(ptb.n_diag)
@@ -820,80 +836,6 @@ def kernel_sums_of_tree(tree):
     out["phase7c_expect_fwd_sum_ms"] = sum(e[1] for e in by_wp.values())
     out["phase7c_expect_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
     out["phase7c_by_W_P"] = by_class_json(by_wp)
-    log(json.dumps(out))
-
-
-def k_scan():
-    """``--k-scan``: every per-pair instance (K = 1, 2, 4, 8 cells per
-    thread, where a class's cells fit the instance's thread budget) on
-    every chunk of the per-pair classes of phases 4 (P = 1), 5 (Gaussian
-    P = 2), 6 (HDP P <= 2) and 7c (the expectation instances), timed by
-    CUDA events as in 5b and summed by (W, P) class. Prints one JSON line
-    (the sums of each K beside the dispatch table's K; the measurement
-    behind pair_k in csrc/banded_fb.cu) and no result line."""
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: --k-scan needs a CUDA GPU")
-    from signalalign_tpu_torch.convert import hdp_tables, problem_tensors
-    from signalalign_tpu_torch.ops import banded_fb as bfb
-    from signalalign_tpu_torch.ops import banded_fb_hopper as hk
-    from signalalign_tpu_torch.pipeline.runner import _stack_chunks
-    from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
-    from signalalign_tpu_torch.utils import cuda_build
-    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
-                                                       synthetic_pore_model)
-    dev = torch.device("cuda")
-    cuda_build.load()
-    model = synthetic_pore_model(SEED_MODEL)
-    with tempfile.TemporaryDirectory() as tmp:
-        _, reference, rgs, amb_ref, _ = build_synthetic_batch(
-            model, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
-            genome_len=400_000, fasta_path=os.path.join(tmp, "genome.fa"),
-            ambig_frac=1.0)
-        model6, hdp6, rgs6, _, ref6, cfg6 = hdp_batch(tmp)
-    config = AlignmentConfig()
-    threshold = config.threshold
-    R = hk.survivor_slots(threshold)
-    tables = hdp_tables(*hdp6.density_arrays(), dev)
-    em_cfg = dataclasses.replace(
-        config, compute_expectations=True,
-        max_segment_diagonals=EM_SEGMENT_DIAGONALS).for_batch(len(rgs))
-    out = {"device": device_line(), "k_scan": {}, "table": {}}
-    for phase, rgs_, ref, model_, cfg, tb, ps, expect in (
-            ("4", rgs, reference, model, config.for_batch(len(rgs)), None,
-             (1,), False),
-            ("5", rgs, amb_ref, model,
-             AlignmentConfig(ambig_map=AMB).for_batch(len(rgs)), None, (2,),
-             False),
-            ("6", rgs6, ref6, model6, cfg6, tables, (1, 2), False),
-            ("7c", rgs, reference, model, em_cfg, None, (1,), True)):
-        buckets = {}
-        for W, Dpad, P, prob in prepare_all(rgs_, ref, model_, cfg, hdp6
-                                            if tb is not None else None):
-            if P in ps and hk.cells_per_thread(W, P, expect) > 0:
-                buckets.setdefault((W, Dpad, P), []).append(prob)
-        by_class = {}
-        for W, P, probs in bucket_chunks(_stack_chunks, buckets, expect):
-            by_class.setdefault((W, P), []).append((W, P, probs))
-        scan, table = {}, {}
-        for (W, P), chunks in sorted(by_class.items()):
-            row = scan[f"{W},{P}"] = {}
-            table[f"{W},{P}"] = [hk.cells_per_thread(W, P, expect, bwd)
-                                 for bwd in (False, True)]
-            for K in (1, 2, 4, 8):
-                try:
-                    e = chunk_sums(hk, bfb, problem_tensors, chunks, dev,
-                                   threshold, R, tb, expect, K)[(W, P)]
-                except RuntimeError:     # outside the instance's budget
-                    continue
-                row[str(K)] = [e[0], e[1], e[2]]
-            log(f"[k-scan {phase}] W={W} P={P}: " + ", ".join(
-                f"K={k} {v[1]:.3f} / {v[2]:.3f} ms" for k, v in row.items())
-                + f" ({row[next(iter(row))][0]} problems; table K="
-                f"{table[f'{W},{P}'][0]} forward, "
-                f"{table[f'{W},{P}'][1]} backward)")
-        out["k_scan"][phase] = scan
-        out["table"][phase] = table
-        del buckets, by_class
     log(json.dumps(out))
 
 
@@ -1254,6 +1196,30 @@ def main():
             f"|d total| {d16:.3e} nats, |d p| {w16:.3e} (tol {TOL_PATH}), "
             f"{len(on_gpu[0].aligned_pairs)} pairs")
         del pt16, segs16, ref16
+        # two P = 1 segments too wide for the per-pair instances: the P > 2
+        # instances at P = 1, held bit for bit like the classes above
+        ptw = problem_tensors(wide_p1_problems(bfb, model, ScalingParams,
+                                               DEFAULT_AMBIG_BASES),
+                              WIDE_P1_W, dev)
+        bw = int(ptw.width.max())
+        kw_ = hk.cells_per_thread(WIDE_P1_W, 1)
+        check(bw > 2048 and kw_ < 0, f"the wide P = 1 segments: band {bw} "
+              f"offsets, cells per thread {kw_}")
+        r = kernels_vs_twins(hk, bfb, ptw, threshold, R)
+        check(r["bit_equal"], f"the P = 1 W = {WIDE_P1_W} kernels differ "
+              "from their twins")
+        paths_rows[(WIDE_P1_W, 1)] = r
+        paths_bounds[(WIDE_P1_W, 1)] = bd = sweep_bounds(bfb, ptw,
+                                                         r["n_kernel"])
+        log(f"[kernels P=1 W={WIDE_P1_W} K={kw_}] 2 problems n_diag "
+            f"{min(ptw.n_diag)}..{max(ptw.n_diag)}, band {bw} offsets: "
+            f"sa_fwd_sweep {r['fwd_ms']:.3f} ms (twin {r['fwd_plain_ms']:.1f}"
+            f" ms, bound {bd['sa_fwd_sweep'][0]:.4f} ms), sa_bwd_sweep_compact "
+            f"{r['bwd_ms']:.3f} ms (twin {r['bwd_plain_ms']:.1f} ms, bound "
+            f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms), serial floor "
+            f"{serial_floor_ms(hk, barrier, ptw):.3f} ms; bit for bit "
+            f"{r['bit_equal']}, survivors {r['n_kernel']} vs {r['n_twin']}")
+        del ptw
         check(sum(min(2, len(v)) for (_, P), v in by_class.items() if P == 8)
               >= 2, "fewer than two P=8 problems")
 
@@ -1834,7 +1800,7 @@ def main():
             "library_ms": None,
             "serial_floor_ms": p1_floor,
             "launches_by_phase": by_phase,
-            "max_abs_err_p1": err(p1, name), "max_abs_err_p_gt_1": err_pn,
+            "max_abs_err_p1": err(p1, name), "max_abs_err_3c": err_pn,
             "max_abs_err_hdp": err_hdp,
             "ms_by_W_P": {f"{W},{P}": r[ms + "ms"]
                           for (W, P), r in paths_rows.items()},
@@ -1913,9 +1879,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--k-scan"]:
-        k_scan()
-    elif sys.argv[1:2] == ["--kernel-sums"]:
+    if sys.argv[1:2] == ["--kernel-sums"]:
         kernel_sums_of_tree(sys.argv[2] if len(sys.argv) > 2
                              else os.path.dirname(os.path.abspath(__file__)))
     else:

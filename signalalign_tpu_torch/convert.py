@@ -106,6 +106,20 @@ def legality_bits(legal: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(masks.T).view(np.int32)
 
 
+def masks_by_source(leg: torch.Tensor) -> torch.Tensor:
+    """(..., P) int32 masks by target path (``legality_bits``' layout) ->
+    the same masks by source path, on ``leg``'s device: bit p of ``[...,
+    q]`` is bit q of ``leg[..., p]`` (the backward kernel's reads: the
+    legal targets of a source path in one word)."""
+    P = leg.shape[-1]
+    if P == 1:
+        return leg
+    q = torch.arange(P, dtype=torch.int64, device=leg.device)
+    bits = (leg.to(torch.int64).unsqueeze(-1) >> q) & 1    # [..., p, q]
+    src = (bits.transpose(-1, -2) << q).sum(-1)            # [..., q]
+    return torch.where(src >= 2 ** 31, src - 2 ** 32, src).to(torch.int32)
+
+
 def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
                     device: torch.device,
                     hdp: Optional[bfb.HdpTables] = None,
@@ -155,7 +169,6 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
     width = np.zeros((B, D1), np.int32)
     ref = np.zeros((B, bfb.NREF, P, LX), np.float32)
     leg = np.zeros((B, LX, P), np.int32)
-    leg_src = np.zeros((B, LX, P), np.int32)
     ev = np.zeros((B, bfb.NEV, LE), np.float32)
     meta = np.zeros((B, bfb.NMETA), np.int32)
     par = np.zeros((B, bfb.NPACK), np.float32)
@@ -171,8 +184,6 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         le = p.ev_params.shape[-1]
         ref[i, :, :p.ref_params.shape[1], :lx] = p.ref_params[:bfb.NREF]
         leg[i, :lx, :p.legal.shape[0]] = legality_bits(p.legal)
-        leg_src[i, :lx, :p.legal.shape[0]] = legality_bits(
-            p.legal.transpose(1, 0, 2))
         ev[i, 0, :le] = p.ev_params[0]
         ev[i, 1, :le] = p.ev_params[3]
         meta[i, [bfb.M_LX, bfb.M_LY, bfb.M_NDIAG, bfb.M_EVPAD, bfb.M_REFLEN,
@@ -191,15 +202,16 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         return torch.from_numpy(a).to(device)
 
     x0 = dev(x0)
+    leg = dev(leg)
     pt_prob = _prob_tensors(problems, ref, LE, dev) if prob else None
     if hdp_mode and hdp.dens.device != x0.device:
         raise ValueError(f"HDP tables on {hdp.dens.device}, bucket on "
                          f"{x0.device}")
     return bfb.ProblemTensors(
         W=W, P=P, n_diag=[p.n_diag for p in problems], x0=x0,
-        width=dev(width), ref=dev(ref), leg=dev(leg),
-        leg_src=dev(leg_src), ev=dev(ev),
-        meta=dev(meta), par=dev(par),
+        width=dev(width), ref=dev(ref), leg=leg,
+        leg_src=masks_by_source(leg) if leg.device.type == "cuda" else None,
+        ev=dev(ev), meta=dev(meta), par=dev(par),
         kid=dev(kid) if with_kid else None, mu=dev(mu) if hdp_mode else None,
         hdp=hdp, prob=pt_prob)
 

@@ -159,11 +159,9 @@ constexpr int MAX_THREADS = 1024;
 constexpr int MAX_K = 8;                        // cells per thread
 constexpr int MAX_CELLS = MAX_K * MAX_THREADS;  // P * W
 
-// threads a per-pair instance of K cells per thread is built for (its
-// register budget: 65,536 / threads); the dispatch keeps within it
-__host__ __device__ constexpr int pair_threads(int K) {
-  return K >= 8 ? 256 : 512;
-}
+// threads a per-pair instance is built for (its register budget:
+// 65,536 / threads): PAIR_CELLS cells at the table's largest K, 4
+constexpr int PAIR_THREADS = 512;
 
 __device__ __forceinline__ float lae(float a, float b) {
   float m = fmaxf(a, b);
@@ -822,7 +820,7 @@ __device__ __forceinline__ float diag_barrier_max(float wmax, const float* part,
 }
 
 template <int K, bool HDP, bool EXPECT>
-__global__ void __launch_bounds__(pair_threads(K)) sa_fwd_pair_kernel(
+__global__ void __launch_bounds__(PAIR_THREADS) sa_fwd_pair_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
     const float* __restrict__ ev_, const int* __restrict__ meta_,
@@ -1042,7 +1040,7 @@ __device__ __forceinline__ BwdIn load_bwd_in(const Problem& pr, int q,
 }
 
 template <int K, bool HDP, bool EXPECT>
-__global__ void __launch_bounds__(pair_threads(K)) sa_bwd_pair_kernel(
+__global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
     const float* __restrict__ ev_, const int* __restrict__ meta_,
@@ -1389,17 +1387,13 @@ int paths_k(int N) {
 
 bool pair_bucket(int W, int P) { return P <= PAIR_P && P * W <= PAIR_CELLS; }
 
-// K fits a per-pair instance's thread budget at N cells
-bool pair_k_ok(int K, int N) {
-  return (K == 1 || K == 2 || K == 4 || K == 8) &&
-         round_warps((N + K - 1) / K) <= pair_threads(K);
-}
-
-// Cells per thread of the per-pair instances by P * W: the fastest K of
-// chip_smoke.py --k-scan on an H100 (PERF.md §6), the most threads K's
-// budget allows, except for the EXPECT backward (98 registers a thread at
-// K = 1), which fits twice the blocks on an SM at K = 2 and measured
-// faster there above 128 cells.
+// Cells per thread of the per-pair instances by P * W: the fastest of K =
+// 1, 2, 4 and 8 timed on every class of the pipeline's P <= 2 buckets on
+// an H100 (PERF.md §6), the most threads the budget allows (one warp, K =
+// 8 at W = 256, was 3-4x slower), except for the EXPECT backward (98
+// registers a thread at K = 1), which fits twice the blocks on an SM at K
+// = 2 and measured faster there above 128 cells. At most PAIR_THREADS
+// threads at N <= PAIR_CELLS.
 int pair_k(int N, bool expect_bwd) {
   return N <= (expect_bwd ? 128 : 512) ? 1 : N <= 1024 ? 2 : 4;
 }
@@ -1464,9 +1458,8 @@ int fwd_pair_dispatch(const Bucket& a, int K, float* fstack, float* f_incr,
   switch (K) {
     case 1: return fwd_pair_launch<1, HDP, EXPECT>(a, fstack, f_incr, lse_f, s);
     case 2: return fwd_pair_launch<2, HDP, EXPECT>(a, fstack, f_incr, lse_f, s);
-    case 4: return fwd_pair_launch<4, HDP, EXPECT>(a, fstack, f_incr, lse_f, s);
     default:
-      return fwd_pair_launch<8, HDP, EXPECT>(a, fstack, f_incr, lse_f, s);
+      return fwd_pair_launch<4, HDP, EXPECT>(a, fstack, f_incr, lse_f, s);
   }
 }
 
@@ -1536,9 +1529,7 @@ int bwd_pair_dispatch(const Bucket& a, int K, const float* fstack,
                                                    threshold, s);
     case 2: return bwd_pair_launch<2, HDP, EXPECT>(a, fstack, cvecf, o, R,
                                                    threshold, s);
-    case 4: return bwd_pair_launch<4, HDP, EXPECT>(a, fstack, cvecf, o, R,
-                                                   threshold, s);
-    default: return bwd_pair_launch<8, HDP, EXPECT>(a, fstack, cvecf, o, R,
+    default: return bwd_pair_launch<4, HDP, EXPECT>(a, fstack, cvecf, o, R,
                                                     threshold, s);
   }
 }
@@ -1566,13 +1557,13 @@ bool hdp_ok(const HdpTab& h) {
   return h.kid && h.mu && h.slopes && h.nk >= 1 && h.ng >= 2 && h.dx > 0.f;
 }
 
-// The per-pair K a launch uses: `k_cells` when it is not 0 (a measurement
-// of another instance), else the table's; -1 for a K the bucket cannot
-// take (a P > 2 or wide bucket, or outside the K's thread budget).
-int launch_k(int W, int P, int k_cells, bool expect_bwd) {
-  if (!pair_bucket(W, P)) return k_cells == 0 ? 0 : -1;
-  if (k_cells == 0) return pair_k(P * W, expect_bwd);
-  return pair_k_ok(k_cells, P * W) ? k_cells : -1;
+// The cells per thread the forward (`backward` false) or the backward
+// sweep launches a bucket of P paths at width W with: K of a per-pair
+// instance, -K of a P > 2 (PATHS) one; 0 for a shape they do not take.
+int launch_k(int W, int P, bool expect, bool backward) {
+  if (!shape_ok(W, P) || (expect && !expect_shape_ok(W, P))) return 0;
+  return pair_bucket(W, P) ? pair_k(P * W, expect && backward)
+                           : -paths_k(P * W);
 }
 
 }  // namespace
@@ -1587,21 +1578,14 @@ int launch_k(int W, int P, int k_cells, bool expect_bwd) {
 // all null for a Gaussian bucket. `expect` != 0 runs the EM expectation
 // instances: fstack is (B, D1, 3, P, W), and the backward writes texp (B,
 // 7) and adds into kx (B, 3, LX), which the caller zeroes (both null
-// otherwise). `k_cells` != 0 launches the per-pair instance of that many
-// cells per thread in place of the dispatch table's (to time the
-// instances against each other). Each returns cudaGetLastError() after
-// its launch, or cudaErrorInvalidValue for a shape it does not take (P >
-// 32 or P * W > 8192; with `expect`, P > 1 or W > 2048), a `k_cells` the
-// bucket cannot take, an incomplete set of HDP tables or missing
-// expectation outputs.
+// otherwise). Each returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for a shape it does not take (P > 32 or P * W >
+// 8192; with `expect`, P > 1 or W > 2048), an incomplete set of HDP
+// tables or missing expectation outputs.
 
-// The cells per thread the forward (`backward` 0) or the backward sweep
-// launches a bucket of P paths at width W with: K of a per-pair instance,
-// -K of a P > 2 (PATHS) one; 0 for a shape they do not take.
+// launch_k, for the Python side
 extern "C" int sa_cells_per_thread(int W, int P, int expect, int backward) {
-  if (!shape_ok(W, P) || (expect && !expect_shape_ok(W, P))) return 0;
-  return pair_bucket(W, P) ? pair_k(P * W, expect && backward)
-                           : -paths_k(P * W);
+  return launch_k(W, P, expect, backward);
 }
 
 extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
@@ -1610,18 +1594,16 @@ extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
                             const float* mu, const float* dens,
                             const float* slopes, float* fstack,
                             float* f_incr, float* lse_f, int B, int D1, int W,
-                            int P, int LX, int LE, int expect, int k_cells,
-                            int nk, int ng, float g0, float dx, float gN,
+                            int P, int LX, int LE, int expect, int nk,
+                            int ng, float g0, float dx, float gN,
                             void* stream) {
   const Bucket a{x0, width, ref, leg, ev, meta, par,
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
-  const int K = launch_k(W, P, k_cells, false);
-  if (!shape_ok(W, P) || !hdp_ok(a.h) || K < 0 ||
-      (expect && !expect_shape_ok(W, P)))
-    return (int)cudaErrorInvalidValue;
+  const int K = launch_k(W, P, expect, false);
+  if (K == 0 || !hdp_ok(a.h)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (K == 0)
+  if (K < 0)
     return dens ? fwd_paths_dispatch<true>(a, fstack, f_incr, lse_f, s)
                 : fwd_paths_dispatch<false>(a, fstack, f_incr, lse_f, s);
   if (expect)
@@ -1640,18 +1622,17 @@ extern "C" int sa_bwd_sweep_compact(
     const float* fstack, const double* cvecf, float* b_incr, float* lse_b,
     int* slot_cell, float* slot_val, int* cnt, double* texp, double* kx,
     int B, int D1, int W, int P, int LX, int LE, int R, int expect,
-    int k_cells, int nk, int ng, float threshold, float g0, float dx,
+    int nk, int ng, float threshold, float g0, float dx,
     float gN, void* stream) {
   const Bucket a{x0, width, ref, leg, ev, meta, par,
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
-  const int K = launch_k(W, P, k_cells, expect);
-  if (!shape_ok(W, P) || !hdp_ok(a.h) || K < 0 ||
-      (expect && (!expect_shape_ok(W, P) || !texp || !kx)))
+  const int K = launch_k(W, P, expect, true);
+  if (K == 0 || !hdp_ok(a.h) || (expect && (!texp || !kx)))
     return (int)cudaErrorInvalidValue;
   const BwdOut o{b_incr, lse_b, slot_cell, slot_val, cnt, texp, kx};
   cudaStream_t s = (cudaStream_t)stream;
-  if (K == 0)
+  if (K < 0)
     return dens
         ? bwd_paths_dispatch<true>(a, fstack, cvecf, o, R, threshold, s)
         : bwd_paths_dispatch<false>(a, fstack, cvecf, o, R, threshold, s);

@@ -410,7 +410,8 @@ class ProblemTensors:
     clamp exactly as the JAX package's per-problem dynamic slices do.
     ``leg[b, x, p_to]`` holds ``legal[p_to, q_from, x]`` in bit q_from,
     ``leg_src[b, x, q_from]`` the same in bit p_to (the backward kernel's
-    reads: the legal targets of a source path in one word).
+    reads: the legal targets of a source path in one word), derived from
+    ``leg`` on the device for a CUDA bucket (None on the CPU).
     Path slots a position does not use have zero ``ref`` rows (inv_m = 0
     marks them invalid, as in the JAX emissions).
     """
@@ -421,7 +422,7 @@ class ProblemTensors:
     width: torch.Tensor    # (B, D1) int32 band width per diagonal
     ref: torch.Tensor      # (B, NREF, P, LX) f32
     leg: torch.Tensor      # (B, LX, P) int32 legality masks by target path
-    leg_src: torch.Tensor  # (B, LX, P) int32 legality masks by source path
+    leg_src: Optional[torch.Tensor]  # (B, LX, P) int32 by source path
     ev: torch.Tensor       # (B, NEV, LE) f32
     meta: torch.Tensor     # (B, NMETA) int32
     par: torch.Tensor      # (B, NPACK) f32

@@ -142,16 +142,13 @@ def cells_per_thread(W: int, P: int, expect: bool = False,
                                                  int(backward))
 
 
-def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False,
-                  k_cells: int = 0):
+def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False):
     """Forward sweep of every problem of ``pt`` (one CUDA block each).
 
     Returns (fstack, f_incr, lse_f) as ``forward_sweep_ref``; on CUDA the
     fstack rows past a problem's n_diag are left unwritten. ``expect``
     (P = 1, W <= 2048) keeps all three states of each diagonal for the
-    expectation pass. ``k_cells`` (a per-pair bucket only) launches the
-    instance of that many cells per thread in place of the dispatch
-    table's, to time or test the instances against each other.
+    expectation pass.
     """
     if pt.device.type == "cpu":
         return forward_sweep_ref(pt, expect)
@@ -167,7 +164,7 @@ def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False,
     lse_f = torch.empty(B, dtype=torch.float32, device=dev)
     _launch("sa_fwd_sweep", pt, pt.leg, (fstack, f_incr, lse_f),
             (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1],
-             int(expect), k_cells))
+             int(expect)))
     if expect:
         forward_sweep.expect_launches += 1
     else:
@@ -235,8 +232,7 @@ def backward_sweep_compact_ref(pt: bfb.ProblemTensors, fstack, cvecf,
 
 
 def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
-                           threshold: float, R: int, expect: bool = False,
-                           k_cells: int = 0):
+                           threshold: float, R: int, expect: bool = False):
     """Backward sweep with the posterior, threshold and survivor
     compaction fused in; ``cvecf`` (B, D1) float64 is Fo(d) - total_f.
 
@@ -246,8 +242,7 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     stack of ``forward_sweep(pt, expect=True)``) adds texp (B, 7) float64,
     the transition posterior sums in ``bfb.TEXP_ROWS`` order, and kx (B,
     3, LX) float64, the into-match posteriors' moments [Σp, Σp·dx, Σp·dx²]
-    at each TO position (zero in MODE_HDP). ``k_cells`` as in
-    ``forward_sweep``.
+    at each TO position (zero in MODE_HDP).
     """
     if pt.device.type == "cpu":
         return backward_sweep_compact_ref(pt, fstack, cvecf, threshold, R,
@@ -273,8 +268,8 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     _launch("sa_bwd_sweep_compact", pt, pt.leg_src,
             (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt, texp,
              kx),
-            (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1], R, int(expect),
-             k_cells), (float(threshold),))
+            (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1], R, int(expect)),
+            (float(threshold),))
     out = (b_incr, lse_b, slot_cell, slot_val, cnt)
     if expect:
         backward_sweep_compact.expect_launches += 1

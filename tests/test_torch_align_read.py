@@ -97,7 +97,7 @@ def _x_batch(tmp_path, sites):
             (pm, p[0], ProcessedReference(edited)))
 
 
-def test_batch_drops_a_read_of_more_than_8_paths(tmp_path):
+def test_p16_read_aligns_as_the_jax_package(tmp_path):
     """Two X (ACGT) sites in one k-mer of one read's window give that
     read a segment of P = 16, which the kernels take since the legality
     masks hold 32 paths: run_alignment_batch aligns all four reads and

@@ -1,9 +1,10 @@
 """Each Hopper kernel of the port against its plain PyTorch twin on the
 card, for P = 1 and for P = 2, 4, 8 and 16 paths per cell, with every
-kernel instance (1, 2, 4 and 8 cells per thread; the per-pair instances
-of P <= 2 at each K by ``k_cells``), with Gaussian and with HDP
-emissions, the EM expectation instances (P = 1, every K, Gaussian and
-HDP), and the probability-space kernels (P = 1, W = 256 and 512, and
+kernel instance (1, 2, 4 and 8 cells per thread of the P > 2 instances,
+at P = 1 too past 2048 cells; the per-pair instances of P <= 2 at each
+K the dispatch table uses, on shapes that select it), with Gaussian and
+with HDP emissions, the EM expectation instances (P = 1, each K the
+table uses, Gaussian and HDP), and the probability-space kernels (P = 1, W = 256 and 512, and
 segments that exhaust their f32 range). Needs a CUDA GPU and nvcc;
 skipped without a GPU. On a GPU host:
 
@@ -214,17 +215,21 @@ def test_aligner_on_gpu_matches_cpu(dev, bucket):
 
 
 PATH_CASES = ["p2", "p3w512", "p4w1024", "p8w128", "p8", "p8w512", "p8w768",
-              "p2w4096", "p16", "edges", "clamp", "illegal"]
+              "p2w4096", "p1w2304", "p1w8192", "p16", "edges", "clamp",
+              "illegal"]
 
 
 @pytest.fixture(scope="module",
                 params=PATH_CASES + ["hdp_" + c for c in PATH_CASES])
 def paths_case(request):
-    """(problems, W, HDP or None) for P > 1, Gaussian or HDP (hdp_), at
-    every cells-per-thread instance: pP[wW] (W = 256 by default) gives K =
-    1 (P*W <= 1024), 2 (p3w512, p8), 4 (p4w1024, p8w512, p16) or 8
-    (p8w768, p2w4096). P = 2 runs the per-pair instances (those of P =
-    1) up to 2048 cells, P > 2 and wider P = 2 buckets the P > 2 ones. ``edges``: P = 8 problems whose band
+    """(problems, W, HDP or None) for the P > 2 instances, Gaussian or HDP
+    (hdp_), at every cells-per-thread instance: pP[wW] (W = 256 by
+    default) gives K = 1 (P*W <= 1024), 2 (p3w512, p8), 4 (p4w1024,
+    p8w512, p16, p1w2304) or 8 (p8w768, p2w4096, p1w8192). P = 2 runs
+    the per-pair instances up to 2048 cells (p2 among them), P > 2 and
+    wider P <= 2 buckets the P > 2 ones: p1w2304 is the runner's bucket
+    of a P = 1 band 2,271 offsets wide, p1w8192 the same problems at the
+    widest P = 1 bucket. ``edges``: P = 8 problems whose band
     fills W at its bulge (W = their widest band), so reads fall outside
     the window at both band edges; ``clamp``: P = 4 problems prepared at
     W = 128 and run at W = 256, so the reference and event windows clamp
@@ -262,19 +267,22 @@ def paths_case(request):
     sizes, gap, dpad = {128: ((400, 600), (100, 150), 2048),
                         768: ((1300, 1400), (200, 850), 4096),
                         1024: ((1300, 1400), (200, 850), 4096),
-                        4096: ((1300, 1400), (200, 850), 4096)}.get(
+                        2304: ((2500, 2600), (150, 2400), 6144),
+                        4096: ((1300, 1400), (200, 850), 4096),
+                        8192: ((2500, 2600), (150, 2400), 6144)}.get(
                             W, ((700, 900), (100, 300), 2048))
     return _case(_problems(2, sizes, gap, W, dpad, 30 + P, P=P, hdp=hdp), W)
 
 
 def test_paths_kernels_equal_twins_bit_for_bit(dev, paths_case):
-    """Both kernels at P > 1 (for P > 2 the source-side terms in the
+    """Both kernels on a P > 1 bucket or a P = 1 bucket past the per-pair
+    instances (for the P > 2 instances the source-side terms in the
     forward's ring, the target-side terms staged once per (offset, path)
     in the backward, the logsumexps over legal paths only) against their
     twins: fstack, offsets, totals' terms and survivors equal bit for
     bit."""
     pt = _tensors(paths_case, dev)
-    assert pt.P > 1
+    assert pt.P > 1 or hk.cells_per_thread(pt.W, pt.P) < 0
     nds = pt.meta[:, bfb.M_NDIAG]
     rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
     nds, fk, fr = _forward_both(pt)
@@ -362,26 +370,36 @@ def test_expect_aligner_on_gpu_matches_cpu(dev, expect_bucket):
         np.testing.assert_allclose(g["kexp"], c["kexp"], rtol=2e-3, atol=5e-3)
 
 
-PAIR_CASES = ["p1", "p2", "hdp_p1", "hdp_p2"]
+# (P, W, K): a bucket shape of each cells-per-thread instance the
+# dispatch table gives the per-pair sweeps
+PAIR_SHAPES = [(1, 256, 1), (1, 768, 2), (1, 1280, 4),
+               (2, 256, 1), (2, 512, 2), (2, 1024, 4)]
+# (sizes, anchor gap, Dpad) of problems whose bands reach ~W offsets
+PAIR_PROBLEMS = {256: ((500, 700), (100, 200), 2048),
+                 512: ((700, 900), (100, 400), 2048),
+                 768: ((1300, 1400), (200, 850), 4096),
+                 1024: ((1300, 1400), (200, 850), 4096),
+                 1280: ((1450, 1550), (200, 1300), 4096)}
 
 
-@pytest.mark.parametrize("k", [1, 2, 4, 8])
-@pytest.mark.parametrize("case", PAIR_CASES)
-def test_pair_instances_equal_twins_bit_for_bit(dev, case, k):
+@pytest.mark.parametrize("hdp", [False, True], ids=["gauss", "hdp"])
+@pytest.mark.parametrize("P,W,k", PAIR_SHAPES,
+                         ids=[f"p{P}w{W}" for P, W, _ in PAIR_SHAPES])
+def test_pair_instances_equal_twins_bit_for_bit(dev, P, W, k, hdp):
     """Each per-pair instance (one barrier a diagonal, raw-state ring,
-    inputs staged a diagonal ahead) at K cells per thread, forced by
-    ``k_cells``, on W=256 problems of P = 1 or 2, Gaussian or HDP:
-    fstack, offsets, survivor counts, cells and posteriors equal the
-    twins' bit for bit; the end logsumexps, which sum in thread order,
-    within 1e-2 nats."""
-    hdp = case.startswith("hdp_")
-    P = int(case[-1])
-    problems, h = _problems(3, (500, 700), (100, 200), 256, 2048, 40 + P,
-                            P=P, hdp=hdp)
-    pt = problem_tensors(problems, 256, dev, _hdp_tables(h, dev))
+    inputs staged a diagonal ahead) the dispatch table uses, on a bucket
+    of P = 1 or 2 paths at a W that selects it (K cells per thread both
+    ways), Gaussian or HDP: fstack, offsets, survivor counts, cells and
+    posteriors equal the twins' bit for bit; the end logsumexps, which
+    sum in thread order, within 1e-2 nats."""
+    assert [hk.cells_per_thread(W, P, backward=b) for b in (0, 1)] == [k, k]
+    sizes, gap, dpad = PAIR_PROBLEMS[W]
+    problems, h = _problems(2 if W > 256 else 3, sizes, gap, W, dpad,
+                            40 + P, P=P, hdp=hdp)
+    pt = problem_tensors(problems, W, dev, _hdp_tables(h, dev))
     nds = pt.meta[:, bfb.M_NDIAG]
     rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
-    fk = hk.forward_sweep(pt, k_cells=k)
+    fk = hk.forward_sweep(pt)
     fr = hk.forward_sweep_ref(pt)
     torch.cuda.synchronize()
     assert torch.equal(fk[0][rows], fr[0][rows])
@@ -390,7 +408,7 @@ def test_pair_instances_equal_twins_bit_for_bit(dev, case, k):
     fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
     cvecf = (fo - tf[:, None]).contiguous()
     R = hk.survivor_slots(THR)
-    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R, k_cells=k)
+    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R)
     br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, THR, R)
     torch.cuda.synchronize()
     assert torch.equal(bk[0][rows], br[0][rows])
@@ -402,20 +420,29 @@ def test_pair_instances_equal_twins_bit_for_bit(dev, case, k):
     assert torch.equal(bk[3][keep], br[3][keep])
 
 
-@pytest.mark.parametrize("k", [1, 2, 4, 8])
+# (W, forward K, backward K): a P = 1 bucket shape of each instance the
+# dispatch table gives the expectation sweeps
+EXPECT_SHAPES = [(128, 1, 1), (256, 1, 2), (768, 2, 2), (1280, 4, 4)]
+
+
 @pytest.mark.parametrize("hdp", [False, True], ids=["gauss", "hdp"])
-def test_expect_instances_at_every_k(dev, hdp, k):
-    """The expectation instances at K cells per thread (``k_cells``) on
-    W=256 problems: three-state stacks, offsets and survivors equal the
-    twins' bit for bit, texp and kx within 1e-5 relative (float64 sums in
-    another association)."""
-    problems, h = _problems(4, (300, 600), (100, 160), 256, 2048, 4,
+@pytest.mark.parametrize("W,kf,kb", EXPECT_SHAPES,
+                         ids=[f"w{W}" for W, _, _ in EXPECT_SHAPES])
+def test_expect_instances_at_every_k(dev, W, kf, kb, hdp):
+    """The expectation instances the dispatch table uses, on P = 1
+    buckets at a W that selects each (forward K kf, backward K kb):
+    three-state stacks, offsets and survivors equal the twins' bit for
+    bit, texp and kx within 1e-5 relative (float64 sums in another
+    association)."""
+    assert [hk.cells_per_thread(W, 1, True, b) for b in (0, 1)] == [kf, kb]
+    sizes, gap, dpad = PAIR_PROBLEMS.get(W, ((300, 600), (100, 160), 2048))
+    problems, h = _problems(2 if W > 256 else 4, sizes, gap, W, dpad, 4,
                             hdp=hdp)
-    pt = problem_tensors(problems, 256, dev, _hdp_tables(h, dev),
+    pt = problem_tensors(problems, W, dev, _hdp_tables(h, dev),
                          kmer_ids=True)
     nds = pt.meta[:, bfb.M_NDIAG]
     rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
-    fk = hk.forward_sweep(pt, expect=True, k_cells=k)
+    fk = hk.forward_sweep(pt, expect=True)
     fr = hk.forward_sweep_ref(pt, expect=True)
     torch.cuda.synchronize()
     assert torch.equal(fk[0][rows], fr[0][rows])
@@ -423,8 +450,7 @@ def test_expect_instances_at_every_k(dev, hdp, k):
     fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
     cvecf = (fo - tf[:, None]).contiguous()
     R = hk.survivor_slots(THR)
-    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R, expect=True,
-                                   k_cells=k)
+    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R, expect=True)
     br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, THR, R, expect=True)
     torch.cuda.synchronize()
     assert torch.equal(bk[0][rows], br[0][rows])
@@ -437,19 +463,6 @@ def test_expect_instances_at_every_k(dev, hdp, k):
         assert _rel(bk[6], br[6]) <= 1e-5 and bk[6].abs().max() > 0
     else:
         assert not bk[6].any()
-
-
-def test_k_cells_outside_the_budget_is_refused(dev):
-    """A per-pair instance whose threads would pass its budget (K = 1 at
-    2048 cells) and a P > 2 bucket with ``k_cells`` are refused before
-    any launch."""
-    problems, _ = _problems(2, (1300, 1400), (200, 850), 2048, 4096, 7)
-    pt = problem_tensors(problems, 2048, dev)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        hk.forward_sweep(pt, k_cells=1)
-    problems, _ = _problems(2, (700, 900), (100, 300), 256, 2048, 14, P=4)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        hk.forward_sweep(problem_tensors(problems, 256, dev), k_cells=2)
 
 
 def test_expect_refuses_more_than_one_path(dev):

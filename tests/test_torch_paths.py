@@ -22,7 +22,7 @@ from signalalign_tpu.ops.fb_oracle import (CellPaths, Emissions,
 from signalalign_tpu.pipeline.variant_caller import (marginals_from_pairs,
                                                      marginals_from_site_probs)
 from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
-from signalalign_tpu_torch.convert import (legality_bits,
+from signalalign_tpu_torch.convert import (legality_bits, masks_by_source,
                                            pore_model_from_numpy,
                                            problem_from_numpy, problem_tensors)
 from signalalign_tpu_torch.models import pore_model as port_pm
@@ -165,6 +165,22 @@ def test_legality_masks_hold_the_jax_legal_planes(P):
     pt = problem_tensors([problem_from_numpy(jp)], W, CPU)
     assert pt.leg.shape == (1, pt.ref.shape[-1], P)
     assert np.array_equal(pt.leg[0, :LX].numpy(), masks)
+    assert pt.leg_src is None        # derived on the device for CUDA only
+
+
+@pytest.mark.parametrize("P", [1, 2, 8, 16, 32])
+def test_masks_by_source_transpose_the_legal_planes(P):
+    """convert.masks_by_source (the backward kernel's masks, bit p of
+    [x, q] = legal[p, q, x]) against legality_bits of the transposed
+    planes, on seeded planes over (2, LX) positions: bit 31 (P = 32)
+    keeps its sign in int32."""
+    rng = np.random.default_rng(400 + P)
+    legal = rng.random((2, P, P, 37)) < 0.4
+    leg = torch.from_numpy(np.stack([legality_bits(lp) for lp in legal]))
+    want = np.stack([legality_bits(lp.transpose(1, 0, 2)) for lp in legal])
+    got = masks_by_source(leg)
+    assert got.dtype == torch.int32 and got.shape == (2, 37, P)
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_problem_tensors_carry_the_path_tables(bucket):
