@@ -21,7 +21,12 @@ Phases (any failure stops the run with a non-zero exit):
      sites in one k-mer of the shortest read) the same way, and that read
      through run_alignment_batch on the GPU against the CPU; then two P =
      1 segments whose band is wider than the per-pair instances take (W =
-     2304: the P > 2 instances at P = 1), bit for bit;
+     2304: the P > 2 instances at P = 1), bit for bit; then the wide
+     instance (past 8,192 cells a diagonal) bit for bit on a P = 64
+     segment (three X sites in one k-mer of a 300-base read, W = 256) and
+     a P = 16 one at W = 768, and that P = 64 read through
+     run_alignment_batch on the GPU (the wide instance's launches counted
+     from 0) against the CPU;
   3d. site-mode calling ("CT") and P > 1 pair output on the GPU against
      the CPU (twins) on the two shortest reads of the phase-5 batch;
   4. the main path at a realistic size: 64 synthetic reads (about 1M
@@ -98,12 +103,12 @@ The last two lines are a JSON object per kernel and the result line
 
 times only the kernels of the port in TREE (a checkout; by default this
 one) on phase 3a's problems (plain, expectation and probability-space
-instances) and every bucket of phases 4 (plain and expectation
-instances, and the probability-space pair on W <= 512), 5 and 6 (every
-(W, P) class, Gaussian and HDP) and 7c (the expectation instances on
-em_train's buckets), by class, and prints one JSON line (no result
-line): run it for two checkouts in turns (A, B, B, A) in one job to
-compare their kernels.
+instances), on 3c's wide-instance segments, and on every bucket of
+phases 4 (plain and expectation instances, and the probability-space
+pair on W <= 512), 5 and 6 (every (W, P) class, Gaussian and HDP) and 7c
+(the expectation instances on em_train's buckets), by class, and prints
+one JSON line (no result line): run it for two checkouts in turns (A, B,
+B, A) in one job to compare their kernels.
 """
 
 import dataclasses
@@ -157,6 +162,8 @@ SEED_EM_NOISE = 99      # the level-mean noise of 7c's start model
 SEED_CLEAN = 11         # 8a's error-free reads
 SEED_WIDE = 12          # 3c's wide P = 1 segments
 WIDE_P1_W = 2304        # their bucket width: past the per-pair instances
+SEED_X64 = 13           # 3c's P = 64 read
+SEED_WIDE16 = 14        # 3c's P = 16 segment at W = 768
 EM_SEGMENT_DIAGONALS = 3200   # em_train's segment cap
 # H100 SXM peaks for the bounds: HBM bytes per second, and transcendental
 # results per second (16 special-function results per clock per SM, 132
@@ -187,6 +194,46 @@ def wide_p1_problems(bfb, model, ScalingParams, ambig):
             W=WIDE_P1_W, Dpad=6144, P=1, anchor_pairs=anchors, expansion=10,
             mode=bfb.MODE_MEAN_ONLY))
     return out
+
+
+def x64_read(model, plain, tmp):
+    """3c's P = 64 case: the plain genome edited with three X (ACGT) sites
+    in one k-mer, and a 300-base read over them drawn from the plain
+    genome: ((read, guide), the edited reference). Its one segment has 64
+    paths per cell at W = 256 (16,384 cells a diagonal: the wide
+    instance)."""
+    from signalalign_tpu_torch.io.reference import ProcessedReference
+    from signalalign_tpu_torch.utils.synthetic import (synthetic_read,
+                                                       write_genome_fasta)
+    site = len(plain) // 2
+    fa = os.path.join(tmp, "x64.fa")
+    write_genome_fasta(plain[:site] + "XXX" + plain[site + 3:], fa)
+    rg = synthetic_read(np.random.default_rng(SEED_X64), plain, model,
+                        site - 150, 300, "x64")
+    return rg, ProcessedReference(fa)
+
+
+def wide_p16_problems(bfb, model, ScalingParams, ambig):
+    """3c's P = 16 segment past 8,192 cells a diagonal: 640 seeded bases
+    with a Y every 25 positions and one YYGYY cluster, events drawn from a
+    resolved sequence (sd 1.2 pA), anchors every 15 events but for events
+    40-600, over which the band bulges past 512 offsets (W = 768: 12,288
+    cells, the wide instance)."""
+    rng = np.random.default_rng(SEED_WIDE16)
+    seq = list(rng.choice(list("ACGT"), size=640))
+    for j in range(8, 632, 25):
+        seq[j] = "Y"
+    seq[318:323] = "YYGYY"
+    seq = "".join(seq)
+    ids = model.alphabet.seq_to_kmer_ids(seq.replace("Y", "C"))
+    ev = np.stack([model.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
+                   np.ones(len(ids)), np.full(len(ids), .005),
+                   np.arange(len(ids)) * .005], 1)
+    anchors = [(j, j) for j in range(8, len(ids) - 8, 15)
+               if not 40 < j < 600]
+    return [bfb.prepare_problem(seq, ev, model, ScalingParams(), ambig,
+                                W=768, Dpad=1536, P=16, anchor_pairs=anchors,
+                                expansion=8, mode=bfb.MODE_MEAN_ONLY)]
 
 
 def log(msg=""):
@@ -441,7 +488,8 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     x0 = pt.x0.cpu().numpy()
     width = pt.width.cpu().numpy()
     meta = pt.meta.cpu().numpy()
-    leg = pt.leg.cpu().numpy().view(np.uint32)       # (B, LX, P)
+    NW = bfb.leg_words(P)
+    leg = pt.leg.cpu().numpy().view(np.uint32).reshape(B, -1, P, NW)
     hdp = pt.hdp is not None
     cells = rows = ref_cols = ev_cols = 0
     lse = {0: [0, 0], 1: [0, 0]}   # forward, backward: [exps, logs]
@@ -458,21 +506,22 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
             for sweep in (0, 1):   # the forward reads column x, the backward x+1
                 x = np.clip((x0[b, :n, None] + o[None, :] + sweep)[inb], 0,
                             leg.shape[1] - 1)
-                masks = leg[b, x]                    # (in-band cells, P)
-                if sweep:          # backward: a source path's legal targets
-                    for q in range(P):
-                        per_cell = ((masks >> np.uint32(q)) & 1).sum(axis=1)
-                        lse[1][0] += int(per_cell.sum())
-                        lse[1][1] += int((per_cell > 0).sum())
+                masks = leg[b, x]                 # (in-band cells, P, NW)
+                if sweep:
+                    # backward: a source path's legal targets, the bits of
+                    # the target masks' union
+                    lse[1][0] += int(_POPCOUNT8[masks.view(np.uint8)].sum())
+                    union = np.bitwise_or.reduce(masks, axis=1)
+                    lse[1][1] += int(_POPCOUNT8[union.view(np.uint8)].sum())
                 else:              # forward: a target path's legal sources
                     per_cell = _POPCOUNT8[masks.view(np.uint8)].reshape(
-                        -1, P, 4).sum(axis=2)
+                        -1, P, 4 * NW).sum(axis=2)
                     lse[0][0] += int(per_cell.sum())
                     lse[0][1] += int((per_cell > 0).sum())
     n_ref_rows = 2 if hdp else bfb.NREF
     in_bytes = (2 * rows * 4                           # x0, width
                 + n_ref_rows * P * ref_cols * 4        # ref rows
-                + ref_cols * P * 4                     # legality masks
+                + ref_cols * P * NW * 4                # legality masks
                 + bfb.NEV * ev_cols * 4                # event rows
                 + B * (bfb.NMETA + bfb.NPACK) * 4)     # meta, par
     if prob:
@@ -751,8 +800,10 @@ def kernel_sums_of_tree(tree):
     phases 4 (plain and expectation instances; the probability-space pair
     on W <= 512), 5 (Gaussian), 6 (HDP) and 7c (expectation instances),
     one launch each, summed as in 5b and by (W, P) class. Prints one JSON
-    line and no result line. Run it for two checkouts in turns (A, B, B,
-    A) in one job on one card to compare their kernels."""
+    line and no result line. It also times the wide instance (P * W >
+    8192) on 3c's P = 64 and P = 16 W = 768 segments. Run it for two
+    checkouts in turns (A, B, B, A) in one job on one card to compare
+    their kernels."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: --kernel-sums needs a CUDA GPU")
     tree = os.path.abspath(tree)
@@ -792,6 +843,26 @@ def kernel_sums_of_tree(tree):
     out["3a_prob_fwd_ms"], out["3a_prob_bwd_ms"] = sweep_ms(
         hk, bfb, pt, threshold, R, 5, prob=True)
     del pt
+    # the wide instance on 3c's segments (a tree whose port refuses them
+    # records null)
+    from signalalign_tpu_torch.models.pore_model import ScalingParams
+    from signalalign_tpu_torch.pipeline.runner import prepare_read
+    from signalalign_tpu_torch.utils.alphabet import DEFAULT_AMBIG_BASES
+    with tempfile.TemporaryDirectory() as tmp:
+        rg64, ref64 = x64_read(model, reference.forward["synth"], tmp)
+        try:
+            wide = [(W, [q]) for _, q, W, _, P in prepare_read(
+                *rg64, ref64, model, config)[4] if P == 64]
+            wide.append((768, wide_p16_problems(bfb, model, ScalingParams,
+                                                DEFAULT_AMBIG_BASES)))
+            for W, probs in wide:
+                pt = problem_tensors(probs, W, dev)
+                out[f"wide_p{pt.P}_w{W}_fwd_ms"], \
+                    out[f"wide_p{pt.P}_w{W}_bwd_ms"] = sweep_ms(
+                        hk, bfb, pt, threshold, R, 5)
+                del pt
+        except NotImplementedError as exc:
+            out["wide"] = f"refused: {exc}"
     tables = hdp_tables(*hdp6.density_arrays(), dev)
     for phase, rgs_, ref, model_, cfg, tb in (
             ("4", rgs, reference, model, config.for_batch(len(rgs)), None),
@@ -836,6 +907,160 @@ def kernel_sums_of_tree(tree):
     out["phase7c_expect_fwd_sum_ms"] = sum(e[1] for e in by_wp.values())
     out["phase7c_expect_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
     out["phase7c_by_W_P"] = by_class_json(by_wp)
+    log(json.dumps(out))
+
+
+def _prob_variant(lib, name, lead, pt, tensors, ints, floats=()):
+    pr = pt.prob
+    ptrs = [t.data_ptr() for t in (pt.x0, pt.width, pt.ref, pt.ev, pt.meta,
+                                   pr.cexp, pr.ev_best, pr.par, *tensors)]
+    rc = getattr(lib, name)(lead, *ptrs, *ints, *floats,
+                            torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"{name}({lead}) launch failed: CUDA error {rc}")
+
+
+def prob_variant_fns(lib, hk, kind, lead):
+    """(forward, backward) of one probability-space variant: ``kind``
+    "probe" (the earlier design, probe ``lead``: 0 as it was, 1 with
+    constant emissions, 2 with one barrier), "k" (this design's variant
+    ``lead``: K = lead % 10 cells per thread, the partials reduced by
+    shuffles from 10 on) or "log" (the log-space sweeps)."""
+    if kind == "log":
+        return hk.forward_sweep, hk.backward_sweep_compact
+    fname, bname = {"probe": ("sa_fwd_sweep_prob_probe",
+                              "sa_bwd_sweep_compact_prob_probe"),
+                    "k": ("sa_fwd_sweep_prob_k",
+                          "sa_bwd_sweep_compact_prob_k")}[kind]
+
+    def fwd(pt):
+        B, D1 = pt.x0.shape
+        f = torch.empty(B, D1, 1, pt.W, device=pt.device)
+        fi = torch.empty(B, D1, device=pt.device)
+        lf = torch.empty(B, device=pt.device)
+        _prob_variant(lib, fname, lead, pt, (f, fi, lf),
+                      (B, D1, pt.W, pt.ref.shape[-1], pt.ev.shape[-1]))
+        return f, fi, lf
+
+    def bwd(pt, fstack, cvecf, threshold, R):
+        B, D1 = pt.x0.shape
+        dev = pt.device
+        out = (torch.empty(B, D1, device=dev), torch.empty(B, device=dev),
+               torch.empty(B, D1, R, dtype=torch.int32, device=dev),
+               torch.empty(B, D1, R, device=dev),
+               torch.empty(B, D1, dtype=torch.int32, device=dev))
+        _prob_variant(lib, bname, lead, pt, (fstack, cvecf) + out,
+                      (B, D1, pt.W, pt.ref.shape[-1], pt.ev.shape[-1], R),
+                      (float(threshold),))
+        return out
+
+    return fwd, bwd
+
+
+def prob_probes():
+    """``--prob-probes``: the probability-space sweeps of the earlier
+    design (csrc/prob_probe.cu: as they were, with constant emissions,
+    with one barrier), this design at 1 and 2 cells per thread, and the
+    log-space sweeps, timed by CUDA events in turns (the list, then the
+    list reversed; mean of 5 launches after two warm-ups each) on phase
+    3a's problems, on 8a's error-free ones and on phase 4's W = 512
+    buckets; then every W <= 512 bucket of phase 4 in the runner's
+    chunks (phase 8c's kernel sums), one launch each. One JSON line."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: --prob-probes needs a GPU")
+    from signalalign_tpu_torch.convert import problem_tensors
+    from signalalign_tpu_torch.ops import banded_fb as bfb
+    from signalalign_tpu_torch.ops import banded_fb_hopper as hk
+    from signalalign_tpu_torch.pipeline.runner import _stack_chunks
+    from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
+    from signalalign_tpu_torch.utils import cuda_build
+    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                       synthetic_pore_model,
+                                                       synthetic_read)
+    dev = torch.device("cuda")
+    b = cuda_build.build()
+    lib = cuda_build.load()
+    for line in b.log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+    model = synthetic_pore_model(SEED_MODEL)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, reference, rgs, _, _ = build_synthetic_batch(
+            model, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
+            genome_len=400_000, fasta_path=os.path.join(tmp, "genome.fa"),
+            ambig_frac=1.0)
+    config = AlignmentConfig()
+    threshold = config.threshold
+    R = hk.survivor_slots(threshold)
+    rng8 = np.random.default_rng(SEED_CLEAN)
+    genome8 = reference.forward["synth"]
+    clean = [synthetic_read(
+        rng8, genome8, model, int(rng8.integers(0, len(genome8) - 2000)),
+        int(rng8.integers(1400, 1700)), f"clean{i}", sub_rate=0.0,
+        ins_rate=0.0, del_rate=0.0) for i in range(8)]
+    clean_p = [q for W, Dpad, P, q in prepare_all(
+        clean, reference, model,
+        dataclasses.replace(config, diagonal_expansion=150))
+        if (W, Dpad, P) == (256, 4096, 1)]
+    buckets = {}
+    for W, Dpad, P, q in prepare_all(rgs, reference, model,
+                                     config.for_batch(len(rgs))):
+        buckets.setdefault((W, Dpad, P), []).append(q)
+    chunks = [(W, P, probs) for W, P, probs in
+              bucket_chunks(_stack_chunks, buckets) if W <= bfb.PROB_MAX_W]
+    w512 = [q for W, P, probs in chunks if W == 512 for q in probs][:16]
+    sets = {"3a": (long_p1_problems(rgs, reference, model, config), 256),
+            "8a": (clean_p, 256), "w512": (w512, 512)}
+    variants = [("earlier", "probe", 0), ("earlier_const_emissions", "probe", 1),
+                ("earlier_one_barrier", "probe", 2), ("this_k1", "k", 1),
+                ("this_k2", "k", 2), ("this_k1_shfl", "k", 11),
+                ("this_k2_shfl", "k", 12), ("log_space", "log", 0)]
+    out = {"device": device_line(), "sets": {}}
+    ref_fwd, _ = prob_variant_fns(lib, hk, "probe", 0)
+    for tag, (probs, W) in sets.items():
+        pt = problem_tensors(probs, W, dev, prob=True)
+        ptl = problem_tensors(probs, W, dev)
+        nds = pt.meta[:, bfb.M_NDIAG]
+        f, fi, lf = ref_fwd(pt)
+        fo, tf = bfb.forward_offsets(fi, lf, nds)
+        cvecf = (fo - tf[:, None]).contiguous()
+        fl, fil, lfl = hk.forward_sweep(ptl)
+        fol, tfl = bfb.forward_offsets(fil, lfl, nds)
+        cvl = (fol - tfl[:, None]).contiguous()
+        times = {name: [] for name, _, _ in variants}
+        for order in (variants, variants[::-1]):
+            for name, kind, lead in order:
+                fwd, bwd = prob_variant_fns(lib, hk, kind, lead)
+                p_, fs_, cv_ = (ptl, fl, cvl) if kind == "log" else (pt, f, cvecf)
+                f_ms, _ = cuda_ms(lambda: fwd(p_), 5)
+                b_ms, _ = cuda_ms(lambda: bwd(p_, fs_, cv_, threshold, R), 5)
+                times[name].append((f_ms, b_ms))
+        out["sets"][tag] = {
+            "W": W, "problems": len(probs),
+            "n_diag": [min(pt.n_diag), max(pt.n_diag)],
+            "ms": {k: [sum(t[0] for t in v) / 2, sum(t[1] for t in v) / 2,
+                       v] for k, v in times.items()}}
+        log(f"[probes] {tag}: " + json.dumps(out["sets"][tag]["ms"]))
+        del pt, ptl, f, fl
+    sums = {}
+    order = [("earlier", "probe", 0), ("this_k1", "k", 1), ("this_k2", "k", 2),
+             ("this_k1_shfl", "k", 11), ("this_k2_shfl", "k", 12)]
+    for turn in (order, order[::-1]):
+        for name, kind, lead in turn:
+            fwd, bwd = prob_variant_fns(lib, hk, kind, lead)
+            sf = sb = 0.0
+            for W, P, probs in chunks:
+                pt = problem_tensors(probs, W, dev, prob=True)
+                f, fi, lf = ref_fwd(pt)
+                fo, tf = bfb.forward_offsets(fi, lf, pt.meta[:, bfb.M_NDIAG])
+                cvecf = (fo - tf[:, None]).contiguous()
+                f_ms, _ = cuda_ms(lambda: fwd(pt), 1)
+                b_ms, _ = cuda_ms(lambda: bwd(pt, f, cvecf, threshold, R), 1)
+                sf, sb = sf + f_ms, sb + b_ms
+            sums.setdefault(name, []).append((sf, sb))
+    out["phase4_w_le_512_sums_ms"] = {
+        k: [sum(t[0] for t in v) / 2, sum(t[1] for t in v) / 2, v]
+        for k, v in sums.items()}
+    out["phase4_w_le_512_chunks"] = len(chunks)
     log(json.dumps(out))
 
 
@@ -1220,6 +1445,70 @@ def main():
             f"{serial_floor_ms(hk, barrier, ptw):.3f} ms; bit for bit "
             f"{r['bit_equal']}, survivors {r['n_kernel']} vs {r['n_twin']}")
         del ptw
+        # past 8,192 cells a diagonal, the wide instance: a P = 64 segment
+        # (three X sites in one k-mer) and a P = 16 one at W = 768, held
+        # bit for bit like the classes above; then the P = 64 read through
+        # run_alignment_batch, its launches counted from 0, on the GPU and
+        # the CPU
+        rg64, ref64 = x64_read(model, reference.forward["synth"], tmp)
+        segs64 = [(W, q) for _, q, W, _, P in prepare_read(
+            *rg64, ref64, model, config)[4] if P == 64]
+        check(len(segs64) == 1, f"{len(segs64)} P = 64 segments in the x64 read")
+        segs64_w = segs64[0][0]
+        wide_rows, wide_bounds = {}, {}
+        for (W_, P_), probs in (((segs64_w, 64), [segs64[0][1]]),
+                                ((768, 16), wide_p16_problems(
+                                    bfb, model, ScalingParams,
+                                    DEFAULT_AMBIG_BASES))):
+            ptw = problem_tensors(probs, W_, dev)
+            kw_ = hk.cells_per_thread(W_, P_)
+            bw = int(ptw.width.max())
+            check(kw_ < -8 and (P_ == 64 or bw > 512),
+                  f"the P = {P_} W = {W_} segment: band {bw} offsets, "
+                  f"cells per thread {kw_}: not the wide instance's shape")
+            r = kernels_vs_twins(hk, bfb, ptw, threshold, R)
+            check(r["bit_equal"], f"the wide instance (P = {P_}, W = {W_}) "
+                  "differs from its twins")
+            paths_rows[(W_, P_)] = wide_rows[(W_, P_)] = r
+            paths_bounds[(W_, P_)] = wide_bounds[(W_, P_)] = bd = \
+                sweep_bounds(bfb, ptw, r["n_kernel"])
+            nd_ = max(ptw.n_diag)
+            r["floor"] = serial_floor_ms(hk, barrier, ptw)
+            log(f"[kernels P={P_} W={W_} K={kw_} (wide)] 1 problem n_diag "
+                f"{nd_}, band {bw} offsets: sa_fwd_sweep {r['fwd_ms']:.3f} ms "
+                f"({1e3 * r['fwd_ms'] / nd_:.2f} us a diagonal; twin "
+                f"{r['fwd_plain_ms']:.1f} ms, bound "
+                f"{bd['sa_fwd_sweep'][0]:.4f} ms), sa_bwd_sweep_compact "
+                f"{r['bwd_ms']:.3f} ms ({1e3 * r['bwd_ms'] / nd_:.2f} us a "
+                f"diagonal; twin {r['bwd_plain_ms']:.1f} ms, bound "
+                f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms), serial floor "
+                f"{r['floor']:.3f} ms; bit for bit {r['bit_equal']}, "
+                f"survivors {r['n_kernel']} on {len(r['paths'])} paths")
+            del ptw
+        hk.reset_launch_counts()
+        on_gpu = run_alignment_batch([rg64], ref64, model, config, device=dev)
+        wide_launches = {"sa_fwd_sweep": hk.forward_sweep.wide_launches,
+                         "sa_bwd_sweep_compact":
+                             hk.backward_sweep_compact.wide_launches}
+        check(all(v >= 1 for v in wide_launches.values()),
+              f"the P = 64 read ran no wide instance: {wide_launches}")
+        on_cpu = run_alignment_batch([rg64], ref64, model, config,
+                                     device=torch.device("cpu"))
+        check(len(on_cpu) == len(on_gpu) == 1, "the P = 64 read was dropped")
+        d64 = abs(on_cpu[0].total_log_prob - on_gpu[0].total_log_prob)
+        w64 = compare_pairs(on_cpu[0].aligned_pairs, on_gpu[0].aligned_pairs,
+                            threshold)
+        n64 = rg64[0].n_events
+        check(d64 <= TOL_TOTAL and w64 <= TOL_PATH
+              and n64 // 2 <= len(on_gpu[0].aligned_pairs) <= 3 * n64
+              and not any("X" in r[3] for r in on_gpu[0].aligned_pairs),
+              f"the P = 64 read: totals {d64}, pairs {w64}, "
+              f"{len(on_gpu[0].aligned_pairs)} pairs of {n64} events")
+        log(f"[x64] the P = 64 read ({n64} events) through "
+            f"run_alignment_batch: wide launches {wide_launches}; gpu = cpu, "
+            f"|d total| {d64:.3e} nats, |d p| {w64:.3e} (tol {TOL_PATH}), "
+            f"{len(on_gpu[0].aligned_pairs)} pairs")
+        del segs64, ref64
         check(sum(min(2, len(v)) for (_, P), v in by_class.items() if P == 8)
               >= 2, "fewer than two P=8 problems")
 
@@ -1816,6 +2105,32 @@ def main():
                                     for (W, P), b in hdp_bounds.items()}})
     for name, src, ms in (
             ("sa_fwd_sweep", "signalalign_tpu/ops/banded_fb_pallas_batch.py:569"
+             " (PP > 1, past 8,192 cells a diagonal)", "fwd_"),
+            ("sa_bwd_sweep_compact",
+             "signalalign_tpu/ops/banded_fb_pallas_batch.py:775 (PP > 1 "
+             "fuse_post, + :1407, past 8,192 cells a diagonal)", "bwd_")):
+        r64 = wide_rows[(segs64_w, 64)]
+        kernels.append({
+            "name": f"{name} (wide)", "route": "cuda",
+            "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
+            "replaces": src,
+            # 3c's P = 64 read through run_alignment_batch, counted from 0
+            "launches": wide_launches[name],
+            "max_abs_err": max(err(r, name) for r in wide_rows.values()),
+            "ms": r64[ms + "ms"], "plain_ms": r64[ms + "plain_ms"],
+            "bound_ms": wide_bounds[(segs64_w, 64)][name][0],
+            "bound_by": wide_bounds[(segs64_w, 64)][name][1],
+            "library_ms": None,
+            "serial_floor_ms": r64["floor"],
+            "launches_by_phase": {"3c": wide_launches[name]},
+            "ms_by_W_P": {f"{W},{P}": r[ms + "ms"]
+                          for (W, P), r in wide_rows.items()},
+            "plain_ms_by_W_P": {f"{W},{P}": r[ms + "plain_ms"]
+                                for (W, P), r in wide_rows.items()},
+            "bound_ms_by_W_P": {f"{W},{P}": b[name][0]
+                                for (W, P), b in wide_bounds.items()}})
+    for name, src, ms in (
+            ("sa_fwd_sweep", "signalalign_tpu/ops/banded_fb_pallas_batch.py:569"
              " (expect mode, :740-745)", "fwd_"),
             ("sa_bwd_sweep_compact",
              "signalalign_tpu/ops/banded_fb_pallas_batch.py:775 (expect mode, "
@@ -1879,7 +2194,9 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--kernel-sums"]:
+    if sys.argv[1:2] == ["--prob-probes"]:
+        prob_probes()
+    elif sys.argv[1:2] == ["--kernel-sums"]:
         kernel_sums_of_tree(sys.argv[2] if len(sys.argv) > 2
                              else os.path.dirname(os.path.abspath(__file__)))
     else:

@@ -1,6 +1,6 @@
 """signalalign_tpu_torch — the PyTorch + CUDA port of signalalign_tpu.
 
-Alignment with 1 <= P <= 32 paths per cell, Gaussian mean-only or HDP
+Alignment with any number of paths per cell, Gaussian mean-only or HDP
 spline emissions (TSV output, and site-mode variant/methylation calling),
 runs on an NVIDIA Hopper GPU through two hand-written CUDA kernels
 (``csrc/banded_fb.cu``); on CPU tensors every kernel wrapper uses its

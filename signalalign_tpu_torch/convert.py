@@ -86,38 +86,51 @@ def _check_slice(p: bfb.BandedProblem) -> None:
         raise NotImplementedError(
             f"emission mode {p.mode}: the port runs MODE_MEAN_ONLY and "
             "MODE_HDP")
-    P = p.ref_params.shape[1]
-    if P > bfb.MAX_P:
-        raise NotImplementedError(
-            f"P={P} paths per cell: the port runs P <= {bfb.MAX_P} "
-            "(ambiguity codes of three or more bases can exceed it)")
+
+
+def _pack_words(bits: np.ndarray) -> np.ndarray:
+    """(..., P) bool -> (..., NW) uint32: bit q % 32 of word q // 32."""
+    P = bits.shape[-1]
+    NW = bfb.leg_words(P)
+    pad = np.zeros(bits.shape[:-1] + (NW * 32,), np.uint32)
+    pad[..., :P] = bits
+    pad = pad.reshape(bits.shape[:-1] + (NW, 32))
+    return (pad << np.arange(32, dtype=np.uint32)).sum(axis=-1,
+                                                       dtype=np.uint32)
 
 
 def legality_bits(legal: np.ndarray) -> np.ndarray:
-    """(P, P, LX) bool ``legal[p_to, q_from, x]`` -> (LX, P) int32 masks,
-    one per (position, target path): bit q_from of ``[x, p_to]`` is set
-    where the transition is legal (P <= MAX_P = 32)."""
-    P = legal.shape[0]
-    if P > bfb.MAX_P:
-        raise ValueError(f"P={P} paths: a legality mask holds {bfb.MAX_P}")
-    bit = np.uint32(1) << np.arange(P, dtype=np.uint32)
-    masks = (legal.astype(np.uint32) * bit[None, :, None]).sum(
-        axis=1, dtype=np.uint32)
-    return np.ascontiguousarray(masks.T).view(np.int32)
+    """(P, P, LX) bool ``legal[p_to, q_from, x]`` -> (LX, P * NW) int32
+    masks, NW = ``bfb.leg_words(P)`` words per (position, target path):
+    bit q_from % 32 of ``[x, p_to * NW + q_from // 32]`` is set where the
+    transition is legal (one word, bit q_from, at P <= 32)."""
+    P, _, LX = legal.shape
+    masks = _pack_words(legal.transpose(2, 0, 1))      # (LX, P, NW)
+    return np.ascontiguousarray(masks.reshape(LX, -1)).view(np.int32)
 
 
-def masks_by_source(leg: torch.Tensor) -> torch.Tensor:
-    """(..., P) int32 masks by target path (``legality_bits``' layout) ->
-    the same masks by source path, on ``leg``'s device: bit p of ``[...,
-    q]`` is bit q of ``leg[..., p]`` (the backward kernel's reads: the
-    legal targets of a source path in one word)."""
-    P = leg.shape[-1]
+def masks_by_source(leg: torch.Tensor, P: Optional[int] = None
+                    ) -> torch.Tensor:
+    """(..., P * NW) int32 masks by target path (``legality_bits``'
+    layout; ``P`` defaults to the last axis, one word a path) -> the same
+    masks by source path, on ``leg``'s device: bit p % 32 of word p // 32
+    of source path q is bit q % 32 of word q // 32 of target path p (the
+    backward kernel's reads: the legal targets of a source path)."""
+    P = leg.shape[-1] if P is None else P
     if P == 1:
         return leg
-    q = torch.arange(P, dtype=torch.int64, device=leg.device)
-    bits = (leg.to(torch.int64).unsqueeze(-1) >> q) & 1    # [..., p, q]
-    src = (bits.transpose(-1, -2) << q).sum(-1)            # [..., q]
-    return torch.where(src >= 2 ** 31, src - 2 ** 32, src).to(torch.int32)
+    NW = bfb.leg_words(P)
+    shape = leg.shape[:-1]
+    q = torch.arange(P, device=leg.device)
+    words = leg.reshape(*shape, P, NW).to(torch.int64)[..., q // 32]
+    bits = (words >> (q % 32)) & 1                     # [..., p, q]
+    pad = torch.zeros(*shape, P, NW * 32, dtype=torch.int64,
+                      device=leg.device)
+    pad[..., :P] = bits.transpose(-1, -2)              # [..., q, p]
+    w = (pad.reshape(*shape, P, NW, 32)
+         << torch.arange(32, device=leg.device)).sum(-1)
+    w = torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+    return w.reshape(*shape, P * NW)
 
 
 def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
@@ -125,8 +138,8 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
                     hdp: Optional[bfb.HdpTables] = None,
                     kmer_ids: bool = False,
                     prob: bool = False) -> bfb.ProblemTensors:
-    """Stack one bucket's problems (P <= 32 paths, the bucket's P is their
-    largest) into padded tensors on ``device`` (one host-to-device copy
+    """Stack one bucket's problems (the bucket's P is their largest path
+    count) into padded tensors on ``device`` (one host-to-device copy
     per tensor). A MODE_HDP bucket also gets per-(problem, path, position)
     k-mer ids and level means, and needs ``hdp``: the run's tables on
     ``device``, uploaded once (``hdp_tables``) and shared, not copied.
@@ -168,7 +181,8 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
     x0 = np.zeros((B, D1), np.int32)
     width = np.zeros((B, D1), np.int32)
     ref = np.zeros((B, bfb.NREF, P, LX), np.float32)
-    leg = np.zeros((B, LX, P), np.int32)
+    NW = bfb.leg_words(P)
+    leg = np.zeros((B, LX, P * NW), np.int32)
     ev = np.zeros((B, bfb.NEV, LE), np.float32)
     meta = np.zeros((B, bfb.NMETA), np.int32)
     par = np.zeros((B, bfb.NPACK), np.float32)
@@ -183,7 +197,11 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
         lx = p.ref_params.shape[-1]
         le = p.ev_params.shape[-1]
         ref[i, :, :p.ref_params.shape[1], :lx] = p.ref_params[:bfb.NREF]
-        leg[i, :lx, :p.legal.shape[0]] = legality_bits(p.legal)
+        legal = p.legal
+        if legal.shape[0] < P:   # its words at the bucket's stride
+            legal = np.zeros((P, P, lx), bool)
+            legal[:p.legal.shape[0], :p.legal.shape[0]] = p.legal
+        leg[i, :lx] = legality_bits(legal)
         ev[i, 0, :le] = p.ev_params[0]
         ev[i, 1, :le] = p.ev_params[3]
         meta[i, [bfb.M_LX, bfb.M_LY, bfb.M_NDIAG, bfb.M_EVPAD, bfb.M_REFLEN,
@@ -210,7 +228,8 @@ def problem_tensors(problems: Sequence[bfb.BandedProblem], W: int,
     return bfb.ProblemTensors(
         W=W, P=P, n_diag=[p.n_diag for p in problems], x0=x0,
         width=dev(width), ref=dev(ref), leg=leg,
-        leg_src=masks_by_source(leg) if leg.device.type == "cuda" else None,
+        leg_src=(masks_by_source(leg, P) if leg.device.type == "cuda"
+                 else None),
         ev=dev(ev), meta=dev(meta), par=dev(par),
         kid=dev(kid) if with_kid else None, mu=dev(mu) if hdp_mode else None,
         hdp=hdp, prob=pt_prob)

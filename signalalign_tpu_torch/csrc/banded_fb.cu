@@ -1,7 +1,7 @@
 // Hand-written Hopper kernels for the banded forward-backward of
 // signalalign_tpu_torch: MODE_MEAN_ONLY Gaussian or MODE_HDP spline
-// emissions, 1 <= P <= 32 paths per cell (degenerate reference positions
-// expand into paths).
+// emissions, any number P of paths per cell (degenerate reference
+// positions expand into paths).
 //
 // sa_fwd_sweep replaces the TPU forward kernels
 //   signalalign_tpu/ops/banded_fb_pallas.py        _fwd_kernel      (pallas_forward, P=1)
@@ -22,9 +22,9 @@
 // not copy the TPU layout (x-frame lanes, 128-lane stripes, paths in
 // lanes with lane rolls and legality planes, ring re-basing, TwoSum
 // scans): cell (d, p, o) is x = x0[d] + o, y = d - x on path p; a block
-// holds all P paths of a problem, legality is one 32-bit mask per
-// (reference position, target path) (bit q: legal from source path q),
-// and the backward offset is a plain double.
+// holds all P paths of a problem, legality is ceil(P / 32) 32-bit words
+// per (reference position, target path) (bit q % 32 of word q / 32: legal
+// from source path q), and the backward offset is a plain double.
 //
 // What bounds them on this card: the serial chain of anti-diagonals. A
 // diagonal depends on the two before it, so one problem is one block that
@@ -37,7 +37,8 @@
 // exponential per legal path pair, a logarithm per logsumexp) and,
 // forward, the three logaddexp terms its successors read.
 //
-// Two designs, picked per bucket by the dispatch at the end of this file.
+// Three designs, picked per bucket by the dispatch at the end of this
+// file.
 //
 // The per-pair instances (P <= PAIR_P = 2 and P * W <= PAIR_CELLS; the
 // EXPECT ones) wait on one block barrier per diagonal:
@@ -95,7 +96,20 @@
 // reduces each source cell over the legal targets from there. They also
 // take P <= 2 buckets too wide for the per-pair instances' shared memory.
 // Every operation and its order are those of the twin's, so the results
-// stay equal bit for bit.
+// stay equal bit for bit. Past 32 paths a logsumexp walks the legal bits
+// of each of its ceil(P / 32) words in turn (legal_lse_words), in path
+// order as before.
+//
+// The wide instance (P * W > REG_CELLS = 8,192 cells a diagonal: P = 64
+// at W = 256, P = 16 at W = 768) is the P > 2 design with 1,024 threads
+// that each loop over every 1,024th cell, and its ring (6 P W floats, 393
+// KB at P = 64, W = 256, past the 227 KB of shared memory a block may
+// have), cell states and survivor ranks in a per-problem device scratch
+// the wrapper allocates, L2-resident; __syncthreads orders its writes
+// before its reads within the block as it does shared memory's. Same
+// operations, same order: bit-equal to the twin. Its cost is the L1/L2
+// latency of every ring read and the loop over the cells; a later design
+// splits the ring over a thread-block cluster's shared memory.
 //
 // HDP emissions (log((1/var) * Hermite spline of the descaled mean) over
 // the k-mer's density/slope rows on a uniform grid, hdp_log_emission
@@ -151,13 +165,19 @@ constexpr int M_LX = 0, M_LY = 1, M_NDIAG = 2, M_EVPAD = 3, M_REFLEN = 4,
               M_EVLEN = 5;
 constexpr int PACK_TRANS = 0, PACK_START = 9, PACK_END = 12, PACK_GAPX = 15,
               PACK_VAR = 16;
-constexpr int MAX_P = 32;                       // legality: one bit per path
 constexpr int PAIR_P = 2;   // the per-pair instances' paths (P > 2: PATHS)
 // the per-pair instances' cells: 9 P W floats of ring in shared memory
 constexpr int PAIR_CELLS = 2048;
 constexpr int MAX_THREADS = 1024;
-constexpr int MAX_K = 8;                        // cells per thread
-constexpr int MAX_CELLS = MAX_K * MAX_THREADS;  // P * W
+constexpr int MAX_K = 8;   // cells per thread held in registers
+// P * W of the P > 2 instances that hold their cells in registers and
+// their ring in shared memory; wider diagonals take the wide instance
+constexpr int REG_CELLS = MAX_K * MAX_THREADS;
+
+// 32-bit legality words per (position, path) at P paths
+__host__ __device__ __forceinline__ int leg_words(int P) {
+  return (P + 31) / 32;
+}
 
 // threads a per-pair instance is built for (its register budget:
 // 65,536 / threads): PAIR_CELLS cells at the table's largest K, 4
@@ -210,6 +230,34 @@ __device__ __forceinline__ float legal_lse_row(const float* row, float fill,
   float s = 0.f;
   for (unsigned m = lb; m; m &= m - 1) s += expf(v(m) - mx);
   return mx + logf(fmaxf(s, 1e-37f));
+}
+
+// legal_lse_row over P > 32 paths: bit q % 32 of word lw[q / 32] (NW
+// words) says whether path q is legal; the same operations in path order
+__device__ __noinline__ float legal_lse_words(const float* row, float fill,
+                                              float sub, const unsigned* lw,
+                                              int NW, int P) {
+  auto v = [&](int q) { return (row ? row[q] : fill) - sub; };
+  int n = 0;
+  for (int w = 0; w < NW; ++w) n += __popc(lw[w]);
+  float mx = n == P ? -INFINITY : NEG;
+  for (int w = 0; w < NW; ++w)
+    for (unsigned m = lw[w]; m; m &= m - 1)
+      mx = fmaxf(mx, v(32 * w + __ffs(m) - 1));
+  if (mx == NEG) return NEG;
+  float s = 0.f;
+  for (int w = 0; w < NW; ++w)
+    for (unsigned m = lw[w]; m; m &= m - 1)
+      s += expf(v(32 * w + __ffs(m) - 1) - mx);
+  return mx + logf(fmaxf(s, 1e-37f));
+}
+
+// the legal logsumexp of a P > 2 cell over its NW legality words lw
+__device__ __forceinline__ float legal_lse_any(const float* row, float fill,
+                                               float sub, const unsigned* lw,
+                                               int NW, int P) {
+  return NW == 1 ? legal_lse_row(row, fill, sub, lw[0], P)
+                 : legal_lse_words(row, fill, sub, lw, NW, P);
 }
 
 // The terms a forward cell with normalised states (m, x, y) gives the
@@ -346,12 +394,12 @@ struct Problem {
   const int* x0;
   const int* width;
   const float* ref;                 // (NREF, P, LX)
-  // (LX, P) legality masks: the forward's by target path (bit q: legal
-  // from source path q), the backward's by source path (bit p: legal to
-  // target path p)
+  // (LX, P, NW) legality masks, NW = ceil(P / 32) words: the forward's
+  // by target path (bit q % 32 of word q / 32: legal from source path q),
+  // the backward's by source path (the same for target path p)
   const unsigned* leg;
   const float* ev;                  // (NEV, LE)
-  int lX, lY, nd, efp, reflen, evlen, P, LX, LE;
+  int lX, lY, nd, efp, reflen, evlen, P, NW, LX, LE;
   float t[9], start[3], end[3], gapx;
   // HDP buckets only
   const int* kid;                   // (P, LX) k-mer ids
@@ -368,7 +416,8 @@ struct Problem {
     ref = ref_ + (size_t)b * NREF * P_ * LX_;
     kid = h.kid ? h.kid + (size_t)b * P_ * LX_ : nullptr;
     mu = h.mu ? h.mu + (size_t)b * P_ * LX_ : nullptr;
-    leg = leg_ + (size_t)b * LX_ * P_;
+    NW = leg_words(P_);
+    leg = leg_ + (size_t)b * LX_ * P_ * NW;
     ev = ev_ + (size_t)b * NEV * LE_;
     P = P_;
     LX = LX_;
@@ -395,9 +444,9 @@ struct Problem {
     return ref[((size_t)r * P + p) * LX + x];
   }
 
-  // legality mask of path p at column x (see `leg`)
-  __device__ __forceinline__ unsigned lg(int x, int p) const {
-    return leg[(size_t)x * P + p];
+  // the NW legality words of path p at column x (see `leg`)
+  __device__ __forceinline__ const unsigned* lg(int x, int p) const {
+    return leg + ((size_t)x * P + p) * NW;
   }
 
   // HDP log emission of path p at column x for an event of mean ev_mean:
@@ -418,6 +467,89 @@ __device__ __forceinline__ float rd(const float* slot, int s, int i, int p,
 
 // ------------------------------------------------ P > 2 (PATHS) instances
 
+// The cells per thread that mark the wide instance: P * W > REG_CELLS
+// cells, MAX_THREADS threads that each loop over every MAX_THREADS-th
+// cell of the diagonal, and the ring, the cells' states and the
+// backward's survivor ranks in a per-problem device scratch (L2-resident:
+// 9-11 floats a cell, 720 KB at P = 64, W = 256) in place of shared
+// memory and registers. The same operations in the same order as the
+// register instances (only the end logsumexp sums in thread order), and
+// __syncthreads orders the scratch's writes before its reads as it does
+// shared memory's.
+constexpr int WIDE = 0;
+
+// The scratch of one problem of the wide instance, in 4-byte words: the
+// forward's ring (6 N) and cell states (3 N); the backward's ring, cell
+// states, survivor values and ranks (N each) and per-chunk warp counts.
+__host__ __device__ __forceinline__ size_t wide_scratch_words(int N,
+                                                              bool backward) {
+  const size_t nk = (N + MAX_THREADS - 1) / MAX_THREADS;
+  return backward ? 11 * (size_t)N + 32 * nk : 9 * (size_t)N;
+}
+
+// A P > 2 instance's cell states: K a thread in registers (cell c = thread
+// + k * blockDim), or the wide instance's in its scratch at cell c.
+template <int K>
+struct Cells {
+  float m[K], x[K], y[K];
+  __device__ __forceinline__ float& M(int k, int) { return m[k]; }
+  __device__ __forceinline__ float& X(int k, int) { return x[k]; }
+  __device__ __forceinline__ float& Y(int k, int) { return y[k]; }
+};
+template <>
+struct Cells<WIDE> {
+  float *m, *x, *y;
+  __device__ __forceinline__ float& M(int, int c) { return m[c]; }
+  __device__ __forceinline__ float& X(int, int c) { return x[c]; }
+  __device__ __forceinline__ float& Y(int, int c) { return y[c]; }
+};
+
+// The backward's survivors of a diagonal: value and rank inside its warp
+// (-1 for none) per cell, as Cells
+template <int K>
+struct Surv {
+  float p[K];
+  int r[K];
+  __device__ __forceinline__ float& V(int k, int) { return p[k]; }
+  __device__ __forceinline__ int& R(int k, int) { return r[k]; }
+};
+template <>
+struct Surv<WIDE> {
+  float* p;
+  int* r;
+  __device__ __forceinline__ float& V(int, int c) { return p[c]; }
+  __device__ __forceinline__ int& R(int, int c) { return r[c]; }
+};
+
+// block_lse_cells over the wide instance's cells in its scratch
+__device__ float block_lse_mem(const float* vm, const float* vx,
+                               const float* vy, int nk, const float* logs,
+                               int N, float* part) {
+  float mx = NEG;
+  for (int k = 0; k < nk; ++k) {
+    const int c = threadIdx.x + k * blockDim.x;
+    if (c < N) {
+      mx = fmaxf(mx, fmaxf(vm[c] + logs[0], NEG));
+      mx = fmaxf(mx, fmaxf(vx[c] + logs[1], NEG));
+      mx = fmaxf(mx, fmaxf(vy[c] + logs[2], NEG));
+    }
+  }
+  __syncthreads();
+  mx = block_reduce<false>(mx, part);
+  float sm = 0.f;
+  for (int k = 0; k < nk; ++k) {
+    const int c = threadIdx.x + k * blockDim.x;
+    if (c < N) {
+      sm += expf(fmaxf(vm[c] + logs[0], NEG) - mx);
+      sm += expf(fmaxf(vx[c] + logs[1], NEG) - mx);
+      sm += expf(fmaxf(vy[c] + logs[2], NEG) - mx);
+    }
+  }
+  __syncthreads();
+  sm = block_reduce<true>(sm, part);
+  return logf(sm) + mx;
+}
+
 template <int K, bool HDP>
 __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
@@ -425,12 +557,16 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
     const float* __restrict__ ev_, const int* __restrict__ meta_,
     const float* __restrict__ par_, const HdpTab h,
     float* __restrict__ fstack, float* __restrict__ f_incr,
-    float* __restrict__ lse_f, int D1, int W, int P_, int LX, int LE) {
+    float* __restrict__ lse_f, float* scratch, int D1, int W, int P_, int LX,
+    int LE) {
+  constexpr bool WIDE_ = K == WIDE;
   extern __shared__ float smem[];
   const int N = P_ * W;
+  const int b = blockIdx.x;
   // [2 slots][3 source terms SRC_X, SRC_Y, SRC_M][N], cell o*P + p
-  float* ring = smem;
-  float* part = smem + 6 * N;      // [32] reduction partials
+  float* sb = WIDE_ ? scratch + b * wide_scratch_words(N, false) : nullptr;
+  float* ring = WIDE_ ? sb : smem;
+  float* part = WIDE_ ? smem : smem + 6 * N;   // [32] reduction partials
   __shared__ Problem pr;
   if (threadIdx.x == 0)
     pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE);
@@ -444,8 +580,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
   }
   __syncthreads();
 
-  const int b = blockIdx.x;
-  const int P = pr.P;
+  const int P = pr.P, NW = pr.NW;
   float* fs = fstack + (size_t)b * D1 * N;   // (D1, P, W)
   float* inc = f_incr + (size_t)b * D1;
   const int nd = pr.nd;
@@ -468,13 +603,21 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
   float m_prev = 0.f;
   // this thread's cells of the diagonal in hand; after the loop, the
   // normalised states of diagonal nd (the ring holds terms)
-  float vm[K], vx[K], vy[K];
+  const int nk = WIDE_ ? (N + blockDim.x - 1) / blockDim.x : K;
+  Cells<K> v;
+  if constexpr (WIDE_) {
+    v.m = sb + 6 * N;
+    v.x = sb + 7 * N;
+    v.y = sb + 8 * N;
+  }
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const bool c0 = threadIdx.x + k * blockDim.x == 0;
-    vm[k] = c0 ? pr.start[MATCH] : NEG;
-    vx[k] = c0 ? pr.start[GAP_X] : NEG;
-    vy[k] = c0 ? pr.start[GAP_Y] : NEG;
+  for (int k = 0; k < nk; ++k) {
+    const int c = threadIdx.x + k * blockDim.x;
+    if (!WIDE_ || c < N) {
+      v.M(k, c) = c == 0 ? pr.start[MATCH] : NEG;
+      v.X(k, c) = c == 0 ? pr.start[GAP_X] : NEG;
+      v.Y(k, c) = c == 0 ? pr.start[GAP_Y] : NEG;
+    }
   }
   for (int d = 1; d <= nd; ++d) {
     float* cur = ring + (d & 1) * 3 * N;        // holds d-2 until written
@@ -489,7 +632,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
 
     float tmax = NEG;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < nk; ++k) {
       const int c = threadIdx.x + k * blockDim.x;
       float mm = NEG, gx = NEG, gy = NEG;
       const int o = c / P, p = c - o * P;
@@ -501,7 +644,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
         const float ev_mean = pr.ev[je];
         kvalid = inv_m > 0.f;
         const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
-        const unsigned lb = pr.lg(xr, p);
+        const unsigned* lw = pr.lg(xr, p);
         if constexpr (HDP) {
           // stay = match (emissions_signal_getHdpKmerDensity)
           e_match = e_stay = ok ? pr.hdp(p, xr, m_hat, ev_mean, h) : NEG;
@@ -522,36 +665,38 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
                                             : nullptr;
         const float* rm = im >= 0 && im < W ? p2 + SRC_M * N + im * P
                                             : nullptr;
-        gx = legal_lse_row(rx, neg.x, 0.f, lb, P) + e_gapx;
-        mm = legal_lse_row(rm, neg.m, m_prev, lb, P) + e_match;
+        gx = legal_lse_any(rx, neg.x, 0.f, lw, NW, P) + e_gapx;
+        mm = legal_lse_any(rm, neg.m, m_prev, lw, NW, P) + e_match;
         // gapY from (x, y-1), same path
         const int iy = il + 1;
         gy = (iy >= 0 && iy < W ? p1[SRC_Y * N + iy * P + p] : neg.y) +
              e_stay;
       }
-      vm[k] = mm;
-      vx[k] = gx;
-      vy[k] = gy;
+      if (!WIDE_ || c < N) {
+        v.M(k, c) = mm;
+        v.X(k, c) = gx;
+        v.Y(k, c) = gy;
+      }
       tmax = fmaxf(tmax, fmaxf(mm, fmaxf(gx, gy)));
     }
     // its barrier also ends every read of diagonal d-2 in `cur`
     float m = block_reduce<false>(tmax, part);
     m = m > NEG * 0.5f ? m : 0.f;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < nk; ++k) {
       const int c = threadIdx.x + k * blockDim.x;
       if (c < N) {
         const int o = c / P, p = c - o * P;
-        const float mm = fmaxf(vm[k] - m, NEG);
-        const float gx = fmaxf(vx[k] - m, NEG);
-        const float gy = fmaxf(vy[k] - m, NEG);
+        const float mm = fmaxf(v.M(k, c) - m, NEG);
+        const float gx = fmaxf(v.X(k, c) - m, NEG);
+        const float gy = fmaxf(v.Y(k, c) - m, NEG);
         const SrcTerms st = src_terms(mm, gx, gy, tr);
         cur[SRC_X * N + c] = st.x;
         cur[SRC_Y * N + c] = st.y;
         cur[SRC_M * N + c] = st.m;
-        vm[k] = mm;
-        vx[k] = gx;
-        vy[k] = gy;
+        v.M(k, c) = mm;
+        v.X(k, c) = gx;
+        v.Y(k, c) = gy;
         fs[(size_t)d * N + p * W + o] = mm;
       }
     }
@@ -559,7 +704,11 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
     m_prev = m;
     __syncthreads();
   }
-  const float l = block_lse_cells<K>(vm, vx, vy, pr.end, N, part);
+  float l;
+  if constexpr (WIDE_)
+    l = block_lse_mem(v.m, v.x, v.y, nk, pr.end, N, part);
+  else
+    l = block_lse_cells<K>(v.m, v.x, v.y, pr.end, N, part);
   if (threadIdx.x == 0) lse_f[b] = l;
 }
 
@@ -572,21 +721,25 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
     const float* __restrict__ fstack,
     const double* __restrict__ cvecf, float* __restrict__ b_incr,
     float* __restrict__ lse_b, int* __restrict__ slot_cell,
-    float* __restrict__ slot_val, int* __restrict__ cnt, int D1, int W,
-    int P_, int LX, int LE, int R, float threshold) {
+    float* __restrict__ slot_val, int* __restrict__ cnt, float* scratch,
+    int D1, int W, int P_, int LX, int LE, int R, float threshold) {
+  constexpr bool WIDE_ = K == WIDE;
   extern __shared__ float smem[];
   const int N = P_ * W;
-  float* ring = smem;                               // [2 slots][3 states][N]
-  float* part = smem + 6 * N;                       // [32] reduction partials
-  int* wcnt = reinterpret_cast<int*>(part + 32);    // [K][32] survivors
+  const int b = blockIdx.x;
+  const int nk = WIDE_ ? (N + blockDim.x - 1) / blockDim.x : K;
+  float* sb = WIDE_ ? scratch + b * wide_scratch_words(N, true) : nullptr;
+  float* ring = WIDE_ ? sb : smem;                  // [2 slots][3 states][N]
+  float* part = WIDE_ ? smem : smem + 6 * N;        // [32] reduction partials
+  // [nk][32] survivors per warp and chunk
+  int* wcnt = reinterpret_cast<int*>(WIDE_ ? sb + 11 * N : part + 32);
   __shared__ Problem pr;
   if (threadIdx.x == 0)
     pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE);
   for (int i = threadIdx.x; i < 6 * N; i += blockDim.x) ring[i] = NEG;
   __syncthreads();
 
-  const int b = blockIdx.x;
-  const int P = pr.P;
+  const int P = pr.P, NW = pr.NW;
   const float* fs = fstack + (size_t)b * D1 * N;
   const double* cv = cvecf + (size_t)b * D1;
   float* inc = b_incr + (size_t)b * D1;
@@ -604,6 +757,15 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
   const float* tr = pr.t;
   float m_prev = 0.f;
   double bo = 0.0;   // running backward offset: Bo(d) = sum of m over >= d
+  Cells<K> v;        // this thread's cells of the diagonal
+  Surv<K> su;        // and their survivors
+  if constexpr (WIDE_) {
+    v.m = sb + 6 * N;
+    v.x = sb + 7 * N;
+    v.y = sb + 8 * N;
+    su.p = sb + 9 * N;
+    su.r = reinterpret_cast<int*>(sb + 10 * N);
+  }
   for (int d = nd; d >= 0; --d) {
     float* cur = ring + (d & 1) * 3 * N;          // holds d+2 until written
     const float* b1 = ring + ((d + 1) & 1) * 3 * N;
@@ -623,7 +785,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
     // and gapY were read at d+1, and only its match is read here.
     if (!fin) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
+      for (int k = 0; k < nk; ++k) {
         const int c = threadIdx.x + k * blockDim.x;
         const int o = c / P, p = c - o * P;
         if (c < N && o < wd) {
@@ -652,10 +814,9 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
     // an offset's P cells share a warp when P divides 32
     if (32 % P == 0) __syncwarp();
     else __syncthreads();
-    float vm[K], vx[K], vy[K];
     float tmax = NEG;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < nk; ++k) {
       const int c = threadIdx.x + k * blockDim.x;
       float bm = NEG, bx = NEG, by = NEG;
       const int o = c / P, q = c - o * P;   // q: this cell's (source) path
@@ -683,20 +844,22 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
           const float gy_term = rd(b1, GAP_Y, o + u1, q, W, N, P) + e_stay_same;
           // gapX TO (x+1, y) and match TO (x+1, y+1), over the target
           // paths p that may follow q: legal[p, q] at x+1
-          const unsigned lb = pr.lg(xr1, q);   // bit p: legal[p, q] at x+1
+          const unsigned* lw = pr.lg(xr1, q);   // bit p: legal[p, q] at x+1
           const float gx_red =
-              legal_lse_row(cur + GAP_X * N + o * P, NEG, 0.f, lb, P);
+              legal_lse_any(cur + GAP_X * N + o * P, NEG, 0.f, lw, NW, P);
           const float mm_red =
-              legal_lse_row(cur + GAP_Y * N + o * P, NEG, 0.f, lb, P);
+              legal_lse_any(cur + GAP_Y * N + o * P, NEG, 0.f, lw, NW, P);
           bm = lae(lae(gx_red + tr[T_MX], mm_red + tr[T_MM]),
                    gy_term + tr[T_MY]);
           bx = lae(gx_red + tr[T_XX], mm_red + tr[T_XM]);
           by = lae(mm_red + tr[T_YM], gy_term + tr[T_YY]);
         }
       }
-      vm[k] = bm;
-      vx[k] = bx;
-      vy[k] = by;
+      if (!WIDE_ || c < N) {
+        v.M(k, c) = bm;
+        v.X(k, c) = bx;
+        v.Y(k, c) = by;
+      }
       tmax = fmaxf(tmax, fmaxf(bm, fmaxf(bx, by)));
     }
     // barrier 1; it also ends every read of diagonal d+2 in `cur`
@@ -706,19 +869,17 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
     // absolute log posterior = f + b + cvecf[d] + Bo(d), b normalised
     const float cd = (float)(cv[d] + bo);
 
-    float pk[K];   // this lane's survivor value per chunk
-    int rk[K];     // its rank inside its warp, -1 for none
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < nk; ++k) {
       const int c = threadIdx.x + k * blockDim.x;
       bool surv = false;
       float p = 0.f;
       if (c < N) {
         const int o = c / P, q = c - o * P;
-        const float bmn = fmaxf(vm[k] - m, NEG);
+        const float bmn = fmaxf(v.M(k, c) - m, NEG);
         cur[MATCH * N + c] = bmn;
-        cur[GAP_X * N + c] = fmaxf(vx[k] - m, NEG);
-        cur[GAP_Y * N + c] = fmaxf(vy[k] - m, NEG);
+        cur[GAP_X * N + c] = fmaxf(v.X(k, c) - m, NEG);
+        cur[GAP_Y * N + c] = fmaxf(v.Y(k, c) - m, NEG);
         const int x = xd + o, y = d - x;
         if (o < wd && x > 0 && y > 0 && x <= pr.lX && y <= pr.lY) {
           const float fm = fs[(size_t)d * N + q * W + o];
@@ -730,28 +891,42 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
       // warp, lane
       const unsigned ball = __ballot_sync(0xffffffffu, surv);
       if (lane == 0) wcnt[k * 32 + warp] = __popc(ball);
-      pk[k] = p;
-      rk[k] = surv ? __popc(ball & ((1u << lane) - 1u)) : -1;
+      if (!WIDE_ || c < N) {
+        su.V(k, c) = p;
+        su.R(k, c) = surv ? __popc(ball & ((1u << lane) - 1u)) : -1;
+      }
     }
     // barrier 2: publishes the normalised diagonal and the warp counts.
     // The next diagonal writes wcnt only after its barrier 1, which every
     // thread reaches after reading wcnt below.
     __syncthreads();
-    int before = 0;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      int base = before;
-      for (int w = 0; w < warp; ++w) base += wcnt[k * 32 + w];
-      const int r = base + rk[k];
-      if (rk[k] >= 0 && r < R) {
-        so[(size_t)d * R + r] = threadIdx.x + k * blockDim.x;
-        sv[(size_t)d * R + r] = pk[k];
+    // the wide instance's counts lie in its scratch: only a thread with
+    // a survivor, and thread 0 for the diagonal's count, walks them
+    bool mine = !WIDE_ || threadIdx.x == 0;
+    if constexpr (WIDE_)
+      for (int k = 0; k < nk; ++k) {
+        const int c = threadIdx.x + k * blockDim.x;
+        mine |= c < N && su.R(k, c) >= 0;
       }
-      for (int w = 0; w < nw; ++w) before += wcnt[k * 32 + w];
-    }
-    if (threadIdx.x == 0) {
-      inc[d] = m;
-      cn[d] = before;
+    if (mine) {
+      int before = 0;
+#pragma unroll
+      for (int k = 0; k < nk; ++k) {
+        const int c = threadIdx.x + k * blockDim.x;
+        const int rk = !WIDE_ || c < N ? su.R(k, c) : -1;
+        int base = before;
+        for (int w = 0; w < warp; ++w) base += wcnt[k * 32 + w];
+        const int r = base + rk;
+        if (rk >= 0 && r < R) {
+          so[(size_t)d * R + r] = c;
+          sv[(size_t)d * R + r] = su.V(k, c);
+        }
+        for (int w = 0; w < nw; ++w) before += wcnt[k * 32 + w];
+      }
+      if (threadIdx.x == 0) {
+        inc[d] = m;
+        cn[d] = before;
+      }
     }
     m_prev = m;
   }
@@ -1379,9 +1554,12 @@ __global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
 
 int round_warps(int n) { return ((n + 31) / 32) * 32; }
 
-// cells per thread of a P > 2 instance, rounded up to an instantiated K
+// cells per thread of a P > 2 instance: rounded up to an instantiated K
+// up to REG_CELLS cells, every MAX_THREADS-th cell of the diagonal past
+// them (the wide instance)
 int paths_k(int N) {
   const int k = (N + MAX_THREADS - 1) / MAX_THREADS;
+  if (N > REG_CELLS) return k;
   return k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : 8;
 }
 
@@ -1398,9 +1576,7 @@ int pair_k(int N, bool expect_bwd) {
   return N <= (expect_bwd ? 128 : 512) ? 1 : N <= 1024 ? 2 : 4;
 }
 
-bool shape_ok(int W, int P) {
-  return W >= 1 && P >= 1 && P <= MAX_P && P * W <= MAX_CELLS;
-}
+bool shape_ok(int W, int P) { return W >= 1 && P >= 1; }
 
 // the expectation instances: P = 1, at most PAIR_CELLS cells
 bool expect_shape_ok(int W, int P) {
@@ -1439,16 +1615,20 @@ int fwd_pair_launch(const Bucket& a, float* fstack, float* f_incr,
   return (int)cudaGetLastError();
 }
 
+// threads of a P > 2 instance: a thread a cell, at most MAX_THREADS
+int paths_threads(int N) {
+  return N >= MAX_THREADS ? MAX_THREADS : round_warps(N);
+}
+
 template <int K, bool HDP>
 int fwd_paths_launch(const Bucket& a, float* fstack, float* f_incr,
-                     float* lse_f, cudaStream_t stream) {
+                     float* lse_f, float* scratch, cudaStream_t stream) {
   const int N = a.P * a.W;
-  const size_t smem = (6 * (size_t)N + 32) * sizeof(float);
+  const size_t smem = ((K == WIDE ? 0 : 6 * (size_t)N) + 32) * sizeof(float);
   launch_setup(sa_fwd_paths_kernel<K, HDP>, smem);
-  sa_fwd_paths_kernel<K, HDP>
-      <<<a.B, N >= MAX_THREADS ? MAX_THREADS : round_warps(N), smem,
-         stream>>>(a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h,
-                   fstack, f_incr, lse_f, a.D1, a.W, a.P, a.LX, a.LE);
+  sa_fwd_paths_kernel<K, HDP><<<a.B, paths_threads(N), smem, stream>>>(
+      a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, f_incr,
+      lse_f, scratch, a.D1, a.W, a.P, a.LX, a.LE);
   return (int)cudaGetLastError();
 }
 
@@ -1465,12 +1645,14 @@ int fwd_pair_dispatch(const Bucket& a, int K, float* fstack, float* f_incr,
 
 template <bool HDP>
 int fwd_paths_dispatch(const Bucket& a, float* fstack, float* f_incr,
-                       float* lse_f, cudaStream_t s) {
+                       float* lse_f, float* scratch, cudaStream_t s) {
   switch (paths_k(a.P * a.W)) {
-    case 1: return fwd_paths_launch<1, HDP>(a, fstack, f_incr, lse_f, s);
-    case 2: return fwd_paths_launch<2, HDP>(a, fstack, f_incr, lse_f, s);
-    case 4: return fwd_paths_launch<4, HDP>(a, fstack, f_incr, lse_f, s);
-    default: return fwd_paths_launch<8, HDP>(a, fstack, f_incr, lse_f, s);
+    case 1: return fwd_paths_launch<1, HDP>(a, fstack, f_incr, lse_f, 0, s);
+    case 2: return fwd_paths_launch<2, HDP>(a, fstack, f_incr, lse_f, 0, s);
+    case 4: return fwd_paths_launch<4, HDP>(a, fstack, f_incr, lse_f, 0, s);
+    case 8: return fwd_paths_launch<8, HDP>(a, fstack, f_incr, lse_f, 0, s);
+    default:
+      return fwd_paths_launch<WIDE, HDP>(a, fstack, f_incr, lse_f, scratch, s);
   }
 }
 
@@ -1506,17 +1688,17 @@ int bwd_pair_launch(const Bucket& a, const float* fstack, const double* cvecf,
 
 template <int K, bool HDP>
 int bwd_paths_launch(const Bucket& a, const float* fstack, const double* cvecf,
-                     const BwdOut& o, int R, float threshold,
+                     const BwdOut& o, int R, float threshold, float* scratch,
                      cudaStream_t stream) {
   const int N = a.P * a.W;
-  const size_t smem =
-      (6 * (size_t)N + 32) * sizeof(float) + K * 32 * sizeof(int);
+  const size_t smem = K == WIDE ? 32 * sizeof(float)
+                                : (6 * (size_t)N + 32) * sizeof(float) +
+                                      K * 32 * sizeof(int);
   launch_setup(sa_bwd_paths_kernel<K, HDP>, smem);
-  sa_bwd_paths_kernel<K, HDP>
-      <<<a.B, N >= MAX_THREADS ? MAX_THREADS : round_warps(N), smem,
-         stream>>>(a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h,
-                   fstack, cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val,
-                   o.cnt, a.D1, a.W, a.P, a.LX, a.LE, R, threshold);
+  sa_bwd_paths_kernel<K, HDP><<<a.B, paths_threads(N), smem, stream>>>(
+      a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, cvecf,
+      o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt, scratch, a.D1, a.W,
+      a.P, a.LX, a.LE, R, threshold);
   return (int)cudaGetLastError();
 }
 
@@ -1537,16 +1719,18 @@ int bwd_pair_dispatch(const Bucket& a, int K, const float* fstack,
 template <bool HDP>
 int bwd_paths_dispatch(const Bucket& a, const float* fstack,
                        const double* cvecf, const BwdOut& o, int R,
-                       float threshold, cudaStream_t s) {
+                       float threshold, float* scratch, cudaStream_t s) {
   switch (paths_k(a.P * a.W)) {
     case 1: return bwd_paths_launch<1, HDP>(a, fstack, cvecf, o, R,
-                                            threshold, s);
+                                            threshold, 0, s);
     case 2: return bwd_paths_launch<2, HDP>(a, fstack, cvecf, o, R,
-                                            threshold, s);
+                                            threshold, 0, s);
     case 4: return bwd_paths_launch<4, HDP>(a, fstack, cvecf, o, R,
-                                            threshold, s);
-    default: return bwd_paths_launch<8, HDP>(a, fstack, cvecf, o, R,
-                                             threshold, s);
+                                            threshold, 0, s);
+    case 8: return bwd_paths_launch<8, HDP>(a, fstack, cvecf, o, R,
+                                            threshold, 0, s);
+    default: return bwd_paths_launch<WIDE, HDP>(a, fstack, cvecf, o, R,
+                                                threshold, scratch, s);
   }
 }
 
@@ -1559,33 +1743,48 @@ bool hdp_ok(const HdpTab& h) {
 
 // The cells per thread the forward (`backward` false) or the backward
 // sweep launches a bucket of P paths at width W with: K of a per-pair
-// instance, -K of a P > 2 (PATHS) one; 0 for a shape they do not take.
+// instance, -K of a P > 2 (PATHS) one (K > MAX_K: the wide instance); 0
+// for a shape they do not take.
 int launch_k(int W, int P, bool expect, bool backward) {
   if (!shape_ok(W, P) || (expect && !expect_shape_ok(W, P))) return 0;
   return pair_bucket(W, P) ? pair_k(P * W, expect && backward)
                            : -paths_k(P * W);
 }
 
+// the scratch bytes per problem of the sweep's launch (0 unless it is the
+// wide instance's)
+size_t scratch_bytes(int W, int P, bool expect, bool backward) {
+  const int K = launch_k(W, P, expect, backward);
+  return K < -MAX_K ? 4 * wide_scratch_words(P * W, backward) : 0;
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. Every pointer is a device pointer of a
 // contiguous tensor; the kernels launch on `stream`, allocate nothing and
-// do not synchronise. leg holds (B, LX, P) uint32 legality masks: the
-// forward's by target path (ProblemTensors.leg), the backward's by source
-// path (ProblemTensors.leg_src).
+// do not synchronise. leg holds (B, LX, P, ceil(P / 32)) uint32 legality
+// masks: the forward's by target path (ProblemTensors.leg), the
+// backward's by source path (ProblemTensors.leg_src). `scratch` holds
+// B x sa_sweep_scratch_bytes bytes, which the wide instance (P * W >
+// 8192) uses for its ring and cells (null, and unread, otherwise).
 // kid, mu, dens and slopes are the HDP tables (kid and mu (B, P, LX),
 // dens and slopes (nk, ng) on the grid g0 + i * dx with last knot gN),
 // all null for a Gaussian bucket. `expect` != 0 runs the EM expectation
 // instances: fstack is (B, D1, 3, P, W), and the backward writes texp (B,
 // 7) and adds into kx (B, 3, LX), which the caller zeroes (both null
 // otherwise). Each returns cudaGetLastError() after its launch, or
-// cudaErrorInvalidValue for a shape it does not take (P > 32 or P * W >
-// 8192; with `expect`, P > 1 or W > 2048), an incomplete set of HDP
-// tables or missing expectation outputs.
+// cudaErrorInvalidValue for a shape it does not take (with `expect`, P >
+// 1 or W > 2048), an incomplete set of HDP tables, missing expectation
+// outputs or a missing scratch.
 
-// launch_k, for the Python side
+// launch_k and scratch_bytes, for the Python side
 extern "C" int sa_cells_per_thread(int W, int P, int expect, int backward) {
   return launch_k(W, P, expect, backward);
+}
+
+extern "C" long long sa_sweep_scratch_bytes(int W, int P, int expect,
+                                            int backward) {
+  return (long long)scratch_bytes(W, P, expect, backward);
 }
 
 extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
@@ -1593,7 +1792,8 @@ extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
                             const int* meta, const float* par, const int* kid,
                             const float* mu, const float* dens,
                             const float* slopes, float* fstack,
-                            float* f_incr, float* lse_f, int B, int D1, int W,
+                            float* f_incr, float* lse_f, float* scratch,
+                            int B, int D1, int W,
                             int P, int LX, int LE, int expect, int nk,
                             int ng, float g0, float dx, float gN,
                             void* stream) {
@@ -1601,11 +1801,14 @@ extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
   const int K = launch_k(W, P, expect, false);
-  if (K == 0 || !hdp_ok(a.h)) return (int)cudaErrorInvalidValue;
+  if (K == 0 || !hdp_ok(a.h) ||
+      (!scratch && scratch_bytes(W, P, expect, false)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (K < 0)
-    return dens ? fwd_paths_dispatch<true>(a, fstack, f_incr, lse_f, s)
-                : fwd_paths_dispatch<false>(a, fstack, f_incr, lse_f, s);
+    return dens
+        ? fwd_paths_dispatch<true>(a, fstack, f_incr, lse_f, scratch, s)
+        : fwd_paths_dispatch<false>(a, fstack, f_incr, lse_f, scratch, s);
   if (expect)
     return dens
         ? fwd_pair_dispatch<true, true>(a, K, fstack, f_incr, lse_f, s)
@@ -1621,21 +1824,24 @@ extern "C" int sa_bwd_sweep_compact(
     const float* mu, const float* dens, const float* slopes,
     const float* fstack, const double* cvecf, float* b_incr, float* lse_b,
     int* slot_cell, float* slot_val, int* cnt, double* texp, double* kx,
-    int B, int D1, int W, int P, int LX, int LE, int R, int expect,
+    float* scratch, int B, int D1, int W, int P, int LX, int LE, int R,
+    int expect,
     int nk, int ng, float threshold, float g0, float dx,
     float gN, void* stream) {
   const Bucket a{x0, width, ref, leg, ev, meta, par,
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
   const int K = launch_k(W, P, expect, true);
-  if (K == 0 || !hdp_ok(a.h) || (expect && (!texp || !kx)))
+  if (K == 0 || !hdp_ok(a.h) || (expect && (!texp || !kx)) ||
+      (!scratch && scratch_bytes(W, P, expect, true)))
     return (int)cudaErrorInvalidValue;
   const BwdOut o{b_incr, lse_b, slot_cell, slot_val, cnt, texp, kx};
   cudaStream_t s = (cudaStream_t)stream;
   if (K < 0)
-    return dens
-        ? bwd_paths_dispatch<true>(a, fstack, cvecf, o, R, threshold, s)
-        : bwd_paths_dispatch<false>(a, fstack, cvecf, o, R, threshold, s);
+    return dens ? bwd_paths_dispatch<true>(a, fstack, cvecf, o, R, threshold,
+                                           scratch, s)
+                : bwd_paths_dispatch<false>(a, fstack, cvecf, o, R,
+                                            threshold, scratch, s);
   if (expect)
     return dens ? bwd_pair_dispatch<true, true>(a, K, fstack, cvecf, o, R,
                                                 threshold, s)

@@ -92,20 +92,6 @@ __device__ float block_reduce(float v, float* part) {
   return r;
 }
 
-// log(sum of a normalised ring slot weighted by the state probabilities
-// w[3]) - LOG_SCALE, summed state by state (the twins' _prob_lse)
-__device__ float block_prob_lse(const float* slot, const float* w, int W,
-                                float* part) {
-  float s[3];
-  for (int st = 0; st < 3; ++st) {
-    float v = 0.f;
-    for (int c = threadIdx.x; c < W; c += blockDim.x) v += slot[st * W + c] * w[st];
-    __syncthreads();
-    s[st] = block_reduce<true>(v, part);
-  }
-  return logf(s[0] + s[1] + s[2]) - LOG_SCALE;
-}
-
 struct Problem {
   const int* x0;
   const int* width;
@@ -145,10 +131,6 @@ struct Problem {
     gapx = par[PACK_GAPX];
   }
 
-  __device__ __forceinline__ float rf(int r, int x) const {
-    return ref[(size_t)r * LX + x];
-  }
-
   // event-normalised emission exp(c - 0.5 z^2 - ev_best): (ok ? exp(c) :
   // 0) * exp(-(0.5 z z + cw)), the twins' order
   __device__ __forceinline__ float emit(bool ok, float cx, float z,
@@ -157,13 +139,139 @@ struct Problem {
   }
 };
 
-// state s of band offset i of a ring slot; 0 outside the band
-__device__ __forceinline__ float rd(const float* slot, int s, int i, int W) {
-  return (i >= 0 && i < W) ? slot[s * W + i] : 0.f;
+// state s of band offset i of a ring slot of raw states, rescaled by its
+// diagonal's 1/m as the twins rescale it ((v * sc) * SCALE, op for op):
+// 0 outside the band
+__device__ __forceinline__ float rdn(const float* slot, int s, int i, int W,
+                                     float sc) {
+  return (i >= 0 && i < W) ? (slot[s * W + i] * sc) * SCALE : 0.f;
+}
+
+// NaN-propagating warp max
+__device__ __forceinline__ float warp_nmax(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = nmax(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// The diagonal's one barrier, after each warp's max went to part[par *
+// 32 + warp]; returns the block max. SHFL: each warp's lanes read the nw
+// partials, one each, and reduce them with shuffles; otherwise every
+// thread reads them in turn. A block of one warp synchronises that warp
+// alone.
+template <bool SHFL>
+__device__ __forceinline__ float diag_barrier_max(float wmax,
+                                                  const float* part, int par,
+                                                  int nw) {
+  if (nw == 1) {
+    __syncwarp();
+    return wmax;
+  }
+  __syncthreads();
+  if constexpr (SHFL) {
+    const int lane = threadIdx.x & 31;
+    return warp_nmax(lane < nw ? part[par * 32 + lane] : 0.f);
+  }
+  // unrolled to the most warps a block has, so that no branch separates
+  // the reduction from the independent work after it
+  float m = part[par * 32];
+#pragma unroll
+  for (int w = 1; w < MAX_W / 32; ++w)
+    m = w < nw ? nmax(m, part[par * 32 + w]) : m;
+  return m;
+}
+
+// One cell's emission inputs, loaded a diagonal before they are used: the
+// forward's reference rows m_hat, inv_m, inv_y and exp constants at x,
+// its event's mean, best-case log emission and mask (the backward's: the
+// same at x+1 (match and gapX targets, `1`) and at x (stay target, `0`))
+struct FwdLoad {
+  float m_hat, inv_m, inv_y, cx_m, cx_y, ev_mean, cw, flag;
+};
+struct BwdLoad {
+  float m_hat1, inv_m1, cx_m1, m_hat0, inv_m0, inv_y0, cx_y0, ev_mean, cw,
+      flag;
+};
+
+// One cell's emissions: its event-normalised match and stay
+// probabilities, and its gapX weight
+struct Emis {
+  float match, stay, gapx;
+};
+
+// The forward's inputs of cell o (clamped into the band) on diagonal d of
+// band origin xd: every index stays inside the tables
+__device__ __forceinline__ FwdLoad fwd_load(const Problem& pr, int d, int xd,
+                                            int o, int W) {
+  o = min(o, W - 1);
+  const int xr = clampi(xd, 0, pr.reflen - W) + o;
+  const int je = clampi(pr.lY - d + xd + pr.efp, 0, pr.evlen - W) + o;
+  return {__ldg(pr.ref + xr), __ldg(pr.ref + pr.LX + xr),
+          __ldg(pr.ref + 3 * pr.LX + xr), __ldg(pr.cexp + xr),
+          __ldg(pr.cexp + pr.LX + xr), __ldg(pr.ev + je), __ldg(pr.evb + je),
+          __ldg(pr.ev + pr.LE + je)};
+}
+
+// the twins' _prob_emissions, op for op
+__device__ __forceinline__ Emis fwd_emis(const Problem& pr, const FwdLoad& a) {
+  const bool kvalid = a.inv_m > 0.f;
+  const bool ok = kvalid && a.flag > 0.5f;
+  const float am = (a.ev_mean - a.m_hat) * a.inv_m;
+  const float ay = (a.ev_mean - a.m_hat) * a.inv_y;
+  return {pr.emit(ok, a.cx_m, am, a.cw), pr.emit(ok, a.cx_y, ay, a.cw),
+          kvalid ? pr.gapx : 0.f};
+}
+
+// The backward's inputs of cell o on diagonal d: match TO (x+1, y+1) and
+// gapX TO (x+1, y) at x+1, gapY TO (x, y+1) at x, with event y+1
+__device__ __forceinline__ BwdLoad bwd_load(const Problem& pr, int d, int xd,
+                                            int o, int W) {
+  o = min(o, W - 1);
+  const int xr1 = clampi(xd + 1, 0, pr.reflen - W) + o;
+  const int xr0 = clampi(xd, 0, pr.reflen - W) + o;
+  const int je = clampi(pr.lY - d + xd + pr.efp - 1, 0, pr.evlen - W) + o;
+  return {__ldg(pr.ref + xr1), __ldg(pr.ref + pr.LX + xr1),
+          __ldg(pr.cexp + xr1), __ldg(pr.ref + xr0),
+          __ldg(pr.ref + pr.LX + xr0), __ldg(pr.ref + 3 * pr.LX + xr0),
+          __ldg(pr.cexp + pr.LX + xr0), __ldg(pr.ev + je), __ldg(pr.evb + je),
+          __ldg(pr.ev + pr.LE + je)};
+}
+
+// e_match_to, e_stay_same and gapx_ok of the twin, op for op
+__device__ __forceinline__ Emis bwd_emis(const Problem& pr, const BwdLoad& a) {
+  const bool evok = a.flag > 0.5f;
+  const float am1 = (a.ev_mean - a.m_hat1) * a.inv_m1;
+  const float ay0 = (a.ev_mean - a.m_hat0) * a.inv_y0;
+  return {pr.emit(a.inv_m1 > 0.f && evok, a.cx_m1, am1, a.cw),
+          pr.emit(a.inv_m0 > 0.f && evok, a.cx_y0, ay0, a.cw),
+          a.inv_m1 > 0.f ? pr.gapx : 0.f};
+}
+
+// log(sum of ring slot `slot` of raw states rescaled by sc, weighted by
+// the state probabilities w[3]) - LOG_SCALE, summed state by state (the
+// twins' _prob_lse)
+__device__ float block_prob_lse(const float* slot, float sc, const float* w,
+                                int W, float* part) {
+  float s[3];
+  for (int st = 0; st < 3; ++st) {
+    float v = 0.f;
+    for (int c = threadIdx.x; c < W; c += blockDim.x)
+      v += ((slot[st * W + c] * sc) * SCALE) * w[st];
+    __syncthreads();
+    s[st] = block_reduce<true>(v, part);
+  }
+  return logf(s[0] + s[1] + s[2]) - LOG_SCALE;
 }
 
 // ---------------------------------------------------------------- forward
 
+// The loop runs from one barrier to the next: after barrier d-1 it forms
+// diagonal d-1's max, stack row and frame increment, diagonal d's
+// emissions from the inputs loaded during d-1, issues the loads of d+1,
+// and only then reads the ring for d's cells; with no branch between the
+// barriers the compiler interleaves the emissions and the loads with the
+// max's reduction and the ring reads.
+template <int K, bool SHFL>
 __global__ void __launch_bounds__(MAX_W) sa_fwd_sweep_prob_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const float* __restrict__ ev_,
@@ -172,84 +280,162 @@ __global__ void __launch_bounds__(MAX_W) sa_fwd_sweep_prob_kernel(
     float* __restrict__ fstack, float* __restrict__ f_incr,
     float* __restrict__ lse_f, int D1, int W, int LX, int LE) {
   extern __shared__ float smem[];
-  float* ring = smem;              // [2 slots][3 states][W]
-  float* part = smem + 6 * W;      // [32] reduction partials
+  float* ring = smem;              // [3 slots][3 states][W] raw states
+  float* part = smem + 9 * W;      // [2 parities][32] per-warp maxima
   __shared__ Problem pr;
   if (threadIdx.x == 0)
     pr.load(x0_, width_, ref_, ev_, meta_, cexp_, evb_, par_, D1, LX, LE);
-  for (int i = threadIdx.x; i < 6 * W; i += blockDim.x) ring[i] = 0.f;
+  for (int i = threadIdx.x; i < 9 * W; i += blockDim.x) ring[i] = 0.f;
   __syncthreads();
 
   const int b = blockIdx.x;
-  const int o = threadIdx.x;       // this thread's band offset
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
   float* fs = fstack + (size_t)b * D1 * W;
   float* inc = f_incr + (size_t)b * D1;
-  const int nd = pr.nd;
+  const int nd = pr.nd, last = D1 - 1;
   for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) inc[d] = 0.f;
   const float* tr = pr.t;
 
-  float lr = 0.f;   // log(FRAME(d-1) / FRAME(d-2))
-  for (int d = 0; d <= nd; ++d) {
-    float* cur = ring + (d & 1) * 3 * W;          // holds d-2 until written
-    const float* p1 = ring + ((d + 1) & 1) * 3 * W;
-    const float* p2 = cur;
-    float mm = 0.f, gx = 0.f, gy = 0.f;
-    if (d == 0) {
-      // the start cell (0, 0), and nothing else
-      if (o == 0) {
-        mm = pr.start[MATCH] * SCALE;
-        gx = pr.start[GAP_X] * SCALE;
-        gy = pr.start[GAP_Y] * SCALE;
-      }
-    } else if (o < W && o < pr.width[d]) {
-      const int xd = pr.x0[d];
-      const int s1 = xd - pr.x0[d - 1] - 1;
-      const int s2 = d >= 2 ? xd - pr.x0[d - 2] - 1 : W + 5;
-      const int xr = clampi(xd, 0, pr.reflen - W) + o;
-      const int je = clampi(pr.lY - d + xd + pr.efp, 0, pr.evlen - W) + o;
-      const float m_hat = pr.rf(0, xr), inv_m = pr.rf(1, xr),
-                  inv_y = pr.rf(3, xr);
-      const float ev_mean = pr.ev[je], cw = pr.evb[je];
-      const bool kvalid = inv_m > 0.f;
-      const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
-      const float am = (ev_mean - m_hat) * inv_m;
-      const float ay = (ev_mean - m_hat) * inv_y;
-      const float e_match = pr.emit(ok, pr.cexp[xr], am, cw);
-      const float e_stay = pr.emit(ok, pr.cexp[pr.LX + xr], ay, cw);
-      const float e_gapx = kvalid ? pr.gapx : 0.f;
-      const float w1 = expf(nmin(lr, 0.f)), w2 = expf(-nmax(lr, 0.f));
-      const int il = o + s1, im = o + s2;
-      // gapX from (x-1, y), match from (x-1, y-1), gapY from (x, y-1)
-      gx = (rd(p1, MATCH, il, W) * (tr[T_MX] * w1)
-            + rd(p1, GAP_X, il, W) * (tr[T_XX] * w1)) * e_gapx;
-      mm = ((rd(p2, MATCH, im, W) * tr[T_MM] + rd(p2, GAP_X, im, W) * tr[T_XM]
-             + rd(p2, GAP_Y, im, W) * tr[T_YM]) * w2) * e_match;
-      gy = (rd(p1, MATCH, il + 1, W) * (tr[T_MY] * w1)
-            + rd(p1, GAP_Y, il + 1, W) * (tr[T_YY] * w1)) * e_stay;
-    }
-    // its barrier also ends every read of diagonal d-2 in `cur`
-    const float mx = block_reduce<false>(nmax(mm, nmax(gx, gy)), part);
-    const float m = mx > 0.f ? mx : SCALE;
-    const float sc1 = 1.f / m;
-    mm = (mm * sc1) * SCALE;
-    gx = (gx * sc1) * SCALE;
-    gy = (gy * sc1) * SCALE;
+  // diagonal 0: the start cell (0, 0), and nothing else, in slot 0
+  float vm[K], vx[K], vy[K];   // this thread's raw states of diagonal d
+  float tmax = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int o = threadIdx.x + k * blockDim.x;
+    vm[k] = o == 0 ? pr.start[MATCH] * SCALE : 0.f;
+    vx[k] = o == 0 ? pr.start[GAP_X] * SCALE : 0.f;
+    vy[k] = o == 0 ? pr.start[GAP_Y] * SCALE : 0.f;
     if (o < W) {
-      cur[MATCH * W + o] = mm;
-      cur[GAP_X * W + o] = gx;
-      cur[GAP_Y * W + o] = gy;
-      fs[(size_t)d * W + o] = nmax(logf(mm) - LOG_SCALE, NEG);
+      ring[MATCH * W + o] = vm[k];
+      ring[GAP_X * W + o] = vx[k];
+      ring[GAP_Y * W + o] = vy[k];
+    }
+    tmax = nmax(tmax, nmax(vm[k], nmax(vx[k], vy[k])));
+  }
+  tmax = warp_nmax(tmax);
+  if (nw > 1 && lane == 0) part[warp] = tmax;
+  // band origins of d-2, d-1, d (with its width) and d+1: each loaded two
+  // diagonals ahead; the inputs of diagonal d's emissions one ahead
+  int xm2 = 0, xm1 = pr.x0[0];
+  int xd = pr.x0[min(1, last)], wd = pr.width[min(1, last)];
+  int xn = pr.x0[min(2, last)];
+  FwdLoad in[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    in[k] = fwd_load(pr, 1, xd, threadIdx.x + k * blockDim.x, W);
+  float sc1 = 0.f, sc2 = 0.f;   // 1/m of diagonals d-1 and d-2
+  float lr = 0.f;               // log(FRAME(d-1) / FRAME(d-2))
+
+  // diagonal d-1's max, stack row and frame increment, after its barrier
+  auto close = [&](int dd) {
+    const float mx = diag_barrier_max<SHFL>(tmax, part, dd & 1, nw);
+    const float m = mx > 0.f ? mx : SCALE;
+    const float sc = 1.f / m;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int o = threadIdx.x + k * blockDim.x;
+      if (o < W)
+        fs[(size_t)dd * W + o] =
+            nmax(logf((vm[k] * sc) * SCALE) - LOG_SCALE, NEG);
     }
     lr = nmax(-lr, 0.f) + (logf(m) - LOG_SCALE);
-    if (threadIdx.x == 0) inc[d] = lr;
-    __syncthreads();
+    if (threadIdx.x == 0) inc[dd] = lr;
+    sc2 = sc1;
+    sc1 = sc;
+  };
+
+  for (int d = 1; d <= nd; ++d) {
+    close(d - 1);
+    const float* p1 = ring + ((d + 2) % 3) * 3 * W;   // diagonal d-1
+    const float* p2 = ring + ((d + 1) % 3) * 3 * W;   // diagonal d-2
+    float* cur = ring + (d % 3) * 3 * W;
+    Emis e[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) e[k] = fwd_emis(pr, in[k]);
+    // the loads of d+1 and the band of d+2
+    const int xnn = pr.x0[min(d + 2, last)], wn = pr.width[min(d + 1, last)];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      in[k] = fwd_load(pr, d + 1, xn, threadIdx.x + k * blockDim.x, W);
+    const float w1 = expf(nmin(lr, 0.f)), w2 = expf(-nmax(lr, 0.f));
+    const int s1 = xd - xm1 - 1;
+    const int s2 = d >= 2 ? xd - xm2 - 1 : W + 5;
+    tmax = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int o = threadIdx.x + k * blockDim.x;
+      const int il = o + s1, im = o + s2;
+      // gapX from (x-1, y), match from (x-1, y-1), gapY from (x, y-1)
+      const float gx = (rdn(p1, MATCH, il, W, sc1) * (tr[T_MX] * w1)
+                        + rdn(p1, GAP_X, il, W, sc1) * (tr[T_XX] * w1)) *
+                       e[k].gapx;
+      const float mm = ((rdn(p2, MATCH, im, W, sc2) * tr[T_MM]
+                         + rdn(p2, GAP_X, im, W, sc2) * tr[T_XM]
+                         + rdn(p2, GAP_Y, im, W, sc2) * tr[T_YM]) * w2) *
+                       e[k].match;
+      const float gy = (rdn(p1, MATCH, il + 1, W, sc1) * (tr[T_MY] * w1)
+                        + rdn(p1, GAP_Y, il + 1, W, sc1) * (tr[T_YY] * w1)) *
+                       e[k].stay;
+      const bool inb = o < W && o < wd;
+      vm[k] = inb ? mm : 0.f;
+      vx[k] = inb ? gx : 0.f;
+      vy[k] = inb ? gy : 0.f;
+      if (o < W) {
+        cur[MATCH * W + o] = vm[k];
+        cur[GAP_X * W + o] = vx[k];
+        cur[GAP_Y * W + o] = vy[k];
+      }
+      tmax = nmax(tmax, nmax(vm[k], nmax(vx[k], vy[k])));
+    }
+    tmax = warp_nmax(tmax);
+    if (nw > 1 && lane == 0) part[(d & 1) * 32 + warp] = tmax;
+    xm2 = xm1;
+    xm1 = xd;
+    xd = xn;
+    wd = wn;
+    xn = xnn;
   }
-  const float l = block_prob_lse(ring + (nd & 1) * 3 * W, pr.end, W, part);
+  close(nd);
+  const float l =
+      block_prob_lse(ring + (nd % 3) * 3 * W, sc1, pr.end, W, part);
   if (threadIdx.x == 0) lse_f[b] = l;
 }
 
 // ----------------------------------------------- backward + compaction
 
+// The survivor slots of one diagonal from its per-warp counts wc [K][32]
+// and this thread's ranks inside its warp (-1 for none), ranked in
+// band-offset order: chunk, warp, lane. Each warp forms the count of the
+// warps before it and the chunk's total with one integer reduction each:
+// no branch and no loop over the warps.
+template <int K>
+__device__ __forceinline__ void write_slots(const int* wc, const int (&rk)[K],
+                                            const float (&pk)[K], int* so,
+                                            float* sv, int* cn, int R,
+                                            int nw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int before = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = lane < nw ? wc[k * 32 + lane] : 0;
+    const int r = before + __reduce_add_sync(0xffffffffu, lane < warp ? c : 0)
+                  + rk[k];
+    if (rk[k] >= 0 && r < R) {
+      so[r] = threadIdx.x + k * blockDim.x;
+      sv[r] = pk[k];
+    }
+    before += __reduce_add_sync(0xffffffffu, c);
+  }
+  if (threadIdx.x == 0) *cn = before;
+}
+
+// As the forward, from barrier to barrier: after barrier d+1, diagonal
+// d+1's max, frame and posterior (its ballot and warp counts), and the
+// survivor slots of d+2, whose counts that barrier published; then
+// diagonal d's emissions from the inputs loaded during d+1, the loads of
+// d-1 (inputs, forward match row, cvecf), and d's cells.
+template <int K, bool SHFL>
 __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const float* __restrict__ ev_,
@@ -261,24 +447,23 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
     int* __restrict__ cnt, int D1, int W, int LX, int LE, int R,
     float threshold) {
   extern __shared__ float smem[];
-  float* ring = smem;                               // [2 slots][3 states][W]
-  float* part = smem + 6 * W;                       // [32] reduction partials
-  int* wcnt = reinterpret_cast<int*>(part + 32);    // [32] survivors per warp
+  float* ring = smem;                               // [3 slots][3 states][W]
+  float* part = smem + 9 * W;                       // [2 parities][32]
+  int* wcnt = reinterpret_cast<int*>(part + 64);    // [2 parities][K][32]
   __shared__ Problem pr;
   if (threadIdx.x == 0)
     pr.load(x0_, width_, ref_, ev_, meta_, cexp_, evb_, par_, D1, LX, LE);
-  for (int i = threadIdx.x; i < 6 * W; i += blockDim.x) ring[i] = 0.f;
+  for (int i = threadIdx.x; i < 9 * W; i += blockDim.x) ring[i] = 0.f;
   __syncthreads();
 
   const int b = blockIdx.x;
-  const int o = threadIdx.x;
   const float* fs = fstack + (size_t)b * D1 * W;
   const double* cv = cvecf + (size_t)b * D1;
   float* inc = b_incr + (size_t)b * D1;
   int* so = slot_cell + (size_t)b * D1 * R;
   float* sv = slot_val + (size_t)b * D1 * R;
   int* cn = cnt + (size_t)b * D1;
-  const int nd = pr.nd;
+  const int nd = pr.nd, last = D1 - 1;
   for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) {
     inc[d] = 0.f;
     cn[d] = 0;
@@ -287,101 +472,207 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
   const int nw = blockDim.x >> 5;
   const float* tr = pr.t;
 
+  // diagonal nd: the end states in the band
+  float bm[K];     // this thread's raw match states of diagonal d
+  float fpost[K];  // and the forward match row of d, for the posterior
+  float tmax = 0.f;
+  const int wnd = pr.width[nd];
+  float* cur0 = ring + (nd % 3) * 3 * W;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int o = threadIdx.x + k * blockDim.x;
+    const bool inb = o < W && o < wnd;
+    bm[k] = inb ? pr.end[MATCH] * SCALE : 0.f;
+    const float x_ = inb ? pr.end[GAP_X] * SCALE : 0.f;
+    const float y_ = inb ? pr.end[GAP_Y] * SCALE : 0.f;
+    if (o < W) {
+      cur0[MATCH * W + o] = bm[k];
+      cur0[GAP_X * W + o] = x_;
+      cur0[GAP_Y * W + o] = y_;
+    }
+    fpost[k] = __ldg(fs + (size_t)nd * W + min(o, W - 1));
+    tmax = nmax(tmax, nmax(bm[k], nmax(x_, y_)));
+  }
+  tmax = warp_nmax(tmax);
+  if (nw > 1 && lane == 0) part[(nd & 1) * 32 + warp] = tmax;
+  // band origins of d+2, d+1 (with its width), d (with its width) and
+  // d-1, each loaded two diagonals ahead; d's emission inputs, forward
+  // match row and cvecf one ahead
+  int xp2 = pr.x0[min(nd + 1, last)], xp1 = pr.x0[nd], wp1 = wnd;
+  int xd = pr.x0[max(nd - 1, 0)], wd = pr.width[max(nd - 1, 0)];
+  int xn = pr.x0[max(nd - 2, 0)];
+  BwdLoad in[K];
+  float fnext[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int o = threadIdx.x + k * blockDim.x;
+    in[k] = bwd_load(pr, nd - 1, xd, o, W);
+    fnext[k] = __ldg(fs + (size_t)max(nd - 1, 0) * W + min(o, W - 1));
+  }
+  double cv_1 = cv[nd], cv_d = cv[max(nd - 1, 0)];   // cvecf of d+1 and d
+  float sc1 = 0.f, sc2 = 0.f;   // 1/m of diagonals d+1 and d+2
   float lr = 0.f;    // log(FRAME(d+1) / FRAME(d+2))
   double bo = 0.0;   // running backward offset: Bo(d) = sum of lr over >= d
-  for (int d = nd; d >= 0; --d) {
-    float* cur = ring + (d & 1) * 3 * W;            // holds d+2 until written
-    const float* b1 = ring + ((d + 1) & 1) * 3 * W;
-    const float* b2 = cur;
-    const int xd = pr.x0[d];
-    const bool fin = d == nd;
-    float bm = 0.f, bx = 0.f, by = 0.f;
-    if (o < W && o < pr.width[d]) {
-      if (fin) {
-        bm = pr.end[MATCH] * SCALE;
-        bx = pr.end[GAP_X] * SCALE;
-        by = pr.end[GAP_Y] * SCALE;
-      } else {
-        const int u1 = xd - pr.x0[d + 1];
-        const int u2 = d + 2 < D1 ? xd + 1 - pr.x0[d + 2] : W + 5;
-        const int xr1 = clampi(xd + 1, 0, pr.reflen - W) + o;
-        const int xr0 = clampi(xd, 0, pr.reflen - W) + o;
-        const int je =
-            clampi(pr.lY - d + xd + pr.efp - 1, 0, pr.evlen - W) + o;
-        const float ev_mean = pr.ev[je], cw = pr.evb[je];
-        const bool evok = pr.ev[pr.LE + je] > 0.5f;
-        // match TO (x+1, y+1) and gapX TO (x+1, y) at x+1; gapY TO
-        // (x, y+1) at x; the first and the last consume event y+1
-        const float m_hat1 = pr.rf(0, xr1), inv_m1 = pr.rf(1, xr1);
-        const float am1 = (ev_mean - m_hat1) * inv_m1;
-        const float e_match_to =
-            pr.emit(inv_m1 > 0.f && evok, pr.cexp[xr1], am1, cw);
-        const float m_hat0 = pr.rf(0, xr0), inv_m0 = pr.rf(1, xr0),
-                    inv_y0 = pr.rf(3, xr0);
-        const float ay0 = (ev_mean - m_hat0) * inv_y0;
-        const float e_stay_same =
-            pr.emit(inv_m0 > 0.f && evok, pr.cexp[pr.LX + xr0], ay0, cw);
-        const float gapx_ok = inv_m1 > 0.f ? pr.gapx : 0.f;
-        const float w1 = expf(nmin(lr, 0.f)), w2 = expf(-nmax(lr, 0.f));
-        const float gx_red = (rd(b1, GAP_X, o + u1 + 1, W) * w1) * gapx_ok;
-        const float mm_red = (rd(b2, MATCH, o + u2, W) * w2) * e_match_to;
-        const float gy_term = (rd(b1, GAP_Y, o + u1, W) * w1) * e_stay_same;
-        bm = gx_red * tr[T_MX] + mm_red * tr[T_MM] + gy_term * tr[T_MY];
-        bx = gx_red * tr[T_XX] + mm_red * tr[T_XM];
-        by = mm_red * tr[T_YM] + gy_term * tr[T_YY];
-      }
-    }
-    // barrier 1; it also ends every read of diagonal d+2 in `cur`
-    const float mx = block_reduce<false>(nmax(bm, nmax(bx, by)), part);
-    const float m = fin ? SCALE : (mx > 0.f ? mx : SCALE);
-    const float sc1 = 1.f / m;
-    bm = (bm * sc1) * SCALE;
-    bx = (bx * sc1) * SCALE;
-    by = (by * sc1) * SCALE;
+  // this thread's survivors of the diagonal closed last: value and rank
+  // inside its warp (-1 for none), written once the next barrier has
+  // published the warp counts
+  float pk[K];
+  int rk[K];
+
+  // after barrier dd: diagonal dd's max, frame and posterior, and the
+  // survivor slots of dd+1
+  auto close = [&](int dd, int xdd, int wdd) {
+    const float mx = diag_barrier_max<SHFL>(tmax, part, dd & 1, nw);
+    const float m = dd == nd ? SCALE : (mx > 0.f ? mx : SCALE);
+    const float sc = 1.f / m;
     lr = nmax(-lr, 0.f) + (logf(m) - LOG_SCALE);
-    bo += (double)lr;                                    // Bo(d)
-    // absolute log posterior = fm + bmn + cvecf[d] + Bo(d)
-    const float cd = (float)(cv[d] + bo);
-    bool surv = false;
-    float p = 0.f;
-    if (o < W) {
-      cur[MATCH * W + o] = bm;
-      cur[GAP_X * W + o] = bx;
-      cur[GAP_Y * W + o] = by;
-      const int x = xd + o, y = d - x;
-      if (o < pr.width[d] && x > 0 && y > 0 && x <= pr.lX && y <= pr.lY) {
-        const float bmn = nmax(logf(bm) - LOG_SCALE, NEG);
-        p = expf(nmax(fs[(size_t)d * W + o] + bmn + cd, NEG));
-        surv = p >= threshold;
+    bo += (double)lr;                                    // Bo(dd)
+    // absolute log posterior = fm + bmn + cvecf[dd] + Bo(dd)
+    const float cd = (float)(cv_1 + bo);
+    // the survivors of dd+1, whose warp counts the barrier published
+    if (dd < nd)
+      write_slots<K>(wcnt + ((dd + 1) & 1) * K * 32, rk, pk,
+                     so + (size_t)(dd + 1) * R, sv + (size_t)(dd + 1) * R,
+                     cn + dd + 1, R, nw);
+    int* wc = wcnt + (dd & 1) * K * 32;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int o = threadIdx.x + k * blockDim.x;
+      const int x = xdd + o, y = dd - x;
+      const float bmn = nmax(logf((bm[k] * sc) * SCALE) - LOG_SCALE, NEG);
+      const float p = expf(nmax(fpost[k] + bmn + cd, NEG));
+      const bool surv = o < W && o < wdd && x > 0 && y > 0 && x <= pr.lX &&
+                        y <= pr.lY && p >= threshold;
+      const unsigned ball = __ballot_sync(0xffffffffu, surv);
+      if (lane == 0) wc[k * 32 + warp] = __popc(ball);
+      pk[k] = p;
+      rk[k] = surv ? __popc(ball & ((1u << lane) - 1u)) : -1;
+    }
+    if (threadIdx.x == 0) inc[dd] = lr;
+    sc2 = sc1;
+    sc1 = sc;
+  };
+
+  for (int d = nd - 1; d >= 0; --d) {
+    close(d + 1, xp1, wp1);
+    const float* b1 = ring + ((d + 1) % 3) * 3 * W;   // diagonal d+1
+    const float* b2 = ring + ((d + 2) % 3) * 3 * W;   // diagonal d+2
+    float* cur = ring + (d % 3) * 3 * W;
+    Emis e[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      e[k] = bwd_emis(pr, in[k]);
+      fpost[k] = fnext[k];
+    }
+    cv_1 = cv_d;
+    // the loads of d-1 and the band of d-2
+    const int xnn = pr.x0[max(d - 2, 0)], wn = pr.width[max(d - 1, 0)];
+    cv_d = cv[max(d - 1, 0)];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int o = threadIdx.x + k * blockDim.x;
+      in[k] = bwd_load(pr, d - 1, xn, o, W);
+      fnext[k] = __ldg(fs + (size_t)max(d - 1, 0) * W + min(o, W - 1));
+    }
+    const float w1 = expf(nmin(lr, 0.f)), w2 = expf(-nmax(lr, 0.f));
+    const int u1 = xd - xp1;
+    const int u2 = d + 2 < D1 ? xd + 1 - xp2 : W + 5;
+    tmax = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int o = threadIdx.x + k * blockDim.x;
+      const float gx_red =
+          (rdn(b1, GAP_X, o + u1 + 1, W, sc1) * w1) * e[k].gapx;
+      const float mm_red = (rdn(b2, MATCH, o + u2, W, sc2) * w2) * e[k].match;
+      const float gy_term = (rdn(b1, GAP_Y, o + u1, W, sc1) * w1) * e[k].stay;
+      const bool inb = o < W && o < wd;
+      const float m_ = inb ? gx_red * tr[T_MX] + mm_red * tr[T_MM] +
+                                 gy_term * tr[T_MY] : 0.f;
+      const float x_ = inb ? gx_red * tr[T_XX] + mm_red * tr[T_XM] : 0.f;
+      const float y_ = inb ? mm_red * tr[T_YM] + gy_term * tr[T_YY] : 0.f;
+      if (o < W) {
+        cur[MATCH * W + o] = m_;
+        cur[GAP_X * W + o] = x_;
+        cur[GAP_Y * W + o] = y_;
       }
+      bm[k] = m_;
+      tmax = nmax(tmax, nmax(m_, nmax(x_, y_)));
     }
-    // survivors rank in band-offset order: warp, then lane
-    const unsigned ball = __ballot_sync(0xffffffffu, surv);
-    if (lane == 0) wcnt[warp] = __popc(ball);
-    // barrier 2: publishes the rescaled diagonal and the warp counts. The
-    // next diagonal writes wcnt only after its barrier 1, which every
-    // thread reaches after reading wcnt below.
-    __syncthreads();
-    int before = 0, total = 0;
-    for (int w = 0; w < nw; ++w) {
-      if (w < warp) before += wcnt[w];
-      total += wcnt[w];
-    }
-    const int r = before + __popc(ball & ((1u << lane) - 1u));
-    if (surv && r < R) {
-      so[(size_t)d * R + r] = o;
-      sv[(size_t)d * R + r] = p;
-    }
-    if (threadIdx.x == 0) {
-      inc[d] = lr;
-      cn[d] = total;
-    }
+    tmax = warp_nmax(tmax);
+    if (nw > 1 && lane == 0) part[(d & 1) * 32 + warp] = tmax;
+    xp2 = xp1;
+    xp1 = xd;
+    wp1 = wd;
+    xd = xn;
+    wd = wn;
+    xn = xnn;
   }
-  const float l = block_prob_lse(ring, pr.start, W, part);   // d = 0: slot 0
+  close(0, xp1, wp1);
+  // publish diagonal 0's warp counts, then its survivor slots
+  __syncthreads();
+  write_slots<K>(wcnt, rk, pk, so, sv, cn, R, nw);
+  const float l = block_prob_lse(ring, sc1, pr.start, W, part);  // d = 0
   if (threadIdx.x == 0) lse_b[b] = l;
 }
 
-int threads_for(int W) { return ((W + 31) / 32) * 32; }
+// Cells per thread by band width: K = 1 against K = 2 timed on phase 3a's
+// and 8a's problems (W = 256) and at W = 512 on an H100 (PERF.md §6)
+int prob_k(int W) { return W <= 256 ? 1 : 1; }
+
+int threads_for(int W, int K) { return (((W + K - 1) / K + 31) / 32) * 32; }
+
+template <int K, bool SHFL>
+int fwd_prob_launch(const int* x0, const int* width, const float* ref,
+                    const float* ev, const int* meta, const float* cexp,
+                    const float* evb, const float* par, float* fstack,
+                    float* f_incr, float* lse_f, int B, int D1, int W, int LX,
+                    int LE, cudaStream_t stream) {
+  const size_t smem = (9 * (size_t)W + 64) * sizeof(float);
+  sa_fwd_sweep_prob_kernel<K, SHFL><<<B, threads_for(W, K), smem, stream>>>(
+      x0, width, ref, ev, meta, cexp, evb, par, fstack, f_incr, lse_f, D1, W,
+      LX, LE);
+  return (int)cudaGetLastError();
+}
+
+template <int K, bool SHFL>
+int bwd_prob_launch(const int* x0, const int* width, const float* ref,
+                    const float* ev, const int* meta, const float* cexp,
+                    const float* evb, const float* par, const float* fstack,
+                    const double* cvecf, float* b_incr, float* lse_b,
+                    int* slot_cell, float* slot_val, int* cnt, int B, int D1,
+                    int W, int LX, int LE, int R, float threshold,
+                    cudaStream_t stream) {
+  const size_t smem =
+      (9 * (size_t)W + 64) * sizeof(float) + 2 * K * 32 * sizeof(int);
+  sa_bwd_sweep_compact_prob_kernel<K, SHFL>
+      <<<B, threads_for(W, K), smem, stream>>>(
+          x0, width, ref, ev, meta, cexp, evb, par, fstack, cvecf, b_incr,
+          lse_b, slot_cell, slot_val, cnt, D1, W, LX, LE, R, threshold);
+  return (int)cudaGetLastError();
+}
+
+// the launchers of variant v: K = v % 10 cells per thread, the partials
+// reduced by shuffles when v >= 10
+using FwdLaunch = decltype(&fwd_prob_launch<1, false>);
+using BwdLaunch = decltype(&bwd_prob_launch<1, false>);
+FwdLaunch fwd_variant(int v) {
+  switch (v) {
+    case 1: return fwd_prob_launch<1, false>;
+    case 2: return fwd_prob_launch<2, false>;
+    case 11: return fwd_prob_launch<1, true>;
+    case 12: return fwd_prob_launch<2, true>;
+    default: return nullptr;
+  }
+}
+BwdLaunch bwd_variant(int v) {
+  switch (v) {
+    case 1: return bwd_prob_launch<1, false>;
+    case 2: return bwd_prob_launch<2, false>;
+    case 11: return bwd_prob_launch<1, true>;
+    case 12: return bwd_prob_launch<2, true>;
+    default: return nullptr;
+  }
+}
 
 }  // namespace
 
@@ -400,11 +691,9 @@ extern "C" int sa_fwd_sweep_prob(const int* x0, const int* width,
                                  int B, int D1, int W, int LX, int LE,
                                  void* stream) {
   if (W < 1 || W > MAX_W) return (int)cudaErrorInvalidValue;
-  const size_t smem = (6 * (size_t)W + 32) * sizeof(float);
-  sa_fwd_sweep_prob_kernel<<<B, threads_for(W), smem, (cudaStream_t)stream>>>(
-      x0, width, ref, ev, meta, cexp, evb, par, fstack, f_incr, lse_f, D1, W,
-      LX, LE);
-  return (int)cudaGetLastError();
+  return fwd_variant(prob_k(W))(x0, width, ref, ev, meta, cexp, evb, par,
+                                fstack, f_incr, lse_f, B, D1, W, LX, LE,
+                                (cudaStream_t)stream);
 }
 
 extern "C" int sa_bwd_sweep_compact_prob(
@@ -414,10 +703,35 @@ extern "C" int sa_bwd_sweep_compact_prob(
     int* slot_cell, float* slot_val, int* cnt, int B, int D1, int W, int LX,
     int LE, int R, float threshold, void* stream) {
   if (W < 1 || W > MAX_W) return (int)cudaErrorInvalidValue;
-  const size_t smem = (6 * (size_t)W + 32) * sizeof(float) + 32 * sizeof(int);
-  sa_bwd_sweep_compact_prob_kernel
-      <<<B, threads_for(W), smem, (cudaStream_t)stream>>>(
-          x0, width, ref, ev, meta, cexp, evb, par, fstack, cvecf, b_incr,
-          lse_b, slot_cell, slot_val, cnt, D1, W, LX, LE, R, threshold);
-  return (int)cudaGetLastError();
+  return bwd_variant(prob_k(W))(x0, width, ref, ev, meta, cexp, evb, par,
+                                fstack, cvecf, b_incr, lse_b, slot_cell,
+                                slot_val, cnt, B, D1, W, LX, LE, R, threshold,
+                                (cudaStream_t)stream);
+}
+
+// The K scan of PERF.md §6: variant `v` (K = v % 10 cells per thread, the
+// partials reduced by shuffles when v >= 10) in place of prob_k's, then
+// the arguments of sa_fwd_sweep_prob / sa_bwd_sweep_compact_prob.
+extern "C" int sa_fwd_sweep_prob_k(int v, const int* x0, const int* width,
+                                   const float* ref, const float* ev,
+                                   const int* meta, const float* cexp,
+                                   const float* evb, const float* par,
+                                   float* fstack, float* f_incr, float* lse_f,
+                                   int B, int D1, int W, int LX, int LE,
+                                   void* stream) {
+  if (W < 1 || W > MAX_W || !fwd_variant(v)) return (int)cudaErrorInvalidValue;
+  return fwd_variant(v)(x0, width, ref, ev, meta, cexp, evb, par, fstack,
+                        f_incr, lse_f, B, D1, W, LX, LE, (cudaStream_t)stream);
+}
+
+extern "C" int sa_bwd_sweep_compact_prob_k(
+    int v, const int* x0, const int* width, const float* ref, const float* ev,
+    const int* meta, const float* cexp, const float* evb, const float* par,
+    const float* fstack, const double* cvecf, float* b_incr, float* lse_b,
+    int* slot_cell, float* slot_val, int* cnt, int B, int D1, int W, int LX,
+    int LE, int R, float threshold, void* stream) {
+  if (W < 1 || W > MAX_W || !bwd_variant(v)) return (int)cudaErrorInvalidValue;
+  return bwd_variant(v)(x0, width, ref, ev, meta, cexp, evb, par, fstack,
+                        cvecf, b_incr, lse_b, slot_cell, slot_val, cnt, B, D1,
+                        W, LX, LE, R, threshold, (cudaStream_t)stream);
 }

@@ -3,7 +3,8 @@ field for field with ``signalalign_tpu.ops.banded_fb``) and the plain
 PyTorch DP.
 
 The DP is the ``MODE_MEAN_ONLY`` and ``MODE_HDP`` specialisation of the
-JAX ``_banded_sweeps_core`` for 1 <= P <= 32 paths per cell: a Python loop
+JAX ``_banded_sweeps_core`` for any number P >= 1 of paths per cell: a
+Python loop
 over anti-diagonals, vectorised over problems x paths x band offsets, in
 the band-offset frame (cell (d, p, o) is x = x0[d] + o, y = d - x on path
 p). gapX and match take the legal logsumexp over source paths, gapY
@@ -384,19 +385,10 @@ def extract_aligned_pairs(problem: BandedProblem, post: np.ndarray,
 # device layout of one bucket
 # --------------------------------------------------------------------------
 
-MAX_P = 32   # paths per cell a legality mask holds (one bit per source path)
-MAX_CELLS = 8192   # P * W cells of one diagonal the kernels hold
-
-
-def check_shape(W: int, P: int) -> None:
-    """The kernels take segments of P <= MAX_P paths per cell and P * W <=
-    MAX_CELLS cells per diagonal; a larger one raises, naming its shape
-    (a P-blocked sweep for larger ones is queued in ROADMAP §3)."""
-    if P > MAX_P or P * W > MAX_CELLS:
-        raise NotImplementedError(
-            f"segment of P={P} paths per cell at W={W} ({P * W} cells per "
-            f"diagonal): the kernels take P <= {MAX_P} and P * W <= "
-            f"{MAX_CELLS} (a P-blocked sweep is queued in ROADMAP §3)")
+def leg_words(P: int) -> int:
+    """32-bit legality words per (position, path) at P paths per cell:
+    one bit per path at the other end of a transition."""
+    return (P + 31) // 32
 
 
 @dataclasses.dataclass
@@ -408,10 +400,12 @@ class ProblemTensors:
     along their last axis to the bucket's longest problem, and each
     problem's own lengths sit in ``meta`` (M_REFLEN, M_EVLEN) so windows
     clamp exactly as the JAX package's per-problem dynamic slices do.
-    ``leg[b, x, p_to]`` holds ``legal[p_to, q_from, x]`` in bit q_from,
-    ``leg_src[b, x, q_from]`` the same in bit p_to (the backward kernel's
-    reads: the legal targets of a source path in one word), derived from
-    ``leg`` on the device for a CUDA bucket (None on the CPU).
+    ``leg[b, x, p_to * NW + q_from // 32]`` holds ``legal[p_to, q_from,
+    x]`` in bit q_from % 32, NW = ``leg_words(P)`` words per (position,
+    path): one word at P <= 32; ``leg_src[b, x, q_from * NW + p_to //
+    32]`` the same in bit p_to % 32 (the backward kernel's reads: the
+    legal targets of a source path), derived from ``leg`` on the device
+    for a CUDA bucket (None on the CPU).
     Path slots a position does not use have zero ``ref`` rows (inv_m = 0
     marks them invalid, as in the JAX emissions).
     """
@@ -421,8 +415,8 @@ class ProblemTensors:
     x0: torch.Tensor       # (B, D1) int32 band origin per diagonal
     width: torch.Tensor    # (B, D1) int32 band width per diagonal
     ref: torch.Tensor      # (B, NREF, P, LX) f32
-    leg: torch.Tensor      # (B, LX, P) int32 legality masks by target path
-    leg_src: Optional[torch.Tensor]  # (B, LX, P) int32 by source path
+    leg: torch.Tensor      # (B, LX, P * NW) int32 legality masks by target
+    leg_src: Optional[torch.Tensor]  # (B, LX, P * NW) int32 by source path
     ev: torch.Tensor       # (B, NEV, LE) f32
     meta: torch.Tensor     # (B, NMETA) int32
     par: torch.Tensor      # (B, NPACK) f32
@@ -540,7 +534,7 @@ def hdp_log_emission(x, kid, var, tables: HdpTables):
 
 
 # --------------------------------------------------------------------------
-# plain PyTorch DP (1 <= P <= MAX_P paths, MODE_MEAN_ONLY or MODE_HDP)
+# plain PyTorch DP (P >= 1 paths, MODE_MEAN_ONLY or MODE_HDP)
 # --------------------------------------------------------------------------
 
 def _lae(a, b):
@@ -558,12 +552,15 @@ def _cols(table, start, length, W: int):
     return win.reshape(*table.shape[:-1], W), idx
 
 
-def _legal(legT, start, length, W: int):
+def _legal(legT, start, length, W: int, P: int):
     """(B, P_to, P_from, W) bool legality window at columns [s, s+W) of
-    the masks ``legT`` (B, P, LX) (``ProblemTensors.leg`` transposed)."""
+    the masks ``legT`` (B, P * NW, LX) (``ProblemTensors.leg``
+    transposed): bit q % 32 of word q // 32 of each target path."""
     win, _ = _cols(legT, start, length, W)
-    bit = torch.arange(legT.shape[1], device=win.device)
-    return ((win[:, :, None, :] >> bit[None, None, :, None]) & 1).bool()
+    win = win.reshape(win.shape[0], P, -1, W)          # (B, P, NW, W)
+    q = torch.arange(P, device=win.device)
+    words = win[:, :, q // 32]                         # (B, P, P, W)
+    return ((words >> (q % 32)[None, None, :, None]) & 1).bool()
 
 
 def _window(prev, shift, W: int, fill: float = NEG):
@@ -678,7 +675,7 @@ def sweep_forward(pt: ProblemTensors, store_full: bool = False):
     for d in range(1, D1):
         xd = x0[:, d]
         refw, _ = _cols(pt.ref, xd, reflen, W)
-        legw = _legal(legT, xd, reflen, W)
+        legw = _legal(legT, xd, reflen, W, P)
         evw, _ = _cols(pt.ev, lY - d + xd + efp, evlen, W)
         e_match, e_stay, e_gapx = _emissions(refw, evw, gapx,
                                              _hdp_window(pt, xd, reflen))
@@ -744,7 +741,7 @@ def sweep_backward(pt: ProblemTensors, store_full: bool = False):
         refx1, _ = _cols(pt.ref, xd + 1, reflen, W)
         refx0, _ = _cols(pt.ref, xd, reflen, W)
         # legal[p_to, q_from] at x+1, read from the source path q
-        leg_t = _legal(legT, xd + 1, reflen, W).transpose(1, 2)
+        leg_t = _legal(legT, xd + 1, reflen, W, P).transpose(1, 2)
         evy1, _ = _cols(pt.ev, lY - d + xd + efp - 1, evlen, W)
         e_match_to = _emissions(refx1, evy1, gapx,
                                 _hdp_window(pt, xd + 1, reflen))[0]
@@ -1094,7 +1091,7 @@ def expectation_sums(pt: ProblemTensors, fstack, bstack, cvec_d1, cvec_d2,
     for d in range(1, D1):
         xd = x0[:, d]
         refw, idx = _cols(pt.ref, xd, reflen, W)
-        legw = _legal(legT, xd, reflen, W)[:, :, 0]     # (B, 1, W) at P = 1
+        legw = _legal(legT, xd, reflen, W, 1)[:, :, 0]  # (B, 1, W) at P = 1
         evw, _ = _cols(pt.ev, lY - d + xd + efp, evlen, W)
         e_match, e_stay, e_gapx = _emissions(refw, evw, gapx,
                                              _hdp_window(pt, xd, reflen))

@@ -1,7 +1,7 @@
 """The port's two Hopper kernels, their plain twins, and the aligner that
-drives them over one bucket of problems with 1 <= P <= 32 paths per cell,
-Gaussian (MODE_MEAN_ONLY) or HDP (MODE_HDP) emissions, and, at P = 1,
-the EM expectation pass.
+drives them over one bucket of problems with any number P of paths per
+cell, Gaussian (MODE_MEAN_ONLY) or HDP (MODE_HDP) emissions, and, at
+P = 1, the EM expectation pass.
 
 ``forward_sweep`` launches ``sa_fwd_sweep`` and ``backward_sweep_compact``
 launches ``sa_bwd_sweep_compact`` (``csrc/banded_fb.cu``) on CUDA tensors;
@@ -13,7 +13,9 @@ which the kernels' HDP instances read. A CUDA tensor never falls back: a
 missing ``nvcc``, a failed build, a shape the kernels do not take, a
 missing table or a refused launch raises. Each wrapper counts its kernel
 launches in ``<wrapper>.launches`` and those of its expectation instance
-(``expect=True``) in ``<wrapper>.expect_launches``.
+(``expect=True``) in ``<wrapper>.expect_launches``; of its launches, those
+of the wide instance (P * W > 8192 cells a diagonal) also in
+``<wrapper>.wide_launches``.
 
 ``forward_sweep_prob`` and ``backward_sweep_compact_prob`` launch the
 probability-space kernels ``sa_fwd_sweep_prob`` and
@@ -76,9 +78,9 @@ def _check_cuda(pt: bfb.ProblemTensors) -> None:
                              f"{pt.device}")
     B, D1 = pt.x0.shape
     LX = pt.ref.shape[-1]
+    legs = (B, LX, pt.P * bfb.leg_words(pt.P))
     if (pt.width.shape != (B, D1) or pt.ref.shape[:3] != (B, bfb.NREF, pt.P)
-            or pt.leg.shape != (B, LX, pt.P)
-            or pt.leg_src.shape != (B, LX, pt.P)
+            or pt.leg.shape != legs or pt.leg_src.shape != legs
             or pt.ev.shape[:2] != (B, bfb.NEV)
             or pt.meta.shape != (B, bfb.NMETA)
             or pt.par.shape != (B, bfb.NPACK)):
@@ -136,10 +138,22 @@ def cells_per_thread(W: int, P: int, expect: bool = False,
     """The kernel instance the forward (or ``backward``) sweep launches
     for a bucket of P paths at width W: K cells per thread of a per-pair
     instance (P <= 2 and P * W <= 2048, the dispatch table of
-    ``csrc/banded_fb.cu``), -K of a P > 2 one, 0 for a shape they do not
-    take. Loads (and on first use builds) the kernels."""
+    ``csrc/banded_fb.cu``), -K of a P > 2 one (K > 8: the wide instance,
+    P * W > 8192, every 1024th cell of a diagonal a thread), 0 for a shape
+    they do not take. Loads (and on first use builds) the kernels."""
     return cuda_build.load().sa_cells_per_thread(W, P, int(expect),
                                                  int(backward))
+
+
+def _scratch(pt: bfb.ProblemTensors, expect: bool, backward: bool):
+    """The device scratch of the sweep's launch on ``pt`` (the wide
+    instance's ring and cells, L2-resident), or None."""
+    per = cuda_build.load().sa_sweep_scratch_bytes(pt.W, pt.P, int(expect),
+                                                   int(backward))
+    if not per:
+        return None
+    return torch.empty(pt.x0.shape[0] * per // 4, dtype=torch.float32,
+                       device=pt.device)
 
 
 def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False):
@@ -162,18 +176,22 @@ def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False):
                          dtype=torch.float32, device=dev)
     f_incr = torch.empty(B, D1, dtype=torch.float32, device=dev)
     lse_f = torch.empty(B, dtype=torch.float32, device=dev)
-    _launch("sa_fwd_sweep", pt, pt.leg, (fstack, f_incr, lse_f),
+    scratch = _scratch(pt, expect, False)
+    _launch("sa_fwd_sweep", pt, pt.leg, (fstack, f_incr, lse_f, scratch),
             (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1],
              int(expect)))
     if expect:
         forward_sweep.expect_launches += 1
     else:
         forward_sweep.launches += 1
+    if scratch is not None:
+        forward_sweep.wide_launches += 1
     return fstack, f_incr, lse_f
 
 
 forward_sweep.launches = 0
 forward_sweep.expect_launches = 0
+forward_sweep.wide_launches = 0
 
 
 # ------------------------------------------------------------- backward
@@ -265,11 +283,14 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     if expect:
         texp = torch.empty(B, 7, dtype=torch.float64, device=dev)
         kx = torch.zeros(B, 3, LX, dtype=torch.float64, device=dev)
+    scratch = _scratch(pt, expect, True)
     _launch("sa_bwd_sweep_compact", pt, pt.leg_src,
             (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt, texp,
-             kx),
+             kx, scratch),
             (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1], R, int(expect)),
             (float(threshold),))
+    if scratch is not None:
+        backward_sweep_compact.wide_launches += 1
     out = (b_incr, lse_b, slot_cell, slot_val, cnt)
     if expect:
         backward_sweep_compact.expect_launches += 1
@@ -280,6 +301,7 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
 
 backward_sweep_compact.launches = 0
 backward_sweep_compact.expect_launches = 0
+backward_sweep_compact.wide_launches = 0
 
 
 # ------------------------------------------- probability-space sweeps
@@ -400,6 +422,7 @@ def reset_launch_counts() -> None:
     for fn in (forward_sweep, backward_sweep_compact):
         fn.launches = 0
         fn.expect_launches = 0
+        fn.wide_launches = 0
     forward_sweep_prob.launches = 0
     backward_sweep_compact_prob.launches = 0
 
@@ -435,10 +458,27 @@ def decode_pairs(problem: bfb.BandedProblem, d: np.ndarray, cell: np.ndarray,
     return out
 
 
+def _check_fits(problems: Sequence[bfb.BandedProblem], W: int,
+                device: torch.device, states: int) -> None:
+    """Raises MemoryError, with its byte count, for a bucket whose longest
+    problem's forward stack (``states`` rows per diagonal) alone exceeds
+    the CUDA device's memory: the one shape the sweeps refuse."""
+    if device.type != "cuda" or not problems:
+        return
+    P = max(p.ref_params.shape[1] for p in problems)
+    D1 = max(p.n_diag for p in problems) + 1
+    need = D1 * states * P * W * 4
+    total = torch.cuda.get_device_properties(device).total_memory
+    if need > total:
+        raise MemoryError(
+            f"a problem of P={P} paths at W={W} over {D1} diagonals needs "
+            f"{need} bytes of forward stack, more than the device's {total}")
+
+
 class HopperAligner:
-    """One bucket of problems with 1 <= P <= 32 paths per cell on one
-    device. A MODE_HDP bucket takes ``hdp_tables``: the run's HDP tables,
-    already on ``device`` (``convert.hdp_tables``). ``expect`` makes a
+    """One bucket of problems with P >= 1 paths per cell on one device.
+    A MODE_HDP bucket takes ``hdp_tables``: the run's HDP tables, already
+    on ``device`` (``convert.hdp_tables``). ``expect`` makes a
     P = 1 bucket run the EM expectation pass (``run``, ``execute`` and
     ``expect`` then add the expectations); its tensors carry the k-mer ids
     that key the emission moments.
@@ -456,6 +496,7 @@ class HopperAligner:
                  hdp_tables: Optional[bfb.HdpTables] = None,
                  expect: bool = False, log_space: bool = True):
         self.problems = list(problems)
+        _check_fits(self.problems, W, device, 3 if expect else 1)
         if not log_space and expect:
             bfb.check_prob(W, 1, hdp_tables is not None, expect)
         self.pt = problem_tensors(self.problems, W, device, hdp_tables,

@@ -1,7 +1,7 @@
 """Multi-read signal alignment in the port: the Gaussian (MODE_MEAN_ONLY)
 and HDP (MODE_HDP) branches of
 ``signalalign_tpu.pipeline.runner.run_alignment_batch`` for segments of
-1 <= P <= 32 paths per cell, with pair output, site-mode
+any number of paths per cell, with pair output, site-mode
 variant/methylation calling, or (P = 1) the EM expectation pass.
 
 Reads are prepared on the host (scaling, anchors, band geometry,
@@ -157,13 +157,11 @@ def split_anchors(anchors, splits):
 def segment_shape(seg_chars: str, n_events: int, anchors, k: int,
                   config: AlignmentConfig) -> Tuple[int, int, int]:
     """(W, Dpad, P) of one segment: its band's width and diagonal count
-    bucketed, and its paths per cell. A shape the kernels do not take
-    raises (``bfb.check_shape``)."""
+    bucketed, and its paths per cell."""
     slX = len(seg_chars) - k + 1
     xmyL, xmyR = build_band(anchors, slX, n_events, config.diagonal_expansion)
     W = _bucket_w(int(band_widths(xmyL, xmyR).max()))
     P = max_paths_per_kmer(seg_chars, k, config.ambig_map)
-    bfb.check_shape(W, P)
     return W, _bucket_d(slX + n_events), P
 
 
@@ -172,9 +170,7 @@ def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
                  config: AlignmentConfig, hdp: Optional[NanoporeHDP] = None,
                  strand_template: bool = True):
     """Host-side prep of one read -> (target, params, events, ev_start,
-    [((x1, y1), problem, W, Dpad, P)]). A segment of a shape the kernels
-    do not take (more than 32 paths per cell) raises NotImplementedError,
-    and the runner drops the read."""
+    [((x1, y1), problem, W, Dpad, P)])."""
     k = model.kmer_length
     target, params, events, ev_start, window_events, anchors, splits = \
         read_window(read, guide, reference, model, config, strand_template)
@@ -315,9 +311,9 @@ def run_alignment_batch(
     596-614``), so the results equal the default run's within f32
     round-off.
 
-    A read with a segment of more than 32 paths per cell is dropped, as a
-    read whose prep fails is (``verbose`` prints a ``FAILED`` line for
-    it), and the rest of the batch aligns. An expectation pass over a
+    A read whose prep fails (an empty alignment window) is dropped
+    (``verbose`` prints a ``FAILED`` line for it), and the rest of the
+    batch aligns. An expectation pass over a
     bucket of more than one path raises before anything launches.
     ``stage_seconds``, when given, receives the wall seconds of each
     stage: "prep" (host), "hdp_upload" (HDP mode: the tables to the

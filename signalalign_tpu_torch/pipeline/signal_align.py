@@ -128,8 +128,7 @@ def align_read(read: NanoporeReadData, guide: GuideAlignment,
     ``device`` through ``HopperAligner`` (the kernels on CUDA, their twins
     on the CPU); pairs, totals and, with ``compute_expectations``, the
     expectations accumulated over the segments in order. ``hdp`` gives
-    MODE_HDP its emissions. A segment the kernels do not take (P > 32, or
-    P * W > 8192) raises NotImplementedError naming its shape."""
+    MODE_HDP its emissions."""
     from signalalign_tpu_torch.convert import hdp_tables
     from signalalign_tpu_torch.ops.banded_fb_hopper import HopperAligner
     from signalalign_tpu_torch.pipeline.runner import (_check_slice,

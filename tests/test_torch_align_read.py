@@ -1,11 +1,12 @@
 """The port's entry points and its batch runner's per-read isolation,
 on the CPU: ``align_read`` against the JAX ``align_read`` on a read long
-enough for the batch runner to split it (25,258 diagonals); a read with
-a segment of 16 paths per cell (two X sites in one k-mer) through
-``run_alignment_batch`` and ``align_read`` against the JAX package's; a
-read of 64 paths per cell dropped from its batch; and the entry points'
-default device."""
+enough for the batch runner to split it (25,258 diagonals); reads with a
+segment of 16 and of 64 paths per cell (two and three X sites in one
+k-mer) through ``run_alignment_batch`` and ``align_read`` against the
+JAX package's; a read whose prep fails reported FAILED while the rest of
+its batch aligns; and the entry points' default device."""
 
+import dataclasses
 import inspect
 
 import numpy as np
@@ -22,7 +23,8 @@ from signalalign_tpu.pipeline.signal_align import \
 from signalalign_tpu_torch.io.reference import ProcessedReference
 from signalalign_tpu_torch.ops import banded_fb_hopper
 from signalalign_tpu_torch.pipeline import train
-from signalalign_tpu_torch.pipeline.runner import run_alignment_batch
+from signalalign_tpu_torch.pipeline.runner import (prepare_read,
+                                                   run_alignment_batch)
 from signalalign_tpu_torch.pipeline.signal_align import (AlignmentConfig,
                                                          align_read)
 from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
@@ -75,15 +77,15 @@ def test_align_read_matches_jax_align_read(tmp_path, monkeypatch):
         (want.event_offset, want.ref_offset, want.forward, want.target)
 
 
-def _x_batch(tmp_path, sites):
-    """Four seeded reads from both packages and a reference edited with
-    ``sites`` X (ACGT) codes in one k-mer in the middle of read 0's
-    window, which no other read's window reaches: (JAX batch and
-    reference, the port's batch and reference)."""
+def _x_batch(tmp_path, sites, ev=(300, 600)):
+    """Four seeded reads of ``ev`` events from both packages and a
+    reference edited with ``sites`` X (ACGT) codes in one k-mer in the
+    middle of read 0's window, which no other read's window reaches: (JAX
+    batch and reference, the port's batch and reference)."""
     jm, pm = _models()
     fasta = str(tmp_path / "g.fa")
-    j, p = _both_batches(jm, pm, fasta, n_reads=4, ev_min=300, ev_max=600,
-                         seed=8, genome_len=20_000)
+    j, p = _both_batches(jm, pm, fasta, n_reads=4, ev_min=ev[0],
+                         ev_max=ev[1], seed=8, genome_len=20_000)
     with open(fasta) as fh:
         genome = "".join(l.strip() for l in fh if not l.startswith(">"))
     g0 = p[0][0][1]
@@ -97,15 +99,17 @@ def _x_batch(tmp_path, sites):
             (pm, p[0], ProcessedReference(edited)))
 
 
-def test_p16_read_aligns_as_the_jax_package(tmp_path):
-    """Two X (ACGT) sites in one k-mer of one read's window give that
-    read a segment of P = 16, which the kernels take since the legality
-    masks hold 32 paths: run_alignment_batch aligns all four reads and
-    align_read the P = 16 one, each against the JAX package's same entry
-    point on the same files (its XLA path), with this file's tolerances:
-    the runner's totals within 5e-3 nats and pairs within TOL_POST,
-    align_read's totals within 1e-3 relative and the same pairs."""
-    (jm, jrgs, jref), (pm, prgs, pref) = _x_batch(tmp_path, 2)
+def _x_read_aligns_as_the_jax_package(tmp_path, sites, P, min_pairs,
+                                      ev=(300, 600)):
+    """``_x_batch(tmp_path, sites, ev)``: run_alignment_batch aligns all
+    four reads and align_read the X one (a segment of P paths), each
+    against the JAX package's same entry point on the same files (its XLA
+    path), with this file's tolerances: the runner's totals within 5e-3
+    nats and pairs within TOL_POST, align_read's totals within 1e-3
+    relative and the same pairs (more than ``min_pairs`` of them)."""
+    (jm, jrgs, jref), (pm, prgs, pref) = _x_batch(tmp_path, sites, ev)
+    prep = prepare_read(*prgs[0], pref, pm, AlignmentConfig())
+    assert max(t[4] for t in prep[4]) == P
     got = run_alignment_batch(prgs, pref, pm, AlignmentConfig(), device=CPU)
     want = jax_run_alignment_batch(jrgs, jref, jm, JaxAlignmentConfig(),
                                    use_pallas=False)
@@ -122,32 +126,58 @@ def test_p16_read_aligns_as_the_jax_package(tmp_path):
         <= 1e-3 * abs(ref1.total_log_prob)
     dw = {r[1:]: r[0] for r in ref1.aligned_pairs}
     dg = {r[1:]: r[0] for r in one.aligned_pairs}
-    assert set(dw) == set(dg) and len(dw) > 100
+    assert set(dw) == set(dg) and len(dw) > min_pairs
     assert max(abs(dw[k] - dg[k]) for k in dw) <= TOL_POST * 1e7
     # the X positions report their path's k-mer, not the code
     assert {k for k in dg if "X" in k[2]} == set()
 
 
-def test_batch_drops_a_read_of_more_than_32_paths(tmp_path, capsys):
-    """Three X sites in one k-mer give that read P = 64, more than a
-    legality mask holds: run_alignment_batch reports it FAILED and aligns
-    the others exactly as it does without it; align_read raises."""
-    _, (model, rgs, reference) = _x_batch(tmp_path, 3)
-    both = run_alignment_batch(rgs, reference, model, AlignmentConfig(),
-                               device=CPU, verbose=True)
-    err = capsys.readouterr().err
-    assert f"[runner] FAILED {rgs[0][0].read_label}: NotImplementedError: " \
-        "segment of P=64" in err
-    rest = run_alignment_batch(rgs[1:], reference, model, AlignmentConfig(),
+def test_p16_read_aligns_as_the_jax_package(tmp_path):
+    """Two X (ACGT) sites in one k-mer of one read's window give that
+    read a segment of P = 16 (one legality word a mask), aligned through
+    both entry points as the JAX package's (``_x_read_aligns_as_the_jax_
+    package``)."""
+    _x_read_aligns_as_the_jax_package(tmp_path, 2, 16, 100)
+
+
+def test_p64_read_aligns_as_the_jax_package(tmp_path):
+    """Three X sites in one k-mer give P = 64 paths per cell: two 32-bit
+    legality words a mask (P * W past 8,192 cells on the card from W =
+    256 on: the wide instance). run_alignment_batch and align_read align
+    it as the JAX package's entry points do, on reads of 60-90 events
+    (the X read's band takes W = 64: the JAX XLA path's P = 64 sweeps
+    cost about a minute a call on the CPU even there)."""
+    _x_read_aligns_as_the_jax_package(tmp_path, 3, 64, 30, ev=(60, 90))
+
+
+def test_batch_reports_a_failed_read(tmp_path, capsys):
+    """A read whose prep fails (its guide covers one base: prepare_read
+    raises ValueError for the empty alignment window) is reported FAILED
+    by run_alignment_batch, and the other reads align exactly as they do
+    without it; align_read raises for it."""
+    _, pm = _models()
+    rgs = build_synthetic_batch(pm, n_reads=3, ev_min=200, ev_max=300,
+                                seed=4, genome_len=10_000,
+                                fasta_path=str(tmp_path / "g.fa"))[0]
+    reference = ProcessedReference(str(tmp_path / "g.fa"))
+    read, guide = rgs[0]
+    empty = dataclasses.replace(guide, query_end=guide.query_start + 1)
+    with pytest.raises(ValueError, match="empty alignment window"):
+        prepare_read(read, empty, reference, pm, AlignmentConfig())
+    both = run_alignment_batch([(read, empty)] + rgs[1:], reference, pm,
+                               AlignmentConfig(), device=CPU, verbose=True)
+    assert f"[runner] FAILED {read.read_label}: ValueError: " in \
+        capsys.readouterr().err
+    rest = run_alignment_batch(rgs[1:], reference, pm, AlignmentConfig(),
                                device=CPU)
     assert [r.read_label for r in both] == [r.read_label for r in rest] \
         == [r.read_label for r, _ in rgs[1:]]
     for a, b in zip(both, rest):
         assert a.aligned_pairs == b.aligned_pairs and len(a.aligned_pairs)
         assert a.total_log_prob == b.total_log_prob
-    with pytest.raises(NotImplementedError, match="P=64"):
-        align_read(*rgs[0], reference, model, device=CPU)
     assert np.isfinite([r.total_log_prob for r in rest]).all()
+    with pytest.raises(ValueError, match="empty alignment window"):
+        align_read(read, empty, reference, pm, device=CPU)
 
 
 @pytest.mark.parametrize("entry", [

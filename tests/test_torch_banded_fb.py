@@ -266,13 +266,20 @@ def test_wrappers_use_twins_on_cpu_and_never_fall_back(problems):
 
 def test_outside_the_slice_raises():
     """More than 32 paths per cell (three four-way codes in one 5-mer: 64
-    paths) and non-Gaussian emissions raise; EM expectations run (texp
-    and kexp of a Gaussian problem from the same entry point)."""
+    paths) stack, with two legality words a mask that decode to the
+    problem's legal planes; non-Gaussian emissions raise; EM expectations
+    run (texp and kexp of a Gaussian problem from the same entry
+    point)."""
     args, kw = _ambiguous_args()
     seq = args[0][:20] + "XXX" + args[0][23:]
     p64 = bfb.prepare_problem(*_port_args((seq, *args[1:])), **dict(kw, P=64))
-    with pytest.raises(NotImplementedError, match="P=64"):
-        problem_tensors([p64], 64, CPU)
+    pt = problem_tensors([p64], 64, CPU)
+    lx = p64.legal.shape[-1]
+    assert pt.P == 64 and pt.leg.shape == (1, pt.ref.shape[-1], 128)
+    u = pt.leg[0, :lx].numpy().view(np.uint32).reshape(lx, 64, 2)
+    q = np.arange(64)
+    legal = (u[:, :, q // 32] >> (q % 32).astype(np.uint32)) & 1
+    assert np.array_equal(legal.transpose(1, 2, 0).astype(bool), p64.legal)
     args, kw = _problem_args()[0]
     p = bfb.prepare_problem(*_port_args(args), **dict(kw, mode=bfb.MODE_FULL))
     with pytest.raises(NotImplementedError, match="MODE_MEAN_ONLY"):

@@ -62,7 +62,8 @@ def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False, dense=None,
     events) leave out ``gap``, so the band bulges there. For P > 1 the
     sequence carries the ambiguity code (Y, or P with ``hdp``; B for
     P = 3) every 40 positions and a cluster of log2(P) codes in one 5-mer
-    every 400 (events read each code as C); ``dense`` = (start, stop)
+    every 400 (events read each code as C; P = 64: three four-way X
+    codes in one 5-mer, read as A); ``dense`` = (start, stop)
     puts the code at every other position there, where most path pairs
     of neighbouring cells are illegal. ``prep_w`` prepares the problems
     at another band width than W. Returns (problems, the HDP or None)."""
@@ -70,7 +71,7 @@ def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False, dense=None,
     code = "B" if P == 3 else "P" if hdp else "Y"
     rng = np.random.default_rng(seed)
     cluster = {1: "", 2: "Y", 3: "Y", 4: "YGY", 8: "YGYGY",
-               16: "YYGYY"}[P].replace("Y", code)
+               16: "YYGYY", 64: "XGXGX"}[P].replace("Y", code)
     out = []
     for i in range(n):
         seq = list(rng.choice(list("ACGT"), size=int(rng.integers(*sizes))))
@@ -82,7 +83,8 @@ def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False, dense=None,
         if dense:
             seq[dense[0]:dense[1]:2] = code * len(range(*dense, 2))
         seq = "".join(seq)
-        ids = model.alphabet.seq_to_kmer_ids(seq.replace(code, "C"))
+        ids = model.alphabet.seq_to_kmer_ids(
+            seq.replace(code, "C").replace("X", "A"))
         ev = np.stack([model.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
                        np.ones(len(ids)), np.full(len(ids), .005),
                        np.arange(len(ids)) * .005], 1)
@@ -215,8 +217,8 @@ def test_aligner_on_gpu_matches_cpu(dev, bucket):
 
 
 PATH_CASES = ["p2", "p3w512", "p4w1024", "p8w128", "p8", "p8w512", "p8w768",
-              "p2w4096", "p1w2304", "p1w8192", "p16", "edges", "clamp",
-              "illegal"]
+              "p2w4096", "p1w2304", "p1w8192", "p16", "p64", "p16w768",
+              "edges", "clamp", "illegal"]
 
 
 @pytest.fixture(scope="module",
@@ -225,7 +227,9 @@ def paths_case(request):
     """(problems, W, HDP or None) for the P > 2 instances, Gaussian or HDP
     (hdp_), at every cells-per-thread instance: pP[wW] (W = 256 by
     default) gives K = 1 (P*W <= 1024), 2 (p3w512, p8), 4 (p4w1024,
-    p8w512, p16, p1w2304) or 8 (p8w768, p2w4096, p1w8192). P = 2 runs
+    p8w512, p16, p1w2304), 8 (p8w768, p2w4096, p1w8192) or the wide
+    instance past 8192 cells (p64: 16,384 cells and two legality words a
+    mask; p16w768: 12,288 cells, bands past 512 offsets). P = 2 runs
     the per-pair instances up to 2048 cells (p2 among them), P > 2 and
     wider P <= 2 buckets the P > 2 ones: p1w2304 is the runner's bucket
     of a P = 1 band 2,271 offsets wide, p1w8192 the same problems at the

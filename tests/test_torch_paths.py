@@ -51,8 +51,9 @@ def _models(seed=0, alphabet="ACGT", k=5):
 MODEL, PORT_MODEL = _models()
 K = MODEL.kmer_length
 # ambiguity clusters that set the largest path count of a segment: one Y
-# (2 paths), two Y in a 5-mer (4), three (8) and four (16)
-CLUSTERS = {2: "Y", 4: "YGY", 8: "YGYGY", 16: "YYGYY"}
+# (2 paths), two Y in a 5-mer (4), three (8) and four (16); three
+# four-way X (64)
+CLUSTERS = {2: "Y", 4: "YGY", 8: "YGYGY", 16: "YYGYY", 64: "XGXGX"}
 
 
 def _problem_args(P, i, seed):
@@ -69,7 +70,9 @@ def _problem_args(P, i, seed):
     mid = 18 + 25 * ((L // 2 - 8) // 25)     # between two single codes
     seq[mid:mid + len(CLUSTERS[P])] = CLUSTERS[P]
     seq = "".join(seq)
-    resolved = "".join(rng.choice(["C", "T"]) if c == "Y" else c for c in seq)
+    resolved = "".join(rng.choice(["C", "T"]) if c == "Y" else
+                       rng.choice(list("ACGT")) if c == "X" else c
+                       for c in seq)
     ids = MODEL.alphabet.seq_to_kmer_ids(resolved)
     ev = np.stack([MODEL.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
                    np.ones(len(ids)), np.full(len(ids), .005),
@@ -147,40 +150,59 @@ def test_prepare_problem_matches_jax(P):
             assert a == b, f.name
 
 
-@pytest.mark.parametrize("P", [2, 8, 16])
+def _decode_masks(masks, P):
+    """(LX, P * NW) masks -> (P_to, P_from, LX) bool: bit q % 32 of word
+    q // 32 of each target path."""
+    u = masks.view(np.uint32).reshape(masks.shape[0], P, -1)
+    q = np.arange(P)
+    bits = (u[:, :, q // 32] >> (q % 32).astype(np.uint32)) & 1
+    return bits.transpose(1, 2, 0).astype(bool)
+
+
+@pytest.mark.parametrize("P", [2, 8, 16, 64])
 def test_legality_masks_hold_the_jax_legal_planes(P):
-    """convert.legality_bits against the JAX package's legal planes: one
-    int32 mask per (position, target path p) whose bit q is legal[p, q,
-    x], and problem_tensors carries them as (B, LX, P)."""
+    """convert.legality_bits against the JAX package's legal planes:
+    ceil(P / 32) int32 words per (position, target path p) in which bit
+    q % 32 of word q // 32 is legal[p, q, x] (one word, bit q, at P <=
+    32; two at P = 64), and problem_tensors carries them as (B, LX, P *
+    words)."""
     args, kw = _problem_args(P, 1, 300 + P)
     jp = jbfb.prepare_problem(*args, **kw)
     assert int(jp.n_paths.max()) == P
     LX = jp.legal.shape[-1]
     masks = legality_bits(jp.legal)
-    assert masks.dtype == np.int32 and masks.shape == (LX, P)
-    bit = np.arange(P, dtype=np.uint32)
-    legal = (masks.view(np.uint32).T[:, None, :] >> bit[None, :, None]) & 1
-    assert np.array_equal(legal.astype(bool), jp.legal)
+    NW = bfb.leg_words(P)
+    assert NW == (2 if P == 64 else 1)
+    assert masks.dtype == np.int32 and masks.shape == (LX, P * NW)
+    assert np.array_equal(_decode_masks(masks, P), jp.legal)
+    if P <= 32:
+        bit = np.arange(P, dtype=np.uint32)
+        legal = (masks.view(np.uint32).T[:, None, :] >> bit[None, :, None]) & 1
+        assert np.array_equal(legal.astype(bool), jp.legal)
     assert jp.legal.any() and not jp.legal.all()
     pt = problem_tensors([problem_from_numpy(jp)], W, CPU)
-    assert pt.leg.shape == (1, pt.ref.shape[-1], P)
+    assert pt.leg.shape == (1, pt.ref.shape[-1], P * NW)
     assert np.array_equal(pt.leg[0, :LX].numpy(), masks)
     assert pt.leg_src is None        # derived on the device for CUDA only
 
 
-@pytest.mark.parametrize("P", [1, 2, 8, 16, 32])
+@pytest.mark.parametrize("P", [1, 2, 8, 16, 32, 64])
 def test_masks_by_source_transpose_the_legal_planes(P):
-    """convert.masks_by_source (the backward kernel's masks, bit p of
-    [x, q] = legal[p, q, x]) against legality_bits of the transposed
-    planes, on seeded planes over (2, LX) positions: bit 31 (P = 32)
-    keeps its sign in int32."""
+    """convert.masks_by_source (the backward kernel's masks, bit p % 32 of
+    word p // 32 of [x, q] = legal[p, q, x]) against legality_bits of the
+    transposed planes, on seeded planes over (2, LX) positions: bit 31
+    (P = 32, 64) keeps its sign in int32, and P = 64 has two words a
+    path."""
     rng = np.random.default_rng(400 + P)
     legal = rng.random((2, P, P, 37)) < 0.4
     leg = torch.from_numpy(np.stack([legality_bits(lp) for lp in legal]))
     want = np.stack([legality_bits(lp.transpose(1, 0, 2)) for lp in legal])
-    got = masks_by_source(leg)
-    assert got.dtype == torch.int32 and got.shape == (2, 37, P)
+    got = masks_by_source(leg, P)
+    assert got.dtype == torch.int32
+    assert got.shape == (2, 37, P * bfb.leg_words(P))
     assert np.array_equal(got.numpy(), want)
+    if P <= 32:                       # one word a path: P is the last axis
+        assert torch.equal(masks_by_source(leg), got)
 
 
 def test_problem_tensors_carry_the_path_tables(bucket):
@@ -234,6 +256,61 @@ def test_sweeps_match_jax_core(bucket):
         jtf = float(lfj[i]) + np.cumsum(fij[i].astype(np.float64))[p.n_diag]
         jtb = float(lbj[i]) + np.sum(bij[i].astype(np.float64))
         assert abs(jtf - float(tf[i])) < 5e-3 and abs(jtb - float(tb[i])) < 5e-3
+
+
+def _wide_args(seed=500):
+    """(args, kwargs) of prepare_problem for a P = 16 segment whose band
+    passes 512 offsets (W = 768: 12,288 cells a diagonal, past the 8,192
+    the kernels hold in registers): 640 bases with a Y every 25 positions
+    and one YYGYY cluster, events drawn from a resolved sequence, anchors
+    every 15 events but for events 40-600, over which the band bulges (as
+    chip_smoke.py's wide_p1_problems widens its bands)."""
+    rng = np.random.default_rng(seed)
+    seq = list(rng.choice(list("ACGT"), size=640))
+    for j in range(8, 632, 25):
+        seq[j] = "Y"
+    seq[318:323] = "YYGYY"
+    seq = "".join(seq)
+    resolved = "".join(rng.choice(["C", "T"]) if c == "Y" else c for c in seq)
+    ids = MODEL.alphabet.seq_to_kmer_ids(resolved)
+    ev = np.stack([MODEL.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
+                   np.ones(len(ids)), np.full(len(ids), .005),
+                   np.arange(len(ids)) * .005], 1)
+    anchors = [(j, j) for j in range(8, len(ids) - 8, 15)
+               if not 40 < j < 600]
+    return ((seq, ev, MODEL, ScalingParams(), DEFAULT_AMBIG_BASES),
+            dict(W=768, Dpad=1280, P=16, mode=bfb.MODE_MEAN_ONLY,
+                 anchor_pairs=anchors, expansion=8))
+
+
+def test_sweeps_past_8192_cells_match_jax_core():
+    """The plain sweeps (the wide instance's twins) on a P = 16 segment
+    at W = 768 whose band passes 512 offsets, against the JAX
+    _banded_sweeps_core, with test_sweeps_match_jax_core's tolerances:
+    normalised rows within 1e-4 on the probability scale, offsets within
+    1e-3 nats, totals within 5e-3 nats."""
+    args, kw = _wide_args()
+    jp = jbfb.prepare_problem(*args, **kw)
+    assert int(jp.n_paths.max()) == 16 and int(jp.width.max()) > 512
+    fj, fij, lfj, bj, bij, lbj = (np.asarray(a) for a in
+                                  jbfb.banded_sweeps_batched(
+                                      *stack_problems([jp]), W=768, P=16,
+                                      mode=bfb.MODE_MEAN_ONLY,
+                                      store_full=False))
+    pt = problem_tensors([problem_from_numpy(jp)], 768, CPU)
+    assert pt.P * pt.W > 8192
+    ft, fit, lft = bfb.sweep_forward(pt)
+    bt, bit, lbt = bfb.sweep_backward(pt)
+    _, tf = bfb.forward_offsets(fit, lft, pt.meta[:, bfb.M_NDIAG])
+    _, tb = bfb.backward_offsets(bit, lbt)
+    n = jp.n_diag + 1
+    assert np.abs(np.exp(fj[0, :n]) - np.exp(ft[0, :n].numpy())).max() < 1e-4
+    assert np.abs(np.exp(bj[0, :n]) - np.exp(bt[0, :n].numpy())).max() < 1e-4
+    assert np.abs(fij[0, :n] - fit[0, :n].numpy()).max() < 1e-3
+    assert np.abs(bij[0, :n] - bit[0, :n].numpy()).max() < 1e-3
+    jtf = float(lfj[0]) + np.cumsum(fij[0].astype(np.float64))[jp.n_diag]
+    jtb = float(lbj[0]) + np.sum(bij[0].astype(np.float64))
+    assert abs(jtf - float(tf[0])) < 5e-3 and abs(jtb - float(tb[0])) < 5e-3
 
 
 def test_posterior_matches_xla(bucket, xla):

@@ -7,17 +7,23 @@ import numpy as np
 import pytest
 import torch
 
+from signalalign_tpu.io.reference import \
+    ProcessedReference as JaxProcessedReference
 from signalalign_tpu.models.pore_model import PoreModel as JPoreModel
 from signalalign_tpu.pipeline.runner import \
     run_alignment_batch as jax_run_alignment_batch
 from signalalign_tpu.pipeline.signal_align import \
     AlignmentConfig as JaxAlignmentConfig
+from signalalign_tpu.pipeline.signal_align import align_read as jax_align_read
 from signalalign_tpu.utils.synthetic import \
     build_synthetic_batch as jax_build_synthetic_batch
+from signalalign_tpu.utils.synthetic import \
+    synthetic_read as jax_synthetic_read
 from signalalign_tpu_torch.convert import pore_model_from_numpy
 from signalalign_tpu_torch.io.reference import ProcessedReference
 from signalalign_tpu_torch.ops.banded_fb import MODE_HDP
-from signalalign_tpu_torch.pipeline.runner import (run_alignment_batch,
+from signalalign_tpu_torch.pipeline.runner import (prepare_read,
+                                                   run_alignment_batch,
                                                    write_outputs)
 from signalalign_tpu_torch.pipeline.signal_align import (AlignmentConfig,
                                                          align_read)
@@ -214,13 +220,17 @@ def test_outside_the_slice_raises(batch, port, tmp_path):
         write_outputs([], model, str(tmp_path), "variants")
 
 
-def test_p_greater_than_one_raises(tmp_path, capsys):
-    """A read with a segment of more than 32 paths per cell is dropped
-    with a FAILED line naming P, before any sweep runs: the motif edition
-    puts the four-way code X (ACGT) at every C of a CG, so a CGCGCG window
-    holds three X in one 5-mer (64 paths). The port's align_read raises
-    for it."""
-    model = synthetic_pore_model(1)
+def test_p_greater_than_one_raises(tmp_path):
+    """A read with a segment of more than 32 paths per cell aligns (the
+    port once dropped it): the motif edition puts the four-way code X
+    (ACGT) at every C of a CG, so a CGCGCG window holds three X in one
+    5-mer (64 paths, two legality words a mask). run_alignment_batch and
+    align_read align the x64 read as the JAX package's same entry points
+    do (their XLA path): totals within 5e-3 nats, the same pairs but for
+    threshold-edge cells, posteriors within TOL_POST. The read is 60
+    bases (W = 64): the JAX P = 64 sweeps cost about a minute a call on
+    the CPU."""
+    jm, model = _models(1)
     rgs, _, _, _, fasta = build_synthetic_batch(
         model, n_reads=1, ev_min=300, ev_max=400, seed=2, genome_len=5000,
         fasta_path=str(tmp_path / "g.fa"))
@@ -230,12 +240,26 @@ def test_p_greater_than_one_raises(tmp_path, capsys):
     with open(fasta, "w") as fh:
         fh.write(">synth\n" + genome + "\n")
     reference = ProcessedReference(fasta, motifs=[("CG", "XG")])
+    jref = JaxProcessedReference(fasta, motifs=[("CG", "XG")])
     read, guide = synthetic_read(np.random.default_rng(3), genome, model,
-                                 900, 300, "x64")
+                                 970, 60, "x64")
+    jread, jguide = jax_synthetic_read(np.random.default_rng(3), genome, jm,
+                                       970, 60, "x64")
+    assert np.array_equal(read.events, jread.events)
     config = AlignmentConfig(ambig_map={"X": "ACGT"})
-    assert run_alignment_batch([(read, guide)], reference, model, config,
-                               device=CPU, verbose=True) == []
-    assert "[runner] FAILED x64: NotImplementedError: segment of P=64" \
-        in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="P=64"):
-        align_read(read, guide, reference, model, config, device=CPU)
+    jconfig = JaxAlignmentConfig(ambig_map={"X": "ACGT"})
+    assert [t[4] for t in prepare_read(read, guide, reference, model,
+                                       config)[4]] == [64]
+    got = run_alignment_batch([(read, guide)], reference, model, config,
+                              device=CPU)
+    want = jax_run_alignment_batch([(jread, jguide)], jref, jm, jconfig,
+                                   use_pallas=False)
+    one = align_read(read, guide, reference, model, config, device=CPU)
+    ref1 = jax_align_read(jread, jguide, jref, jm, jconfig)
+    assert [r.read_label for r in got] == [r.read_label for r in want] \
+        == ["x64"]
+    for g, w in ((got[0], want[0]), (one, ref1)):
+        assert abs(g.total_log_prob - w.total_log_prob) <= 5e-3
+        assert _pairs_close(w.aligned_pairs, g.aligned_pairs, TOL_POST * 1e7)
+        assert len(g.aligned_pairs) > 30 and g.max_total_gap < 1.0
+        assert g.target == w.target and g.event_offset == w.event_offset
