@@ -6,8 +6,8 @@ Phases (any failure stops the run with a non-zero exit):
   1. the device: name and power limit (nvidia-smi), torch and CUDA versions;
   2. the kernel build from signalalign_tpu_torch/csrc with nvcc, and the
      latency of one diagonal's synchronisation (csrc/barrier_probe.cu):
-     the per-pair instances' one barrier at 1 to 16 warps, the P > 2
-     instances' two at 1 to 32;
+     the per-pair and probability-space instances' one barrier at 1 to 16
+     warps, the P > 2 instances' two at 1 to 32;
   3. each kernel against its plain PyTorch twin on the card, on 8 problems
      of the phase-4 batch (W=256, about 4k diagonals), with its time;
      then the whole main path on the GPU against the CPU (twins) on the
@@ -563,9 +563,9 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
 def barrier_latency_us(cuda_build):
     """Microseconds of one diagonal's synchronisation in the sweeps,
     measured by csrc/barrier_probe.cu with one block per SM: {(step,
-    warps): us}, step "one" (the per-pair instances: the warp maxima
-    double-buffered, one barrier) at 1 to 16 warps, "two" (the P > 2 and
-    probability-space instances: a block max reduction and a second
+    warps): us}, step "one" (the per-pair and probability-space
+    instances: the warp maxima double-buffered, one barrier) at 1 to 16
+    warps, "two" (the P > 2 instances: a block max reduction and a second
     barrier) at 1 to 32 warps."""
     lib = cuda_build.load()
     out = torch.empty(132, device="cuda")
@@ -600,9 +600,9 @@ def serial_floor_ms(hk, barrier, pt, expect=False, prob=False,
                     backward=False):
     """The serial-diagonal floor of a sweep on a bucket: its longest
     problem's diagonals times one diagonal's synchronisation at the
-    block's warp count (the probability-space kernels: two barriers, W
+    block's warp count (the probability-space kernels: one barrier, W
     threads)."""
-    key = (("two", -(-pt.W // 32)) if prob
+    key = (("one", -(-pt.W // 32)) if prob
            else block_warps(hk, pt.W, pt.P, expect, backward))
     return 1e-3 * barrier[key] * max(pt.n_diag)
 
@@ -907,160 +907,6 @@ def kernel_sums_of_tree(tree):
     out["phase7c_expect_fwd_sum_ms"] = sum(e[1] for e in by_wp.values())
     out["phase7c_expect_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
     out["phase7c_by_W_P"] = by_class_json(by_wp)
-    log(json.dumps(out))
-
-
-def _prob_variant(lib, name, lead, pt, tensors, ints, floats=()):
-    pr = pt.prob
-    ptrs = [t.data_ptr() for t in (pt.x0, pt.width, pt.ref, pt.ev, pt.meta,
-                                   pr.cexp, pr.ev_best, pr.par, *tensors)]
-    rc = getattr(lib, name)(lead, *ptrs, *ints, *floats,
-                            torch.cuda.current_stream().cuda_stream)
-    check(rc == 0, f"{name}({lead}) launch failed: CUDA error {rc}")
-
-
-def prob_variant_fns(lib, hk, kind, lead):
-    """(forward, backward) of one probability-space variant: ``kind``
-    "probe" (the earlier design, probe ``lead``: 0 as it was, 1 with
-    constant emissions, 2 with one barrier), "k" (this design's variant
-    ``lead``: K = lead % 10 cells per thread, the partials reduced by
-    shuffles from 10 on) or "log" (the log-space sweeps)."""
-    if kind == "log":
-        return hk.forward_sweep, hk.backward_sweep_compact
-    fname, bname = {"probe": ("sa_fwd_sweep_prob_probe",
-                              "sa_bwd_sweep_compact_prob_probe"),
-                    "k": ("sa_fwd_sweep_prob_k",
-                          "sa_bwd_sweep_compact_prob_k")}[kind]
-
-    def fwd(pt):
-        B, D1 = pt.x0.shape
-        f = torch.empty(B, D1, 1, pt.W, device=pt.device)
-        fi = torch.empty(B, D1, device=pt.device)
-        lf = torch.empty(B, device=pt.device)
-        _prob_variant(lib, fname, lead, pt, (f, fi, lf),
-                      (B, D1, pt.W, pt.ref.shape[-1], pt.ev.shape[-1]))
-        return f, fi, lf
-
-    def bwd(pt, fstack, cvecf, threshold, R):
-        B, D1 = pt.x0.shape
-        dev = pt.device
-        out = (torch.empty(B, D1, device=dev), torch.empty(B, device=dev),
-               torch.empty(B, D1, R, dtype=torch.int32, device=dev),
-               torch.empty(B, D1, R, device=dev),
-               torch.empty(B, D1, dtype=torch.int32, device=dev))
-        _prob_variant(lib, bname, lead, pt, (fstack, cvecf) + out,
-                      (B, D1, pt.W, pt.ref.shape[-1], pt.ev.shape[-1], R),
-                      (float(threshold),))
-        return out
-
-    return fwd, bwd
-
-
-def prob_probes():
-    """``--prob-probes``: the probability-space sweeps of the earlier
-    design (csrc/prob_probe.cu: as they were, with constant emissions,
-    with one barrier), this design at 1 and 2 cells per thread, and the
-    log-space sweeps, timed by CUDA events in turns (the list, then the
-    list reversed; mean of 5 launches after two warm-ups each) on phase
-    3a's problems, on 8a's error-free ones and on phase 4's W = 512
-    buckets; then every W <= 512 bucket of phase 4 in the runner's
-    chunks (phase 8c's kernel sums), one launch each. One JSON line."""
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: --prob-probes needs a GPU")
-    from signalalign_tpu_torch.convert import problem_tensors
-    from signalalign_tpu_torch.ops import banded_fb as bfb
-    from signalalign_tpu_torch.ops import banded_fb_hopper as hk
-    from signalalign_tpu_torch.pipeline.runner import _stack_chunks
-    from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
-    from signalalign_tpu_torch.utils import cuda_build
-    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
-                                                       synthetic_pore_model,
-                                                       synthetic_read)
-    dev = torch.device("cuda")
-    b = cuda_build.build()
-    lib = cuda_build.load()
-    for line in b.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-    model = synthetic_pore_model(SEED_MODEL)
-    with tempfile.TemporaryDirectory() as tmp:
-        _, reference, rgs, _, _ = build_synthetic_batch(
-            model, n_reads=64, ev_min=2000, ev_max=50000, seed=SEED_READS,
-            genome_len=400_000, fasta_path=os.path.join(tmp, "genome.fa"),
-            ambig_frac=1.0)
-    config = AlignmentConfig()
-    threshold = config.threshold
-    R = hk.survivor_slots(threshold)
-    rng8 = np.random.default_rng(SEED_CLEAN)
-    genome8 = reference.forward["synth"]
-    clean = [synthetic_read(
-        rng8, genome8, model, int(rng8.integers(0, len(genome8) - 2000)),
-        int(rng8.integers(1400, 1700)), f"clean{i}", sub_rate=0.0,
-        ins_rate=0.0, del_rate=0.0) for i in range(8)]
-    clean_p = [q for W, Dpad, P, q in prepare_all(
-        clean, reference, model,
-        dataclasses.replace(config, diagonal_expansion=150))
-        if (W, Dpad, P) == (256, 4096, 1)]
-    buckets = {}
-    for W, Dpad, P, q in prepare_all(rgs, reference, model,
-                                     config.for_batch(len(rgs))):
-        buckets.setdefault((W, Dpad, P), []).append(q)
-    chunks = [(W, P, probs) for W, P, probs in
-              bucket_chunks(_stack_chunks, buckets) if W <= bfb.PROB_MAX_W]
-    w512 = [q for W, P, probs in chunks if W == 512 for q in probs][:16]
-    sets = {"3a": (long_p1_problems(rgs, reference, model, config), 256),
-            "8a": (clean_p, 256), "w512": (w512, 512)}
-    variants = [("earlier", "probe", 0), ("earlier_const_emissions", "probe", 1),
-                ("earlier_one_barrier", "probe", 2), ("this_k1", "k", 1),
-                ("this_k2", "k", 2), ("this_k1_shfl", "k", 11),
-                ("this_k2_shfl", "k", 12), ("log_space", "log", 0)]
-    out = {"device": device_line(), "sets": {}}
-    ref_fwd, _ = prob_variant_fns(lib, hk, "probe", 0)
-    for tag, (probs, W) in sets.items():
-        pt = problem_tensors(probs, W, dev, prob=True)
-        ptl = problem_tensors(probs, W, dev)
-        nds = pt.meta[:, bfb.M_NDIAG]
-        f, fi, lf = ref_fwd(pt)
-        fo, tf = bfb.forward_offsets(fi, lf, nds)
-        cvecf = (fo - tf[:, None]).contiguous()
-        fl, fil, lfl = hk.forward_sweep(ptl)
-        fol, tfl = bfb.forward_offsets(fil, lfl, nds)
-        cvl = (fol - tfl[:, None]).contiguous()
-        times = {name: [] for name, _, _ in variants}
-        for order in (variants, variants[::-1]):
-            for name, kind, lead in order:
-                fwd, bwd = prob_variant_fns(lib, hk, kind, lead)
-                p_, fs_, cv_ = (ptl, fl, cvl) if kind == "log" else (pt, f, cvecf)
-                f_ms, _ = cuda_ms(lambda: fwd(p_), 5)
-                b_ms, _ = cuda_ms(lambda: bwd(p_, fs_, cv_, threshold, R), 5)
-                times[name].append((f_ms, b_ms))
-        out["sets"][tag] = {
-            "W": W, "problems": len(probs),
-            "n_diag": [min(pt.n_diag), max(pt.n_diag)],
-            "ms": {k: [sum(t[0] for t in v) / 2, sum(t[1] for t in v) / 2,
-                       v] for k, v in times.items()}}
-        log(f"[probes] {tag}: " + json.dumps(out["sets"][tag]["ms"]))
-        del pt, ptl, f, fl
-    sums = {}
-    order = [("earlier", "probe", 0), ("this_k1", "k", 1), ("this_k2", "k", 2),
-             ("this_k1_shfl", "k", 11), ("this_k2_shfl", "k", 12)]
-    for turn in (order, order[::-1]):
-        for name, kind, lead in turn:
-            fwd, bwd = prob_variant_fns(lib, hk, kind, lead)
-            sf = sb = 0.0
-            for W, P, probs in chunks:
-                pt = problem_tensors(probs, W, dev, prob=True)
-                f, fi, lf = ref_fwd(pt)
-                fo, tf = bfb.forward_offsets(fi, lf, pt.meta[:, bfb.M_NDIAG])
-                cvecf = (fo - tf[:, None]).contiguous()
-                f_ms, _ = cuda_ms(lambda: fwd(pt), 1)
-                b_ms, _ = cuda_ms(lambda: bwd(pt, f, cvecf, threshold, R), 1)
-                sf, sb = sf + f_ms, sb + b_ms
-            sums.setdefault(name, []).append((sf, sb))
-    out["phase4_w_le_512_sums_ms"] = {
-        k: [sum(t[0] for t in v) / 2, sum(t[1] for t in v) / 2, v]
-        for k, v in sums.items()}
-    out["phase4_w_le_512_chunks"] = len(chunks)
     log(json.dumps(out))
 
 
@@ -2194,9 +2040,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--prob-probes"]:
-        prob_probes()
-    elif sys.argv[1:2] == ["--kernel-sums"]:
+    if sys.argv[1:2] == ["--kernel-sums"]:
         kernel_sums_of_tree(sys.argv[2] if len(sys.argv) > 2
                              else os.path.dirname(os.path.abspath(__file__)))
     else:

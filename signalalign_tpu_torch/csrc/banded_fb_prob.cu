@@ -28,14 +28,31 @@
 // x0[d] + o, y = d - x.
 //
 // What bounds them on this card: as the log-space sweeps, the serial chain
-// of anti-diagonals, one block per problem, two block barriers per
-// diagonal. A cell costs 2 expf (its emissions) and 1 logf (its stored
-// log row) forward, plus the posterior's expf backward, where the log
-// recurrence spent ~8 transcendentals on logaddexps: only the work above
-// the barrier floor can shrink. One thread holds one band offset (W <=
-// 512 threads), the two live diagonals of all three states sit in shared
-// memory (6 W floats), and the backward ranks survivors by warp ballot and
-// writes them to R slots per diagonal, as sa_bwd_sweep_compact does.
+// of anti-diagonals, one block per problem. A cell costs 2 expf (its
+// emissions) and 1 logf (its stored log row) forward, plus the
+// posterior's expf backward, where the log recurrence spent ~8
+// transcendentals on logaddexps, so what a diagonal waits on is latency:
+// its block max and the loads and exponentials its cells' emissions
+// need. The design takes the emissions off that chain and waits on one
+// barrier a diagonal:
+// - a ring of three slots holds *raw* states: diagonal d goes to slot d
+//   mod 3, whose last reader (d-1) finished before barrier d-1; readers
+//   rescale at read time as the twins rescale, (v * sc) * SCALE with sc =
+//   1/m of the diagonal read, so every value is the twin's;
+// - the per-warp maxima are double-buffered by diagonal parity and, after
+//   the barrier, each warp's lanes reduce them with shuffles;
+// - the loop runs from one barrier to the next with no branch between:
+//   diagonal d-1's max, stack row and frame increment, then diagonal d's
+//   emissions from the inputs loaded during d-1, the loads of d+1 (band
+//   origins two ahead), then d's cells, so the compiler interleaves the
+//   loads and exponentials with the max's reduction and the ring reads;
+// - the backward forms diagonal d+1's posterior and ballot after barrier
+//   d+1 and writes the survivor slots of d+2 there, whose warp counts that
+//   barrier published (each warp's rank base and the total by one integer
+//   reduction each); its forward match row and cvecf come a diagonal ahead.
+// One thread holds one band offset (W <= 512 threads; PROB_K, from a
+// scan on an H100). Outputs equal the earlier two-barrier design's bit
+// for bit (PERF.md §6).
 //
 // Numerics: as the twins, op for op, built with --fmad=false; max and min
 // propagate NaN (torch.amax / torch.clamp), so a tripped problem (f32
@@ -155,11 +172,11 @@ __device__ __forceinline__ float warp_nmax(float v) {
 }
 
 // The diagonal's one barrier, after each warp's max went to part[par *
-// 32 + warp]; returns the block max. SHFL: each warp's lanes read the nw
-// partials, one each, and reduce them with shuffles; otherwise every
-// thread reads them in turn. A block of one warp synchronises that warp
-// alone.
-template <bool SHFL>
+// 32 + warp]; returns the block max: each warp's lanes read the nw
+// partials, one each, and reduce them with shuffles, straight-line code
+// that the compiler interleaves with the independent work after it (a
+// serial read of the partials, a loop, measured slower: PERF.md §6). A
+// block of one warp synchronises that warp alone.
 __device__ __forceinline__ float diag_barrier_max(float wmax,
                                                   const float* part, int par,
                                                   int nw) {
@@ -168,17 +185,8 @@ __device__ __forceinline__ float diag_barrier_max(float wmax,
     return wmax;
   }
   __syncthreads();
-  if constexpr (SHFL) {
-    const int lane = threadIdx.x & 31;
-    return warp_nmax(lane < nw ? part[par * 32 + lane] : 0.f);
-  }
-  // unrolled to the most warps a block has, so that no branch separates
-  // the reduction from the independent work after it
-  float m = part[par * 32];
-#pragma unroll
-  for (int w = 1; w < MAX_W / 32; ++w)
-    m = w < nw ? nmax(m, part[par * 32 + w]) : m;
-  return m;
+  const int lane = threadIdx.x & 31;
+  return warp_nmax(lane < nw ? part[par * 32 + lane] : 0.f);
 }
 
 // One cell's emission inputs, loaded a diagonal before they are used: the
@@ -271,7 +279,7 @@ __device__ float block_prob_lse(const float* slot, float sc, const float* w,
 // and only then reads the ring for d's cells; with no branch between the
 // barriers the compiler interleaves the emissions and the loads with the
 // max's reduction and the ring reads.
-template <int K, bool SHFL>
+template <int K>
 __global__ void __launch_bounds__(MAX_W) sa_fwd_sweep_prob_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const float* __restrict__ ev_,
@@ -329,7 +337,7 @@ __global__ void __launch_bounds__(MAX_W) sa_fwd_sweep_prob_kernel(
 
   // diagonal d-1's max, stack row and frame increment, after its barrier
   auto close = [&](int dd) {
-    const float mx = diag_barrier_max<SHFL>(tmax, part, dd & 1, nw);
+    const float mx = diag_barrier_max(tmax, part, dd & 1, nw);
     const float m = mx > 0.f ? mx : SCALE;
     const float sc = 1.f / m;
 #pragma unroll
@@ -435,7 +443,7 @@ __device__ __forceinline__ void write_slots(const int* wc, const int (&rk)[K],
 // survivor slots of d+2, whose counts that barrier published; then
 // diagonal d's emissions from the inputs loaded during d+1, the loads of
 // d-1 (inputs, forward match row, cvecf), and d's cells.
-template <int K, bool SHFL>
+template <int K>
 __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const float* __restrict__ ev_,
@@ -522,7 +530,7 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
   // after barrier dd: diagonal dd's max, frame and posterior, and the
   // survivor slots of dd+1
   auto close = [&](int dd, int xdd, int wdd) {
-    const float mx = diag_barrier_max<SHFL>(tmax, part, dd & 1, nw);
+    const float mx = diag_barrier_max(tmax, part, dd & 1, nw);
     const float m = dd == nd ? SCALE : (mx > 0.f ? mx : SCALE);
     const float sc = 1.f / m;
     lr = nmax(-lr, 0.f) + (logf(m) - LOG_SCALE);
@@ -615,63 +623,14 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
   if (threadIdx.x == 0) lse_b[b] = l;
 }
 
-// Cells per thread by band width: K = 1 against K = 2 timed on phase 3a's
-// and 8a's problems (W = 256) and at W = 512 on an H100 (PERF.md §6)
-int prob_k(int W) { return W <= 256 ? 1 : 1; }
+// Cells per thread: K = 1 at every W. K = 2 (half the warps, so a
+// cheaper max, for twice the cells a thread) measured 26% (W = 256) and
+// 5% (W = 512) slower forward, 20% and 9% slower backward on an H100
+// (PERF.md §6).
+constexpr int PROB_K = 1;
 
-int threads_for(int W, int K) { return (((W + K - 1) / K + 31) / 32) * 32; }
-
-template <int K, bool SHFL>
-int fwd_prob_launch(const int* x0, const int* width, const float* ref,
-                    const float* ev, const int* meta, const float* cexp,
-                    const float* evb, const float* par, float* fstack,
-                    float* f_incr, float* lse_f, int B, int D1, int W, int LX,
-                    int LE, cudaStream_t stream) {
-  const size_t smem = (9 * (size_t)W + 64) * sizeof(float);
-  sa_fwd_sweep_prob_kernel<K, SHFL><<<B, threads_for(W, K), smem, stream>>>(
-      x0, width, ref, ev, meta, cexp, evb, par, fstack, f_incr, lse_f, D1, W,
-      LX, LE);
-  return (int)cudaGetLastError();
-}
-
-template <int K, bool SHFL>
-int bwd_prob_launch(const int* x0, const int* width, const float* ref,
-                    const float* ev, const int* meta, const float* cexp,
-                    const float* evb, const float* par, const float* fstack,
-                    const double* cvecf, float* b_incr, float* lse_b,
-                    int* slot_cell, float* slot_val, int* cnt, int B, int D1,
-                    int W, int LX, int LE, int R, float threshold,
-                    cudaStream_t stream) {
-  const size_t smem =
-      (9 * (size_t)W + 64) * sizeof(float) + 2 * K * 32 * sizeof(int);
-  sa_bwd_sweep_compact_prob_kernel<K, SHFL>
-      <<<B, threads_for(W, K), smem, stream>>>(
-          x0, width, ref, ev, meta, cexp, evb, par, fstack, cvecf, b_incr,
-          lse_b, slot_cell, slot_val, cnt, D1, W, LX, LE, R, threshold);
-  return (int)cudaGetLastError();
-}
-
-// the launchers of variant v: K = v % 10 cells per thread, the partials
-// reduced by shuffles when v >= 10
-using FwdLaunch = decltype(&fwd_prob_launch<1, false>);
-using BwdLaunch = decltype(&bwd_prob_launch<1, false>);
-FwdLaunch fwd_variant(int v) {
-  switch (v) {
-    case 1: return fwd_prob_launch<1, false>;
-    case 2: return fwd_prob_launch<2, false>;
-    case 11: return fwd_prob_launch<1, true>;
-    case 12: return fwd_prob_launch<2, true>;
-    default: return nullptr;
-  }
-}
-BwdLaunch bwd_variant(int v) {
-  switch (v) {
-    case 1: return bwd_prob_launch<1, false>;
-    case 2: return bwd_prob_launch<2, false>;
-    case 11: return bwd_prob_launch<1, true>;
-    case 12: return bwd_prob_launch<2, true>;
-    default: return nullptr;
-  }
+int threads_for(int W) {
+  return (((W + PROB_K - 1) / PROB_K + 31) / 32) * 32;
 }
 
 }  // namespace
@@ -691,9 +650,12 @@ extern "C" int sa_fwd_sweep_prob(const int* x0, const int* width,
                                  int B, int D1, int W, int LX, int LE,
                                  void* stream) {
   if (W < 1 || W > MAX_W) return (int)cudaErrorInvalidValue;
-  return fwd_variant(prob_k(W))(x0, width, ref, ev, meta, cexp, evb, par,
-                                fstack, f_incr, lse_f, B, D1, W, LX, LE,
-                                (cudaStream_t)stream);
+  const size_t smem = (9 * (size_t)W + 64) * sizeof(float);
+  sa_fwd_sweep_prob_kernel<PROB_K>
+      <<<B, threads_for(W), smem, (cudaStream_t)stream>>>(
+          x0, width, ref, ev, meta, cexp, evb, par, fstack, f_incr, lse_f, D1,
+          W, LX, LE);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int sa_bwd_sweep_compact_prob(
@@ -703,35 +665,11 @@ extern "C" int sa_bwd_sweep_compact_prob(
     int* slot_cell, float* slot_val, int* cnt, int B, int D1, int W, int LX,
     int LE, int R, float threshold, void* stream) {
   if (W < 1 || W > MAX_W) return (int)cudaErrorInvalidValue;
-  return bwd_variant(prob_k(W))(x0, width, ref, ev, meta, cexp, evb, par,
-                                fstack, cvecf, b_incr, lse_b, slot_cell,
-                                slot_val, cnt, B, D1, W, LX, LE, R, threshold,
-                                (cudaStream_t)stream);
-}
-
-// The K scan of PERF.md §6: variant `v` (K = v % 10 cells per thread, the
-// partials reduced by shuffles when v >= 10) in place of prob_k's, then
-// the arguments of sa_fwd_sweep_prob / sa_bwd_sweep_compact_prob.
-extern "C" int sa_fwd_sweep_prob_k(int v, const int* x0, const int* width,
-                                   const float* ref, const float* ev,
-                                   const int* meta, const float* cexp,
-                                   const float* evb, const float* par,
-                                   float* fstack, float* f_incr, float* lse_f,
-                                   int B, int D1, int W, int LX, int LE,
-                                   void* stream) {
-  if (W < 1 || W > MAX_W || !fwd_variant(v)) return (int)cudaErrorInvalidValue;
-  return fwd_variant(v)(x0, width, ref, ev, meta, cexp, evb, par, fstack,
-                        f_incr, lse_f, B, D1, W, LX, LE, (cudaStream_t)stream);
-}
-
-extern "C" int sa_bwd_sweep_compact_prob_k(
-    int v, const int* x0, const int* width, const float* ref, const float* ev,
-    const int* meta, const float* cexp, const float* evb, const float* par,
-    const float* fstack, const double* cvecf, float* b_incr, float* lse_b,
-    int* slot_cell, float* slot_val, int* cnt, int B, int D1, int W, int LX,
-    int LE, int R, float threshold, void* stream) {
-  if (W < 1 || W > MAX_W || !bwd_variant(v)) return (int)cudaErrorInvalidValue;
-  return bwd_variant(v)(x0, width, ref, ev, meta, cexp, evb, par, fstack,
-                        cvecf, b_incr, lse_b, slot_cell, slot_val, cnt, B, D1,
-                        W, LX, LE, R, threshold, (cudaStream_t)stream);
+  const size_t smem =
+      (9 * (size_t)W + 64) * sizeof(float) + 2 * PROB_K * 32 * sizeof(int);
+  sa_bwd_sweep_compact_prob_kernel<PROB_K>
+      <<<B, threads_for(W), smem, (cudaStream_t)stream>>>(
+          x0, width, ref, ev, meta, cexp, evb, par, fstack, cvecf, b_incr,
+          lse_b, slot_cell, slot_val, cnt, D1, W, LX, LE, R, threshold);
+  return (int)cudaGetLastError();
 }

@@ -4,10 +4,11 @@
 // - two barriers (`one_barrier` 0, the P > 2 instances): a block-wide max
 //   reduction (warp shuffles, partials in shared memory, one barrier)
 //   followed by a second barrier;
-// - one barrier (`one_barrier` 1, the per-pair instances): the warp
-//   shuffles, partials double-buffered by step parity, one barrier, and
-//   every thread's max over the partials; a block of one warp uses
-//   __syncwarp and the shuffles alone.
+// - one barrier (`one_barrier` 1, the per-pair instances, and the floor
+//   of banded_fb_prob.cu's, which reduce the partials with shuffles
+//   instead): the warp shuffles, partials double-buffered by step parity,
+//   one barrier, and every thread's max over the partials; a block of one
+//   warp uses __syncwarp and the shuffles alone.
 // It ports no TPU kernel: chip_smoke.py times it to give the sweeps'
 // serial-diagonal floor (a problem's n_diag times this latency at the
 // block's warp count), which neither bytes nor arithmetic bound.

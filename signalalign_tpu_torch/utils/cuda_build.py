@@ -49,13 +49,6 @@ _SIGNATURES = {
     "sa_sweep_scratch_bytes": ([_I] * 4, ctypes.c_longlong),
     "sa_fwd_sweep_prob": ([_P] * 11 + [_I] * 5 + [_P], _I),
     "sa_bwd_sweep_compact_prob": ([_P] * 15 + [_I] * 6 + [_F] + [_P], _I),
-    # the K scan and the probes of the earlier design (PERF.md §6)
-    "sa_fwd_sweep_prob_k": ([_I] + [_P] * 11 + [_I] * 5 + [_P], _I),
-    "sa_bwd_sweep_compact_prob_k": ([_I] + [_P] * 15 + [_I] * 6 + [_F] + [_P],
-                                    _I),
-    "sa_fwd_sweep_prob_probe": ([_I] + [_P] * 11 + [_I] * 5 + [_P], _I),
-    "sa_bwd_sweep_compact_prob_probe": ([_I] + [_P] * 15 + [_I] * 6 + [_F]
-                                        + [_P], _I),
     # csrc/barrier_probe.cu (a timing probe, not a port of a TPU kernel)
     "sa_barrier_probe": ([_I] * 4 + [_P] * 2, _I),
 }
