@@ -109,14 +109,12 @@ def legality_bits(legal: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(masks.reshape(LX, -1)).view(np.int32)
 
 
-def masks_by_source(leg: torch.Tensor, P: Optional[int] = None
-                    ) -> torch.Tensor:
-    """(..., P * NW) int32 masks by target path (``legality_bits``'
-    layout; ``P`` defaults to the last axis, one word a path) -> the same
-    masks by source path, on ``leg``'s device: bit p % 32 of word p // 32
-    of source path q is bit q % 32 of word q // 32 of target path p (the
-    backward kernel's reads: the legal targets of a source path)."""
-    P = leg.shape[-1] if P is None else P
+def masks_by_source(leg: torch.Tensor, P: int) -> torch.Tensor:
+    """(..., P * NW) int32 masks of P paths by target path
+    (``legality_bits``' layout) -> the same masks by source path, on
+    ``leg``'s device: bit p % 32 of word p // 32 of source path q is bit q
+    % 32 of word q // 32 of target path p (the backward kernel's reads:
+    the legal targets of a source path)."""
     if P == 1:
         return leg
     NW = bfb.leg_words(P)

@@ -234,7 +234,7 @@ __device__ __forceinline__ float legal_lse_row(const float* row, float fill,
 
 // legal_lse_row over P > 32 paths: bit q % 32 of word lw[q / 32] (NW
 // words) says whether path q is legal; the same operations in path order
-__device__ __noinline__ float legal_lse_words(const float* row, float fill,
+__device__ __forceinline__ float legal_lse_words(const float* row, float fill,
                                               float sub, const unsigned* lw,
                                               int NW, int P) {
   auto v = [&](int q) { return (row ? row[q] : fill) - sub; };
@@ -399,12 +399,13 @@ struct Problem {
   // the backward's by source path (the same for target path p)
   const unsigned* leg;
   const float* ev;                  // (NEV, LE)
-  int lX, lY, nd, efp, reflen, evlen, P, NW, LX, LE;
+  int lX, lY, nd, efp, reflen, evlen, P, LX, LE;
   float t[9], start[3], end[3], gapx;
   // HDP buckets only
   const int* kid;                   // (P, LX) k-mer ids
   const float* mu;                  // (P, LX) level means
   float var;
+  int NW;                           // legality words per (position, path)
 
   __device__ void load(const int* x0_, const int* width_, const float* ref_,
                        const unsigned* leg_, const float* ev_,

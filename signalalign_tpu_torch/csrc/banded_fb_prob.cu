@@ -50,9 +50,9 @@
 //   d+1 and writes the survivor slots of d+2 there, whose warp counts that
 //   barrier published (each warp's rank base and the total by one integer
 //   reduction each); its forward match row and cvecf come a diagonal ahead.
-// One thread holds one band offset (W <= 512 threads; PROB_K, from a
-// scan on an H100). Outputs equal the earlier two-barrier design's bit
-// for bit (PERF.md §6).
+// One thread holds one band offset (W <= 512 threads, the faster of one
+// and two cells a thread on an H100). Outputs equal the earlier
+// two-barrier design's bit for bit (PERF.md §6).
 //
 // Numerics: as the twins, op for op, built with --fmad=false; max and min
 // propagate NaN (torch.amax / torch.clamp), so a tripped problem (f32
@@ -278,7 +278,10 @@ __device__ float block_prob_lse(const float* slot, float sc, const float* w,
 // emissions from the inputs loaded during d-1, issues the loads of d+1,
 // and only then reads the ring for d's cells; with no branch between the
 // barriers the compiler interleaves the emissions and the loads with the
-// max's reduction and the ring reads.
+// max's reduction and the ring reads. Written for K cells a thread and
+// launched at K = 1: the same loop written for one cell compiled to a 16%
+// slower forward on an H100, while the backward's one-cell form was 11%
+// faster than its K form (PERF.md §6).
 template <int K>
 __global__ void __launch_bounds__(MAX_W) sa_fwd_sweep_prob_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
@@ -412,30 +415,23 @@ __global__ void __launch_bounds__(MAX_W) sa_fwd_sweep_prob_kernel(
 
 // ----------------------------------------------- backward + compaction
 
-// The survivor slots of one diagonal from its per-warp counts wc [K][32]
-// and this thread's ranks inside its warp (-1 for none), ranked in
-// band-offset order: chunk, warp, lane. Each warp forms the count of the
-// warps before it and the chunk's total with one integer reduction each:
-// no branch and no loop over the warps.
-template <int K>
-__device__ __forceinline__ void write_slots(const int* wc, const int (&rk)[K],
-                                            const float (&pk)[K], int* so,
-                                            float* sv, int* cn, int R,
-                                            int nw) {
+// The survivor slots of one diagonal from its per-warp counts wc[32] and
+// this thread's rank inside its warp (-1 for none), ranked in band-offset
+// order: warp, then lane. Each warp forms the count of the warps before
+// it and the diagonal's total with one integer reduction each: no branch
+// and no loop over the warps.
+__device__ __forceinline__ void write_slots(const int* wc, int rk, float pk,
+                                            int* so, float* sv, int* cn,
+                                            int R, int nw) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int before = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int c = lane < nw ? wc[k * 32 + lane] : 0;
-    const int r = before + __reduce_add_sync(0xffffffffu, lane < warp ? c : 0)
-                  + rk[k];
-    if (rk[k] >= 0 && r < R) {
-      so[r] = threadIdx.x + k * blockDim.x;
-      sv[r] = pk[k];
-    }
-    before += __reduce_add_sync(0xffffffffu, c);
+  const int c = lane < nw ? wc[lane] : 0;
+  const int r = __reduce_add_sync(0xffffffffu, lane < warp ? c : 0) + rk;
+  if (rk >= 0 && r < R) {
+    so[r] = threadIdx.x;
+    sv[r] = pk;
   }
-  if (threadIdx.x == 0) *cn = before;
+  const int total = __reduce_add_sync(0xffffffffu, c);
+  if (threadIdx.x == 0) *cn = total;
 }
 
 // As the forward, from barrier to barrier: after barrier d+1, diagonal
@@ -443,7 +439,6 @@ __device__ __forceinline__ void write_slots(const int* wc, const int (&rk)[K],
 // survivor slots of d+2, whose counts that barrier published; then
 // diagonal d's emissions from the inputs loaded during d+1, the loads of
 // d-1 (inputs, forward match row, cvecf), and d's cells.
-template <int K>
 __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const float* __restrict__ ev_,
@@ -457,7 +452,7 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
   extern __shared__ float smem[];
   float* ring = smem;                               // [3 slots][3 states][W]
   float* part = smem + 9 * W;                       // [2 parities][32]
-  int* wcnt = reinterpret_cast<int*>(part + 64);    // [2 parities][K][32]
+  int* wcnt = reinterpret_cast<int*>(part + 64);    // [2 parities][32]
   __shared__ Problem pr;
   if (threadIdx.x == 0)
     pr.load(x0_, width_, ref_, ev_, meta_, cexp_, evb_, par_, D1, LX, LE);
@@ -465,6 +460,7 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
   __syncthreads();
 
   const int b = blockIdx.x;
+  const int o = threadIdx.x;       // this thread's band offset
   const float* fs = fstack + (size_t)b * D1 * W;
   const double* cv = cvecf + (size_t)b * D1;
   float* inc = b_incr + (size_t)b * D1;
@@ -472,36 +468,31 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
   float* sv = slot_val + (size_t)b * D1 * R;
   int* cn = cnt + (size_t)b * D1;
   const int nd = pr.nd, last = D1 - 1;
-  for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) {
+  for (int d = nd + 1 + o; d < D1; d += blockDim.x) {
     inc[d] = 0.f;
     cn[d] = 0;
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = o & 31, warp = o >> 5;
   const int nw = blockDim.x >> 5;
   const float* tr = pr.t;
+  const int oc = min(o, W - 1);    // a column inside the rows
 
-  // diagonal nd: the end states in the band
-  float bm[K];     // this thread's raw match states of diagonal d
-  float fpost[K];  // and the forward match row of d, for the posterior
-  float tmax = 0.f;
+  // diagonal nd: the end states in the band; this thread's raw match
+  // state of the diagonal in hand, and its forward match row for the
+  // posterior
   const int wnd = pr.width[nd];
-  float* cur0 = ring + (nd % 3) * 3 * W;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int o = threadIdx.x + k * blockDim.x;
-    const bool inb = o < W && o < wnd;
-    bm[k] = inb ? pr.end[MATCH] * SCALE : 0.f;
-    const float x_ = inb ? pr.end[GAP_X] * SCALE : 0.f;
-    const float y_ = inb ? pr.end[GAP_Y] * SCALE : 0.f;
-    if (o < W) {
-      cur0[MATCH * W + o] = bm[k];
-      cur0[GAP_X * W + o] = x_;
-      cur0[GAP_Y * W + o] = y_;
-    }
-    fpost[k] = __ldg(fs + (size_t)nd * W + min(o, W - 1));
-    tmax = nmax(tmax, nmax(bm[k], nmax(x_, y_)));
+  const bool inb0 = o < W && o < wnd;
+  float bm = inb0 ? pr.end[MATCH] * SCALE : 0.f;
+  const float bx0 = inb0 ? pr.end[GAP_X] * SCALE : 0.f;
+  const float by0 = inb0 ? pr.end[GAP_Y] * SCALE : 0.f;
+  if (o < W) {
+    float* cur0 = ring + (nd % 3) * 3 * W;
+    cur0[MATCH * W + o] = bm;
+    cur0[GAP_X * W + o] = bx0;
+    cur0[GAP_Y * W + o] = by0;
   }
-  tmax = warp_nmax(tmax);
+  float fpost = __ldg(fs + (size_t)nd * W + oc);
+  float tmax = warp_nmax(nmax(bm, nmax(bx0, by0)));
   if (nw > 1 && lane == 0) part[(nd & 1) * 32 + warp] = tmax;
   // band origins of d+2, d+1 (with its width), d (with its width) and
   // d-1, each loaded two diagonals ahead; d's emission inputs, forward
@@ -509,23 +500,17 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
   int xp2 = pr.x0[min(nd + 1, last)], xp1 = pr.x0[nd], wp1 = wnd;
   int xd = pr.x0[max(nd - 1, 0)], wd = pr.width[max(nd - 1, 0)];
   int xn = pr.x0[max(nd - 2, 0)];
-  BwdLoad in[K];
-  float fnext[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int o = threadIdx.x + k * blockDim.x;
-    in[k] = bwd_load(pr, nd - 1, xd, o, W);
-    fnext[k] = __ldg(fs + (size_t)max(nd - 1, 0) * W + min(o, W - 1));
-  }
+  BwdLoad in = bwd_load(pr, nd - 1, xd, o, W);
+  float fnext = __ldg(fs + (size_t)max(nd - 1, 0) * W + oc);
   double cv_1 = cv[nd], cv_d = cv[max(nd - 1, 0)];   // cvecf of d+1 and d
   float sc1 = 0.f, sc2 = 0.f;   // 1/m of diagonals d+1 and d+2
   float lr = 0.f;    // log(FRAME(d+1) / FRAME(d+2))
   double bo = 0.0;   // running backward offset: Bo(d) = sum of lr over >= d
-  // this thread's survivors of the diagonal closed last: value and rank
+  // this thread's survivor of the diagonal closed last: value and rank
   // inside its warp (-1 for none), written once the next barrier has
   // published the warp counts
-  float pk[K];
-  int rk[K];
+  float pk = 0.f;
+  int rk = -1;
 
   // after barrier dd: diagonal dd's max, frame and posterior, and the
   // survivor slots of dd+1
@@ -537,26 +522,19 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
     bo += (double)lr;                                    // Bo(dd)
     // absolute log posterior = fm + bmn + cvecf[dd] + Bo(dd)
     const float cd = (float)(cv_1 + bo);
-    // the survivors of dd+1, whose warp counts the barrier published
     if (dd < nd)
-      write_slots<K>(wcnt + ((dd + 1) & 1) * K * 32, rk, pk,
-                     so + (size_t)(dd + 1) * R, sv + (size_t)(dd + 1) * R,
-                     cn + dd + 1, R, nw);
-    int* wc = wcnt + (dd & 1) * K * 32;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int o = threadIdx.x + k * blockDim.x;
-      const int x = xdd + o, y = dd - x;
-      const float bmn = nmax(logf((bm[k] * sc) * SCALE) - LOG_SCALE, NEG);
-      const float p = expf(nmax(fpost[k] + bmn + cd, NEG));
-      const bool surv = o < W && o < wdd && x > 0 && y > 0 && x <= pr.lX &&
-                        y <= pr.lY && p >= threshold;
-      const unsigned ball = __ballot_sync(0xffffffffu, surv);
-      if (lane == 0) wc[k * 32 + warp] = __popc(ball);
-      pk[k] = p;
-      rk[k] = surv ? __popc(ball & ((1u << lane) - 1u)) : -1;
-    }
-    if (threadIdx.x == 0) inc[dd] = lr;
+      write_slots(wcnt + ((dd + 1) & 1) * 32, rk, pk,
+                  so + (size_t)(dd + 1) * R, sv + (size_t)(dd + 1) * R,
+                  cn + dd + 1, R, nw);
+    const int x = xdd + o, y = dd - x;
+    const float bmn = nmax(logf((bm * sc) * SCALE) - LOG_SCALE, NEG);
+    pk = expf(nmax(fpost + bmn + cd, NEG));
+    const bool surv = o < W && o < wdd && x > 0 && y > 0 && x <= pr.lX &&
+                      y <= pr.lY && pk >= threshold;
+    const unsigned ball = __ballot_sync(0xffffffffu, surv);
+    if (lane == 0) wcnt[(dd & 1) * 32 + warp] = __popc(ball);
+    rk = surv ? __popc(ball & ((1u << lane) - 1u)) : -1;
+    if (o == 0) inc[dd] = lr;
     sc2 = sc1;
     sc1 = sc;
   };
@@ -566,47 +544,31 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
     const float* b1 = ring + ((d + 1) % 3) * 3 * W;   // diagonal d+1
     const float* b2 = ring + ((d + 2) % 3) * 3 * W;   // diagonal d+2
     float* cur = ring + (d % 3) * 3 * W;
-    Emis e[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      e[k] = bwd_emis(pr, in[k]);
-      fpost[k] = fnext[k];
-    }
+    const Emis e = bwd_emis(pr, in);
+    fpost = fnext;
     cv_1 = cv_d;
     // the loads of d-1 and the band of d-2
     const int xnn = pr.x0[max(d - 2, 0)], wn = pr.width[max(d - 1, 0)];
     cv_d = cv[max(d - 1, 0)];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int o = threadIdx.x + k * blockDim.x;
-      in[k] = bwd_load(pr, d - 1, xn, o, W);
-      fnext[k] = __ldg(fs + (size_t)max(d - 1, 0) * W + min(o, W - 1));
-    }
+    in = bwd_load(pr, d - 1, xn, o, W);
+    fnext = __ldg(fs + (size_t)max(d - 1, 0) * W + oc);
     const float w1 = expf(nmin(lr, 0.f)), w2 = expf(-nmax(lr, 0.f));
     const int u1 = xd - xp1;
     const int u2 = d + 2 < D1 ? xd + 1 - xp2 : W + 5;
-    tmax = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int o = threadIdx.x + k * blockDim.x;
-      const float gx_red =
-          (rdn(b1, GAP_X, o + u1 + 1, W, sc1) * w1) * e[k].gapx;
-      const float mm_red = (rdn(b2, MATCH, o + u2, W, sc2) * w2) * e[k].match;
-      const float gy_term = (rdn(b1, GAP_Y, o + u1, W, sc1) * w1) * e[k].stay;
-      const bool inb = o < W && o < wd;
-      const float m_ = inb ? gx_red * tr[T_MX] + mm_red * tr[T_MM] +
-                                 gy_term * tr[T_MY] : 0.f;
-      const float x_ = inb ? gx_red * tr[T_XX] + mm_red * tr[T_XM] : 0.f;
-      const float y_ = inb ? mm_red * tr[T_YM] + gy_term * tr[T_YY] : 0.f;
-      if (o < W) {
-        cur[MATCH * W + o] = m_;
-        cur[GAP_X * W + o] = x_;
-        cur[GAP_Y * W + o] = y_;
-      }
-      bm[k] = m_;
-      tmax = nmax(tmax, nmax(m_, nmax(x_, y_)));
+    const float gx_red = (rdn(b1, GAP_X, o + u1 + 1, W, sc1) * w1) * e.gapx;
+    const float mm_red = (rdn(b2, MATCH, o + u2, W, sc2) * w2) * e.match;
+    const float gy_term = (rdn(b1, GAP_Y, o + u1, W, sc1) * w1) * e.stay;
+    const bool inb = o < W && o < wd;
+    bm = inb ? gx_red * tr[T_MX] + mm_red * tr[T_MM] + gy_term * tr[T_MY]
+             : 0.f;
+    const float bx = inb ? gx_red * tr[T_XX] + mm_red * tr[T_XM] : 0.f;
+    const float by = inb ? mm_red * tr[T_YM] + gy_term * tr[T_YY] : 0.f;
+    if (o < W) {
+      cur[MATCH * W + o] = bm;
+      cur[GAP_X * W + o] = bx;
+      cur[GAP_Y * W + o] = by;
     }
-    tmax = warp_nmax(tmax);
+    tmax = warp_nmax(nmax(bm, nmax(bx, by)));
     if (nw > 1 && lane == 0) part[(d & 1) * 32 + warp] = tmax;
     xp2 = xp1;
     xp1 = xd;
@@ -618,20 +580,15 @@ __global__ void __launch_bounds__(MAX_W) sa_bwd_sweep_compact_prob_kernel(
   close(0, xp1, wp1);
   // publish diagonal 0's warp counts, then its survivor slots
   __syncthreads();
-  write_slots<K>(wcnt, rk, pk, so, sv, cn, R, nw);
+  write_slots(wcnt, rk, pk, so, sv, cn, R, nw);
   const float l = block_prob_lse(ring, sc1, pr.start, W, part);  // d = 0
-  if (threadIdx.x == 0) lse_b[b] = l;
+  if (o == 0) lse_b[b] = l;
 }
 
-// Cells per thread: K = 1 at every W. K = 2 (half the warps, so a
-// cheaper max, for twice the cells a thread) measured 26% (W = 256) and
-// 5% (W = 512) slower forward, 20% and 9% slower backward on an H100
-// (PERF.md §6).
-constexpr int PROB_K = 1;
-
-int threads_for(int W) {
-  return (((W + PROB_K - 1) / PROB_K + 31) / 32) * 32;
-}
+// One band offset a thread. Two a thread (half the warps, so a cheaper
+// max) measured 26% (W = 256) and 5% (W = 512) slower forward, 20% and
+// 9% slower backward on an H100 (PERF.md §6).
+int threads_for(int W) { return ((W + 31) / 32) * 32; }
 
 }  // namespace
 
@@ -651,7 +608,7 @@ extern "C" int sa_fwd_sweep_prob(const int* x0, const int* width,
                                  void* stream) {
   if (W < 1 || W > MAX_W) return (int)cudaErrorInvalidValue;
   const size_t smem = (9 * (size_t)W + 64) * sizeof(float);
-  sa_fwd_sweep_prob_kernel<PROB_K>
+  sa_fwd_sweep_prob_kernel<1>
       <<<B, threads_for(W), smem, (cudaStream_t)stream>>>(
           x0, width, ref, ev, meta, cexp, evb, par, fstack, f_incr, lse_f, D1,
           W, LX, LE);
@@ -666,8 +623,8 @@ extern "C" int sa_bwd_sweep_compact_prob(
     int LE, int R, float threshold, void* stream) {
   if (W < 1 || W > MAX_W) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      (9 * (size_t)W + 64) * sizeof(float) + 2 * PROB_K * 32 * sizeof(int);
-  sa_bwd_sweep_compact_prob_kernel<PROB_K>
+      (9 * (size_t)W + 64) * sizeof(float) + 64 * sizeof(int);
+  sa_bwd_sweep_compact_prob_kernel
       <<<B, threads_for(W), smem, (cudaStream_t)stream>>>(
           x0, width, ref, ev, meta, cexp, evb, par, fstack, cvecf, b_incr,
           lse_b, slot_cell, slot_val, cnt, D1, W, LX, LE, R, threshold);

@@ -4,10 +4,9 @@ PyTorch DP.
 
 The DP is the ``MODE_MEAN_ONLY`` and ``MODE_HDP`` specialisation of the
 JAX ``_banded_sweeps_core`` for any number P >= 1 of paths per cell: a
-Python loop
-over anti-diagonals, vectorised over problems x paths x band offsets, in
-the band-offset frame (cell (d, p, o) is x = x0[d] + o, y = d - x on path
-p). gapX and match take the legal logsumexp over source paths, gapY
+Python loop over anti-diagonals, vectorised over problems x paths x band
+offsets, in the band-offset frame (cell (d, p, o) is x = x0[d] + o, y =
+d - x on path p). gapX and match take the legal logsumexp over source paths, gapY
 stays on its path, and one max over all states, paths and offsets
 normalises a diagonal, so a problem's paths share one frame per diagonal
 and the totals are joint over paths. Every stored diagonal is

@@ -1,12 +1,15 @@
 """The port's batch runner against the JAX runner on the CPU, on seeded
 synthetic reads: the XLA path and the Pallas interpret path, the TSVs
 written by write_outputs, output properties, HDP emissions through the
-same entry point, and the features outside the port's slice."""
+same entry point, a read with a segment of 64 paths per cell (three X
+sites in one 5-mer) through both entry points against the JAX
+package's, and the features outside the port's slice."""
 
 import numpy as np
 import pytest
 import torch
 
+import signalalign_tpu.pipeline.signal_align as jax_signal_align
 from signalalign_tpu.io.reference import \
     ProcessedReference as JaxProcessedReference
 from signalalign_tpu.models.pore_model import PoreModel as JPoreModel
@@ -14,7 +17,6 @@ from signalalign_tpu.pipeline.runner import \
     run_alignment_batch as jax_run_alignment_batch
 from signalalign_tpu.pipeline.signal_align import \
     AlignmentConfig as JaxAlignmentConfig
-from signalalign_tpu.pipeline.signal_align import align_read as jax_align_read
 from signalalign_tpu.utils.synthetic import \
     build_synthetic_batch as jax_build_synthetic_batch
 from signalalign_tpu.utils.synthetic import \
@@ -220,16 +222,16 @@ def test_outside_the_slice_raises(batch, port, tmp_path):
         write_outputs([], model, str(tmp_path), "variants")
 
 
-def test_p_greater_than_one_raises(tmp_path):
-    """A read with a segment of more than 32 paths per cell aligns (the
-    port once dropped it): the motif edition puts the four-way code X
-    (ACGT) at every C of a CG, so a CGCGCG window holds three X in one
-    5-mer (64 paths, two legality words a mask). run_alignment_batch and
-    align_read align the x64 read as the JAX package's same entry points
-    do (their XLA path): totals within 5e-3 nats, the same pairs but for
-    threshold-edge cells, posteriors within TOL_POST. The read is 60
-    bases (W = 64): the JAX P = 64 sweeps cost about a minute a call on
-    the CPU."""
+@pytest.fixture(scope="module")
+def x64(tmp_path_factory):
+    """A read with a segment of 64 paths per cell: the motif edition puts
+    the four-way code X (ACGT) at every C of a CG, so a CGCGCG window
+    holds three X in one 5-mer (two legality words a mask). The read is
+    60 bases (W = 64). Returns the port's (model, read, guide, reference,
+    config) and the JAX package's run_alignment_batch and align_read
+    results for the same read (their XLA path), computed once: the JAX
+    P = 64 sweeps cost ~30 s a call on the CPU."""
+    tmp_path = tmp_path_factory.mktemp("x64")
     jm, model = _models(1)
     rgs, _, _, _, fasta = build_synthetic_batch(
         model, n_reads=1, ev_min=300, ev_max=400, seed=2, genome_len=5000,
@@ -250,15 +252,49 @@ def test_p_greater_than_one_raises(tmp_path):
     jconfig = JaxAlignmentConfig(ambig_map={"X": "ACGT"})
     assert [t[4] for t in prepare_read(read, guide, reference, model,
                                        config)[4]] == [64]
-    got = run_alignment_batch([(read, guide)], reference, model, config,
-                              device=CPU)
     want = jax_run_alignment_batch([(jread, jguide)], jref, jm, jconfig,
                                    use_pallas=False)
-    one = align_read(read, guide, reference, model, config, device=CPU)
-    ref1 = jax_align_read(jread, jguide, jref, jm, jconfig)
+    want1 = jax_signal_align.align_read(jread, jguide, jref, jm, jconfig)
+    return (model, read, guide, reference, config), want, want1
+
+
+def test_p64_read_aligns_as_the_jax_package(x64):
+    """The x64 read (P = 64) through run_alignment_batch and align_read
+    against the JAX package's same entry points: the runner's totals
+    within 5e-3 nats and pairs within TOL_POST but for threshold-edge
+    cells; align_read's totals within 1e-3 relative and the same pairs,
+    its X positions reporting their path's k-mer."""
+    (model, read, guide, reference, config), want, want1 = x64
+    got = run_alignment_batch([(read, guide)], reference, model, config,
+                              device=CPU)
     assert [r.read_label for r in got] == [r.read_label for r in want] \
         == ["x64"]
-    for g, w in ((got[0], want[0]), (one, ref1)):
+    assert abs(got[0].total_log_prob - want[0].total_log_prob) <= 5e-3
+    assert _pairs_close(want[0].aligned_pairs, got[0].aligned_pairs,
+                        TOL_POST * 1e7)
+    one = align_read(read, guide, reference, model, config, device=CPU)
+    assert abs(one.total_log_prob - want1.total_log_prob) \
+        <= 1e-3 * abs(want1.total_log_prob)
+    dw = {r[1:]: r[0] for r in want1.aligned_pairs}
+    dg = {r[1:]: r[0] for r in one.aligned_pairs}
+    assert set(dw) == set(dg) and len(dw) > 30
+    assert max(abs(dw[k] - dg[k]) for k in dw) <= TOL_POST * 1e7
+    assert {k for k in dg if "X" in k[2]} == set()
+
+
+def test_p_greater_than_one_raises(x64):
+    """A read with a segment of more than 32 paths per cell aligns (the
+    port once dropped it): the x64 read through run_alignment_batch and
+    align_read as the JAX package's runner aligns it (its align_read runs
+    the read's one segment the same way): totals within 5e-3 nats, the
+    same pairs but for threshold-edge cells, posteriors within TOL_POST,
+    and the forward and backward totals within 1 nat."""
+    (model, read, guide, reference, config), want, _ = x64
+    got = run_alignment_batch([(read, guide)], reference, model, config,
+                              device=CPU)
+    one = align_read(read, guide, reference, model, config, device=CPU)
+    w = want[0]
+    for g in (got[0], one):
         assert abs(g.total_log_prob - w.total_log_prob) <= 5e-3
         assert _pairs_close(w.aligned_pairs, g.aligned_pairs, TOL_POST * 1e7)
         assert len(g.aligned_pairs) > 30 and g.max_total_gap < 1.0
