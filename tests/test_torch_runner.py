@@ -227,10 +227,10 @@ def x64(tmp_path_factory):
     """A read with a segment of 64 paths per cell: the motif edition puts
     the four-way code X (ACGT) at every C of a CG, so a CGCGCG window
     holds three X in one 5-mer (two legality words a mask). The read is
-    60 bases (W = 64). Returns the port's (model, read, guide, reference,
-    config) and the JAX package's run_alignment_batch and align_read
-    results for the same read (their XLA path), computed once: the JAX
-    P = 64 sweeps cost ~30 s a call on the CPU."""
+    60 bases (W = 64). Returns the port's run_alignment_batch and
+    align_read results for it and the JAX package's (their XLA path) for
+    the same read, each computed once: the JAX P = 64 sweeps cost ~30 s a
+    call on the CPU."""
     tmp_path = tmp_path_factory.mktemp("x64")
     jm, model = _models(1)
     rgs, _, _, _, fasta = build_synthetic_batch(
@@ -255,7 +255,10 @@ def x64(tmp_path_factory):
     want = jax_run_alignment_batch([(jread, jguide)], jref, jm, jconfig,
                                    use_pallas=False)
     want1 = jax_signal_align.align_read(jread, jguide, jref, jm, jconfig)
-    return (model, read, guide, reference, config), want, want1
+    got = run_alignment_batch([(read, guide)], reference, model, config,
+                              device=CPU)
+    one = align_read(read, guide, reference, model, config, device=CPU)
+    return got, one, want, want1
 
 
 def test_p64_read_aligns_as_the_jax_package(x64):
@@ -264,15 +267,12 @@ def test_p64_read_aligns_as_the_jax_package(x64):
     within 5e-3 nats and pairs within TOL_POST but for threshold-edge
     cells; align_read's totals within 1e-3 relative and the same pairs,
     its X positions reporting their path's k-mer."""
-    (model, read, guide, reference, config), want, want1 = x64
-    got = run_alignment_batch([(read, guide)], reference, model, config,
-                              device=CPU)
+    got, one, want, want1 = x64
     assert [r.read_label for r in got] == [r.read_label for r in want] \
         == ["x64"]
     assert abs(got[0].total_log_prob - want[0].total_log_prob) <= 5e-3
     assert _pairs_close(want[0].aligned_pairs, got[0].aligned_pairs,
                         TOL_POST * 1e7)
-    one = align_read(read, guide, reference, model, config, device=CPU)
     assert abs(one.total_log_prob - want1.total_log_prob) \
         <= 1e-3 * abs(want1.total_log_prob)
     dw = {r[1:]: r[0] for r in want1.aligned_pairs}
@@ -289,10 +289,7 @@ def test_p_greater_than_one_raises(x64):
     the read's one segment the same way): totals within 5e-3 nats, the
     same pairs but for threshold-edge cells, posteriors within TOL_POST,
     and the forward and backward totals within 1 nat."""
-    (model, read, guide, reference, config), want, _ = x64
-    got = run_alignment_batch([(read, guide)], reference, model, config,
-                              device=CPU)
-    one = align_read(read, guide, reference, model, config, device=CPU)
+    got, one, want, _ = x64
     w = want[0]
     for g in (got[0], one):
         assert abs(g.total_log_prob - w.total_log_prob) <= 5e-3
