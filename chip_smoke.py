@@ -91,6 +91,22 @@ Phases (any failure stops the run with a non-zero exit):
          events/s beside phase 4's, peak device memory, launch counts;
      8d. probability-space against log-space kernel time on every W <= 512
          bucket of phase 4, in the runner's chunks, by CUDA events.
+  9. the CLI's `run` from its files (run_signal_align's steps), but the
+     fast5 decode: this host has no h5py, so the reads stay in memory and
+     the CPU tests hold the fast5 reader against the JAX package's:
+     9a. write_synthetic_run writes phase 4's 64 reads' SAM (with a
+         secondary, an unmapped and a low-quality record), readdb, FASTA
+         and CpG positions file; read_alignment_file, filter_reads' test
+         and guide_from_sam_record rebuild every guide, equal to the
+         in-memory one; align_and_write(..., "both") on the reference read
+         from the written FASTA writes files byte-equal to phase 4's;
+     9b. the positions file's edition (ProcessedReference(positions=))
+         equals phase 5's motif edition sequence for sequence, and
+         align_and_write(..., "variants", variants="CT") writes phase 5's
+         files: every column but the C and T probabilities equal, those
+         within TOL_ORDER;
+     each with its stage seconds, events/s, peak device memory and launch
+     counts.
 Each kernel's line carries its bound: the larger of the bytes it must
 move over the HBM rate and its transcendentals over the SFU rate, with
 the serial-diagonal floor (longest problem's diagonals times the measured
@@ -132,6 +148,10 @@ TOL_EDGE = 1e-4         # survivors may differ only this close to threshold
 # otherwise, and the log terms of a posterior reach ~2^10 nats on these
 # reads, where an f32 ulp is 1.2e-4; 1e-3 is 8 such ulps
 TOL_PATH = 1e-3
+# a site's posterior sum is a float32 index_add_ on the card, whose atomics
+# add its cells' posteriors (each <= 1) in no fixed order: two runs differ
+# by a few float32 roundings of sums <= ~100, under 1e-5
+TOL_ORDER = 1e-5
 SEED_MODEL, SEED_READS = 0, 1
 AMB = {"Y": "CT"}
 AMB_HDP = {"P": "CE"}
@@ -287,6 +307,39 @@ def compare_calls(a, b):
           == list(zip(b["strand"], b["position"])), "site rows differ")
     return float(np.abs(a["C"].to_numpy() - b["C"].to_numpy()).max()) \
         if len(a) else 0.0
+
+
+def same_files(got, want):
+    """How many of two runs' written files (the same names, in order) are
+    equal byte for byte."""
+    check([os.path.basename(p) for p in got]
+          == [os.path.basename(p) for p in want],
+          f"file names differ: {len(got)} files against {len(want)}")
+    n = 0
+    for a, b in zip(got, want):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            n += fa.read() == fb.read()
+    return n
+
+
+def compare_variant_files(got, want):
+    """(files equal byte for byte, max |d p| of the C and T columns) of two
+    runs' variants files; every other column must be equal."""
+    import pandas as pd
+    n_same = same_files(got, want)
+    worst = 0.0
+    for a, b in zip(got, want):
+        ga, wb = pd.read_csv(a, sep="\t"), pd.read_csv(b, sep="\t")
+        check(list(ga.columns) == list(wb.columns) and len(ga) == len(wb),
+              f"{os.path.basename(a)}: columns or rows differ")
+        for c in ga.columns:
+            if c in ("C", "T"):
+                if len(ga):
+                    worst = max(worst, float(np.abs(ga[c] - wb[c]).max()))
+            else:
+                check(ga[c].tolist() == wb[c].tolist(),
+                      f"{os.path.basename(a)}: column {c} differs")
+    return n_same, worst
 
 
 def kernels_vs_twins(hk, bfb, pt, threshold, R, reps=5):
@@ -985,6 +1038,11 @@ def main():
                                                        write_genome_fasta)
     from signalalign_tpu_torch.io.reference import ProcessedReference
     from signalalign_tpu_torch.pipeline.runner import prepare_read
+    from signalalign_tpu_torch.io.guide import guide_from_sam_record
+    from signalalign_tpu_torch.io.reference import AmbiguityPositions
+    from signalalign_tpu_torch.io.sam import passes_filter, read_alignment_file
+    from signalalign_tpu_torch.pipeline.runner import align_and_write
+    from signalalign_tpu_torch.utils.synthetic import write_synthetic_run
     check("jax" not in sys.modules and "signalalign_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
 
@@ -1141,6 +1199,7 @@ def main():
             f"start {mem4 / 2**30:.2f} GiB)")
         log(f"[main] launches {launches}")
         main_results, t_main, main_stages = results, t_align, stages
+        main_written = written
 
         phase_mark("5")
         # ---- 5. site-mode methylation calling at a realistic size
@@ -1193,6 +1252,7 @@ def main():
             f"{n_events / stages['kernels']:.0f} events/s; "
             f"peak device memory {peak / 2**30:.2f} GiB")
         log(f"[sites] launches {site_launches}")
+        sites_written = written
 
         phase_mark("3c")
         # ---- 3c. P > 1 kernels against their twins on the card, on the
@@ -1902,6 +1962,99 @@ def main():
             f"{tot8[3]:.3f} ms")
         del buckets4, main_results, rec4
 
+        phase_mark("9a")
+        # ---- 9a. `run` from its files but the fast5s (no h5py on this
+        # host): SAM, filter, guides, the written FASTA, align_and_write
+        t0 = time.perf_counter()
+        files = write_synthetic_run(rgs, os.path.join(tmp, "run9"),
+                                    os.path.join(tmp, "genome.fa"),
+                                    motifs=[("CG", "YG")], fast5=False)
+        t_files = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        records = list(read_alignment_file(files["sam"])[1])
+        kept = [rec for rec in records if passes_filter(rec)]
+        check(len(records) == len(rgs) + 3 and [rec.qname for rec in kept]
+              == [read.read_label for read, _ in rgs],
+              f"{len(kept)} of {len(records)} SAM records pass the filter")
+        rgs9 = []
+        for (read, guide), rec in zip(rgs, kept):
+            g = guide_from_sam_record(rec)
+            check(g is not None and g.validate(read.read_length)
+                  and g == guide, f"{rec.qname}: guide from the SAM {g} "
+                  f"differs from {guide}")
+            rgs9.append((read, g))
+        ref9 = ProcessedReference(files["fasta"])
+        t_inputs = time.perf_counter() - t0
+        check(ref9.forward == reference.forward
+              and ref9.backward == reference.backward,
+              "the written FASTA's reference differs from phase 4's")
+        hk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        t0 = time.perf_counter()
+        written9 = align_and_write(rgs9, ref9, model, os.path.join(tmp, "out9"),
+                                   AlignmentConfig(), output_format="both",
+                                   device=dev, stage_seconds=stages)
+        t9 = time.perf_counter() - t0
+        files_launches = {
+            "sa_fwd_sweep": hk.forward_sweep.launches,
+            "sa_bwd_sweep_compact": hk.backward_sweep_compact.launches}
+        peak = torch.cuda.max_memory_allocated()
+        n_same = same_files(written9, main_written)
+        check(n_same == len(main_written),
+              f"{len(main_written) - n_same} of {len(main_written)} files "
+              "differ from phase 4's")
+        check(all(files_launches.values()),
+              f"a kernel was not launched from the files: {files_launches}")
+        log(f"[files] {len(records)} SAM records, {len(kept)} kept, "
+            f"{len(rgs9)} guides equal to the in-memory ones; "
+            f"{n_same} of {len(main_written)} files byte-equal to phase 4's")
+        log(f"[files] stages files={t_files:.2f}s sam_guides_fasta="
+            f"{t_inputs:.2f}s " + " ".join(
+                f"{s_}={v:.2f}s" for s_, v in stages.items()))
+        log(f"[files] align_and_write {t9:.2f} s: {n_events / t9:.0f} "
+            f"events/s, from the files {n_events / (t9 + t_inputs):.0f} "
+            f"events/s; peak device memory {peak / 2**30:.2f} GiB")
+        log(f"[files] launches {files_launches}")
+
+        phase_mark("9b")
+        # ---- 9b. the positions file's edition and site calling from it
+        t0 = time.perf_counter()
+        pos9 = AmbiguityPositions.from_file(files["positions"])
+        ref9b = ProcessedReference(files["fasta"], positions=pos9)
+        t_pos = time.perf_counter() - t0
+        check(ref9b.forward == amb_ref.forward
+              and ref9b.backward == amb_ref.backward,
+              "the positions file's edition differs from phase 5's motif "
+              "edition")
+        hk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        t0 = time.perf_counter()
+        written9b = align_and_write(
+            rgs9, ref9b, model, os.path.join(tmp, "variants9"),
+            AlignmentConfig(), output_format="variants", variants="CT",
+            device=dev, stage_seconds=stages)
+        t9b = time.perf_counter() - t0
+        positions_launches = {
+            "sa_fwd_sweep": hk.forward_sweep.launches,
+            "sa_bwd_sweep_compact": hk.backward_sweep_compact.launches}
+        peak = torch.cuda.max_memory_allocated()
+        n_same, worst9 = compare_variant_files(written9b, sites_written)
+        check(worst9 <= TOL_ORDER, f"variants probabilities differ from "
+              f"phase 5's by {worst9} (tol {TOL_ORDER})")
+        check(all(positions_launches.values()), "a kernel was not launched "
+              f"from the positions file: {positions_launches}")
+        log(f"[positions] {len(pos9.data)} positions rows, edition = "
+            f"phase 5's; {n_same} of "
+            f"{len(sites_written)} variants files byte-equal to phase 5's, "
+            f"C and T within {worst9:.3e} (tol {TOL_ORDER})")
+        log(f"[positions] stages positions_reference={t_pos:.2f}s " + " ".join(
+            f"{s_}={v:.2f}s" for s_, v in stages.items()))
+        log(f"[positions] align_and_write {t9b:.2f} s: {n_events / t9b:.0f} "
+            f"events/s; peak device memory {peak / 2**30:.2f} GiB")
+        log(f"[positions] launches {positions_launches}")
+
     def err(r, name):
         return max(r["tf_err"], r["fdiff"]) if name == "sa_fwd_sweep" \
             else max(r["tb_err"], r["pdiff"])
@@ -1921,12 +2074,13 @@ def main():
         err_pn = max(err(r, name) for r in paths_rows.values())
         err_hdp = max(err(r, name) for r in hdp_rows.values())
         by_phase = {"4": launches[name], "5": site_launches[name],
-                    "6": hdp_launches[name]}
+                    "6": hdp_launches[name], "9a": files_launches[name],
+                    "9b": positions_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "signalalign_tpu_torch/csrc/banded_fb.cu", "replaces": src,
-            # the three main-path runs (phases 4, 5 and 6c), each counted
-            # from 0
+            # the main-path runs (phases 4, 5, 6c, 9a and 9b), each
+            # counted from 0
             "launches": sum(by_phase.values()),
             "max_abs_err": max(err(p1, name), err_pn, err_hdp),
             "ms": p1[ms + "ms"], "plain_ms": p1[ms + "plain_ms"],

@@ -1,5 +1,6 @@
-"""Multi-read signal alignment in the port: the Gaussian (MODE_MEAN_ONLY)
-and HDP (MODE_HDP) branches of
+"""Multi-read signal alignment in the port: ``run_signal_align`` (the CLI's
+``run``: fast5, SAM/BAM, readdb and positions files in, TSVs out) and the
+Gaussian (MODE_MEAN_ONLY) and HDP (MODE_HDP) branches of
 ``signalalign_tpu.pipeline.runner.run_alignment_batch`` for segments of
 any number of paths per cell, with pair output, site-mode
 variant/methylation calling, or (P = 1) the EM expectation pass.
@@ -30,14 +31,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from signalalign_tpu_torch.io.fast5 import Fast5, import_h5py
 from signalalign_tpu_torch.io.guide import (GuideAlignment,
-                                            adjust_reference_coordinate)
+                                            adjust_reference_coordinate,
+                                            guide_from_sam_record)
 from signalalign_tpu_torch.io.output import (posterior_score,
                                              write_assignments_tsv,
                                              write_full_tsv, write_vc_tsv)
 from signalalign_tpu_torch.io.read import NanoporeReadData
 from signalalign_tpu_torch.convert import hdp_tables
 from signalalign_tpu_torch.io.reference import ProcessedReference
+from signalalign_tpu_torch.io.sam import filter_reads
 from signalalign_tpu_torch.models.hdp_model import NanoporeHDP
 from signalalign_tpu_torch.models.pore_model import PoreModel
 from signalalign_tpu_torch.ops import banded_fb as bfb
@@ -536,3 +540,167 @@ def write_outputs(results: Sequence[ReadAlignment], model: PoreModel,
             else pd.DataFrame(), variants).to_csv(path, sep="\t", index=False)
         written.append(path)
     return written
+
+
+def align_and_write(
+    reads_and_guides: Sequence[Tuple[NanoporeReadData, GuideAlignment]],
+    reference: ProcessedReference,
+    model: PoreModel,
+    output_dir: str,
+    config: Optional[AlignmentConfig] = None,
+    *,
+    output_format: str = "full",
+    variants: Optional[str] = None,
+    hdp: Optional[NanoporeHDP] = None,
+    device: torch.device = torch.device("cuda"),
+    verbose: bool = False,
+    stage_seconds: Optional[Dict[str, float]] = None,
+) -> List[str]:
+    """The alignment half of ``run_signal_align``: ``run_alignment_batch``
+    on ``device``, then ``write_outputs``. Returns the written files.
+
+    ``output_format="variants"`` runs site-mode calling with the candidate
+    bases ``variants`` (e.g. "CT"), derived from ``config.ambig_map`` when
+    that offers one set only. ``stage_seconds`` receives the runner's
+    stages and "write".
+    """
+    config = config or AlignmentConfig()
+    call_variants = None
+    if output_format == "variants":
+        if variants is None:
+            opts = {v for v in config.ambig_map.values()}
+            if len(opts) != 1:
+                raise ValueError(
+                    "output_format='variants' needs an explicit "
+                    f"variants= candidate set (ambig_map offers {opts})")
+            variants = opts.pop()
+        call_variants = variants
+    t0 = time.perf_counter()
+    results = run_alignment_batch(reads_and_guides, reference, model, config,
+                                  hdp, device=device,
+                                  call_variants=call_variants,
+                                  verbose=verbose, stage_seconds=stage_seconds)
+    if verbose:
+        n_events = sum(r.events.shape[0] for r in results)
+        print(f"[runner] aligned {len(results)} reads ({n_events} events) "
+              f"in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+        for r in results:
+            # per-read summary (signalMachine.c:917-923 format)
+            print(f"[runner] {r.read_label} "
+                  f"{len(r.aligned_pairs)}({r.score:.6f})", file=sys.stderr)
+    t0 = time.perf_counter()
+    written = write_outputs(results, model, output_dir, output_format,
+                            variants=variants)
+    if stage_seconds is not None:
+        stage_seconds["write"] = time.perf_counter() - t0
+    return written
+
+
+def run_signal_align(
+    alignment_file: str,
+    readdb: Optional[str],
+    fast5_dirs: Sequence[str],
+    reference_fasta: str,
+    model: PoreModel,
+    output_dir: str,
+    config: Optional[AlignmentConfig] = None,
+    output_format: str = "full",
+    positions=None,
+    motifs=None,
+    hdp: Optional[NanoporeHDP] = None,
+    max_reads: Optional[int] = None,
+    quality_threshold: float = 7.0,
+    verbose: bool = True,
+    embed: bool = False,
+    overwrite: bool = True,
+    force_kmer_event_alignment: bool = False,
+    target_regions=None,
+    distributed: bool = False,
+    variants: Optional[str] = None,
+    device: torch.device = torch.device("cuda"),
+) -> List[str]:
+    """Full CLI-equivalent run, the JAX ``run_signal_align``: filter reads
+    (primary, mapped, SAM quality) -> ``NanoporeReadData.from_fast5`` ->
+    guide from the SAM/BAM record -> ``align_and_write`` on ``device``.
+    Returns the written files.
+
+    ``positions`` (an ``AmbiguityPositions``) and ``motifs`` edit the
+    reference; ``max_reads`` keeps the first reads that pass the filter;
+    ``overwrite=False`` skips reads whose outputs exist; a read whose
+    guide is invalid or outside ``target_regions`` is skipped with its
+    message. The ambiguity map is ``config.ambig_map``. Without h5py it
+    raises ImportError before any file is read.
+
+    Not ported yet, each raising ``NotImplementedError`` that names its
+    ROADMAP item: ``distributed=True`` (several hosts or GPUs, §1 item 5),
+    ``embed=True`` and ``force_kmer_event_alignment=True`` (§1 item 4),
+    and a fast5 without a usable event table (the JAX package aligns its
+    raw signal, §1 item 4): that error reaches the caller, where other
+    faults of a read only skip the read.
+    """
+    if distributed:
+        raise NotImplementedError(
+            "run_signal_align(distributed=True): sharding reads over hosts "
+            "or GPUs is not ported yet (ROADMAP §1 item 5)")
+    if embed:
+        raise NotImplementedError(
+            "run_signal_align(embed=True): writing alignments into fast5 "
+            "files is not ported yet (ROADMAP §1 item 4)")
+    if force_kmer_event_alignment:
+        raise NotImplementedError(
+            "run_signal_align(force_kmer_event_alignment=True): kmer-event "
+            "alignment from raw signal is not ported yet (ROADMAP §1 item 4)")
+    import_h5py()
+    config = config or AlignmentConfig()
+    reference = ProcessedReference(reference_fasta, positions=positions,
+                                   motifs=motifs)
+    pairs = filter_reads(alignment_file, readdb, list(fast5_dirs),
+                         quality_threshold=quality_threshold)
+    if max_reads:
+        pairs = pairs[:max_reads]
+    if not overwrite:
+        # rerun-resume: skip reads whose outputs already exist (the
+        # reference's check_for_temp_file_existance behavior,
+        # signalAlignment.py:250-260). The skip key is the read_label that
+        # names the outputs (the fast5 read id), matched against exact
+        # file names: a prefix glob would match labels that prefix others.
+        def _done(f5_path, rec):
+            try:
+                with Fast5(f5_path) as f5:
+                    label = f5.read_id or f5_path
+            except Exception:
+                label = rec.qname
+            return any(os.path.exists(os.path.join(output_dir,
+                                                   f"{label}.sm.{sfx}.tsv"))
+                       for sfx in ("forward", "backward", "vc",
+                                   "assignments"))
+        pairs = [(f5, rec) for f5, rec in pairs if not _done(f5, rec)]
+
+    rgs = []
+    for f5, rec in pairs:
+        try:
+            try:
+                read = NanoporeReadData.from_fast5(
+                    f5, quality_threshold=quality_threshold)
+            except ValueError as exc:
+                if "no basecall events" not in str(exc) and \
+                        "index-scale" not in str(exc):
+                    raise
+                raise NotImplementedError(
+                    f"{f5}: no usable event table; kmer-event alignment "
+                    "from raw signal is not ported yet (ROADMAP §1 item 4)"
+                ) from exc
+            guide = guide_from_sam_record(rec)
+            if guide is None or not guide.validate(read.read_length):
+                raise ValueError("invalid guide alignment")
+            if target_regions is not None and not target_regions.accepts(guide):
+                raise ValueError("alignment outside target regions")
+            rgs.append((read, guide))
+        except NotImplementedError:
+            raise
+        except Exception as exc:
+            if verbose:
+                print(f"[runner] skipping {f5}: {exc}", file=sys.stderr)
+    return align_and_write(rgs, reference, model, output_dir, config,
+                           output_format=output_format, variants=variants,
+                           hdp=hdp, device=device, verbose=verbose)

@@ -59,6 +59,22 @@ DEFAULT_AMBIG_BASES: Dict[str, str] = {
 }
 
 
+def load_ambig_map(path: str | None) -> Dict[str, str]:
+    """Load a two-column (code, substitution-bases) TSV; None -> defaults.
+
+    reference: impl/pairwiseAligner.c:68-92 (create_ambig_bases2)
+    """
+    if path is None:
+        return dict(DEFAULT_AMBIG_BASES)
+    out: Dict[str, str] = {}
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) >= 2:
+                out[parts[0]] = parts[1]
+    return out
+
+
 class Alphabet:
     """A model alphabet with k-mer to rank conversions.
 
@@ -158,3 +174,19 @@ _IUPAC_COMPLEMENT = str.maketrans(
 
 def reverse_complement(seq: str) -> str:
     return seq.translate(_IUPAC_COMPLEMENT)[::-1]
+
+
+def load_ambig_model(path: str) -> dict:
+    """Custom ambiguity-expansion table from a 2-column tsv
+    (code \t expansion-bases), replacing the built-in table.
+
+    reference: create_ambig_bases2 (impl/pairwiseAligner.c:68-92) /
+    CustomAmbiguityPositions.parse_ambig_model (sequenceTools.py:563-584).
+    """
+    table = dict(DEFAULT_AMBIG_BASES)
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) >= 2:
+                table[parts[0]] = parts[1]
+    return table

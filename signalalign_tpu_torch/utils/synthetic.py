@@ -17,21 +17,28 @@ width classes) has a real flowcell's diversity:
 k-mers, and ``write_nhdp_text`` writes a small one as an ``.nhdp`` file
 that both packages' ``load_nhdp`` read. ``outlier_segments`` makes
 segments whose range exhausts the probability-space DP's f32 window.
+``write_synthetic_run`` writes reads held in memory as the files the
+CLI's ``run`` reads: fast5 files, a readdb, a SAM file, the FASTA, a
+positions file and the pore model.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import tempfile
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from signalalign_tpu_torch.io.fast5 import BASECALL_EVENT_COLUMNS, import_h5py
 from signalalign_tpu_torch.io.guide import GuideAlignment
 from signalalign_tpu_torch.io.read import NanoporeReadData
-from signalalign_tpu_torch.io.reference import ProcessedReference
+from signalalign_tpu_torch.io.reference import (ProcessedReference, iter_fasta,
+                                                make_positions_file)
 from signalalign_tpu_torch.models.hdp_model import NanoporeHDP
 from signalalign_tpu_torch.models.pore_model import PoreModel, ScalingParams
+from signalalign_tpu_torch.utils.alphabet import reverse_complement
 
 BASES = "ACGT"
 # synthetic_hdp's heavy tail: weight and sd (pA) of its broad component
@@ -239,6 +246,166 @@ def build_synthetic_batch(model: PoreModel, n_reads: int = 100,
                                      label=f"synth{ri}", stay_p=stay_p)
         (ambig_rgs if ri < n_ambig else rgs).append((read, guide))
     return rgs, reference, ambig_rgs, ambig_reference, fasta_path
+
+
+# sampling rate (Hz) behind the raw_start / raw_length columns of written
+# event tables
+SAMPLE_RATE = 4000.0
+
+
+def _fastq_qualities(rng: np.random.Generator, n: int, low: bool) -> str:
+    """Phred+33 qualities: 8-30 per base, or 2-5 for a low-quality read."""
+    lo, hi = (2, 6) if low else (8, 31)
+    return "".join(chr(33 + q) for q in rng.integers(lo, hi, n))
+
+
+def _basecall_events(read: NanoporeReadData) -> np.ndarray:
+    """``read``'s events as a basecaller's event table
+    (``BASECALL_EVENT_COLUMNS``). Each k-mer's events are those from its
+    ``event_map`` entry to the next k-mer's: the first carries move 1
+    (0 for the read's first event) and p_model_state 1, its stays move 0
+    and p_model_state 0, so ``make_event_map`` keeps each k-mer's first
+    event (a constant p_model_state would move k-mer 0's entry to its
+    second event). It pads the trailing k - 1 bases with the last k-mer's
+    first event, where ``synthetic_read`` maps them to the read's last
+    event: the two maps differ there when the last k-mer has stays."""
+    k = read.kmer_length
+    n_kmers = read.read_length - k + 1
+    starts = np.asarray(read.event_map[:n_kmers], dtype=np.int64)
+    n = read.n_events
+    first = np.zeros(n, bool)
+    first[starts] = True
+    kmer_of = np.cumsum(first) - 1
+    table = np.zeros(n, dtype=BASECALL_EVENT_COLUMNS)
+    table["start"] = read.events[:, 3]
+    table["length"] = read.events[:, 2]
+    table["mean"] = read.events[:, 0]
+    table["stdv"] = read.events[:, 1]
+    table["model_state"] = [read.template_read[j:j + k].encode()
+                            for j in kmer_of]
+    table["move"] = first.astype(np.int32)
+    table["move"][0] = 0
+    table["raw_start"] = np.rint(read.events[:, 3] * SAMPLE_RATE)
+    table["raw_length"] = np.rint(read.events[:, 2] * SAMPLE_RATE)
+    table["p_model_state"] = first.astype(np.float64)
+    return table
+
+
+def _write_fast5(path: str, read_id: str, read_number: int,
+                 events: np.ndarray, fastq: str) -> None:
+    """One read in the layout ``io.fast5.Fast5`` reads: the Raw read group
+    with its read_id and the 1D basecall's template Events and Fastq."""
+    h5py = import_h5py()
+    with h5py.File(path, "w") as fh:
+        fh.create_group("UniqueGlobalKey/context_tags").attrs[
+            "experiment_type"] = np.bytes_("genomic_dna")
+        grp = fh.create_group(f"Raw/Reads/Read_{read_number}")
+        grp.attrs["read_id"] = np.bytes_(read_id)
+        grp.attrs["read_number"] = read_number
+        grp.attrs["start_time"] = 0
+        base = "Analyses/Basecall_1D_000/BaseCalled_template"
+        fh.create_dataset(f"{base}/Events", data=events)
+        fh.create_dataset(f"{base}/Fastq", data=np.bytes_(fastq))
+
+
+def _sam_line(qname: str, flag: int, rname: str, pos: int, mapq: int,
+              cigar: str, seq: str, qual: str) -> str:
+    return "\t".join([qname, str(flag), rname, str(pos), str(mapq), cigar,
+                      "*", "0", "0", seq, qual]) + "\n"
+
+
+def _primary_record(read: NanoporeReadData, guide: GuideAlignment,
+                    qual: str) -> str:
+    """The SAM record that ``guide_from_sam_record`` turns back into
+    ``guide``: the read's bases outside the query range soft-clipped and,
+    for a reverse-mapped guide, flag 16 with SEQ reverse-complemented,
+    QUAL reversed and the ops (read orientation) reversed."""
+    head = guide.query_start
+    tail = read.read_length - guide.query_end
+    ops, seq, flag = list(guide.ops), read.template_read, 0
+    if not guide.forward:
+        ops, seq, qual = ops[::-1], reverse_complement(seq), qual[::-1]
+        flag, head, tail = 0x10, tail, head
+    cigar = "".join(f"{n}{op}" for n, op in [(head, "S"), *ops, (tail, "S")]
+                    if n)
+    return _sam_line(read.read_label, flag, guide.contig,
+                     guide.window_start + 1, guide.mapq, cigar, seq, qual)
+
+
+def write_synthetic_run(rgs: Sequence[Tuple[NanoporeReadData, GuideAlignment]],
+                        out_dir: str, fasta_path: str, *,
+                        model: Optional[PoreModel] = None,
+                        motifs: Optional[List[Tuple[str, str]]] = None,
+                        fast5: bool = True) -> Dict[str, str]:
+    """Write reads held in memory (``build_synthetic_batch``) as the inputs
+    of the CLI's ``run``, under ``out_dir``; returns their paths by key:
+
+    * "fasta": a copy of ``fasta_path`` (the reads' genome);
+    * "fast5_dir": one ``<label>.fast5`` per read (``_basecall_events``,
+      and a Fastq with qualities drawn from a fixed seed), when ``fast5``;
+      writing them needs h5py;
+    * "readdb": a read id and its fast5 file name per line;
+    * "sam": ``@SQ`` headers, then each read's primary record
+      (``_primary_record``: forward or reverse-mapped, clipped or not,
+      quality as in its Fastq) and three records
+      ``filter_reads`` drops: a secondary record of the first read, an
+      unmapped read and a read whose mean quality is below 7 (both in the
+      readdb, their fast5 files copies of the first read's);
+    * "positions": a positions file of ``motifs`` (``make_positions_file``,
+      e.g. [("CG", "YG")]), when given;
+    * "model": ``model`` in the .model format, when given.
+    """
+    out_dir = os.path.abspath(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(0)
+    paths = {"fasta": os.path.join(out_dir, "reference.fa"),
+             "fast5_dir": os.path.join(out_dir, "fast5"),
+             "readdb": os.path.join(out_dir, "reads.readdb"),
+             "sam": os.path.join(out_dir, "reads.sam")}
+    shutil.copyfile(fasta_path, paths["fasta"])
+    os.makedirs(paths["fast5_dir"], exist_ok=True)
+    label0 = rgs[0][0].read_label
+    decoys = {"unmapped": f"{label0}_unmapped", "lowq": f"{label0}_lowq"}
+    records, fastqs = [], {}
+    for i, (read, guide) in enumerate(rgs):
+        qual = _fastq_qualities(rng, read.read_length, low=False)
+        fastqs[read.read_label] = (i, read, qual)
+        records.append(_primary_record(read, guide, qual))
+    read0, guide0 = rgs[0]
+    n0 = read0.read_length
+    records.insert(1, _sam_line(label0, 0x100, guide0.contig,
+                                guide0.window_start + 1, 0, f"{n0}M",
+                                read0.template_read,
+                                fastqs[label0][2]))
+    records.append(_sam_line(decoys["unmapped"], 0x4, "*", 0, 0, "*",
+                             read0.template_read, fastqs[label0][2]))
+    low = _fastq_qualities(rng, n0, low=True)
+    records.append(_sam_line(decoys["lowq"], 0, guide0.contig,
+                             guide0.window_start + 1, guide0.mapq,
+                             "".join(f"{n}{op}" for n, op in guide0.ops),
+                             read0.template_read, low))
+    fastqs[decoys["unmapped"]] = (len(rgs), read0, fastqs[label0][2])
+    fastqs[decoys["lowq"]] = (len(rgs) + 1, read0, low)
+    with open(paths["sam"], "w") as fh:
+        fh.write("@HD\tVN:1.6\tSO:unsorted\n")
+        for name, seq in iter_fasta(paths["fasta"]):
+            fh.write(f"@SQ\tSN:{name}\tLN:{len(seq)}\n")
+        fh.writelines(records)
+    with open(paths["readdb"], "w") as fh:
+        for label in fastqs:
+            fh.write(f"{label}\t{label}.fast5\n")
+    if fast5:
+        for label, (i, read, qual) in fastqs.items():
+            fastq = f"@{label}\n{read.template_read}\n+\n{qual}\n"
+            _write_fast5(os.path.join(paths["fast5_dir"], f"{label}.fast5"),
+                         label, i, _basecall_events(read), fastq)
+    if motifs:
+        paths["positions"] = make_positions_file(
+            paths["fasta"], os.path.join(out_dir, "positions.tsv"), motifs)
+    if model is not None:
+        paths["model"] = os.path.join(out_dir, "template.model")
+        model.write(paths["model"])
+    return paths
 
 
 def outlier_segments(model: PoreModel) -> List[Tuple[str, np.ndarray]]:

@@ -1,6 +1,9 @@
 """The PyTorch port imports nothing of the JAX package and never imports
 jax: with ``signalalign_tpu``, jax and h5py blocked it imports and aligns a
-read on the CPU; where jax is installed importing the port leaves it out of
+read on the CPU, every module of it imports (the CLI and the fast5, SAM
+and runner modules among them) and opening a fast5 raises ImportError
+naming h5py, as the CLI's ``run`` and a readdb built from fast5 files do
+with h5py blocked; where jax is installed importing the port leaves it out of
 sys.modules; and no source file of the port has an import line naming the
 JAX package."""
 
@@ -10,6 +13,8 @@ import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,6 +60,63 @@ def test_port_aligns_with_jax_and_h5py_blocked(tmp_path):
     assert "pairs" in out
 
 
+def test_every_module_imports_with_jax_and_h5py_blocked(tmp_path):
+    """Every module of the port imports with signalalign_tpu, jax and h5py
+    blocked, and Fast5(path) then raises ImportError naming h5py."""
+    out = _run(f"""
+        import importlib, pkgutil, sys
+        sys.modules["signalalign_tpu"] = None
+        sys.modules["jax"] = None
+        sys.modules["h5py"] = None
+        import signalalign_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            signalalign_tpu_torch.__path__, "signalalign_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        for name in ("cli", "io.fast5", "io.sam", "pipeline.runner"):
+            assert "signalalign_tpu_torch." + name in names, name
+        from signalalign_tpu_torch.io.fast5 import Fast5
+        try:
+            Fast5({str(tmp_path / "x.fast5")!r})
+        except ImportError as exc:
+            assert "h5py" in str(exc), exc
+        else:
+            raise AssertionError("Fast5 opened a file without h5py")
+        print(len(names), "modules")
+    """)
+    assert "modules" in out
+
+
+def test_run_raises_naming_h5py_when_it_is_blocked(tmp_path, monkeypatch):
+    """With h5py blocked, the CLI's ``run`` on written SAM, readdb, FASTA
+    and model files raises ImportError naming h5py before it writes
+    anything (no read is skipped as bad), and so does ``filter_reads``
+    where it builds the readdb from the fast5 files."""
+    from signalalign_tpu_torch import cli
+    from signalalign_tpu_torch.io.sam import filter_reads
+    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                       synthetic_pore_model,
+                                                       write_synthetic_run)
+    model = synthetic_pore_model(0)
+    rgs, _, _, _, fasta = build_synthetic_batch(
+        model, n_reads=1, ev_min=300, ev_max=400, seed=2, genome_len=5000,
+        fasta_path=str(tmp_path / "g.fa"))
+    files = write_synthetic_run(rgs, str(tmp_path / "in"), fasta,
+                                model=model, fast5=False)
+    label = rgs[0][0].read_label
+    open(os.path.join(files["fast5_dir"], f"{label}.fast5"), "w").close()
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    out = tmp_path / "out"
+    with pytest.raises(ImportError, match="h5py"):
+        cli.main(["run", "--alignment_file", files["sam"], "--readdb",
+                  files["readdb"], "--fast5_dir", files["fast5_dir"],
+                  "--ref", files["fasta"], "--model", files["model"],
+                  "--output_dir", str(out), "--device", "cpu"])
+    assert not out.exists()
+    with pytest.raises(ImportError, match="h5py"):
+        filter_reads(files["sam"], None, [files["fast5_dir"]])
+
+
 def test_importing_the_port_leaves_jax_out():
     out = _run("""
         import sys
@@ -81,6 +143,8 @@ def test_no_source_file_imports_the_jax_package():
     for base, _, names in os.walk(os.path.join(ROOT, "signalalign_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    for name in ("cli.py", "io/fast5.py", "io/sam.py", "pipeline/runner.py"):
+        assert os.path.join(ROOT, "signalalign_tpu_torch", name) in files
     bad = []
     for path in files:
         with open(path) as fh:
