@@ -107,6 +107,32 @@ Phases (any failure stops the run with a non-zero exit):
          within TOL_ORDER;
      each with its stage seconds, events/s, peak device memory and launch
      counts.
+  10. training: the CLI train's steps from its files but the fast5 decode
+     (pipeline.train.train_models, as cmd_train calls it), on phase 6's
+     6-mer ACEGOT model with its 5-mC k-mers moved 3 pA above their C
+     k-mers (methylated_pore_model) and phase 6's read sizes: 96 reads
+     drawn twice from one genome, with canonical events and with the
+     events of the CG -> EG edition, their SAM and FASTA with C:
+     10a. the expectation pass at P > 1 (and at P = 1 past 2,048 cells)
+          against the twins, timed by CUDA events beside its bound and the
+          plain instances on the same problems: phase 5's W = 256 classes
+          of P = 2, 4 and 8, 3c's two P = 1 segments at W = 2304 and its
+          wide P = 64 and P = 16 W = 768 segments;
+     10b. one iteration of transitions EM over a canonical sample (32
+          reads) and a sample whose reference is the CG -> XG edition (32
+          reads: P = 4, 16 and 64 buckets): finite likelihood, transition
+          rows summing to 1, the checkpoint and expectations file round
+          trip, launches of the P > 2 instances' expectation pass;
+     10c. hdp_emissions over the canonical sample and an mC sample (32
+          reads, motifs CG -> EG): buildAlignment.tsv, the Gibbs trainer
+          on a 1,200-point grid (GIBBS_10C), template.nhdp, which loads
+          with more than 10 E-k-mers observed;
+     10d. HDP calling (C against E on the CG -> PG edition, phase 6c's
+          path) with that .nhdp on 16 held-out reads of each sample:
+          totals above -1e29, the mC reads' mean p_E above the canonical
+          reads';
+     each with its stage seconds, events/s, peak device memory and launch
+     counts.
 Each kernel's line carries its bound: the larger of the bytes it must
 move over the HBM rate and its transcendentals over the SFU rate, with
 the serial-diagonal floor (longest problem's diagonals times the measured
@@ -184,6 +210,14 @@ SEED_WIDE = 12          # 3c's wide P = 1 segments
 WIDE_P1_W = 2304        # their bucket width: past the per-pair instances
 SEED_X64 = 13           # 3c's P = 64 read
 SEED_WIDE16 = 14        # 3c's P = 16 segment at W = 768
+SEED_TRAIN = 15         # phase 10's reads
+# phase 10c's Gibbs schedule: the CLI's defaults (burn-in multiplier 32,
+# thinning 100) but 15 samples, not 1000, so that 10c fits about 120 s.
+# Each sample evaluates every observed k-mer's density on the 1,200-point
+# grid and adds the whole 46,657 x 1,200 table (seconds a sample on one
+# core), where a burn-in update takes microseconds (tens of seconds for
+# the ~450,000 rows of 10c at 32 updates a row)
+GIBBS_10C = {"gibbs_samples": 15, "burnin_multiplier": 32, "thinning": 100}
 EM_SEGMENT_DIAGONALS = 3200   # em_train's segment cap
 # H100 SXM peaks for the bounds: HBM bytes per second, and transcendental
 # results per second (16 special-function results per clock per SM, 132
@@ -530,8 +564,11 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     counted at every P > 1, whichever instance the P is dispatched to.
     ``expect``: the expectation instances, which write (and
     read at in-band cells) three states per diagonal, compute seven more
-    exponentials per in-band cell and write texp (B, 7) and kx (B, 3,
-    reflen) in float64. ``prob``: the probability-space kernels (P = 1),
+    exponentials per in-band cell (the transitions out of a source cell,
+    through its to-cell reductions) and write texp (B, 7) and kx (B, 3,
+    P, reflen) in float64; at P > 1 with Gaussian emissions also each
+    target's into-match posterior, a logsumexp over its legal source
+    paths. ``prob``: the probability-space kernels (P = 1),
     which read three reference rows, the two exp-constant rows, the
     best-case event row and a second pack and no legality masks, and
     spend two exponentials and a logarithm per in-band cell forward, and
@@ -594,12 +631,16 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     bwd_bytes = in_bytes + states * cells * P * 4 + rows * 8 + 2 * B * D1 * 4 \
         + B * 4 + n_surv * 8
     if expect:
-        bwd_bytes += B * 7 * 8 + 3 * ref_cols * 8      # texp, kx
+        bwd_bytes += B * 7 * 8 + 3 * P * ref_cols * 8  # texp, kx
     cp = cells * P
     # the two logsumexps over legal paths of each cell (none at P = 1)
     fwd_ops = cp * 8 + 2 * sum(lse[0]) + (cp if hdp else 0)
     bwd_ops = cp * 9 + 2 * sum(lse[1]) + (2 * cp if hdp else 0) \
         + (7 * cp if expect else 0)
+    if expect and P > 1 and not hdp:
+        # a target's into-match posterior over its legal source paths: a
+        # logsumexp of their terms and one exponential
+        bwd_ops += lse[1][0] + 2 * cp
     names = ("sa_fwd_sweep", "sa_bwd_sweep_compact")
     if prob:
         fwd_ops, bwd_ops = 3 * cp, 4 * cp
@@ -779,13 +820,32 @@ def log_kernel_sums(tag, by_wp, wall_s):
         f"wall time (sums of CUDA-event times, not a trace)")
 
 
+class prob_prep:
+    """Within ``with``, host preps run as with the probability-space switch
+    set: their Gaussian problems carry the event normaliser those sweeps
+    read (``prepare_problem(event_best=)``, which the runner sets from the
+    switch), so that timing code may run either kind of sweep on them."""
+
+    def __enter__(self):
+        from signalalign_tpu_torch.pipeline.runner import PROB_SWITCH
+        self.key, self.old = PROB_SWITCH, os.environ.get(PROB_SWITCH)
+        os.environ[PROB_SWITCH] = "1"
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ[self.key]
+        else:
+            os.environ[self.key] = self.old
+
+
 def prepare_all(rgs, reference, model, config, hdp=None):
     """[(W, Dpad, P, problem)] of every segment of every read, in read
-    order: the host prep of run_alignment_batch, on as many threads."""
+    order: the host prep of run_alignment_batch, on as many threads (with
+    the probability-space event normaliser, ``prob_prep``)."""
     from signalalign_tpu_torch.pipeline.runner import prepare_read
     nw = min(8, max(2, (os.cpu_count() or 4) - 2))
     extra = () if hdp is None else (hdp,)    # as in kernel_sums
-    with ThreadPoolExecutor(max_workers=nw) as ex:
+    with prob_prep(), ThreadPoolExecutor(max_workers=nw) as ex:
         preps = list(ex.map(lambda rg: prepare_read(
             rg[0], rg[1], reference, model, config, *extra), rgs))
     return [(W, Dpad, P, prob) for prep in preps
@@ -794,15 +854,17 @@ def prepare_all(rgs, reference, model, config, hdp=None):
 
 def long_p1_problems(rgs, reference, model, config):
     """Phase 3a's problems: the batch's first eight W=256 P=1 problems of
-    3,500 or more diagonals (about 4k), in read order."""
+    3,500 or more diagonals (about 4k), in read order (with the
+    probability-space event normaliser, ``prob_prep``)."""
     from signalalign_tpu_torch.pipeline.runner import prepare_read
     picked = []
-    for read, guide in rgs:
-        segs = prepare_read(read, guide, reference, model, config)[4]
-        picked += [p for _, p, W, Dpad, _ in segs
-                   if W == 256 and Dpad == 4096 and p.n_diag >= 3500]
-        if len(picked) >= 8:
-            break
+    with prob_prep():
+        for read, guide in rgs:
+            segs = prepare_read(read, guide, reference, model, config)[4]
+            picked += [p for _, p, W, Dpad, _ in segs
+                       if W == 256 and Dpad == 4096 and p.n_diag >= 3500]
+            if len(picked) >= 8:
+                break
     check(len(picked) >= 8, "batch has fewer than 8 W=256 ~4k-diagonal problems")
     return picked[:8]
 
@@ -851,7 +913,8 @@ def kernel_sums_of_tree(tree):
     problems (mean of 5 launches after two warm-up calls; the plain,
     expectation and probability-space instances) and on every bucket of
     phases 4 (plain and expectation instances; the probability-space pair
-    on W <= 512), 5 (Gaussian), 6 (HDP) and 7c (expectation instances),
+    on W <= 512), 5 (Gaussian, plain and expectation instances), 6 (HDP)
+    and 7c (expectation instances),
     one launch each, summed as in 5b and by (W, P) class. Prints one JSON
     line and no result line. It also times the wide instance (P * W >
     8192) on 3c's P = 64 and P = 16 W = 768 segments. Run it for two
@@ -946,6 +1009,19 @@ def kernel_sums_of_tree(tree):
                     pf, pb = pf + f_ms, pb + b_ms
             out["phase4_prob_fwd_sum_ms"] = pf
             out["phase4_prob_bwd_sum_ms"] = pb
+        if phase == "5":
+            # the expectation pass on phase 5's P > 1 buckets (a tree
+            # whose port refuses them records why)
+            try:
+                by_wp = kernel_sums(hk, bfb, problem_tensors, _stack_chunks,
+                                    buckets, dev, threshold, R, expect=True)
+                out["phase5_expect_fwd_sum_ms"] = sum(
+                    e[1] for e in by_wp.values())
+                out["phase5_expect_bwd_sum_ms"] = sum(
+                    e[2] for e in by_wp.values())
+                out["phase5_expect_by_W_P"] = by_class_json(by_wp)
+            except (NotImplementedError, RuntimeError) as exc:
+                out["phase5_expect"] = f"refused: {exc}"
         del buckets, by_wp
     # the expectation instances on em_train's own buckets (7c: segments of
     # at most EM_SEGMENT_DIAGONALS diagonals)
@@ -961,6 +1037,245 @@ def kernel_sums_of_tree(tree):
     out["phase7c_expect_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
     out["phase7c_by_W_P"] = by_class_json(by_wp)
     log(json.dumps(out))
+
+
+def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
+                 ev_max=50000, genome_len=400_000, gibbs=None):
+    """Phases 10b-10d on ``dev`` (the CPU rehearses them at a small size):
+    the CLI train's steps from its files but the fast5 decode, as
+    ``cmd_train`` calls them (``pipeline.train.train_models``), on
+    ``n_reads`` reads of the 6-mer ACEGOT model with 5-mC levels 3 pA
+    above C's (``methylated_pore_model``), drawn twice from one genome:
+    with canonical events, and with the events of the CG -> EG edition.
+    Of g = n_reads / 6: the canonical sample is canonical reads [0, 2g),
+    the CG -> XG sample [2g, 4g), the mC sample mC reads [3g, 5g), and
+    10d holds out canonical [4g, 5g) and mC [5g, 6g). Returns the EXPECT
+    launches of the P > 2 instances in 10b by kernel."""
+    from signalalign_tpu_torch.io.guide import guide_from_sam_record
+    from signalalign_tpu_torch.io.reference import ProcessedReference
+    from signalalign_tpu_torch.io.sam import passes_filter, read_alignment_file
+    from signalalign_tpu_torch.models.expectations import \
+        ExpectationsAccumulator
+    from signalalign_tpu_torch.models.hdp_model import load_nhdp
+    from signalalign_tpu_torch.models.pore_model import PoreModel
+    from signalalign_tpu_torch.ops import banded_fb as bfb
+    from signalalign_tpu_torch.ops import banded_fb_hopper as hk
+    from signalalign_tpu_torch.pipeline import runner as runner_mod
+    from signalalign_tpu_torch.pipeline.runner import run_alignment_batch
+    from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
+    from signalalign_tpu_torch.pipeline.train import (sample_reference,
+                                                      train_models)
+    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                       methylated_pore_model,
+                                                       synthetic_pore_model,
+                                                       write_synthetic_run)
+    gibbs = gibbs or GIBBS_10C
+    g = n_reads // 6
+    cuda = dev.type == "cuda"
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    phase_mark("10b")
+    # ---- 10b. the CLI train's steps from its files but the fast5s
+    # (train_models, as cmd_train calls it): one iteration of
+    # transitions EM over a canonical sample and a sample whose
+    # reference is the CG -> XG edition (P > 1 buckets), on the 6-mer
+    # ACEGOT model with 5-mC levels a few pA off C's
+    t0 = time.perf_counter()
+    model10 = methylated_pore_model(
+        synthetic_pore_model(SEED_MODEL, alphabet="ACEGOT", k=6))
+    fa10 = os.path.join(tmp, "genome10.fa")
+    can10 = build_synthetic_batch(
+        model10, n_reads=n_reads, ev_min=ev_min, ev_max=ev_max,
+        seed=SEED_TRAIN, genome_len=genome_len, fasta_path=fa10)[0]
+    # the same reads with their events drawn from the CG -> EG edition
+    mc10 = build_synthetic_batch(
+        model10, n_reads=n_reads, ev_min=ev_min, ev_max=ev_max,
+        seed=SEED_TRAIN, genome_len=genome_len, fasta_path=fa10,
+        event_motif=("CG", "EG"))[0]
+    reads10 = {r.read_label: r for r, _ in can10}
+    sample_sets = {"canonical": can10[:2 * g], "x": can10[2 * g:4 * g],
+                   "mc": mc10[3 * g:5 * g]}
+    files10 = {name: write_synthetic_run(
+        rgs_, os.path.join(tmp, f"train_{name}"), fa10, fast5=False)
+        for name, rgs_ in sample_sets.items()}
+    t_files = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reads_by_sample = {}
+    for name, f in files10.items():
+        by_label = (reads10 if name != "mc"
+                    else {r.read_label: r for r, _ in mc10})
+        records = [rec for rec in read_alignment_file(f["sam"])[1]
+                   if passes_filter(rec)]
+        rgs_ = [(by_label[rec.qname], guide_from_sam_record(rec))
+                for rec in records]
+        check([r.read_label for r, _ in rgs_]
+              == [r.read_label for r, _ in sample_sets[name]]
+              and all(gd.validate(r.read_length) for r, gd in rgs_),
+              f"sample {name}: the SAM's reads or guides differ")
+        reads_by_sample[name] = rgs_
+    ref10 = ProcessedReference(files10["canonical"]["fasta"])
+    t_inputs = time.perf_counter() - t0
+
+    def train_steps(cfg, names):
+        samples = [{"name": n, **({"motifs": [["CG", "XG"]]} if n == "x"
+                                  else {"motifs": [["CG", "EG"]]}
+                                  if n == "mc" else {})}
+                   for n in names]
+        srefs = [sample_reference(s, ref10, fa10) for s in samples]
+        by_s = [reads_by_sample[n] for n in names]
+        trip = [(r, gd, srefs[i]) for i, lst in enumerate(by_s)
+                for r, gd in lst]
+        out_dir = os.path.join(tmp, "train_out_" + "_".join(names))
+        stages = {}
+        with Recorder(runner_mod) as rec:
+            out = train_models(cfg, samples, srefs, trip, by_s, ref10,
+                               model10, out_dir, 1, device=dev,
+                               stage_seconds=stages)
+        return out, stages, rec, sum(r.n_events for r, *_ in trip)
+
+    hk.reset_launch_counts()
+    reset_peak()
+    t0 = time.perf_counter()
+    out10b, st10b, rec10b, ev10b = train_steps(
+        {"training": {"transitions": True}}, ["canonical", "x"])
+    t10b = time.perf_counter() - t0
+    train_launches = {
+        "sa_fwd_sweep": hk.forward_sweep.expect_launches,
+        "sa_bwd_sweep_compact": hk.backward_sweep_compact.expect_launches}
+    train_paths = {
+        "sa_fwd_sweep": hk.forward_sweep.expect_paths_launches,
+        "sa_bwd_sweep_compact":
+            hk.backward_sweep_compact.expect_paths_launches}
+    train_wide = {"sa_fwd_sweep": hk.forward_sweep.wide_launches,
+                  "sa_bwd_sweep_compact":
+                      hk.backward_sweep_compact.wide_launches}
+    peak = peak_gib()
+    em10 = out10b["em"]
+    ll10 = em10.log_likelihoods[0]
+    check(np.isfinite(ll10) and ll10 > -1e29,
+          f"10b log-likelihood {ll10}")
+    tr10 = em10.transitions_history[0]
+    check(np.allclose(tr10.sum(axis=1), 1.0, rtol=1e-9),
+          f"10b transition rows do not sum to 1: {tr10}")
+    wp10 = {k_: len(v) for k_, v in rec10b.classes().items()}
+    # (the CPU rehearsal runs the twins, which launch nothing)
+    check(any(P_ > 1 for _, P_ in wp10)
+          and (not cuda or all(train_paths.values())),
+          f"10b ran no P > 1 expectation bucket: {wp10}, "
+          f"{train_launches} (P > 2 instances {train_paths})")
+    # the files: the checkpoint holds the trained transitions, the
+    # expectations file gives them back, the final model is the
+    # checkpoint's
+    ck10 = PoreModel.from_file(em10.checkpoint_files[0])
+    acc10 = ExpectationsAccumulator(model10)
+    check(acc10.add_file(em10.expectations_files[0]),
+          "10b wrote no expectations file")
+    d_ck = float(np.abs(ck10.transitions - tr10.reshape(-1)).max())
+    d_file = float(np.abs(acc10.normalize_transitions().reshape(-1)
+                          - ck10.transitions).max())
+    fin10 = PoreModel.from_file(out10b["model_path"])
+    check(d_ck <= 1e-6 and d_file <= 1e-6
+          and np.array_equal(fin10.transitions, ck10.transitions),
+          f"10b files: checkpoint {d_ck}, expectations file {d_file}")
+    log(f"[train em] {sum(len(v) for v in reads_by_sample.values())} "
+        f"reads in 3 samples' files ({t_files:.2f} s written, SAM and "
+        f"guides {t_inputs:.2f} s); canonical + CG -> XG samples: "
+        f"{ev10b} events, log-likelihood {ll10:.2f}, transitions m->m "
+        f"{tr10[0, 0]:.5f}; checkpoint |d| {d_ck:.1e}, expectations "
+        f"file |d| {d_file:.1e}")
+    log("[train em] segments by (W, P): " + " ".join(
+        f"{w},{p}:{n}" for (w, p), n in sorted(wp10.items())))
+    log("[train em] stages " + " ".join(
+        f"{s_}={v:.2f}s" for s_, v in st10b.items()))
+    log(f"[train em] {t10b:.2f} s: {ev10b / t10b:.0f} events/s; peak "
+        f"device memory {peak:.2f} GiB; launches "
+        f"{train_launches} (P > 2 instances {train_paths}, wide "
+        f"{train_wide})")
+
+    phase_mark("10c")
+    # ---- 10c. hdp_emissions: each sample's observations on its own
+    # edition, buildAlignment.tsv, the Gibbs trainer, template.nhdp
+    hk.reset_launch_counts()
+    reset_peak()
+    t0 = time.perf_counter()
+    out10c, st10c, _, ev10c = train_steps(
+        {"training": {"transitions": False, "hdp_emissions": True,
+                      "hdp_type": "singleLevelFixed", **gibbs},
+         "hdp_args": {"grid_length": 1200}},
+        ["canonical", "mc"])
+    t10c = time.perf_counter() - t0
+    obs_launches = {"sa_fwd_sweep": hk.forward_sweep.launches,
+                    "sa_bwd_sweep_compact":
+                        hk.backward_sweep_compact.launches}
+    peak = peak_gib()
+    with open(out10c["build_alignment"]) as fh:
+        kmers10 = [line.split("\t", 1)[0] for line in fh]
+    hdp10 = load_nhdp(out10c["nhdp"])
+    a10 = hdp10.alphabet
+    n_e_obs = sum(1 for i in np.flatnonzero(hdp10.observed)
+                  if "E" in a10.index_to_kmer(int(i)))
+    n_e_rows = sum("E" in k_ for k_ in kmers10)
+    check(n_e_obs > 10 and len(hdp10.grid) == 1200
+          and (not cuda or all(obs_launches.values())),
+          f"10c: {n_e_obs} E-k-mers observed, grid {len(hdp10.grid)}, "
+          f"launches {obs_launches}")
+    log(f"[train hdp] canonical + mC samples, {ev10c} events: "
+        f"{len(kmers10)} buildAlignment rows ({n_e_rows} E-labelled), "
+        f"{int(hdp10.observed.sum())} k-mers observed ({n_e_obs} with E)"
+        f", grid {len(hdp10.grid)}; Gibbs {gibbs}")
+    log("[train hdp] stages " + " ".join(
+        f"{s_}={v:.2f}s" for s_, v in st10c.items()))
+    log(f"[train hdp] {t10c:.2f} s: {ev10c / t10c:.0f} events/s "
+        f"(the alignments alone {ev10c / st10c['observations']:.0f}); "
+        f"peak device memory {peak:.2f} GiB; launches "
+        f"{obs_launches}")
+
+    phase_mark("10d")
+    # ---- 10d. HDP calling with the trained .nhdp on phase 6c's path
+    # (CG -> PG edition, C against E) on g held-out reads of each
+    # sample
+    held = can10[4 * g:5 * g] + mc10[5 * g:]
+    ref10p = ProcessedReference(fa10, motifs=[("CG", "PG")])
+    cfg10 = AlignmentConfig(emission_mode=bfb.MODE_HDP,
+                            ambig_map=AMB_HDP).for_batch(len(held))
+    hk.reset_launch_counts()
+    reset_peak()
+    stages = {}
+    t0 = time.perf_counter()
+    res10 = run_alignment_batch(held, ref10p, model10, cfg10, hdp10,
+                                device=dev, call_variants="CE",
+                                stage_seconds=stages)
+    t10d = time.perf_counter() - t0
+    call_launches = {"sa_fwd_sweep": hk.forward_sweep.launches,
+                     "sa_bwd_sweep_compact":
+                         hk.backward_sweep_compact.launches}
+    peak = peak_gib()
+    check(len(res10) == len(held), f"10d: {len(held) - len(res10)} "
+          "reads failed")
+    n_rows10, _ = check_calls(res10, ref10p.forward["synth"],
+                              model10.kmer_length, "P", "CE")
+    p_e = [float(r.variant_calls["E"].mean()) for r in res10]
+    pe_c, pe_m = float(np.mean(p_e[:g])), float(np.mean(p_e[g:]))
+    check(pe_m > pe_c and (not cuda or all(call_launches.values())),
+          f"10d: mean p_E of the mC reads {pe_m} is not above the "
+          f"canonical reads' {pe_c}; launches {call_launches}")
+    ev10d = sum(r.n_events for r, _ in held)
+    log(f"[train call] {g} + {g} held-out reads, {ev10d} events, "
+        f"{n_rows10} site rows: mean p_E canonical {pe_c:.4f}, mC "
+        f"{pe_m:.4f}; totals > -1e29")
+    log("[train call] stages " + " ".join(
+        f"{s_}={v:.2f}s" for s_, v in stages.items()))
+    log(f"[train call] {t10d:.2f} s: {ev10d / t10d:.0f} events/s; peak "
+        f"device memory {peak:.2f} GiB; launches {call_launches}")
+    del hdp10, res10
+    return train_paths
 
 
 def check_calls(results, edition, k, codes, bases):
@@ -1043,6 +1358,10 @@ def main():
     from signalalign_tpu_torch.io.sam import passes_filter, read_alignment_file
     from signalalign_tpu_torch.pipeline.runner import align_and_write
     from signalalign_tpu_torch.utils.synthetic import write_synthetic_run
+    from signalalign_tpu_torch.utils.synthetic import methylated_pore_model
+    from signalalign_tpu_torch.models.hdp_model import load_nhdp
+    from signalalign_tpu_torch.pipeline.train import (sample_reference,
+                                                      train_models)
     check("jax" not in sys.modules and "signalalign_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
 
@@ -1260,10 +1579,16 @@ def main():
         # aligners, the class's shortest problem
         by_class = rec5.classes()
         paths_rows, paths_bounds = {}, {}
+        # the problems phase 10a runs the expectation pass of the P > 2
+        # instances on: the W = 256 classes of P = 2, 4 and 8, the wide P =
+        # 1 segments and the wide instance's two segments
+        exp10_sets = {}
         for (W, P), probs in sorted(by_class.items()):
             if P == 1:
                 continue    # site mode skips P = 1 segments
             probs = probs[:1]
+            if W == 256 and P in (2, 4, 8):
+                exp10_sets[(W, P)] = probs
             ptp = problem_tensors(probs, W, dev)
             r = kernels_vs_twins(hk, bfb, ptp, threshold, R)
             paths_rows[(W, P)] = r
@@ -1329,9 +1654,9 @@ def main():
         del pt16, segs16, ref16
         # two P = 1 segments too wide for the per-pair instances: the P > 2
         # instances at P = 1, held bit for bit like the classes above
-        ptw = problem_tensors(wide_p1_problems(bfb, model, ScalingParams,
-                                               DEFAULT_AMBIG_BASES),
-                              WIDE_P1_W, dev)
+        exp10_sets[(WIDE_P1_W, 1)] = wide_p1_problems(
+            bfb, model, ScalingParams, DEFAULT_AMBIG_BASES)
+        ptw = problem_tensors(exp10_sets[(WIDE_P1_W, 1)], WIDE_P1_W, dev)
         bw = int(ptw.width.max())
         kw_ = hk.cells_per_thread(WIDE_P1_W, 1)
         check(bw > 2048 and kw_ < 0, f"the wide P = 1 segments: band {bw} "
@@ -1366,6 +1691,7 @@ def main():
                                 ((768, 16), wide_p16_problems(
                                     bfb, model, ScalingParams,
                                     DEFAULT_AMBIG_BASES))):
+            exp10_sets[(W_, P_)] = probs
             ptw = problem_tensors(probs, W_, dev)
             kw_ = hk.cells_per_thread(W_, P_)
             bw = int(ptw.width.max())
@@ -1887,8 +2213,9 @@ def main():
         stages = {}
         try:
             t0 = time.perf_counter()
-            results = run_alignment_batch(rgs, reference, model, config,
-                                          device=dev, stage_seconds=stages)
+            with Recorder(runner_mod) as rec8:
+                results = run_alignment_batch(rgs, reference, model, config,
+                                              device=dev, stage_seconds=stages)
             t_prob = time.perf_counter() - t0
         finally:
             del os.environ[runner_mod.PROB_SWITCH]
@@ -1938,13 +2265,12 @@ def main():
 
         phase_mark("8d")
         # 8d. probability-space against log-space kernel time on every
-        # W <= 512 bucket of phase 4, in the runner's chunks, CUDA events
+        # W <= 512 bucket of phase 4, in the runner's chunks, CUDA events:
+        # 8c's chunks before its re-runs (its prep, with the switch set,
+        # gave every Gaussian problem the probability-space normaliser)
         sums8 = {}
-        for (W, Dpad, P), probs in sorted(buckets4.items()):
-            if W > bfb.PROB_MAX_W:
-                continue
-            for chunk in _stack_chunks(list(range(len(probs))), W, Dpad, P):
-                sub = [probs[i] for i in chunk]
+        for W, P, sub, _ in rec8.made[:want_prob + want_log]:
+            if W <= bfb.PROB_MAX_W:
                 e = sums8.setdefault(W, [0, 0.0, 0.0, 0.0, 0.0])
                 e[0] += len(sub)
                 f_ms, b_ms = sweep_ms(hk, bfb, problem_tensors(
@@ -1960,7 +2286,7 @@ def main():
         log(f"[prob sums] W <= 512: probability-space fwd {tot8[0]:.3f} ms, "
             f"bwd {tot8[1]:.3f} ms; log-space fwd {tot8[2]:.3f} ms, bwd "
             f"{tot8[3]:.3f} ms")
-        del buckets4, main_results, rec4
+        del buckets4, main_results, rec4, rec8
 
         phase_mark("9a")
         # ---- 9a. `run` from its files but the fast5s (no h5py on this
@@ -2054,6 +2380,50 @@ def main():
         log(f"[positions] align_and_write {t9b:.2f} s: {n_events / t9b:.0f} "
             f"events/s; peak device memory {peak / 2**30:.2f} GiB")
         log(f"[positions] launches {positions_launches}")
+
+        phase_mark("10a")
+        # ---- 10a. the expectation pass of the P > 2 instances (every
+        # expectation bucket of P > 1, and P = 1 past 2,048 cells) and of
+        # the wide instance against their twins, timed by CUDA events
+        check(set(exp10_sets) >= {(256, 2), (256, 4), (256, 8),
+                                  (WIDE_P1_W, 1)}, "10a's problem sets: "
+              f"{sorted(exp10_sets)}")
+        exp10_rows = {}
+        for (W_, P_), probs in sorted(exp10_sets.items()):
+            pte = problem_tensors(probs, W_, dev, kmer_ids=True)
+            ks_ = [hk.cells_per_thread(W_, P_, True, b) for b in (0, 1)]
+            # P = 2 within 2,048 cells may run the per-pair instance
+            # widened to two paths (banded_fb.cu EXPECT_PAIR_P)
+            check(all(ks_) and (P_ == 2 or all(k_ < 0 for k_ in ks_)),
+                  f"the expectation pass of P = {P_} W = {W_} runs cells "
+                  f"per thread {ks_}, not the P > 2 instances")
+            r = expect_vs_twins(hk, bfb, pte, threshold, R)
+            r["bounds"] = sweep_bounds(bfb, pte, r["n_kernel"], True)
+            r["floor"] = [serial_floor_ms(hk, barrier, pte, True,
+                                          backward=bwd)
+                          for bwd in (False, True)]
+            r["plain"] = sweep_ms(hk, bfb, pte, threshold, R, 5)
+            exp10_rows[(W_, P_)] = r
+            nd_ = max(pte.n_diag)
+            log(f"[em kernels P={P_} W={W_} K={ks_[0]}/{ks_[1]}"
+                f"{' (wide)' if ks_[0] < -8 else ''}] "
+                f"{len(probs)} problems n_diag {min(pte.n_diag)}..{nd_}: "
+                f"expect fwd {r['fwd_ms']:.3f} ms ({1e3 * r['fwd_ms'] / nd_:.2f} "
+                f"us a diagonal; twin {r['fwd_plain_ms']:.1f} ms, bound "
+                f"{r['bounds']['sa_fwd_sweep'][0]:.4f} ms by "
+                f"{r['bounds']['sa_fwd_sweep'][1]}), bwd {r['bwd_ms']:.3f} "
+                f"ms (twin {r['bwd_plain_ms']:.1f} ms, bound "
+                f"{r['bounds']['sa_bwd_sweep_compact'][0]:.4f} ms by "
+                f"{r['bounds']['sa_bwd_sweep_compact'][1]}); plain instances "
+                f"{r['plain'][0]:.3f} / {r['plain'][1]:.3f} ms; floor "
+                f"{r['floor'][0]:.3f} / {r['floor'][1]:.3f} ms; stacks, "
+                f"totals, survivors equal ({r['n_kernel']}); texp rel "
+                f"{r['texp_rel']:.3e} (sum {r['texp_sum']:.1f}), kx rel "
+                f"{r['kx_rel']:.3e} (tol {TOL_EXPECT})")
+            del pte
+        del exp10_sets
+
+        train_paths = train_phases(dev, tmp, phase_mark)
 
     def err(r, name):
         return max(r["tf_err"], r["fdiff"]) if name == "sa_fwd_sweep" \
@@ -2161,6 +2531,42 @@ def main():
                               for (t, W), r in exp_rows.items()},
             "bound_ms_by_W": {f"{t},{W}": r["bounds"][name][0]
                               for (t, W), r in exp_rows.items()}})
+    for name, src, ms in (
+            ("sa_fwd_sweep", "signalalign_tpu/ops/banded_fb_pallas_batch.py:569"
+             " (expect mode, :740-745) and, at P > 1, the XLA expectation "
+             "core signalalign_tpu/ops/banded_fb.py:642", "fwd_"),
+            ("sa_bwd_sweep_compact",
+             "signalalign_tpu/ops/banded_fb_pallas_batch.py:775 (expect mode, "
+             ":971-1015) and, at P > 1, signalalign_tpu/ops/banded_fb.py:642",
+             "bwd_")):
+        r8 = exp10_rows[(256, 8)]
+        kernels.append({
+            "name": f"{name} (expect, P > 2 instances)", "route": "cuda",
+            "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
+            "replaces": src,
+            # 10b's transitions EM (train_models), counted from 0
+            "launches": train_paths[name],
+            "max_abs_err": max(max(r["texp_abs"], r["kx_abs"])
+                               for r in exp10_rows.values())
+            if name == "sa_bwd_sweep_compact" else 0.0,
+            "ms": r8[ms + "ms"], "plain_ms": r8[ms + "plain_ms"],
+            "bound_ms": r8["bounds"][name][0],
+            "bound_by": r8["bounds"][name][1],
+            "library_ms": None,
+            "serial_floor_ms": r8["floor"][ms == "bwd_"],
+            "launches_by_phase": {"10b": train_paths[name]},
+            "max_rel_err_texp": max(r["texp_rel"]
+                                    for r in exp10_rows.values()),
+            "max_rel_err_kx": max(r["kx_rel"] for r in exp10_rows.values()),
+            "ms_by_W_P": {f"{W},{P}": r[ms + "ms"]
+                          for (W, P), r in exp10_rows.items()},
+            "plain_instance_ms_by_W_P": {
+                f"{W},{P}": r["plain"][ms == "bwd_"]
+                for (W, P), r in exp10_rows.items()},
+            "plain_ms_by_W_P": {f"{W},{P}": r[ms + "plain_ms"]
+                                for (W, P), r in exp10_rows.items()},
+            "bound_ms_by_W_P": {f"{W},{P}": r["bounds"][name][0]
+                                for (W, P), r in exp10_rows.items()}})
     for name, src, ms, tot in (
             ("sa_fwd_sweep_prob",
              "signalalign_tpu/ops/banded_fb_pallas_batch.py:161", "fwd_", 0),

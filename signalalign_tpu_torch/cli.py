@@ -1,7 +1,9 @@
 """Command-line interface of the port: the ``run`` subcommand (alias
-``run2``) of ``signalalign_tpu.cli``, runSignalAlign's equivalent.
+``run2``) and the ``train`` subcommand of ``signalalign_tpu.cli``,
+runSignalAlign's and trainModels' equivalents.
 
-reference: scripts/runSignalAlign.py (run/run2 subcommands, JSON config).
+reference: scripts/runSignalAlign.py (run/run2 subcommands, JSON config)
+and src/signalalign/train/trainModels.py.
 The JSON config schema follows the reference's documented keys
 (README.md:85-251) where they map onto the pipeline; process-pool keys
 (job_count etc.) are accepted and ignored. ``--device`` picks the torch
@@ -13,6 +15,8 @@ Usage:
   python -m signalalign_tpu_torch.cli run --alignment_file x.bam \\
       --readdb x.readdb --fast5_dir d/ --ref ref.fa --model m.model \\
       --output_dir out/ [--device cpu]
+  python -m signalalign_tpu_torch.cli train --config trainModels-config.json \\
+      [--device cpu]
 """
 
 from __future__ import annotations
@@ -108,6 +112,87 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    from signalalign_tpu_torch.io.guide import guide_from_sam_record
+    from signalalign_tpu_torch.io.read import NanoporeReadData
+    from signalalign_tpu_torch.io.reference import ProcessedReference
+    from signalalign_tpu_torch.io.sam import filter_reads
+    from signalalign_tpu_torch.models.hdp_model import load_nhdp
+    from signalalign_tpu_torch.models.pore_model import PoreModel
+    from signalalign_tpu_torch.pipeline.train import (sample_reference,
+                                                      train_models)
+
+    cfg = _load_config(args.config)
+    training = cfg.get("training", {})
+    if args.distributed:
+        raise NotImplementedError(
+            "train --distributed: EM across hosts is not ported yet "
+            "(ROADMAP §1 item 5)")
+    if args.complement_model or args.twod or training.get("complement"):
+        raise NotImplementedError(
+            "train with a complement model (2D chemistry) is not ported yet "
+            "(ROADMAP §1 item 6)")
+    # multi-sample training: expectations pool over every sample block
+    # (trainModels.py samples[] semantics); CLI read-source arguments
+    # define exactly one sample
+    samples = cfg.get("samples") or [_sample_from_config(cfg)]
+    if args.alignment_file or args.readdb or args.fast5_dir:
+        samples = [samples[0]]
+    ref = args.ref or cfg.get("reference") or samples[0].get("bwa_reference")
+    model_path = args.model or cfg.get("template_hmm_model")
+    output_dir = args.output_dir or cfg.get("output_dir") or "training_out"
+    iterations = int(args.iterations or training.get("em_iterations", 3))
+
+    em_hdp = None
+    smt = (training.get("stateMachineType") or cfg.get("stateMachineType")
+           or "threeState")
+    if smt == "threeStateHdp":
+        # HdpHmm transition EM needs a trained .nhdp beside the .model
+        hdp_path = (cfg.get("template_hdp_model")
+                    or training.get("template_hdp_model"))
+        if not hdp_path:
+            print("threeStateHdp training requires template_hdp_model",
+                  file=sys.stderr)
+            return 2
+        em_hdp = load_nhdp(hdp_path)
+
+    model = PoreModel.from_file(model_path)
+    reference = ProcessedReference(ref)
+
+    sample_refs = [sample_reference(s, reference, ref) for s in samples]
+    pairs = []          # (fast5, sam record, sample index)
+    for si, sample in enumerate(samples):
+        fast5_dirs = args.fast5_dir or sample.get("fast5_dirs") or []
+        if isinstance(fast5_dirs, str):
+            fast5_dirs = [fast5_dirs]
+        pairs.extend((f5, rec, si) for f5, rec in filter_reads(
+            args.alignment_file or sample.get("alignment_file"),
+            args.readdb or sample.get("readdb"), fast5_dirs))
+    if args.max_reads:
+        pairs = pairs[:args.max_reads]
+    rgs = []            # (read, guide, sample reference) triples
+    rgs_by_sample = [[] for _ in samples]
+    for f5, rec, si in pairs:
+        try:
+            read = NanoporeReadData.from_fast5(f5)
+            guide = guide_from_sam_record(rec)
+            if guide and guide.validate(read.read_length):
+                rgs.append((read, guide, sample_refs[si]))
+                rgs_by_sample[si].append((read, guide))
+        except Exception as exc:
+            print(f"[train] skipping {f5}: {exc}", file=sys.stderr)
+
+    out = train_models(cfg, samples, sample_refs, rgs, rgs_by_sample,
+                       reference, model, output_dir, iterations, em_hdp,
+                       device=torch.device(args.device))
+    if "nhdp" in out:
+        print(f"[train] wrote {out['nhdp']}")
+    if out["em"] is not None:
+        print(f"[train] log-likelihoods: {out['em'].log_likelihoods}")
+    print(f"[train] wrote {out['model_path']}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="signalalign_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -152,6 +237,27 @@ def main(argv=None) -> int:
     runp.add_argument("--device", default="cuda",
                       help="torch device to align on (default cuda)")
     runp.set_defaults(func=cmd_run)
+
+    trainp = sub.add_parser("train", help="train models (trainModels)")
+    trainp.add_argument("--config")
+    trainp.add_argument("--alignment_file")
+    trainp.add_argument("--readdb")
+    trainp.add_argument("--fast5_dir", action="append")
+    trainp.add_argument("--ref")
+    trainp.add_argument("--model")
+    trainp.add_argument("--output_dir")
+    trainp.add_argument("--iterations", type=int)
+    trainp.add_argument("--max_reads", type=int)
+    trainp.add_argument("--complement_model",
+                        help="train a complement-strand model too (2D "
+                             "chemistry; not ported yet)")
+    trainp.add_argument("--2d", dest="twod", action="store_true",
+                        help="2D chemistry (not ported yet)")
+    trainp.add_argument("--distributed", action="store_true",
+                        help="EM across hosts (not ported yet)")
+    trainp.add_argument("--device", default="cuda",
+                        help="torch device to align on (default cuda)")
+    trainp.set_defaults(func=cmd_train)
 
     args = parser.parse_args(argv)
     return args.func(args)

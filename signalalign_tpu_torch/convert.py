@@ -240,6 +240,10 @@ def _prob_tensors(problems, ref: np.ndarray, LE: int, dev) -> bfb.ProbTensors:
     best-case event row, the ``_pack16`` pack and the normaliser."""
     ev_best = np.zeros((len(problems), LE), np.float32)
     for i, p in enumerate(problems):
+        if p.ev_best is None:
+            raise ValueError("a problem made without its event normaliser "
+                             "(prepare_problem(..., event_best=False)) in a "
+                             "probability-space bucket")
         ev_best[i, :p.ev_best.shape[0]] = p.ev_best
     return bfb.ProbTensors(
         cexp=dev(np.ascontiguousarray(np.exp(ref[:, [2, 4], 0]))),

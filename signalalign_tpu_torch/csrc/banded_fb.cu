@@ -40,8 +40,8 @@
 // Three designs, picked per bucket by the dispatch at the end of this
 // file.
 //
-// The per-pair instances (P <= PAIR_P = 2 and P * W <= PAIR_CELLS; the
-// EXPECT ones) wait on one block barrier per diagonal:
+// The per-pair instances (P <= PAIR_P = 2 and P * W <= PAIR_CELLS, EXPECT
+// included) wait on one block barrier per diagonal:
 // - a ring of three slots holds *raw* (un-normalised) states, stored
 //   clamped at NEG: diagonal d goes to slot d mod 3, whose last reader
 //   (diagonal d-1) finished before the barrier of d-1. A reader
@@ -63,13 +63,16 @@
 //   reference rows, events and legality masks are loaded at the diagonal,
 //   as the P > 2 instances do: their lines serve ~64 diagonals from L1,
 //   and staging them a diagonal ahead in registers measured slower;
-// - EXPECT's per-position moment sums live in a shared-memory window over
-//   the band's positions (one slot per position mod W, tagged with its
-//   position) and are added to device memory, without waiting, when a
-//   position leaves the window or the sweep ends: still one writer per
-//   position per diagonal, in diagonal order, so the double sums keep
-//   their order and are deterministic (a read-modify-write of kx in
-//   device memory per cell had put an L2 round trip on every diagonal);
+// - EXPECT's per-(position, path) moment sums live in a shared-memory
+//   window over the band's positions (one slot per position mod W and
+//   path, tagged with its position) and are added to device memory,
+//   without waiting, when a position leaves the window or the sweep ends:
+//   still one writer per slot per diagonal, in diagonal order, so the
+//   double sums keep their order and are deterministic (a read-modify-
+//   write of kx in device memory per cell had put an L2 round trip on
+//   every diagonal). At P = 2 a target's two source paths sit in
+//   neighbouring lanes, which exchange their terms by one shuffle (a
+//   template instance of its own, so the P = 1 instances are unchanged);
 // - cells per thread K come from a table measured on an H100 (pair_k):
 //   the most threads the instance's register budget allows won at every
 //   class. A block of one warp synchronises with __syncwarp and reduces
@@ -94,7 +97,8 @@
 // ring slot that are dead at that step, then, after one more barrier (a
 // warp's when P divides 32: an offset's P cells are then in one warp),
 // reduces each source cell over the legal targets from there. They also
-// take P <= 2 buckets too wide for the per-pair instances' shared memory.
+// take P <= 2 buckets too wide for the per-pair instances' shared memory,
+// and the EXPECT pass of every bucket of P > 1.
 // Every operation and its order are those of the twin's, so the results
 // stay equal bit for bit. Past 32 paths a logsumexp walks the legal bits
 // of each of its ceil(P / 32) words in turn (legal_lse_words), in path
@@ -127,19 +131,29 @@
 // and once per (offset, path) at P > 2; illegal pairs skip it. The
 // Gaussian instances compile without any of it (if constexpr).
 //
-// The EM expectation pass (template flag EXPECT, P = 1 only) replaces the
-// `expect` mode of _fwd_kernel_log / _bwd_kernel_log: the forward writes
-// all three normalised states of each diagonal (fstack (B, D1, 3, W)); the
-// backward, at each FROM diagonal d < n_diag, already holds the to-cell
-// reductions gx_red, mm_red and gy_term of every cell, so it adds the
-// seven transition posteriors exp(f_s + t + red + normA), normA = cvecf[d]
-// + Bo(d+1), into per-thread double sums (one block reduction at the end,
-// in a fixed order: texp (B, 7)), and in the Gaussian instance the
-// into-match posterior's moments [p, p dx, p dx^2], dx = (event mean -
-// m_hat(x+1)) / var, into kx[b, :, x+1] (the window above). The HDP
-// instance accumulates texp only (the TPU kernel's contract: HDP
-// emissions train from assignments, not Gaussian moments). The non-expect
-// instances compile without any of it (if constexpr).
+// The EM expectation pass (template flag EXPECT) replaces the `expect`
+// mode of _fwd_kernel_log / _bwd_kernel_log, and at P > 1 the JAX XLA
+// expectation core the JAX runner sends such buckets to: the forward
+// writes all three normalised states of each diagonal (fstack (B, D1, 3,
+// P, W)); the backward, at each FROM diagonal d < n_diag, already holds
+// the to-cell reductions gx_red, mm_red (over the legal target paths) and
+// gy_term of every cell, so it adds the seven transition posteriors
+// exp(f_s + t + red + normA), normA = cvecf[d] + Bo(d+1), into per-thread
+// double sums (one block reduction at the end, in a fixed order: texp (B,
+// 7)): a reduction over the targets is the sum of the (source, target)
+// pair posteriors the XLA core adds up, to f32 round-off. In the Gaussian
+// instances it adds the into-match posterior's moments [p, p dx, p dx^2],
+// dx = (event mean - m_hat(x+1)) / var (0 where inv_m <= 0), into kx[b,
+// :, p, x+1] for each target (x+1, y+1) on path p: the per-pair instances
+// (P <= 2 within PAIR_CELLS) through the shared-memory window above, the
+// P > 2 instances (every other expectation bucket) by a read-modify-write
+// in device memory from the cell that staged the target's term, which
+// sums the pair posteriors of its legal source paths; one writer per
+// (path, position) a diagonal, the diagonals in barrier order, so the
+// sums are deterministic. The HDP instances
+// accumulate texp only (the TPU kernel's contract: HDP emissions train
+// from assignments, not Gaussian moments). The non-expect instances
+// compile without any of it (if constexpr).
 //
 // Numerics: float32 values with precise expf/logf/log1pf (no fast math),
 // built with --fmad=false so each operation rounds as in the plain twin,
@@ -466,6 +480,28 @@ __device__ __forceinline__ float rd(const float* slot, int s, int i, int p,
 }
 
 
+// texp of an expectation pass: each thread's seven double sums added over
+// its warp by shuffles, then the warps in order, to out[0..7). Contains a
+// barrier.
+__device__ void block_texp(const double (&acc)[7], double* out) {
+  __shared__ double tpart[7][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    double v = acc[i];
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) tpart[i][warp] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 7) {
+    double s = 0.0;
+    for (int w = 0; w < nw; ++w) s += tpart[threadIdx.x][w];
+    out[threadIdx.x] = s;
+  }
+}
+
 // ------------------------------------------------ P > 2 (PATHS) instances
 
 // The cells per thread that mark the wide instance: P * W > REG_CELLS
@@ -551,7 +587,7 @@ __device__ float block_lse_mem(const float* vm, const float* vx,
   return logf(sm) + mx;
 }
 
-template <int K, bool HDP>
+template <int K, bool HDP, bool EXPECT>
 __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
@@ -582,7 +618,8 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
   __syncthreads();
 
   const int P = pr.P, NW = pr.NW;
-  float* fs = fstack + (size_t)b * D1 * N;   // (D1, P, W)
+  constexpr int NF = EXPECT ? 3 : 1;   // states a diagonal's stack row keeps
+  float* fs = fstack + (size_t)b * D1 * N * NF;   // (D1, P, W); EXPECT: (D1, 3, P, W)
   float* inc = f_incr + (size_t)b * D1;
   const int nd = pr.nd;
   for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) inc[d] = 0.f;
@@ -596,8 +633,8 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
     ring[SRC_M * N] = st.m;
     inc[0] = 0.f;
   }
-  for (int c = threadIdx.x; c < N; c += blockDim.x)
-    fs[c] = c == 0 ? pr.start[MATCH] : NEG;
+  for (int c = threadIdx.x; c < NF * N; c += blockDim.x)
+    fs[c] = c % N == 0 ? pr.start[c / N] : NEG;
   __syncthreads();
 
   const float* tr = pr.t;
@@ -698,7 +735,12 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
         v.M(k, c) = mm;
         v.X(k, c) = gx;
         v.Y(k, c) = gy;
-        fs[(size_t)d * N + p * W + o] = mm;
+        float* fd = fs + (size_t)d * NF * N + p * W + o;
+        fd[0] = mm;
+        if constexpr (EXPECT) {
+          fd[GAP_X * N] = gx;
+          fd[GAP_Y * N] = gy;
+        }
       }
     }
     if (threadIdx.x == 0) inc[d] = m;
@@ -713,7 +755,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_fwd_paths_kernel(
   if (threadIdx.x == 0) lse_f[b] = l;
 }
 
-template <int K, bool HDP>
+template <int K, bool HDP, bool EXPECT>
 __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
@@ -722,9 +764,12 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
     const float* __restrict__ fstack,
     const double* __restrict__ cvecf, float* __restrict__ b_incr,
     float* __restrict__ lse_b, int* __restrict__ slot_cell,
-    float* __restrict__ slot_val, int* __restrict__ cnt, float* scratch,
+    float* __restrict__ slot_val, int* __restrict__ cnt,
+    double* __restrict__ texp, double* __restrict__ kx, float* scratch,
     int D1, int W, int P_, int LX, int LE, int R, float threshold) {
   constexpr bool WIDE_ = K == WIDE;
+  constexpr bool MOMENTS = EXPECT && !HDP;
+  constexpr int NF = EXPECT ? 3 : 1;   // forward states a stack row holds
   extern __shared__ float smem[];
   const int N = P_ * W;
   const int b = blockIdx.x;
@@ -741,8 +786,14 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
   __syncthreads();
 
   const int P = pr.P, NW = pr.NW;
-  const float* fs = fstack + (size_t)b * D1 * N;
+  const float* fs = fstack + (size_t)b * D1 * N * NF;
   const double* cv = cvecf + (size_t)b * D1;
+  // MOMENTS: (3, P, LX) sums per (path, position), one writer per cell a
+  // diagonal, the diagonals in order (the barriers order them)
+  double* kb = MOMENTS ? kx + (size_t)b * 3 * P * LX : nullptr;
+  // EXPECT: this thread's sums of the seven transition posteriors, in
+  // the order of texp's rows (mx, xx, mm, xm, ym, my, yy)
+  double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   float* inc = b_incr + (size_t)b * D1;
   int* so = slot_cell + (size_t)b * D1 * R;
   float* sv = slot_val + (size_t)b * D1 * R;
@@ -807,8 +858,35 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
           const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
           cur[GAP_X * N + c] =
               rd(b1, GAP_X, o + u1 + 1, p, W, N, P) + gapx_valid;
-          cur[GAP_Y * N + c] =
+          const float tmm =
               rd(b2, MATCH, o + u2, p, W, N, P) + e_match_to - m_prev;
+          cur[GAP_Y * N + c] = tmm;
+          if constexpr (MOMENTS) {
+            // the into-match posterior of this target (x+1, y+1) on path
+            // p, summed over the source paths q at (x, y) it may follow:
+            // bit p of legal[., q] at x+1. The to-cell term is normalised
+            // to Bo(d+1), which `bo` still holds here.
+            const float normA = (float)(cv[d] + bo);
+            const float* fd = fs + (size_t)d * 3 * N + o;
+            float mtp = 0.f;
+            for (int q = 0; q < P; ++q) {
+              if ((pr.lg(xr1, q)[p >> 5] >> (p & 31)) & 1u) {
+                const float* f = fd + q * W;
+                mtp += expf(f[MATCH * N] + tr[T_MM] + tmm + normA) +
+                       expf(f[GAP_X * N] + tr[T_XM] + tmm + normA) +
+                       expf(f[GAP_Y * N] + tr[T_YM] + tmm + normA);
+              }
+            }
+            if (mtp != 0.f) {
+              const float dxv =
+                  inv_m1 > 0.f ? (ev_mean - m_hat1) / pr.var : 0.f;
+              double* kc = kb + (size_t)p * LX + xr1;
+              const size_t plane = (size_t)P * LX;
+              kc[0] += (double)mtp;
+              kc[plane] += (double)(mtp * dxv);
+              kc[2 * plane] += (double)(mtp * dxv * dxv);
+            }
+          }
         }
       }
     }
@@ -850,6 +928,22 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
               legal_lse_any(cur + GAP_X * N + o * P, NEG, 0.f, lw, NW, P);
           const float mm_red =
               legal_lse_any(cur + GAP_Y * N + o * P, NEG, 0.f, lw, NW, P);
+          if constexpr (EXPECT) {
+            // transitions out of (x, y) on path q at d, summed over their
+            // legal targets by the to-cell reductions (normalised to
+            // Bo(d+1), which `bo` still holds here)
+            const float normA = (float)(cv[d] + bo);
+            const float* f = fs + (size_t)d * 3 * N + q * W + o;
+            const float f_m = f[MATCH * N], f_x = f[GAP_X * N],
+                        f_y = f[GAP_Y * N];
+            acc[0] += (double)expf(f_m + tr[T_MX] + gx_red + normA);
+            acc[1] += (double)expf(f_x + tr[T_XX] + gx_red + normA);
+            acc[2] += (double)expf(f_m + tr[T_MM] + mm_red + normA);
+            acc[3] += (double)expf(f_x + tr[T_XM] + mm_red + normA);
+            acc[4] += (double)expf(f_y + tr[T_YM] + mm_red + normA);
+            acc[5] += (double)expf(f_m + tr[T_MY] + gy_term + normA);
+            acc[6] += (double)expf(f_y + tr[T_YY] + gy_term + normA);
+          }
           bm = lae(lae(gx_red + tr[T_MX], mm_red + tr[T_MM]),
                    gy_term + tr[T_MY]);
           bx = lae(gx_red + tr[T_XX], mm_red + tr[T_XM]);
@@ -883,7 +977,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
         cur[GAP_Y * N + c] = fmaxf(v.Y(k, c) - m, NEG);
         const int x = xd + o, y = d - x;
         if (o < wd && x > 0 && y > 0 && x <= pr.lX && y <= pr.lY) {
-          const float fm = fs[(size_t)d * N + q * W + o];
+          const float fm = fs[(size_t)d * NF * N + q * W + o];
           p = expf(fmaxf(fm + bmn + cd, NEG));
           surv = p >= threshold;
         }
@@ -933,6 +1027,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
   }
   const float l = block_lse(ring, pr.start, N, part);   // diagonal 0 = slot 0
   if (threadIdx.x == 0) lse_b[b] = l;
+  if constexpr (EXPECT) block_texp(acc, texp + (size_t)b * 7);
 }
 
 // ------------------------------------------------- P <= 2 (per-pair) instances
@@ -1215,7 +1310,33 @@ __device__ __forceinline__ BwdIn load_bwd_in(const Problem& pr, int q,
   return a;
 }
 
-template <int K, bool HDP, bool EXPECT>
+// Add an into-match posterior mtp and its moments (dx = dxv) at
+// reference position pos on path q to the per-pair EXPECT window: slot
+// (pos mod W) * P + q of kxw [3][N] (tagged with its position in ktag
+// [N]); a slot whose position left the window first adds its sums to kb
+// (3, P, LX) in device memory, without waiting. One writer per slot a
+// diagonal, the diagonals in barrier order.
+__device__ __forceinline__ void window_add(double* kxw, int* ktag, double* kb,
+                                           int W, int N, int P, int LX,
+                                           int pos, int q, float mtp,
+                                           float dxv) {
+  const int sl = (pos % W) * P + q;
+  if (ktag[sl] != pos) {
+    if (ktag[sl] >= 0)
+      for (int r = 0; r < 3; ++r)
+        atomicAdd(kb + ((size_t)r * P + q) * LX + ktag[sl], kxw[r * N + sl]);
+    ktag[sl] = pos;
+    for (int r = 0; r < 3; ++r) kxw[r * N + sl] = 0.0;
+  }
+  kxw[sl] += (double)mtp;
+  kxw[N + sl] += (double)(mtp * dxv);
+  kxw[2 * N + sl] += (double)(mtp * dxv * dxv);
+}
+
+// MP: the paths whose moments the EXPECT window sums, 1 or (a Gaussian
+// expectation bucket of P = 2) 2; the P = 1 instances compile without
+// the two-path code
+template <int K, bool HDP, bool EXPECT, int MP = 1>
 __global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
     const int* __restrict__ x0_, const int* __restrict__ width_,
     const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
@@ -1231,19 +1352,20 @@ __global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
   constexpr int NF = EXPECT ? 3 : 1;   // forward states a cell reads
   extern __shared__ double smem_d[];
   const int N = P_ * W;
-  // MOMENTS: [3][W] the window of per-position moment sums, slot x mod W
+  // MOMENTS: [3][N] the window of per-(position, path) moment sums, slot
+  // (x mod W) * P + p
   double* kxw = smem_d;
-  float* ring = reinterpret_cast<float*>(smem_d + (MOMENTS ? 3 * W : 0));
+  float* ring = reinterpret_cast<float*>(smem_d + (MOMENTS ? 3 * N : 0));
   // [3 slots][3 states][N] raw states clamped at NEG, cell o*P + p
   float* part = ring + 9 * N;                        // [2 parities][32]
   int* wcnt = reinterpret_cast<int*>(part + 64);     // [2 parities][K][32]
-  int* ktag = wcnt + 2 * K * 32;                     // MOMENTS: [W] positions
+  int* ktag = wcnt + 2 * K * 32;                     // MOMENTS: [N] positions
   __shared__ Problem pr;
   if (threadIdx.x == 0)
     pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE);
   for (int i = threadIdx.x; i < 9 * N; i += blockDim.x) ring[i] = NEG;
   if constexpr (MOMENTS)
-    for (int i = threadIdx.x; i < W; i += blockDim.x) ktag[i] = -1;
+    for (int i = threadIdx.x; i < N; i += blockDim.x) ktag[i] = -1;
   __syncthreads();
 
   const int b = blockIdx.x;
@@ -1255,7 +1377,7 @@ __global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
   int* so = slot_cell + (size_t)b * D1 * R;
   float* sv = slot_val + (size_t)b * D1 * R;
   int* cn = cnt + (size_t)b * D1;
-  double* kb = MOMENTS ? kx + (size_t)b * 3 * LX : nullptr;
+  double* kb = MOMENTS ? kx + (size_t)b * 3 * P * LX : nullptr;
   for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) {
     inc[d] = 0.f;
     cn[d] = 0;
@@ -1316,6 +1438,10 @@ __global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
       float bm = NEG, bx = NEG, by = NEG;
       const int o = c / P, q = c - o * P;   // q: this cell's (source) path
       fpost[k] = fin_[k][MATCH];
+      // MOMENTS at P = 2: the into-match posteriors from this source cell
+      // to its target on path q and on the other path, and the moments'
+      // dx of the target on path q (this thread adds that target's sum)
+      float pm_own = 0.f, pm_other = 0.f, dx_own = 0.f;
       if (c < N && o < wd) {
         if (fin) {
           bm = pr.end[MATCH];
@@ -1394,25 +1520,26 @@ __global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
             acc[5] += (double)p_my;
             acc[6] += (double)p_yy;
             if constexpr (MOMENTS) {
-              // moments of the into-match posterior at (x+1, y+1), P = 1
-              const float mtp = p_mm + p_xm + p_ym;
-              if (mtp != 0.f) {
-                const float dxv = a.inv_m1[0] > 0.f
-                                      ? (ev_mean - a.m_hat1[0]) / pr.var
-                                      : 0.f;
-                const int pos = r1 + o, sl = pos % W;
-                if (ktag[sl] != pos) {
-                  // the slot's position left the window: its sums go out
-                  if (ktag[sl] >= 0)
-                    for (int r = 0; r < 3; ++r)
-                      atomicAdd(kb + (size_t)r * LX + ktag[sl],
-                                kxw[r * W + sl]);
-                  ktag[sl] = pos;
-                  for (int r = 0; r < 3; ++r) kxw[r * W + sl] = 0.0;
-                }
-                kxw[sl] += (double)mtp;
-                kxw[W + sl] += (double)(mtp * dxv);
-                kxw[2 * W + sl] += (double)(mtp * dxv * dxv);
+              // moments of the into-match posterior at (x+1, y+1) on path
+              // p: at P = 1 this cell's three terms; at P = 2 the terms of
+              // both source paths, added after the exchange below
+              if constexpr (MP == 1) {
+                const float mtp = p_mm + p_xm + p_ym;
+                if (mtp != 0.f)
+                  window_add(kxw, ktag, kb, W, N, 1, LX, r1 + o, 0, mtp,
+                             a.inv_m1[0] > 0.f
+                                 ? (ev_mean - a.m_hat1[0]) / pr.var : 0.f);
+              } else {
+                float pm[PAIR_P];
+#pragma unroll
+                for (int p = 0; p < PAIR_P; ++p)
+                  pm[p] = expf(f_m + t[T_MM] + tmm[p] + normA) +
+                          expf(f_x + t[T_XM] + tmm[p] + normA) +
+                          expf(f_y + t[T_YM] + tmm[p] + normA);
+                pm_own = pm[q];
+                pm_other = pm[1 - q];
+                dx_own = a.inv_m1[q] > 0.f
+                             ? (ev_mean - a.m_hat1[q]) / pr.var : 0.f;
               }
             }
           }
@@ -1420,6 +1547,17 @@ __global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
                    gy_term + t[T_MY]);
           bx = lae(gx_red + t[T_XX], mm_red + t[T_XM]);
           by = lae(mm_red + t[T_YM], gy_term + t[T_YY]);
+        }
+      }
+      if constexpr (MOMENTS) {
+        // P = 2: cells o*2 and o*2+1 (one offset's two paths) are
+        // neighbouring lanes, so the other source path's posterior into
+        // this cell's target comes by one shuffle (every lane runs it)
+        if constexpr (MP == 2) {
+          const float mtp =
+              pm_own + __shfl_xor_sync(0xffffffffu, pm_other, 1);
+          if (!fin && c < N && o < wd && mtp != 0.f)
+            window_add(kxw, ktag, kb, W, N, 2, LX, r1 + o, q, mtp, dx_own);
         }
       }
       vm[k] = bm;
@@ -1528,26 +1666,13 @@ __global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
     if constexpr (MOMENTS) {
       // the positions still in the window (block_lse_cells' barriers
       // ordered their last sums before these reads)
-      for (int sl = threadIdx.x; sl < W; sl += blockDim.x)
+      for (int sl = threadIdx.x; sl < N; sl += blockDim.x)
         if (ktag[sl] >= 0)
           for (int r = 0; r < 3; ++r)
-            atomicAdd(kb + (size_t)r * LX + ktag[sl], kxw[r * W + sl]);
+            atomicAdd(kb + ((size_t)r * P + sl % P) * LX + ktag[sl],
+                      kxw[r * N + sl]);
     }
-    // texp: warp sums, then the warps in order
-    __shared__ double tpart[7][32];
-#pragma unroll
-    for (int i = 0; i < 7; ++i) {
-      double v = acc[i];
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) tpart[i][warp] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < 7) {
-      double s = 0.0;
-      for (int w = 0; w < nw; ++w) s += tpart[threadIdx.x][w];
-      texp[(size_t)b * 7 + threadIdx.x] = s;
-    }
+    block_texp(acc, texp + (size_t)b * 7);
   }
 }
 
@@ -1578,11 +1703,6 @@ int pair_k(int N, bool expect_bwd) {
 }
 
 bool shape_ok(int W, int P) { return W >= 1 && P >= 1; }
-
-// the expectation instances: P = 1, at most PAIR_CELLS cells
-bool expect_shape_ok(int W, int P) {
-  return P == 1 && W >= 1 && W <= PAIR_CELLS;
-}
 
 // The device pointers and sizes of one bucket.
 struct Bucket {
@@ -1621,13 +1741,14 @@ int paths_threads(int N) {
   return N >= MAX_THREADS ? MAX_THREADS : round_warps(N);
 }
 
-template <int K, bool HDP>
+template <int K, bool HDP, bool EXPECT>
 int fwd_paths_launch(const Bucket& a, float* fstack, float* f_incr,
                      float* lse_f, float* scratch, cudaStream_t stream) {
   const int N = a.P * a.W;
   const size_t smem = ((K == WIDE ? 0 : 6 * (size_t)N) + 32) * sizeof(float);
-  launch_setup(sa_fwd_paths_kernel<K, HDP>, smem);
-  sa_fwd_paths_kernel<K, HDP><<<a.B, paths_threads(N), smem, stream>>>(
+  launch_setup(sa_fwd_paths_kernel<K, HDP, EXPECT>, smem);
+  sa_fwd_paths_kernel<K, HDP, EXPECT>
+      <<<a.B, paths_threads(N), smem, stream>>>(
       a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, f_incr,
       lse_f, scratch, a.D1, a.W, a.P, a.LX, a.LE);
   return (int)cudaGetLastError();
@@ -1644,16 +1765,21 @@ int fwd_pair_dispatch(const Bucket& a, int K, float* fstack, float* f_incr,
   }
 }
 
-template <bool HDP>
+template <bool HDP, bool EXPECT>
 int fwd_paths_dispatch(const Bucket& a, float* fstack, float* f_incr,
                        float* lse_f, float* scratch, cudaStream_t s) {
   switch (paths_k(a.P * a.W)) {
-    case 1: return fwd_paths_launch<1, HDP>(a, fstack, f_incr, lse_f, 0, s);
-    case 2: return fwd_paths_launch<2, HDP>(a, fstack, f_incr, lse_f, 0, s);
-    case 4: return fwd_paths_launch<4, HDP>(a, fstack, f_incr, lse_f, 0, s);
-    case 8: return fwd_paths_launch<8, HDP>(a, fstack, f_incr, lse_f, 0, s);
+    case 1:
+      return fwd_paths_launch<1, HDP, EXPECT>(a, fstack, f_incr, lse_f, 0, s);
+    case 2:
+      return fwd_paths_launch<2, HDP, EXPECT>(a, fstack, f_incr, lse_f, 0, s);
+    case 4:
+      return fwd_paths_launch<4, HDP, EXPECT>(a, fstack, f_incr, lse_f, 0, s);
+    case 8:
+      return fwd_paths_launch<8, HDP, EXPECT>(a, fstack, f_incr, lse_f, 0, s);
     default:
-      return fwd_paths_launch<WIDE, HDP>(a, fstack, f_incr, lse_f, scratch, s);
+      return fwd_paths_launch<WIDE, HDP, EXPECT>(a, fstack, f_incr, lse_f,
+                                                 scratch, s);
   }
 }
 
@@ -1669,17 +1795,17 @@ struct BwdOut {
   double* kx;
 };
 
-template <int K, bool HDP, bool EXPECT>
+template <int K, bool HDP, bool EXPECT, int MP = 1>
 int bwd_pair_launch(const Bucket& a, const float* fstack, const double* cvecf,
                     const BwdOut& o, int R, float threshold,
                     cudaStream_t stream) {
   const int N = a.P * a.W;
   constexpr bool MOMENTS = EXPECT && !HDP;
-  const size_t smem = (MOMENTS ? 3 * (size_t)a.W * sizeof(double) : 0) +
+  const size_t smem = (MOMENTS ? 3 * (size_t)N * sizeof(double) : 0) +
                       (9 * (size_t)N + 64) * sizeof(float) +
-                      (2 * K * 32 + (MOMENTS ? a.W : 0)) * sizeof(int);
-  launch_setup(sa_bwd_pair_kernel<K, HDP, EXPECT>, smem);
-  sa_bwd_pair_kernel<K, HDP, EXPECT>
+                      (2 * K * 32 + (MOMENTS ? N : 0)) * sizeof(int);
+  launch_setup(sa_bwd_pair_kernel<K, HDP, EXPECT, MP>, smem);
+  sa_bwd_pair_kernel<K, HDP, EXPECT, MP>
       <<<a.B, round_warps((N + K - 1) / K), smem, stream>>>(
           a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
           cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt, o.texp,
@@ -1687,7 +1813,7 @@ int bwd_pair_launch(const Bucket& a, const float* fstack, const double* cvecf,
   return (int)cudaGetLastError();
 }
 
-template <int K, bool HDP>
+template <int K, bool HDP, bool EXPECT>
 int bwd_paths_launch(const Bucket& a, const float* fstack, const double* cvecf,
                      const BwdOut& o, int R, float threshold, float* scratch,
                      cudaStream_t stream) {
@@ -1695,11 +1821,12 @@ int bwd_paths_launch(const Bucket& a, const float* fstack, const double* cvecf,
   const size_t smem = K == WIDE ? 32 * sizeof(float)
                                 : (6 * (size_t)N + 32) * sizeof(float) +
                                       K * 32 * sizeof(int);
-  launch_setup(sa_bwd_paths_kernel<K, HDP>, smem);
-  sa_bwd_paths_kernel<K, HDP><<<a.B, paths_threads(N), smem, stream>>>(
-      a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, cvecf,
-      o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt, scratch, a.D1, a.W,
-      a.P, a.LX, a.LE, R, threshold);
+  launch_setup(sa_bwd_paths_kernel<K, HDP, EXPECT>, smem);
+  sa_bwd_paths_kernel<K, HDP, EXPECT>
+      <<<a.B, paths_threads(N), smem, stream>>>(
+          a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
+          cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt, o.texp,
+          o.kx, scratch, a.D1, a.W, a.P, a.LX, a.LE, R, threshold);
   return (int)cudaGetLastError();
 }
 
@@ -1707,6 +1834,17 @@ template <bool HDP, bool EXPECT>
 int bwd_pair_dispatch(const Bucket& a, int K, const float* fstack,
                       const double* cvecf, const BwdOut& o, int R,
                       float threshold, cudaStream_t s) {
+  if constexpr (EXPECT && !HDP) {
+    if (a.P == 2) switch (K) {
+        case 1: return bwd_pair_launch<1, HDP, EXPECT, 2>(a, fstack, cvecf, o,
+                                                          R, threshold, s);
+        case 2: return bwd_pair_launch<2, HDP, EXPECT, 2>(a, fstack, cvecf, o,
+                                                          R, threshold, s);
+        default: return bwd_pair_launch<4, HDP, EXPECT, 2>(a, fstack, cvecf,
+                                                           o, R, threshold,
+                                                           s);
+      }
+  }
   switch (K) {
     case 1: return bwd_pair_launch<1, HDP, EXPECT>(a, fstack, cvecf, o, R,
                                                    threshold, s);
@@ -1717,21 +1855,21 @@ int bwd_pair_dispatch(const Bucket& a, int K, const float* fstack,
   }
 }
 
-template <bool HDP>
+template <bool HDP, bool EXPECT>
 int bwd_paths_dispatch(const Bucket& a, const float* fstack,
                        const double* cvecf, const BwdOut& o, int R,
                        float threshold, float* scratch, cudaStream_t s) {
   switch (paths_k(a.P * a.W)) {
-    case 1: return bwd_paths_launch<1, HDP>(a, fstack, cvecf, o, R,
-                                            threshold, 0, s);
-    case 2: return bwd_paths_launch<2, HDP>(a, fstack, cvecf, o, R,
-                                            threshold, 0, s);
-    case 4: return bwd_paths_launch<4, HDP>(a, fstack, cvecf, o, R,
-                                            threshold, 0, s);
-    case 8: return bwd_paths_launch<8, HDP>(a, fstack, cvecf, o, R,
-                                            threshold, 0, s);
-    default: return bwd_paths_launch<WIDE, HDP>(a, fstack, cvecf, o, R,
-                                                threshold, scratch, s);
+    case 1: return bwd_paths_launch<1, HDP, EXPECT>(a, fstack, cvecf, o, R,
+                                                    threshold, 0, s);
+    case 2: return bwd_paths_launch<2, HDP, EXPECT>(a, fstack, cvecf, o, R,
+                                                    threshold, 0, s);
+    case 4: return bwd_paths_launch<4, HDP, EXPECT>(a, fstack, cvecf, o, R,
+                                                    threshold, 0, s);
+    case 8: return bwd_paths_launch<8, HDP, EXPECT>(a, fstack, cvecf, o, R,
+                                                    threshold, 0, s);
+    default: return bwd_paths_launch<WIDE, HDP, EXPECT>(
+        a, fstack, cvecf, o, R, threshold, scratch, s);
   }
 }
 
@@ -1746,8 +1884,11 @@ bool hdp_ok(const HdpTab& h) {
 // sweep launches a bucket of P paths at width W with: K of a per-pair
 // instance, -K of a P > 2 (PATHS) one (K > MAX_K: the wide instance); 0
 // for a shape they do not take.
+// The expectation pass takes the same instances as the plain sweeps: at
+// P = 2 the per-pair instance measured 7-46% faster than the P > 2
+// instances' expectation pass on every P = 2 class (PERF.md §6).
 int launch_k(int W, int P, bool expect, bool backward) {
-  if (!shape_ok(W, P) || (expect && !expect_shape_ok(W, P))) return 0;
+  if (!shape_ok(W, P)) return 0;
   return pair_bucket(W, P) ? pair_k(P * W, expect && backward)
                            : -paths_k(P * W);
 }
@@ -1772,11 +1913,11 @@ size_t scratch_bytes(int W, int P, bool expect, bool backward) {
 // dens and slopes (nk, ng) on the grid g0 + i * dx with last knot gN),
 // all null for a Gaussian bucket. `expect` != 0 runs the EM expectation
 // instances: fstack is (B, D1, 3, P, W), and the backward writes texp (B,
-// 7) and adds into kx (B, 3, LX), which the caller zeroes (both null
+// 7) and adds into kx (B, 3, P, LX), which the caller zeroes (both null
 // otherwise). Each returns cudaGetLastError() after its launch, or
-// cudaErrorInvalidValue for a shape it does not take (with `expect`, P >
-// 1 or W > 2048), an incomplete set of HDP tables, missing expectation
-// outputs or a missing scratch.
+// cudaErrorInvalidValue for a shape it does not take (W or P below 1), an
+// incomplete set of HDP tables, missing expectation outputs or a missing
+// scratch.
 
 // launch_k and scratch_bytes, for the Python side
 extern "C" int sa_cells_per_thread(int W, int P, int expect, int backward) {
@@ -1806,10 +1947,17 @@ extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
       (!scratch && scratch_bytes(W, P, expect, false)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (K < 0 && expect)
+    return dens
+        ? fwd_paths_dispatch<true, true>(a, fstack, f_incr, lse_f, scratch, s)
+        : fwd_paths_dispatch<false, true>(a, fstack, f_incr, lse_f, scratch,
+                                          s);
   if (K < 0)
     return dens
-        ? fwd_paths_dispatch<true>(a, fstack, f_incr, lse_f, scratch, s)
-        : fwd_paths_dispatch<false>(a, fstack, f_incr, lse_f, scratch, s);
+        ? fwd_paths_dispatch<true, false>(a, fstack, f_incr, lse_f, scratch,
+                                          s)
+        : fwd_paths_dispatch<false, false>(a, fstack, f_incr, lse_f, scratch,
+                                           s);
   if (expect)
     return dens
         ? fwd_pair_dispatch<true, true>(a, K, fstack, f_incr, lse_f, s)
@@ -1838,11 +1986,16 @@ extern "C" int sa_bwd_sweep_compact(
     return (int)cudaErrorInvalidValue;
   const BwdOut o{b_incr, lse_b, slot_cell, slot_val, cnt, texp, kx};
   cudaStream_t s = (cudaStream_t)stream;
+  if (K < 0 && expect)
+    return dens ? bwd_paths_dispatch<true, true>(a, fstack, cvecf, o, R,
+                                                 threshold, scratch, s)
+                : bwd_paths_dispatch<false, true>(a, fstack, cvecf, o, R,
+                                                  threshold, scratch, s);
   if (K < 0)
-    return dens ? bwd_paths_dispatch<true>(a, fstack, cvecf, o, R, threshold,
-                                           scratch, s)
-                : bwd_paths_dispatch<false>(a, fstack, cvecf, o, R,
-                                            threshold, scratch, s);
+    return dens ? bwd_paths_dispatch<true, false>(a, fstack, cvecf, o, R,
+                                                  threshold, scratch, s)
+                : bwd_paths_dispatch<false, false>(a, fstack, cvecf, o, R,
+                                                   threshold, scratch, s);
   if (expect)
     return dens ? bwd_pair_dispatch<true, true>(a, K, fstack, cvecf, o, R,
                                                 threshold, s)

@@ -190,12 +190,17 @@ def prepare_problem(
     scale_noise: bool = False,
     drift_deltas: Optional[np.ndarray] = None,
     hdp=None,
+    event_best: bool = True,
 ) -> BandedProblem:
     """Precompute all device arrays for one segment.
 
     ``W`` must be >= the maximum band width; ``Dpad`` >= lX+lY; ``P`` >= the
     maximum paths per cell. ``drift_deltas`` optionally supplies per-event
     delta-times for drift correction of event means (nanopore.c:633-653).
+    ``event_best`` False leaves out the probability-space sweeps' event
+    normaliser (``ev_best`` None, ``ev_norm_total`` 0): a best case over
+    every k-mer of the model for each event, the bulk of a Gaussian
+    problem's prep at 46,656 k-mers, which only those sweeps read.
     """
     k = model.kmer_length
     lX = len(seq) - k + 1
@@ -320,7 +325,7 @@ def prepare_problem(
     # and add the sum back to the totals)
     ev_best = None
     ev_norm_total = 0.0
-    if mode == MODE_MEAN_ONLY:
+    if mode == MODE_MEAN_ONLY and event_best:
         mu_hat_all = params.scale * mu + params.shift
         with np.errstate(divide="ignore"):
             inv_all = 1.0 / (params.var * sd_m)
@@ -1002,22 +1007,13 @@ def posterior(fstack, bstack, cvec, pt: ProblemTensors):
 
 
 # --------------------------------------------------------------------------
-# EM expectations (P = 1)
+# EM expectations (any P)
 # --------------------------------------------------------------------------
 
 # the seven live transitions (from state, to state), in the order of the
 # backward kernel's texp rows (the JAX ``execute_expect`` ``rows``)
 TEXP_ROWS = ((MATCH, GAP_X), (GAP_X, GAP_X), (MATCH, MATCH), (GAP_X, MATCH),
              (GAP_Y, MATCH), (MATCH, GAP_Y), (GAP_Y, GAP_Y))
-
-
-def check_expect(P: int) -> None:
-    """The expectation pass runs at P = 1 only; P > 1 EM waits for its
-    ROADMAP item."""
-    if P != 1:
-        raise NotImplementedError(
-            f"EM expectations on a bucket of P={P} paths per cell: the port "
-            "computes them at P = 1 (P > 1 EM is queued in ROADMAP slice 3)")
 
 
 def expect_cvecs(cvecf, bo):
@@ -1039,15 +1035,17 @@ def texp_matrix(texp7):
 
 
 def kexp_by_kmer(kx, kid, K: int):
-    """Per-kmer emission moments (B, 3, K) float64 from the per-position
-    moments ``kx`` (B, 3, LX) of the expectation pass, keyed by each
-    position's k-mer id ``kid`` (B, LX): a float64 ``index_add_`` on
-    kx's device. The counterpart of the XLA ``_kexp_reduce_banked``
-    (``ops/banded_fb_pallas_batch.py:2116``); positions the pass never
+    """Per-kmer emission moments (B, 3, K) float64 from the moments ``kx``
+    (B, 3, *S) of the expectation pass at each cell of S (a (P, LX)
+    (path, position) grid, or (LX,)), keyed by that cell's k-mer id ``kid``
+    (B, *S): a float64 ``index_add_`` on kx's device. The counterpart of
+    the XLA ``_kexp_reduce_banked`` (``ops/banded_fb_pallas_batch.py:2116``)
+    and of the XLA core's ``kexp.at[r, kw].add``; cells the pass never
     reached hold zeros."""
-    B, _, LX = kx.shape
+    B = kx.shape[0]
+    kx = kx.reshape(B, 3, -1)
     key = (torch.arange(B * 3, device=kx.device)[:, None] * K
-           + kid.long().repeat_interleave(3, dim=0)).reshape(-1)
+           + kid.reshape(B, -1).long().repeat_interleave(3, dim=0)).reshape(-1)
     out = torch.zeros(B * 3 * K, dtype=torch.float64, device=kx.device)
     out.index_add_(0, key, kx.reshape(-1).double())
     return out.view(B, 3, K)
@@ -1055,27 +1053,30 @@ def kexp_by_kmer(kx, kid, K: int):
 
 def expectation_sums(pt: ProblemTensors, fstack, bstack, cvec_d1, cvec_d2,
                      moments: bool = True):
-    """Transition posteriors and per-position Gaussian moments of a P = 1
-    bucket, accumulated over TO diagonals d = 1..D1-1 as the JAX
-    ``_expectations_core`` (``ops/banded_fb.py:642-746``) does.
+    """Transition posteriors and per-(path, position) Gaussian moments of
+    a bucket of P paths, accumulated over TO diagonals d = 1..D1-1 as the
+    JAX ``_expectations_core`` (``ops/banded_fb.py:642-753``) does, term
+    for term.
 
-    ``fstack`` / ``bstack`` are the three-state stacks (B, D1, 3, 1, W)
+    ``fstack`` / ``bstack`` are the three-state stacks (B, D1, 3, P, W)
     (``store_full``); ``cvec_d1[d]`` = Fo(d-1) + Bo(d) - total and
     ``cvec_d2[d]`` = Fo(d-2) + Bo(d) - total (cast to float32 here, as the
-    JAX host casts them). A transition counts where its TO cell is in the
-    band, d <= n_diag and the step is legal; end-state transitions do not.
+    JAX host casts them). A transition from source path q to target path
+    p counts where its TO cell is in the band, d <= n_diag and legal[p,
+    q] holds at the TO position (``pair_post``); the two gapY transitions
+    stay on their path and need the band alone (``val_my`` / ``val_yy``);
+    end-state transitions do not count.
 
-    Returns (texp (B, 7) float64 in ``TEXP_ROWS`` order, kx (B, 3, LX)
-    float64 [Σp, Σp·dx, Σp·dx²] of the into-match posteriors at each TO
-    position, dx = (event mean − m̂)/var, zero where inv_m <= 0; all zero
-    unless ``moments``). Per-cell terms are float32 in the JAX order
-    (src + e_to + t + b + c); sums are float64. The JAX ``match_tp``
-    (per-cell into-match posteriors) has no reader on the EM path and is
-    not computed.
+    Returns (texp (B, 7) float64 in ``TEXP_ROWS`` order, kx (B, 3, P, LX)
+    float64 [Σp, Σp·dx, Σp·dx²] of the into-match posteriors of each TO
+    (path, position), summed over their legal source paths, dx = (event
+    mean − m̂)/var, zero where inv_m <= 0; all zero unless ``moments``).
+    Per-cell terms are float32 in the JAX order (src + e_to + t + b + c);
+    sums are float64. The JAX ``match_tp`` (per-cell into-match
+    posteriors) has no reader on the EM path and is not computed.
     """
-    check_expect(pt.P)
     B, D1 = pt.x0.shape
-    W = pt.W
+    W, P = pt.W, pt.P
     dev = pt.device
     lX, lY, nd, efp, reflen, evlen, t, start, end, gapx = _unpack(pt)
     x0 = pt.x0.long()
@@ -1085,27 +1086,30 @@ def expectation_sums(pt: ProblemTensors, fstack, bstack, cvec_d1, cvec_d2,
     c1s, c2s = cvec_d1.float(), cvec_d2.float()
     var = pt.par[:, PACK_VAR, None, None]
     texp = torch.zeros(B, 7, dtype=torch.float64, device=dev)
-    kx = torch.zeros(B, 3, pt.ref.shape[-1], dtype=torch.float64, device=dev)
+    kx = torch.zeros(B, 3, P, pt.ref.shape[-1], dtype=torch.float64,
+                     device=dev)
     legT = pt.leg.transpose(1, 2).contiguous()
     for d in range(1, D1):
         xd = x0[:, d]
         refw, idx = _cols(pt.ref, xd, reflen, W)
-        legw = _legal(legT, xd, reflen, W, 1)[:, :, 0]  # (B, 1, W) at P = 1
+        legw = _legal(legT, xd, reflen, W, P)           # (B, P_to, Q_from, W)
         evw, _ = _cols(pt.ev, lY - d + xd + efp, evlen, W)
         e_match, e_stay, e_gapx = _emissions(refw, evw, gapx,
                                              _hdp_window(pt, xd, reflen))
         shift1 = xd - x0[:, d - 1] - 1
         shift2 = xd - x0[:, d - 2] - 1 if d >= 2 else no_diag
-        f1 = _window(fstack[:, d - 1], shift1, W)       # (B, 3, 1, W+1)
+        f1 = _window(fstack[:, d - 1], shift1, W)       # (B, 3, P, W+1)
         f2 = _window(fstack[:, max(d - 2, 0)], shift2, W)
         bcur = bstack[:, d]
         c1 = c1s[:, d, None, None]
         c2 = c2s[:, d, None, None]
         inband = ((o < width[:, d, None]) & (d <= nd)[:, None])[:, None, :]
-        ok = legw & inband
+        ok = legw & inband[:, :, None, :]
 
         def pair(src, e_to, t_log, b_state, c):
-            val = src + e_to + t_log + bcur[:, b_state] + c
+            # (B, P_to, Q_from, W): source path q's state into target p
+            val = (src[:, None] + e_to[:, :, None] + t_log[:, :, :, None]
+                   + bcur[:, b_state][:, :, None] + c[:, :, :, None])
             return torch.exp(torch.clamp(torch.where(ok, val, NEG), min=NEG))
 
         def stay(src, t_log):
@@ -1120,35 +1124,37 @@ def expectation_sums(pt: ProblemTensors, fstack, bstack, cvec_d1, cvec_d2,
         p_ym = pair(f2[:, GAP_Y, :, :W], e_match, t[:, T_YM], MATCH, c2)
         p_my = stay(f1[:, MATCH, :, 1:], t[:, T_MY])
         p_yy = stay(f1[:, GAP_Y, :, 1:], t[:, T_YY])
-        texp += torch.stack([p.double().sum(dim=(1, 2)) for p in (
+        texp += torch.stack([p.double().flatten(1).sum(dim=1) for p in (
             p_mx, p_xx, p_mm, p_xm, p_ym, p_my, p_yy)], dim=1)
         if moments:
-            mtp = (p_mm + p_xm + p_ym)[:, 0]
+            mtp = (p_mm + p_xm + p_ym).sum(dim=2)       # (B, P, W)
             # divide by a tensor: PyTorch's CUDA division by a Python
             # number multiplies by its reciprocal (see hdp_spline_density)
             dx = (evw[:, 0, None] - refw[:, 0]) / var
-            dx = torch.where(refw[:, 1] > 0.0, dx, 0.0)[:, 0]
+            dx = torch.where(refw[:, 1] > 0.0, dx, 0.0)
+            at = idx[:, None, :].expand(-1, P, -1)
             for r, v in enumerate((mtp, mtp * dx, mtp * dx * dx)):
-                kx[:, r].scatter_add_(1, idx, v.double())
+                kx[:, r].scatter_add_(2, at, v.double())
     return texp, kx
 
 
 def expectations(pt: ProblemTensors, fstack, bstack, cvec_d1, cvec_d2,
                  num_kmers: int):
-    """The JAX ``_expectations_core`` of a P = 1 bucket: texp (B, 3, 3)
-    [from, to] and kexp (B, 3, num_kmers) [Σp, Σp·dx, Σp·dx²] by k-mer,
-    both float64 (``expectation_sums``, then ``kexp_by_kmer`` over
-    ``pt.kid``). ``num_kmers`` = 0 skips the moments and returns kexp
-    zeros (B, 3, 1), as the JAX core does. Emission modes are treated
-    alike, as in the XLA core: the port's EM path asks for no moments in
-    MODE_HDP (see ``ops.batch.run_banded_fb_batch``)."""
+    """The JAX ``_expectations_core`` of a bucket: texp (B, 3, 3) [from,
+    to] and kexp (B, 3, num_kmers) [Σp, Σp·dx, Σp·dx²] by k-mer, both
+    float64 (``expectation_sums``, then ``kexp_by_kmer`` over ``pt.kid``,
+    each (path, position) keyed by its k-mer). ``num_kmers`` = 0 skips the
+    moments and returns kexp zeros (B, 3, 1), as the JAX core does.
+    Emission modes are treated alike, as in the XLA core: the port's EM
+    path asks for no moments in MODE_HDP (see
+    ``ops.batch.run_banded_fb_batch``)."""
     texp7, kx = expectation_sums(pt, fstack, bstack, cvec_d1, cvec_d2,
                                  moments=num_kmers > 0)
     if num_kmers > 0:
         if pt.kid is None:
             raise ValueError("kexp needs the k-mer ids: problem_tensors(..., "
                              "kmer_ids=True)")
-        kexp = kexp_by_kmer(kx, pt.kid[:, 0], num_kmers)
+        kexp = kexp_by_kmer(kx, pt.kid, num_kmers)
     else:
         kexp = torch.zeros(pt.x0.shape[0], 3, 1, dtype=torch.float64,
                            device=pt.device)

@@ -1,7 +1,7 @@
 """The port's two Hopper kernels, their plain twins, and the aligner that
 drives them over one bucket of problems with any number P of paths per
-cell, Gaussian (MODE_MEAN_ONLY) or HDP (MODE_HDP) emissions, and, at
-P = 1, the EM expectation pass.
+cell, Gaussian (MODE_MEAN_ONLY) or HDP (MODE_HDP) emissions, and the EM
+expectation pass.
 
 ``forward_sweep`` launches ``sa_fwd_sweep`` and ``backward_sweep_compact``
 launches ``sa_bwd_sweep_compact`` (``csrc/banded_fb.cu``) on CUDA tensors;
@@ -12,10 +12,12 @@ the run's shared density tables (``ProblemTensors.kid``/``mu``/``hdp``),
 which the kernels' HDP instances read. A CUDA tensor never falls back: a
 missing ``nvcc``, a failed build, a shape the kernels do not take, a
 missing table or a refused launch raises. Each wrapper counts its kernel
-launches in ``<wrapper>.launches`` and those of its expectation instance
-(``expect=True``) in ``<wrapper>.expect_launches``; of its launches, those
-of the wide instance (P * W > 8192 cells a diagonal) also in
-``<wrapper>.wide_launches``.
+launches in ``<wrapper>.launches`` and those of its expectation instances
+(``expect=True``) in ``<wrapper>.expect_launches``, of which those of the
+P > 2 instances (every expectation bucket of P > 1, and of P = 1 past
+2,048 cells) also in ``<wrapper>.expect_paths_launches``; of its
+launches, those of the wide instance (P * W > 8192 cells a diagonal) also
+in ``<wrapper>.wide_launches``.
 
 ``forward_sweep_prob`` and ``backward_sweep_compact_prob`` launch the
 probability-space kernels ``sa_fwd_sweep_prob`` and
@@ -34,7 +36,8 @@ forward sweep, float64 normaliser scan, backward sweep with in-sweep
 posterior + survivor compaction, then either the survivors decoded to
 aligned pairs or their posteriors summed per site on the device; in the
 expectation pass the backward also sums the transition posteriors and
-the per-position emission moments, which ``kexp_by_kmer`` keys by k-mer.
+the per-(path, position) emission moments, which ``kexp_by_kmer`` keys by
+k-mer.
 With ``log_space=False`` it is the counterpart of
 ``PallasBatchAligner(log_space=False)``: the probability-space sweeps,
 and every result carries ``numerics_suspect``.
@@ -128,8 +131,6 @@ def forward_sweep_ref(pt: bfb.ProblemTensors, expect: bool = False):
     """Plain twin of ``forward_sweep``: (fstack (B, D1, P, W) f32, or
     (B, D1, 3, P, W) with ``expect``, f_incr (B, D1) f32, lse_f (B,)
     f32)."""
-    if expect:
-        bfb.check_expect(pt.P)
     return bfb.sweep_forward(pt, store_full=expect)
 
 
@@ -161,14 +162,11 @@ def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False):
 
     Returns (fstack, f_incr, lse_f) as ``forward_sweep_ref``; on CUDA the
     fstack rows past a problem's n_diag are left unwritten. ``expect``
-    (P = 1, W <= 2048) keeps all three states of each diagonal for the
-    expectation pass.
+    keeps all three states of each diagonal for the expectation pass.
     """
     if pt.device.type == "cpu":
         return forward_sweep_ref(pt, expect)
     _check_cuda(pt)
-    if expect:
-        bfb.check_expect(pt.P)
     B, D1 = pt.x0.shape
     dev = pt.device
     fstack = torch.empty((B, D1, 3, pt.P, pt.W) if expect
@@ -180,17 +178,30 @@ def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False):
     _launch("sa_fwd_sweep", pt, pt.leg, (fstack, f_incr, lse_f, scratch),
             (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1],
              int(expect)))
-    if expect:
-        forward_sweep.expect_launches += 1
-    else:
-        forward_sweep.launches += 1
-    if scratch is not None:
-        forward_sweep.wide_launches += 1
+    _count(forward_sweep, pt, expect, scratch is not None, False)
     return fstack, f_incr, lse_f
+
+
+def _count(fn, pt: bfb.ProblemTensors, expect: bool, wide: bool,
+           backward: bool) -> None:
+    """Count a launch of ``fn``'s kernel on ``pt``: in ``fn.launches``, or
+    ``fn.expect_launches`` for the expectation pass (and those of the
+    P > 2 instances, the wide one among them, also in
+    ``fn.expect_paths_launches``); a wide instance's also in
+    ``fn.wide_launches``."""
+    if expect:
+        fn.expect_launches += 1
+        if cells_per_thread(pt.W, pt.P, True, backward) < 0:
+            fn.expect_paths_launches += 1
+    else:
+        fn.launches += 1
+    if wide:
+        fn.wide_launches += 1
 
 
 forward_sweep.launches = 0
 forward_sweep.expect_launches = 0
+forward_sweep.expect_paths_launches = 0
 forward_sweep.wide_launches = 0
 
 
@@ -231,12 +242,10 @@ def backward_sweep_compact_ref(pt: bfb.ProblemTensors, fstack, cvecf,
     int32 cells o*P + p, slot_val (B, D1, R) f32 posteriors, cnt (B, D1)
     int32 survivors per diagonal); slots at ranks >= cnt hold -1 / 0.
     Survivors of a diagonal rank in (band offset, path) order. With
-    ``expect`` (P = 1, ``fstack`` the three-state stack) it also returns
-    texp (B, 7) and kx (B, 3, LX) float64 from ``bfb.expectation_sums``
-    over the three-state backward stack (kx zero in MODE_HDP).
+    ``expect`` (``fstack`` the three-state stack) it also returns texp
+    (B, 7) and kx (B, 3, P, LX) float64 from ``bfb.expectation_sums`` over
+    the three-state backward stack (kx zero in MODE_HDP).
     """
-    if expect:
-        bfb.check_expect(pt.P)
     bstack, b_incr, lse_b = bfb.sweep_backward(pt, store_full=expect)
     bo, _ = bfb.backward_offsets(b_incr, lse_b)
     fm, bm = ((fstack[:, :, bfb.MATCH], bstack[:, :, bfb.MATCH]) if expect
@@ -256,18 +265,17 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
 
     Returns (b_incr, lse_b, slot_cell, slot_val, cnt) as
     ``backward_sweep_compact_ref``; ``cnt`` counts every survivor of a
-    diagonal even past R. ``expect`` (P = 1, ``fstack`` the three-state
-    stack of ``forward_sweep(pt, expect=True)``) adds texp (B, 7) float64,
-    the transition posterior sums in ``bfb.TEXP_ROWS`` order, and kx (B,
-    3, LX) float64, the into-match posteriors' moments [Σp, Σp·dx, Σp·dx²]
-    at each TO position (zero in MODE_HDP).
+    diagonal even past R. ``expect`` (``fstack`` the three-state stack of
+    ``forward_sweep(pt, expect=True)``) adds texp (B, 7) float64, the
+    transition posterior sums in ``bfb.TEXP_ROWS`` order, and kx (B, 3, P,
+    LX) float64, the into-match posteriors' moments [Σp, Σp·dx, Σp·dx²]
+    at each TO (path, position), summed over the legal source paths (zero
+    in MODE_HDP).
     """
     if pt.device.type == "cpu":
         return backward_sweep_compact_ref(pt, fstack, cvecf, threshold, R,
                                           expect)
     _check_cuda(pt)
-    if expect:
-        bfb.check_expect(pt.P)
     B, D1 = pt.x0.shape
     LX = pt.ref.shape[-1]
     dev = pt.device
@@ -282,25 +290,21 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     texp = kx = None
     if expect:
         texp = torch.empty(B, 7, dtype=torch.float64, device=dev)
-        kx = torch.zeros(B, 3, LX, dtype=torch.float64, device=dev)
+        kx = torch.zeros(B, 3, pt.P, LX, dtype=torch.float64, device=dev)
     scratch = _scratch(pt, expect, True)
     _launch("sa_bwd_sweep_compact", pt, pt.leg_src,
             (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt, texp,
              kx, scratch),
             (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1], R, int(expect)),
             (float(threshold),))
-    if scratch is not None:
-        backward_sweep_compact.wide_launches += 1
+    _count(backward_sweep_compact, pt, expect, scratch is not None, True)
     out = (b_incr, lse_b, slot_cell, slot_val, cnt)
-    if expect:
-        backward_sweep_compact.expect_launches += 1
-        return out + (texp, kx)
-    backward_sweep_compact.launches += 1
-    return out
+    return out + (texp, kx) if expect else out
 
 
 backward_sweep_compact.launches = 0
 backward_sweep_compact.expect_launches = 0
+backward_sweep_compact.expect_paths_launches = 0
 backward_sweep_compact.wide_launches = 0
 
 
@@ -422,6 +426,7 @@ def reset_launch_counts() -> None:
     for fn in (forward_sweep, backward_sweep_compact):
         fn.launches = 0
         fn.expect_launches = 0
+        fn.expect_paths_launches = 0
         fn.wide_launches = 0
     forward_sweep_prob.launches = 0
     backward_sweep_compact_prob.launches = 0
@@ -478,8 +483,8 @@ def _check_fits(problems: Sequence[bfb.BandedProblem], W: int,
 class HopperAligner:
     """One bucket of problems with P >= 1 paths per cell on one device.
     A MODE_HDP bucket takes ``hdp_tables``: the run's HDP tables, already
-    on ``device`` (``convert.hdp_tables``). ``expect`` makes a
-    P = 1 bucket run the EM expectation pass (``run``, ``execute`` and
+    on ``device`` (``convert.hdp_tables``). ``expect`` makes the bucket
+    run the EM expectation pass (``run``, ``execute`` and
     ``expect`` then add the expectations); its tensors carry the k-mer ids
     that key the emission moments.
 
@@ -501,8 +506,6 @@ class HopperAligner:
             bfb.check_prob(W, 1, hdp_tables is not None, expect)
         self.pt = problem_tensors(self.problems, W, device, hdp_tables,
                                   kmer_ids=expect, prob=not log_space)
-        if expect:
-            bfb.check_expect(self.pt.P)
         self.with_expectations = expect
         self.log_space = log_space
 
@@ -514,7 +517,7 @@ class HopperAligner:
         not |total_f - total_b| < 1, or, in probability space, a
         survivor-slot overflow; a suspect probability-space problem keeps
         no survivors), and in an expectation pass texp (B, 7) and kx (B,
-        3, LX)."""
+        3, P, LX)."""
         pt = self.pt
         R = survivor_slots(threshold)
         expect = self.with_expectations
@@ -571,7 +574,7 @@ class HopperAligner:
             arrays.append(("texp", bfb.texp_matrix(texp7)))
             if self.pt.hdp is None:
                 arrays.append(("kexp", bfb.kexp_by_kmer(
-                    kx, self.pt.kid[:, 0], self.problems[0].num_kmers)))
+                    kx, self.pt.kid, self.problems[0].num_kmers)))
         return {k: v.cpu().numpy() for k, v in arrays}
 
     def decode(self, arrays: Dict[str, np.ndarray]) -> List[Dict]:

@@ -21,16 +21,13 @@ def run_banded_fb_batch(problems: Sequence[bfb.BandedProblem], W: int, P: int,
     "total_f" and "total_b". A MODE_HDP bucket uploads the first
     problem's HDP tables, as the JAX function replicates them.
 
-    ``with_expectations`` (P = 1; P > 1 raises) adds "texp" (3, 3) and
-    "kexp" float64 from ``bfb.expectations`` over three-state stacks, as
+    ``with_expectations`` adds "texp" (3, 3) and "kexp" float64 from ``bfb.expectations`` over three-state stacks, as
     the JAX function does: kexp (3, num_kmers) in a Gaussian bucket and
     zeros (3, 1) in MODE_HDP, where the JAX XLA path alone computes
     Gaussian moments (the TPU kernel, the reference's HDP expectations
     and the port's EM path carry transitions only)."""
     if not problems:
         return []
-    if with_expectations:
-        bfb.check_expect(P)
     p0 = problems[0]
     hdp = (hdp_tables(p0.hdp_dens, p0.hdp_slopes, *p0.hdp_grid, device)
            if p0.mode == bfb.MODE_HDP else None)

@@ -3,7 +3,7 @@
 Gaussian (MODE_MEAN_ONLY) and HDP (MODE_HDP) branches of
 ``signalalign_tpu.pipeline.runner.run_alignment_batch`` for segments of
 any number of paths per cell, with pair output, site-mode
-variant/methylation calling, or (P = 1) the EM expectation pass.
+variant/methylation calling, or the EM expectation pass.
 
 Reads are prepared on the host (scaling, anchors, band geometry,
 segment and path-class splits, ``prepare_problem``), bucketed by shape,
@@ -198,11 +198,14 @@ def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
                     continue
                 W, Dpad, P = segment_shape(seg_chars, slY, p_anchors, k,
                                            config)
+                # the probability-space sweeps' event normaliser only
+                # where they may run (prob_bucket)
                 problem = bfb.prepare_problem(
                     seg_chars, seg_events, model, params, config.ambig_map,
                     W=W, Dpad=Dpad, P=P, mode=config.emission_mode,
                     anchor_pairs=p_anchors,
-                    expansion=config.diagonal_expansion, hdp=hdp)
+                    expansion=config.diagonal_expansion, hdp=hdp,
+                    event_best=os.environ.get(PROB_SWITCH) == "1")
                 tasks.append(((x1 + ax1, y1 + ay1), problem, W, Dpad, P))
     return target, params, events, ev_start, tasks
 
@@ -317,8 +320,8 @@ def run_alignment_batch(
 
     A read whose prep fails (an empty alignment window) is dropped
     (``verbose`` prints a ``FAILED`` line for it), and the rest of the
-    batch aligns. An expectation pass over a
-    bucket of more than one path raises before anything launches.
+    batch aligns. An expectation pass runs buckets of any P, as the JAX
+    runner's XLA expectation core does (``runner.py:384-391``).
     ``stage_seconds``, when given, receives the wall seconds of each
     stage: "prep" (host), "hdp_upload" (HDP mode: the tables to the
     device), "kernels" (upload, both sweeps, survivor or site-sum fetch,
@@ -381,9 +384,6 @@ def run_alignment_batch(
     buckets: Dict[Tuple[int, int, int], List[int]] = defaultdict(list)
     for i, t in enumerate(tasks):
         buckets[(t[4], t[5], t[6])].append(i)
-    if expect:
-        for (_, _, P) in buckets:
-            bfb.check_expect(P)
     tables = None
     if config.emission_mode == bfb.MODE_HDP:
         tables = hdp_tables(*hdp.density_arrays(), device)

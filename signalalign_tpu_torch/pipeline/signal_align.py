@@ -37,7 +37,7 @@ class AlignmentConfig:
     ambig_map: Dict[str, str] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_AMBIG_BASES))
     # EM expectation pass: transition posteriors and Gaussian emission
-    # moments per read (P = 1 segments only; pipeline.train sets it)
+    # moments per read (segments of any P; pipeline.train sets it)
     compute_expectations: bool = False
     # isolate sparse adjacent-degenerate (P>2, then P>4) windows into
     # their own segments (band_geometry.split_segment_by_paths), as the
@@ -152,13 +152,11 @@ def align_read(read: NanoporeReadData, guide: GuideAlignment,
         seg_events = window_events[y1:y2]
         W, Dpad, P = segment_shape(seg_chars, len(seg_events), seg_anchors,
                                    k, config)
-        if expect:
-            bfb.check_expect(P)
         problem = bfb.prepare_problem(
             seg_chars, seg_events, model, params, config.ambig_map, W=W,
             Dpad=Dpad, P=P, mode=config.emission_mode,
             anchor_pairs=seg_anchors, expansion=config.diagonal_expansion,
-            hdp=hdp)
+            hdp=hdp, event_best=False)
         r = HopperAligner([problem], W, device, tables,
                           expect=expect).execute(config.threshold)[0]
         total_lp += r["total_f"]

@@ -2,11 +2,13 @@
 ``normalize_transitions_expectations``, ``run_alignment_batch_grouped``,
 ``em_train`` and ``em_train_transitions`` in
 ``signalalign_tpu.pipeline.train`` (same M-steps, same checkpoint and
-expectations files).
+expectations files), and copies of its HDP training-data helpers
+(``collect_kmer_observations``, ``train_gaussian_emissions``,
+``write_hdp_training_file``, ``build_alignment_from_tsvs``).
 
 reference: src/signalalign/train/trainModels.py —
 expectation_maximization_training (986), train_transitions (922),
-train_normal_emmissions (735).
+train_normal_emmissions (735), CreateHdpTrainingData/train_hdp (427/830).
 
 Each iteration runs one expectation pass through ``run_alignment_batch``
 (``compute_expectations``): the expectation instances of the Hopper
@@ -23,8 +25,9 @@ import dataclasses
 import os
 import random
 import sys
+import time
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -259,3 +262,281 @@ def em_train_transitions(
                     update_transitions=True, update_emissions=False,
                     verbose=verbose, assert_monotonic=assert_monotonic,
                     device=device)
+
+
+def sample_reference(sample: dict, reference, ref_path: str):
+    """A training sample's reference (the JAX ``cmd_train``'s
+    ``_sample_reference``, ``cli.py:163-180``): its ``motifs`` or
+    ``positions_file`` edition of its ``bwa_reference`` (default
+    ``ref_path``), so that an mC sample's alignments carry E-labelled
+    k-mers; ``reference`` (the unedited one) when it has neither."""
+    from signalalign_tpu_torch.io.reference import (AmbiguityPositions,
+                                                    ProcessedReference)
+    motifs = sample.get("motifs")
+    pf = sample.get("positions_file")
+    if not motifs and not pf:
+        return reference
+    return ProcessedReference(
+        sample.get("bwa_reference") or ref_path,
+        positions=AmbiguityPositions.from_file(pf) if pf else None,
+        motifs=[tuple(m) for m in motifs] if motifs else None)
+
+
+def sample_observations(samples, sample_refs, rgs_by_sample, model,
+                        threshold_default: float,
+                        max_per_kmer: Optional[int] = None, *,
+                        device: torch.device = torch.device("cuda")):
+    """Pool per-sample k-mer observations, each sample aligned against its
+    own edited reference so that modified-base k-mers (e.g. CpG -> E)
+    label that sample's rows; per-sample ``probability_threshold`` and
+    ``number_of_kmer_assignments`` are honoured (the JAX ``cmd_train``'s
+    ``_sample_observations``, ``cli.py:254-280``; trainModels.py:427-520).
+    Each sample's reads run through ``run_alignment_batch`` on
+    ``device``."""
+    merged: Dict[str, np.ndarray] = {}
+    for si, sample in enumerate(samples):
+        if not rgs_by_sample[si]:
+            continue
+        results = run_alignment_batch(rgs_by_sample[si], sample_refs[si],
+                                      model, AlignmentConfig(), device=device)
+        thr = float(sample.get("probability_threshold", threshold_default))
+        mpk = max_per_kmer
+        if mpk is not None:
+            mpk = int(sample.get("number_of_kmer_assignments", mpk))
+        obs = collect_kmer_observations(results, model, threshold=thr,
+                                        max_per_kmer=mpk)
+        for kmer, vals in obs.items():
+            merged[kmer] = (np.concatenate([merged[kmer], vals])
+                            if kmer in merged else vals)
+    return merged
+
+
+def train_models(cfg: dict, samples, sample_refs, rgs, rgs_by_sample,
+                 reference, model: PoreModel, output_dir: str,
+                 iterations: int, em_hdp=None, *,
+                 device: torch.device = torch.device("cuda"),
+                 stage_seconds: Optional[Dict[str, float]] = None) -> Dict:
+    """The steps of the CLI's ``train`` once its reads are loaded (the JAX
+    ``cmd_train``, ``cli.py:237-317`` and ``:368-373``, without the
+    complement strand):
+    transitions EM over ``rgs`` (``(read, guide, sample reference)``
+    triples) with checkpoints and expectations files in ``output_dir``
+    (``training.transitions``, default on; ``em_hdp`` with MODE_HDP for
+    ``stateMachineType: threeStateHdp``); then ``normal_emissions``
+    (Gaussian updates from each sample's pairs) and ``hdp_emissions``
+    (each sample's observations -> ``buildAlignment.tsv`` ->
+    ``train_hdp_from_alignment`` -> ``template.nhdp``); finally
+    ``template_trained.model``. ``rgs_by_sample[i]`` holds sample i's
+    ``(read, guide)`` pairs, aligned against ``sample_refs[i]``.
+
+    Returns {"model", "em" (EMResult or None), "model_path", and where
+    written "build_alignment", "nhdp"}. ``stage_seconds``, when given,
+    receives the wall seconds of "em", "normal_emissions", "observations"
+    (the hdp_emissions alignments), "build_alignment", "gibbs" (the
+    trainer and the .nhdp write) and "write"."""
+    from signalalign_tpu_torch.hdp.train import train_hdp_from_alignment
+    from signalalign_tpu_torch.ops import banded_fb as bfb
+
+    stages: Dict[str, float] = defaultdict(float)
+    t_stage = time.perf_counter()
+
+    def mark(stage: str):
+        nonlocal t_stage
+        now = time.perf_counter()
+        stages[stage] += now - t_stage
+        t_stage = now
+
+    training = cfg.get("training", {})
+    trans_args = cfg.get("transitions_args", {})
+    out: Dict = {"em": None}
+    os.makedirs(output_dir, exist_ok=True)
+    if training.get("transitions", True):
+        em_cfg = (AlignmentConfig(emission_mode=bfb.MODE_HDP)
+                  if em_hdp is not None else None)
+        out["em"] = em_train(
+            rgs, reference, model, iterations=iterations, verbose=True,
+            config=em_cfg, hdp=em_hdp, update_transitions=True,
+            update_emissions=bool(training.get("em_emissions", False)),
+            training_bases=(trans_args.get("training_bases")
+                            or training.get("training_bases")),
+            checkpoint_dir=output_dir, write_expectations=True,
+            assert_monotonic=bool(trans_args.get("test", False)),
+            device=device)
+        model = out["em"].model
+        mark("em")
+    if training.get("normal_emissions", False):
+        obs = sample_observations(samples, sample_refs, rgs_by_sample, model,
+                                  0.5, device=device)
+        model = train_gaussian_emissions(obs, model)
+        mark("normal_emissions")
+    if training.get("hdp_emissions", False):
+        obs = sample_observations(
+            samples, sample_refs, rgs_by_sample, model, 0.8,
+            max_per_kmer=int(training.get("max_assignments", 100)),
+            device=device)
+        mark("observations")
+        out["build_alignment"] = write_hdp_training_file(
+            obs, os.path.join(output_dir, "buildAlignment.tsv"))
+        mark("build_alignment")
+        hdp_args = cfg.get("hdp_args", {})
+        out["nhdp"] = train_hdp_from_alignment(
+            out["build_alignment"], model,
+            hdp_type=training.get("hdp_type",
+                                  hdp_args.get("hdp_type",
+                                               "singleLevelFixed")),
+            out_path=os.path.join(output_dir, "template.nhdp"),
+            grid_start=float(hdp_args.get("grid_start", 30.0)),
+            grid_stop=float(hdp_args.get("grid_end", 180.0)),
+            grid_length=int(hdp_args.get("grid_length", 1200)),
+            base_gamma=float(hdp_args.get("base_gamma", 1.0)),
+            middle_gamma=float(hdp_args.get("middle_gamma", 1.0)),
+            leaf_gamma=float(hdp_args.get("leaf_gamma", 1.0)),
+            base_alpha=float(hdp_args.get("base_alpha", 1.0)),
+            base_beta=float(hdp_args.get("base_beta", 1.0)),
+            middle_alpha=float(hdp_args.get("middle_alpha", 1.0)),
+            middle_beta=float(hdp_args.get("middle_beta", 1.0)),
+            leaf_alpha=float(hdp_args.get("leaf_alpha", 1.0)),
+            leaf_beta=float(hdp_args.get("leaf_beta", 1.0)),
+            gibbs_samples=int(training.get(
+                "gibbs_samples", hdp_args.get("gibbs_samples", 1000))),
+            burn_in=int(training.get(
+                "burnin_multiplier", hdp_args.get("burnin_multiplier", 32))),
+            thinning=int(training.get(
+                "thinning", hdp_args.get("thinning", 100))))
+        mark("gibbs")
+    out["model_path"] = os.path.join(output_dir, "template_trained.model")
+    model.likelihood = model.likelihood or 0.0
+    model.write(out["model_path"])
+    out["model"] = model
+    mark("write")
+    if stage_seconds is not None:
+        stage_seconds.update(stages)
+    return out
+
+
+def collect_kmer_observations(results, model: PoreModel,
+                              threshold: float = 0.0,
+                              max_per_kmer: Optional[int] = None):
+    """(kmer -> descaled event means) from alignment results.
+
+    reference: the buildAlignment table path (CreateHdpTrainingData,
+    trainModels.py:427-520): per aligned pair above threshold, the
+    descaled event mean keyed by the PATH k-mer; optionally keep the top-N
+    highest-probability observations per k-mer
+    (generate_top_n_kmers_from_sa_output, build_alignments.py).
+    """
+    per_kmer: Dict[str, List[Tuple[float, float]]] = defaultdict(list)
+    for r in results:
+        p = r.params
+        for prob_int, x, y, kmer in r.aligned_pairs:
+            prob = prob_int / 10000000.0
+            if prob < threshold:
+                continue
+            idx = model.alphabet.kmer_index(kmer)
+            mu = model.level_mean[idx]
+            ev = float(r.events[y + r.event_offset, 0])
+            descaled = (ev + p.var * mu - p.scale * mu - p.shift) / p.var
+            per_kmer[kmer].append((prob, descaled))
+    out: Dict[str, np.ndarray] = {}
+    for kmer, vals in per_kmer.items():
+        vals.sort(key=lambda t: -t[0])
+        if max_per_kmer:
+            vals = vals[:max_per_kmer]
+        out[kmer] = np.array([v for _, v in vals])
+    return out
+
+
+def train_gaussian_emissions(observations: Dict[str, np.ndarray],
+                             model: PoreModel,
+                             prior_weight: float = 100.0,
+                             use_median: bool = False,
+                             min_sd: float = 0.0,
+                             mod_only: bool = False) -> PoreModel:
+    """Per-kmer Gaussian update with an original-model prior.
+
+    reference: train_normal_emmissions (trainModels.py:735-828):
+    new_mean = (sum(data) + prior_mean*W) / (n + W), likewise for sd,
+    with optional median/MAD estimators and a min-sd floor.
+    """
+    from scipy.stats import median_abs_deviation
+
+    model = copy.deepcopy(model)
+    for kmer, data in observations.items():
+        if mod_only and set(kmer) <= set("ACGT"):
+            continue
+        n = len(data)
+        if n == 0:
+            continue
+        if use_median:
+            mean_n = float(np.median(data)) * n
+            sd_n = float(median_abs_deviation(data, scale="normal")) * n
+        else:
+            mean_n = float(np.mean(data)) * n
+            sd_n = float(np.std(data)) * n
+        idx = model.alphabet.kmer_index(kmer)
+        pm = model.level_mean[idx] * prior_weight
+        ps = model.level_sd[idx] * prior_weight
+        model.level_mean[idx] = (mean_n + pm) / (n + prior_weight)
+        model.level_sd[idx] = max((sd_n + ps) / (n + prior_weight), min_sd)
+    return model
+
+
+def write_hdp_training_file(observations: Dict[str, np.ndarray], path: str,
+                            strand: str = "t") -> str:
+    """buildAlignment.tsv for the HDP Gibbs trainer.
+
+    Format (CreateHdpTrainingData.write_hdp_training_file /
+    nanopore_hdp update_nhdp_from_alignment): kmer \t strand \t event_mean.
+    """
+    with open(path, "w") as fh:
+        for kmer, vals in sorted(observations.items()):
+            for v in vals:
+                fh.write(f"{kmer}\t{strand}\t{v:f}\n")
+    return path
+
+
+def build_alignment_from_tsvs(tsv_paths, model: PoreModel,
+                              out_path: str,
+                              max_per_kmer: int = 100,
+                              min_probability: float = 0.8,
+                              strands=("t",),
+                              full: bool = True) -> str:
+    """Top-N highest-probability observations per k-mer from SA output TSVs.
+
+    reference: build_alignments.py generate_top_n_kmers_from_sa_output
+    (heap-nlargest per kmer over full-format rows with prob >= threshold);
+    output rows are ``kmer \t strand \t descaled_mean \t prob`` sorted by
+    kmer, matching the buildAlignment table consumed by HDP training.
+    """
+    import heapq
+    from collections import defaultdict
+
+    per_kmer = defaultdict(list)
+    for path in tsv_paths:
+        with open(path) as fh:
+            for line in fh:
+                parts = line.rstrip("\n").split("\t")
+                if full:
+                    if len(parts) < 16:
+                        continue
+                    strand, prob = parts[4], float(parts[12])
+                    kmer, descaled = parts[15], float(parts[13])
+                else:   # assignments format: kmer strand descaled prob
+                    if len(parts) < 4:
+                        continue
+                    kmer, strand = parts[0], parts[1]
+                    descaled, prob = float(parts[2]), float(parts[3])
+                if strand not in strands or prob < min_probability:
+                    continue
+                entry = (prob, descaled, strand)
+                bucket = per_kmer[kmer]
+                if len(bucket) < max_per_kmer:
+                    heapq.heappush(bucket, entry)
+                elif entry > bucket[0]:
+                    heapq.heapreplace(bucket, entry)
+    with open(out_path, "w") as fh:
+        for kmer in sorted(per_kmer):
+            for prob, descaled, strand in sorted(per_kmer[kmer],
+                                                 reverse=True):
+                fh.write(f"{kmer}\t{strand}\t{descaled:f}\t{prob:f}\n")
+    return out_path

@@ -103,6 +103,13 @@ class Alphabet:
             idx += self._base_to_digit[c] * int(self._powers[j])
         return idx
 
+    def index_to_kmer(self, index: int) -> str:
+        out = []
+        for p in self._powers:
+            d, index = divmod(index, int(p))
+            out.append(self.letters[d])
+        return "".join(out)
+
     def seq_to_digits(self, seq: str) -> np.ndarray:
         """Per-base digit values; -1 for characters outside the alphabet."""
         codes = np.frombuffer(seq.encode("latin-1"), dtype=np.uint8)

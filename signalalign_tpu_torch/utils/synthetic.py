@@ -24,6 +24,7 @@ positions file and the pore model.
 
 from __future__ import annotations
 
+import copy
 import os
 import shutil
 import tempfile
@@ -58,6 +59,25 @@ def synthetic_pore_model(seed: int, alphabet: str = "ACGT",
     model.noise_sd = rng.uniform(0.1, 0.3, model.num_kmers)
     model.noise_lambda = model.noise_mean ** 3 / model.noise_sd ** 2
     return model
+
+
+def methylated_pore_model(model: PoreModel, mod: str = "E", base: str = "C",
+                          shift: float = 3.0) -> PoreModel:
+    """A copy of ``model`` in which each k-mer carrying the modified base
+    ``mod`` takes the level of the same k-mer with ``base`` in its place,
+    plus ``shift`` pA for each ``mod``, and that k-mer's level sd: a
+    modification that moves the current a few pA, as 5-mC does, where
+    ``synthetic_pore_model`` draws every k-mer's level independently."""
+    out = copy.deepcopy(model)
+    a = model.alphabet
+    for kid in range(a.num_kmers):
+        kmer = a.index_to_kmer(kid)
+        n = kmer.count(mod)
+        if n:
+            src = a.kmer_index(kmer.replace(mod, base))
+            out.level_mean[kid] = model.level_mean[src] + shift * n
+            out.level_sd[kid] = model.level_sd[src]
+    return out
 
 
 def synthetic_hdp(model: PoreModel, seed: int, grid_start: float = 30.0,
@@ -138,14 +158,19 @@ def synthetic_read(rng: np.random.Generator, genome: str, model: PoreModel,
                    start: int, n_bases: int, label: str,
                    sub_rate: float = 0.05, ins_rate: float = 0.03,
                    del_rate: float = 0.03, stay_p: float = 0.28,
-                   contig: str = "synth"
+                   contig: str = "synth",
+                   event_motif: Optional[Tuple[str, str]] = None
                    ) -> Tuple[NanoporeReadData, GuideAlignment]:
     """One read + its guide alignment from a genome window.
 
     The error process walks the reference window emitting M/I/D runs
     (the guide CIGAR a real basecall+aligner would produce); events are
     sampled per READ k-mer from the model's Gaussians with a geometric
-    stay count (mean 1/(1-stay_p) events per k-mer).
+    stay count (mean 1/(1-stay_p) events per k-mer). ``event_motif``
+    (e.g. ("CG", "EG"): a fully CpG-methylated sample) draws the events
+    from the read's sequence with that motif edited, while the read's
+    basecall keeps the unedited bases, as a real basecall would; the
+    random draws are the same as without it.
     """
     k = model.kmer_length
     ref_seq = genome[start:start + n_bases]
@@ -179,7 +204,8 @@ def synthetic_read(rng: np.random.Generator, genome: str, model: PoreModel,
     if len(read_seq) < 2 * k:
         raise ValueError("window too small for a read")
 
-    ids = model.alphabet.seq_to_kmer_ids(read_seq)
+    ids = model.alphabet.seq_to_kmer_ids(
+        read_seq.replace(*event_motif) if event_motif else read_seq)
     n_ev_per = 1 + rng.geometric(1.0 - stay_p, size=len(ids)) - 1
     n_ev_per = np.minimum(n_ev_per, 8)
     total = int(n_ev_per.sum())
@@ -212,9 +238,11 @@ def build_synthetic_batch(model: PoreModel, n_reads: int = 100,
                           stay_p: float = 0.28,
                           fasta_path: Optional[str] = None,
                           ambig_frac: float = 0.0,
-                          ambig_motif: Tuple[str, str] = ("CG", "YG")):
+                          ambig_motif: Tuple[str, str] = ("CG", "YG"),
+                          event_motif: Optional[Tuple[str, str]] = None):
     """A flowcell-like read batch: (rgs, reference, ambig_rgs,
-    ambig_reference, fasta_path).
+    ambig_reference, fasta_path). ``event_motif`` draws every read's events
+    from its motif-edited sequence (``synthetic_read``).
 
     Read event counts are log-uniform in [ev_min, ev_max]. The first
     ``ambig_frac`` of reads are returned separately with a motif-edited
@@ -243,7 +271,8 @@ def build_synthetic_batch(model: PoreModel, n_reads: int = 100,
         n_bases = max(int(ev_t / mean_ev_per_base), 4 * model.kmer_length)
         start = int(rng.integers(0, max(genome_len - n_bases - 1, 1)))
         read, guide = synthetic_read(rng, genome, model, start, n_bases,
-                                     label=f"synth{ri}", stay_p=stay_p)
+                                     label=f"synth{ri}", stay_p=stay_p,
+                                     event_motif=event_motif)
         (ambig_rgs if ri < n_ambig else rgs).append((read, guide))
     return rgs, reference, ambig_rgs, ambig_reference, fasta_path
 

@@ -4,7 +4,9 @@ plain expectation core (``bfb.expectations`` through
 core, the bucket aligner's ``expect`` (the kernels' twins on CPU tensors)
 against ``PallasBatchAligner.execute_expect`` in interpret mode, the
 transition posteriors against the float64 oracle, the wrappers on CPU
-tensors, and the P > 1 refusal. Gaussian and HDP problems are seeded
+tensors, and em_train on reads whose segments have P = 4 paths per cell
+against the JAX em_train (``tests/test_torch_expect_paths.py`` holds the
+P > 1 expectation core itself). Gaussian and HDP problems are seeded
 synthetic P = 1 segments; the HDP is a synthetic one written as an
 ``.nhdp`` file that the JAX package loads.
 
@@ -14,12 +16,15 @@ those of the JAX package's own Pallas-vs-XLA expectation tests
 per-cell posteriors differ by f32 round-off; the JAX side sums them in
 f32, the port in f64."""
 
+import copy
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from signalalign_tpu.io.reference import \
+    ProcessedReference as JaxProcessedReference
 from signalalign_tpu.models import hdp_model as jax_hdp_model
 from signalalign_tpu.models.pore_model import PoreModel as JPoreModel
 from signalalign_tpu.models.pore_model import ScalingParams
@@ -28,17 +33,22 @@ from signalalign_tpu.ops.banded_fb_pallas_batch import PallasBatchAligner
 from signalalign_tpu.ops.batch import run_banded_fb_batch as jax_batch
 from signalalign_tpu.ops.fb_oracle import (CellPaths, Emissions,
                                            banded_forward_backward)
+from signalalign_tpu.pipeline.train import em_train as jax_em_train
 from signalalign_tpu.utils.alphabet import DEFAULT_AMBIG_BASES
+from signalalign_tpu.utils.synthetic import \
+    build_synthetic_batch as jax_build_synthetic_batch
 from signalalign_tpu_torch.convert import (hdp_tables, pore_model_from_numpy,
                                            problem_from_numpy, problem_tensors)
 from signalalign_tpu_torch.ops import banded_fb as bfb
 from signalalign_tpu_torch.ops import banded_fb_hopper as hk
+from signalalign_tpu_torch.io.reference import (ProcessedReference,
+                                                iter_fasta)
 from signalalign_tpu_torch.ops.batch import run_banded_fb_batch
-from signalalign_tpu_torch.pipeline.runner import run_alignment_batch
-from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
+from signalalign_tpu_torch.pipeline.train import em_train
 from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
                                                    synthetic_hdp,
                                                    synthetic_pore_model,
+                                                   write_genome_fasta,
                                                    write_nhdp_text)
 
 W, DPAD, THR = 128, 288, 0.01
@@ -209,10 +219,11 @@ def test_wrappers_expect_on_cpu():
     assert len(got) == 7 and all(torch.equal(a, b) for a, b in zip(got, ref))
     assert all(torch.equal(a, b) for a, b in zip(got[:5], plain))
     texp, kx = got[5:]
-    assert texp.shape == (B, 7) and kx.shape == (B, 3, pt.ref.shape[-1])
+    assert texp.shape == (B, 7) and kx.shape == (B, 3, 1, pt.ref.shape[-1])
     # kx's Σp over positions is the into-match transitions' sum (each
     # cell's three terms are added in f32 for kx)
-    assert torch.allclose(kx[:, 0].sum(1), texp[:, 2:5].sum(1), rtol=1e-6)
+    assert torch.allclose(kx[:, 0].sum((1, 2)), texp[:, 2:5].sum(1),
+                          rtol=1e-6)
     for fn in (hk.forward_sweep, hk.backward_sweep_compact):
         assert fn.launches == 0 and fn.expect_launches == 0
 
@@ -230,28 +241,45 @@ def test_kexp_by_kmer_matches_numpy():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
 
 
-def test_expect_with_more_than_one_path_raises(tmp_path):
-    """An expectation pass over a bucket of P > 1 paths per cell raises
-    naming its ROADMAP item: from the runner before anything launches,
-    on a CUDA device as on the CPU (the check precedes every device
-    call), and from the batch path and the aligner."""
-    model = synthetic_pore_model(0)
-    _, _, rgs, amb_ref, _ = build_synthetic_batch(
-        model, n_reads=1, ev_min=300, ev_max=400, seed=2, genome_len=5000,
-        fasta_path=str(tmp_path / "g.fa"), ambig_frac=1.0)
-    cfg = AlignmentConfig(ambig_map={"Y": "CT"}, compute_expectations=True)
-    for dev in (CPU, torch.device("cuda")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_alignment_batch(rgs, amb_ref, model, cfg, device=dev)
-    seq = "ACGTYGATTACAGGCATYGCATTAGC" * 3
-    ids = model.alphabet.seq_to_kmer_ids(seq.replace("Y", "C"))
-    ev = np.stack([model.level_mean[ids], np.ones(len(ids)),
-                   np.full(len(ids), .005), np.arange(len(ids)) * .005], 1)
-    p2 = bfb.prepare_problem(seq, ev, model, bfb.ScalingParams(),
-                             DEFAULT_AMBIG_BASES, W=64, Dpad=256, P=2,
-                             anchor_pairs=[(j, j) for j in range(5, 70, 10)],
-                             expansion=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_banded_fb_batch([p2], 64, 2, True, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hk.HopperAligner([p2], 64, CPU, expect=True)
+def test_em_train_with_more_than_one_path_matches_jax(tmp_path):
+    """em_train on a two-read batch whose reference carries X (ACGT)
+    codes in each read's window, clear of each other's k-mers, so that
+    each read's segment has P = 4 paths per cell, against the JAX
+    em_train (which sends such buckets to its XLA expectation core): one
+    iteration of transitions and emissions (prior weight 5), within
+    tests/test_torch_train.py's tolerances (transitions 1e-5, the
+    log-likelihood 0.2 nats, level means and sds 5e-3 pA; kexp as there,
+    rtol 2e-3 / atol 0.2)."""
+    jm, pm = _models()
+    # seed 14: both reads' one segment lands in one (W = 128, P = 4)
+    # bucket, so each package compiles and runs one bucket shape
+    kw = dict(n_reads=2, ev_min=300, ev_max=420, seed=14, genome_len=5_000,
+              fasta_path=str(tmp_path / "plain.fa"))
+    jr = jax_build_synthetic_batch(jm, **kw)[0]
+    pr = build_synthetic_batch(pm, **kw)[0]
+    genome = list(next(iter_fasta(kw["fasta_path"]))[1])
+    for _, g in pr:
+        for x in range(g.window_start + 40, g.window_end - 40, 60):
+            genome[x] = "X"
+    xfa = write_genome_fasta("".join(genome), str(tmp_path / "x.fa"))
+    jref, pref = JaxProcessedReference(xfa), ProcessedReference(xfa)
+    start = copy.deepcopy(jm)
+    start.level_mean = start.level_mean + np.random.default_rng(99).normal(
+        0.0, 1.5, size=start.level_mean.shape)
+    em_kw = dict(iterations=1, update_transitions=True, update_emissions=True,
+                 emission_prior_weight=5.0)
+    want = jax_em_train([(r, g, jref) for r, g in jr], jref, start, **em_kw)
+    got = em_train([(r, g, pref) for r, g in pr], pref,
+                   pore_model_from_numpy(start), device=CPU, **em_kw)
+    np.testing.assert_allclose(got.transitions_history[0],
+                               want.transitions_history[0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.log_likelihoods, want.log_likelihoods,
+                               atol=0.2, rtol=0)
+    np.testing.assert_allclose(got.kexp_history[0], want.kexp_history[0],
+                               rtol=2e-3, atol=0.2)
+    np.testing.assert_allclose(got.model.level_mean, want.model.level_mean,
+                               atol=5e-3, rtol=0)
+    np.testing.assert_allclose(got.model.level_sd, want.model.level_sd,
+                               atol=5e-3, rtol=0)
+    assert got.kexp_history[0][0].sum() > 100
+    assert np.isfinite(got.log_likelihoods[0])

@@ -37,7 +37,7 @@ from signalalign_tpu_torch.utils.synthetic import (synthetic_hdp,
                                                    synthetic_pore_model,
                                                    write_nhdp_text)
 
-W, DPAD, THR = 128, 512, 0.01
+W, DPAD, THR = 128, 192, 0.01
 CPU = torch.device("cpu")
 # ambiguity clusters that set the largest path count of a segment: one P
 # (C or E: 2 paths), two P in a 5-mer (4) and three (8)
@@ -145,9 +145,11 @@ def _problem_args(P, i, seed, jm):
     largest expansion is P paths: single P codes every ~25 positions (for
     P > 1), one cluster of CLUSTERS[P] mid-sequence, events drawn from the
     sequence with each P read as C, anchors every 15 events with a gap for
-    a band bulge (none in problem 0)."""
+    a band bulge (none in problem 0). Segments of 55-85 bases (each
+    comparison holds per problem, cell by cell) and Dpad 192 above their
+    diagonals: the JAX scans run Dpad + 1 diagonals."""
     rng = np.random.default_rng(seed)
-    L = int(rng.integers(90, 130))
+    L = int(rng.integers(55, 85))
     seq = list(rng.choice(list("ACGT"), size=L))
     if P > 1:
         for j in range(8, L - 8, 25):
@@ -170,12 +172,15 @@ def _problem_args(P, i, seed, jm):
 
 @pytest.fixture(scope="module", params=[1, 2, 4, 8])
 def bucket(request, models):
-    """(P, JAX problems, the port's copies) of one HDP bucket."""
+    """(P, JAX problems, the port's copies) of one HDP bucket: two
+    problems of 55-85 bases, one with a band bulge (each is compared on
+    its own; the JAX XLA scans run Dpad + 1 diagonals at P = 8, the
+    costliest here)."""
     P = request.param
     jm, _, jh, _ = models
     jp = [jbfb.prepare_problem(*a, **kw, hdp=jh)
           for a, kw in (_problem_args(P, i, 300 + 10 * P + i, jm)
-                        for i in range(3))]
+                        for i in range(2))]
     assert max(int(p.n_paths.max()) for p in jp) == P
     return P, jp, [problem_from_numpy(p) for p in jp]
 

@@ -41,7 +41,9 @@ TOL_POST = 1e-3
 
 @pytest.fixture(scope="module")
 def batch(tmp_path_factory):
-    """(JAX model, HDP, reads, CG -> PG edition), (the port's), fasta."""
+    """(JAX model, HDP, reads, CG -> PG edition), (the port's), fasta. Two
+    reads: every comparison below holds per read and per segment, and
+    two reads give segments of more than one path (C or E at each P)."""
     jm = JPoreModel("ACEGT", 5)
     src = synthetic_pore_model(0, "ACEGT", 5)
     for name in ("level_mean", "level_sd", "noise_mean", "noise_sd",
@@ -54,11 +56,11 @@ def batch(tmp_path_factory):
     jh = jax_hdp_model.load_nhdp(path)
     ph = hdp_from_numpy(jh)
     fasta = str(tmp / "genome.fa")
-    kw = dict(n_reads=4, ev_min=300, ev_max=600, seed=7, genome_len=20_000,
+    kw = dict(n_reads=2, ev_min=300, ev_max=600, seed=7, genome_len=20_000,
               fasta_path=fasta, ambig_frac=1.0, ambig_motif=("CG", "PG"))
     j = jax_build_synthetic_batch(jm, **kw)
     p = build_synthetic_batch(pm, **kw)
-    assert len(j[2]) == len(p[2]) == 4
+    assert len(j[2]) == len(p[2]) == 2
     for (jr, jg), (pr, pg) in zip(j[2], p[2]):
         assert np.array_equal(jr.events, pr.events)
         assert np.array_equal(jr.event_map, pr.event_map)

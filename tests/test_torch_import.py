@@ -73,7 +73,8 @@ def test_every_module_imports_with_jax_and_h5py_blocked(tmp_path):
             signalalign_tpu_torch.__path__, "signalalign_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        for name in ("cli", "io.fast5", "io.sam", "pipeline.runner"):
+        for name in ("cli", "io.fast5", "io.sam", "pipeline.runner",
+                     "hdp.train", "utils.native"):
             assert "signalalign_tpu_torch." + name in names, name
         from signalalign_tpu_torch.io.fast5 import Fast5
         try:
@@ -143,7 +144,8 @@ def test_no_source_file_imports_the_jax_package():
     for base, _, names in os.walk(os.path.join(ROOT, "signalalign_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
-    for name in ("cli.py", "io/fast5.py", "io/sam.py", "pipeline/runner.py"):
+    for name in ("cli.py", "io/fast5.py", "io/sam.py", "pipeline/runner.py",
+                 "hdp/train.py", "utils/native.py"):
         assert os.path.join(ROOT, "signalalign_tpu_torch", name) in files
     bad = []
     for path in files:

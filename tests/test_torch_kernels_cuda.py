@@ -3,8 +3,10 @@ card, for P = 1 and for P = 2, 4, 8 and 16 paths per cell, with every
 kernel instance (1, 2, 4 and 8 cells per thread of the P > 2 instances,
 at P = 1 too past 2048 cells; the per-pair instances of P <= 2 at each
 K the dispatch table uses, on shapes that select it), with Gaussian and
-with HDP emissions, the EM expectation instances (P = 1, each K the
-table uses, Gaussian and HDP), and the probability-space kernels (P = 1, W = 256 and 512, and
+with HDP emissions, the EM expectation instances (P = 1 per-pair at each
+K the table uses; the P > 2 and wide instances' expectation pass at P =
+2, 4, 8, 16, 64 and at P = 1 W = 2304; Gaussian and HDP), and the
+probability-space kernels (P = 1, W = 256 and 512, and
 segments that exhaust their f32 range). Needs a CUDA GPU and nvcc;
 skipped without a GPU. On a GPU host:
 
@@ -242,7 +244,11 @@ def paths_case(request):
     pairs of neighbouring cells are illegal."""
     name = request.param
     hdp = name.startswith("hdp_")
-    name = name[4:] if hdp else name
+    return _paths_bucket(name[4:] if hdp else name, hdp)
+
+
+def _paths_bucket(name, hdp):
+    """``paths_case``'s bucket ``name`` (without its hdp_ prefix)."""
     if name == "edges":
         probe, _ = _problems(2, (700, 900), (100, 300), 512, 2048, 18, P=8,
                              hdp=hdp)
@@ -469,15 +475,61 @@ def test_expect_instances_at_every_k(dev, W, kf, kb, hdp):
         assert not bk[6].any()
 
 
-def test_expect_refuses_more_than_one_path(dev):
-    """The expectation instances take P = 1 only: a P = 2 bucket raises
-    before any launch."""
-    problems, _ = _problems(2, (700, 900), (100, 300), 256, 2048, 12, P=2)
-    pt = problem_tensors(problems, 256, dev)
-    n0 = hk.forward_sweep.expect_launches
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hk.forward_sweep(pt, expect=True)
-    assert hk.forward_sweep.expect_launches == n0
+# the expectation buckets of more than one path, and of one past the
+# per-pair instances: P = 2 at W = 256 (the per-pair instance widened to
+# two paths) and at W = 4096 (the P > 2 instances), P = 4 and 8 at W =
+# 256, a P = 1 band of 2,271 offsets (W = 2304) and the wide instance (P
+# = 64 at W = 256, P = 16 at W = 768)
+EXPECT_PATH_CASES = ["p2", "p2w4096", "p4", "p8", "p1w2304", "p64",
+                     "p16w768"]
+
+
+@pytest.mark.parametrize("hdp", [False, True], ids=["gauss", "hdp"])
+@pytest.mark.parametrize("case", EXPECT_PATH_CASES)
+def test_expect_paths_instances_match_twins(dev, case, hdp):
+    """The expectation pass at P > 1 (and at P = 1 past 2,048 cells),
+    Gaussian or HDP, on the instance the dispatch picks, against the
+    twins: three-state stacks, offsets and survivors equal bit for bit;
+    texp and kx (B, 3, P, LX) within 1e-3 of the twin's largest value
+    (the kernel sums a source cell's transitions through its to-cell
+    logsumexp over the legal targets, the twin each (source, target)
+    pair, as the JAX XLA core does); kx zero under HDP."""
+    problems, W, h = _paths_bucket(case, hdp)
+    pt = problem_tensors(problems, W, dev, _hdp_tables(h, dev),
+                         kmer_ids=True)
+    P = pt.P
+    ks = [hk.cells_per_thread(W, P, True, b) for b in (0, 1)]
+    assert all(ks) and (case == "p2" or all(k < 0 for k in ks))
+    nds = pt.meta[:, bfb.M_NDIAG]
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    n0 = (hk.forward_sweep.expect_launches,
+          hk.backward_sweep_compact.expect_launches)
+    fk = hk.forward_sweep(pt, expect=True)
+    fr = hk.forward_sweep_ref(pt, expect=True)
+    torch.cuda.synchronize()
+    assert fk[0].shape == fr[0].shape == (*pt.x0.shape, 3, P, W)
+    assert torch.equal(fk[0][rows], fr[0][rows])
+    assert torch.equal(fk[1][rows], fr[1][rows]) and torch.equal(fk[2], fr[2])
+    fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
+    cvecf = (fo - tf[:, None]).contiguous()
+    R = hk.survivor_slots(THR)
+    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R, expect=True)
+    br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, THR, R, expect=True)
+    torch.cuda.synchronize()
+    assert (hk.forward_sweep.expect_launches,
+            hk.backward_sweep_compact.expect_launches) == (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(bk[0][rows], br[0][rows]) and torch.equal(bk[1], br[1])
+    assert torch.equal(bk[4][rows], br[4][rows])
+    keep = torch.arange(R, device=dev) < bk[4][:, :, None]
+    assert keep.any()
+    assert torch.equal(bk[2][keep], br[2][keep])
+    assert torch.equal(bk[3][keep], br[3][keep])
+    assert bk[6].shape == (pt.x0.shape[0], 3, P, pt.ref.shape[-1])
+    assert _rel(bk[5], br[5]) <= 1e-3 and bk[5].sum() > 0
+    if h is None:
+        assert _rel(bk[6], br[6]) <= 1e-3 and bk[6].abs().max() > 0
+    else:
+        assert not bk[6].any()
 
 
 # ---------------------------------------------- probability-space kernels

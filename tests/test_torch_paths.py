@@ -33,7 +33,7 @@ from signalalign_tpu_torch.pipeline import variant_caller as port_vc
 from signalalign_tpu_torch.pipeline.runner import _site_cells
 from signalalign_tpu_torch.utils.synthetic import synthetic_pore_model
 
-W, DPAD, THR = 128, 512, 0.01
+W, DPAD, THR = 128, 192, 0.01
 CPU = torch.device("cpu")
 
 
@@ -61,9 +61,11 @@ def _problem_args(P, i, seed):
     expansion is P paths: single Y codes every ~25 positions, one cluster
     of CLUSTERS[P] mid-sequence, events drawn from a resolved sequence
     (each Y read as C or T), and anchors every 15 events with a gap for
-    a band bulge (none in problem 0)."""
+    a band bulge (none in problem 0). Segments of 55-85 bases (each
+    comparison holds per problem, cell by cell) and Dpad 192, above their
+    152 diagonals at most: the JAX scans run Dpad + 1 diagonals."""
     rng = np.random.default_rng(seed)
-    L = int(rng.integers(110, 170))
+    L = int(rng.integers(55, 85))
     seq = list(rng.choice(list("ACGT"), size=L))
     for j in range(8, L - 8, 25):
         seq[j] = "Y"

@@ -230,6 +230,33 @@ def test_prob_bucket_is_the_jax_gate(monkeypatch):
     assert not runner.prob_bucket(256, 1, 64, cfg, False)
 
 
+def test_event_normaliser_only_with_the_switch(monkeypatch):
+    """The runner's prep computes the probability-space sweeps' event
+    normaliser (a best case over every k-mer of the model for each event)
+    only with SIGNALALIGN_TPU_PROB_KERNELS=1, and then equals
+    prepare_problem's default (the JAX field); without it the problems
+    carry none, and a probability-space bucket of them is refused."""
+    model = PORT_MODEL
+    with tempfile.TemporaryDirectory() as tmp:
+        rgs, ref = build_synthetic_batch(
+            model, n_reads=1, ev_min=300, ev_max=400, seed=9,
+            genome_len=5_000, fasta_path=os.path.join(tmp, "g.fa"))[:2]
+    cfg = AlignmentConfig()
+    monkeypatch.delenv(runner.PROB_SWITCH, raising=False)
+    off = [t[1] for t in runner.prepare_read(*rgs[0], ref, model, cfg)[4]]
+    monkeypatch.setenv(runner.PROB_SWITCH, "1")
+    tasks = runner.prepare_read(*rgs[0], ref, model, cfg)[4]
+    on, W = [t[1] for t in tasks], tasks[0][2]
+    assert off and all(p.ev_best is None and p.ev_norm_total == 0.0
+                       for p in off)
+    for a, b in zip(on, off):
+        assert a.ev_best is not None and a.ev_norm_total < 0.0
+        assert np.array_equal(a.ref_params, b.ref_params)
+    with pytest.raises(ValueError, match="event normaliser"):
+        problem_tensors(off[:1], W, CPU, prob=True)
+    assert problem_tensors(on[:1], W, CPU, prob=True).prob is not None
+
+
 def test_runner_prob_switch(monkeypatch, capsys):
     """``run_alignment_batch`` with SIGNALALIGN_TPU_PROB_KERNELS=1 on a
     seeded ``build_synthetic_batch`` (whose reads follow their basecall
@@ -284,8 +311,9 @@ def test_runner_prob_switch(monkeypatch, capsys):
         assert abs(a.total_log_prob - b.total_log_prob) <= 5e-3
         _assert_pairs_close(a.aligned_pairs, b.aligned_pairs,
                             TOL_PATH * 1e7 + 1)
-    # the CpG edition's P > 1 buckets stay on the log-space sweeps
+    # the CpG edition's P > 1 buckets stay on the log-space sweeps (one
+    # read's buckets show it)
     seen.clear()
-    runner.run_alignment_batch(amb_rgs, amb_ref, model, cfg, device=CPU)
+    runner.run_alignment_batch(amb_rgs[:1], amb_ref, model, cfg, device=CPU)
     assert any(p > 1 for _, p, _, _ in seen)
     assert all(s[3] for s in seen if s[1] > 1)
