@@ -119,10 +119,12 @@ Phases (any failure stops the run with a non-zero exit):
           of P = 2, 4 and 8, 3c's two P = 1 segments at W = 2304 and its
           wide P = 64 and P = 16 W = 768 segments;
      10b. one iteration of transitions EM over a canonical sample (32
-          reads) and a sample whose reference is the CG -> XG edition (32
-          reads: P = 4, 16 and 64 buckets): finite likelihood, transition
-          rows summing to 1, the checkpoint and expectations file round
-          trip, launches of the P > 2 instances' expectation pass;
+          reads), a sample whose reference is the CG -> XG edition (32
+          reads: P = 4, 16 and 64 buckets) and one whose reference is the
+          CCGG -> CPGG edition (8 reads: P = 2 buckets): finite
+          likelihood, transition rows summing to 1, the checkpoint and
+          expectations file round trip, launches of the P > 2 instances'
+          and of the per-pair P = 2 instance's expectation pass;
      10c. hdp_emissions over the canonical sample and an mC sample (32
           reads, motifs CG -> EG): buildAlignment.tsv, the Gibbs trainer
           on a 1,200-point grid (GIBBS_10C), template.nhdp, which loads
@@ -218,6 +220,9 @@ SEED_TRAIN = 15         # phase 10's reads
 # core), where a burn-in update takes microseconds (tens of seconds for
 # the ~450,000 rows of 10c at 32 updates a row)
 GIBBS_10C = {"gibbs_samples": 15, "burnin_multiplier": 32, "thinning": 100}
+# 10d: the least the mC reads' mean p_E must exceed the canonical reads'
+# (0.0202 measured on an H100, PERF.md §6)
+SEP_10D = 0.01
 EM_SEGMENT_DIAGONALS = 3200   # em_train's segment cap
 # H100 SXM peaks for the bounds: HBM bytes per second, and transcendental
 # results per second (16 special-function results per clock per SM, 132
@@ -820,32 +825,13 @@ def log_kernel_sums(tag, by_wp, wall_s):
         f"wall time (sums of CUDA-event times, not a trace)")
 
 
-class prob_prep:
-    """Within ``with``, host preps run as with the probability-space switch
-    set: their Gaussian problems carry the event normaliser those sweeps
-    read (``prepare_problem(event_best=)``, which the runner sets from the
-    switch), so that timing code may run either kind of sweep on them."""
-
-    def __enter__(self):
-        from signalalign_tpu_torch.pipeline.runner import PROB_SWITCH
-        self.key, self.old = PROB_SWITCH, os.environ.get(PROB_SWITCH)
-        os.environ[PROB_SWITCH] = "1"
-
-    def __exit__(self, *exc):
-        if self.old is None:
-            del os.environ[self.key]
-        else:
-            os.environ[self.key] = self.old
-
-
 def prepare_all(rgs, reference, model, config, hdp=None):
     """[(W, Dpad, P, problem)] of every segment of every read, in read
-    order: the host prep of run_alignment_batch, on as many threads (with
-    the probability-space event normaliser, ``prob_prep``)."""
+    order: the host prep of run_alignment_batch, on as many threads."""
     from signalalign_tpu_torch.pipeline.runner import prepare_read
     nw = min(8, max(2, (os.cpu_count() or 4) - 2))
     extra = () if hdp is None else (hdp,)    # as in kernel_sums
-    with prob_prep(), ThreadPoolExecutor(max_workers=nw) as ex:
+    with ThreadPoolExecutor(max_workers=nw) as ex:
         preps = list(ex.map(lambda rg: prepare_read(
             rg[0], rg[1], reference, model, config, *extra), rgs))
     return [(W, Dpad, P, prob) for prep in preps
@@ -854,17 +840,15 @@ def prepare_all(rgs, reference, model, config, hdp=None):
 
 def long_p1_problems(rgs, reference, model, config):
     """Phase 3a's problems: the batch's first eight W=256 P=1 problems of
-    3,500 or more diagonals (about 4k), in read order (with the
-    probability-space event normaliser, ``prob_prep``)."""
+    3,500 or more diagonals (about 4k), in read order."""
     from signalalign_tpu_torch.pipeline.runner import prepare_read
     picked = []
-    with prob_prep():
-        for read, guide in rgs:
-            segs = prepare_read(read, guide, reference, model, config)[4]
-            picked += [p for _, p, W, Dpad, _ in segs
-                       if W == 256 and Dpad == 4096 and p.n_diag >= 3500]
-            if len(picked) >= 8:
-                break
+    for read, guide in rgs:
+        segs = prepare_read(read, guide, reference, model, config)[4]
+        picked += [p for _, p, W, Dpad, _ in segs
+                   if W == 256 and Dpad == 4096 and p.n_diag >= 3500]
+        if len(picked) >= 8:
+            break
     check(len(picked) >= 8, "batch has fewer than 8 W=256 ~4k-diagonal problems")
     return picked[:8]
 
@@ -1020,7 +1004,7 @@ def kernel_sums_of_tree(tree):
                 out["phase5_expect_bwd_sum_ms"] = sum(
                     e[2] for e in by_wp.values())
                 out["phase5_expect_by_W_P"] = by_class_json(by_wp)
-            except (NotImplementedError, RuntimeError) as exc:
+            except NotImplementedError as exc:
                 out["phase5_expect"] = f"refused: {exc}"
         del buckets, by_wp
     # the expectation instances on em_train's own buckets (7c: segments of
@@ -1048,9 +1032,11 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     above C's (``methylated_pore_model``), drawn twice from one genome:
     with canonical events, and with the events of the CG -> EG edition.
     Of g = n_reads / 6: the canonical sample is canonical reads [0, 2g),
-    the CG -> XG sample [2g, 4g), the mC sample mC reads [3g, 5g), and
-    10d holds out canonical [4g, 5g) and mC [5g, 6g). Returns the EXPECT
-    launches of the P > 2 instances in 10b by kernel."""
+    the CG -> XG sample [2g, 4g), the CCGG -> CPGG sample (P = 2 at each
+    site) [4g, 4.5g), the mC sample mC reads [3g, 5g), and 10d holds out
+    canonical [4g, 5g) and mC [5g, 6g). Returns 10b's EXPECT launches of
+    the P > 2 instances and of the per-pair instance at P = 2, by
+    kernel."""
     from signalalign_tpu_torch.io.guide import guide_from_sam_record
     from signalalign_tpu_torch.io.reference import ProcessedReference
     from signalalign_tpu_torch.io.sam import passes_filter, read_alignment_file
@@ -1101,6 +1087,7 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
         event_motif=("CG", "EG"))[0]
     reads10 = {r.read_label: r for r, _ in can10}
     sample_sets = {"canonical": can10[:2 * g], "x": can10[2 * g:4 * g],
+                   "p": can10[4 * g:4 * g + g // 2],
                    "mc": mc10[3 * g:5 * g]}
     files10 = {name: write_synthetic_run(
         rgs_, os.path.join(tmp, f"train_{name}"), fa10, fast5=False)
@@ -1123,10 +1110,12 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     ref10 = ProcessedReference(files10["canonical"]["fasta"])
     t_inputs = time.perf_counter() - t0
 
+    motifs = {"x": [["CG", "XG"]], "p": [["CCGG", "CPGG"]],
+              "mc": [["CG", "EG"]]}
+
     def train_steps(cfg, names):
-        samples = [{"name": n, **({"motifs": [["CG", "XG"]]} if n == "x"
-                                  else {"motifs": [["CG", "EG"]]}
-                                  if n == "mc" else {})}
+        samples = [{"name": n, **({"motifs": motifs[n]} if n in motifs
+                                  else {})}
                    for n in names]
         srefs = [sample_reference(s, ref10, fa10) for s in samples]
         by_s = [reads_by_sample[n] for n in names]
@@ -1144,7 +1133,7 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     reset_peak()
     t0 = time.perf_counter()
     out10b, st10b, rec10b, ev10b = train_steps(
-        {"training": {"transitions": True}}, ["canonical", "x"])
+        {"training": {"transitions": True}}, ["canonical", "x", "p"])
     t10b = time.perf_counter() - t0
     train_launches = {
         "sa_fwd_sweep": hk.forward_sweep.expect_launches,
@@ -1153,6 +1142,10 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
         "sa_fwd_sweep": hk.forward_sweep.expect_paths_launches,
         "sa_bwd_sweep_compact":
             hk.backward_sweep_compact.expect_paths_launches}
+    train_pair2 = {
+        "sa_fwd_sweep": hk.forward_sweep.expect_pair2_launches,
+        "sa_bwd_sweep_compact":
+            hk.backward_sweep_compact.expect_pair2_launches}
     train_wide = {"sa_fwd_sweep": hk.forward_sweep.wide_launches,
                   "sa_bwd_sweep_compact":
                       hk.backward_sweep_compact.wide_launches}
@@ -1166,10 +1159,12 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
           f"10b transition rows do not sum to 1: {tr10}")
     wp10 = {k_: len(v) for k_, v in rec10b.classes().items()}
     # (the CPU rehearsal runs the twins, which launch nothing)
-    check(any(P_ > 1 for _, P_ in wp10)
-          and (not cuda or all(train_paths.values())),
-          f"10b ran no P > 1 expectation bucket: {wp10}, "
-          f"{train_launches} (P > 2 instances {train_paths})")
+    check(any(P_ > 2 for _, P_ in wp10) and any(P_ == 2 for _, P_ in wp10)
+          and (not cuda or all(train_paths.values())
+               and all(train_pair2.values())),
+          f"10b ran no P = 2 or no P > 2 expectation bucket: {wp10}, "
+          f"{train_launches} (P > 2 instances {train_paths}, per-pair "
+          f"P = 2 {train_pair2})")
     # the files: the checkpoint holds the trained transitions, the
     # expectations file gives them back, the final model is the
     # checkpoint's
@@ -1185,8 +1180,9 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
           and np.array_equal(fin10.transitions, ck10.transitions),
           f"10b files: checkpoint {d_ck}, expectations file {d_file}")
     log(f"[train em] {sum(len(v) for v in reads_by_sample.values())} "
-        f"reads in 3 samples' files ({t_files:.2f} s written, SAM and "
-        f"guides {t_inputs:.2f} s); canonical + CG -> XG samples: "
+        f"reads in 4 samples' files ({t_files:.2f} s written, SAM and "
+        f"guides {t_inputs:.2f} s); canonical + CG -> XG + CCGG -> CPGG "
+        f"samples: "
         f"{ev10b} events, log-likelihood {ll10:.2f}, transitions m->m "
         f"{tr10[0, 0]:.5f}; checkpoint |d| {d_ck:.1e}, expectations "
         f"file |d| {d_file:.1e}")
@@ -1197,7 +1193,7 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     log(f"[train em] {t10b:.2f} s: {ev10b / t10b:.0f} events/s; peak "
         f"device memory {peak:.2f} GiB; launches "
         f"{train_launches} (P > 2 instances {train_paths}, wide "
-        f"{train_wide})")
+        f"{train_wide}, per-pair P = 2 {train_pair2})")
 
     phase_mark("10c")
     # ---- 10c. hdp_emissions: each sample's observations on its own
@@ -1226,6 +1222,10 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
           and (not cuda or all(obs_launches.values())),
           f"10c: {n_e_obs} E-k-mers observed, grid {len(hdp10.grid)}, "
           f"launches {obs_launches}")
+    sh_rows, sh_dens, n_sh = level_shifts(out10c["build_alignment"], hdp10)
+    log(f"[train hdp] E above C per E base, over {n_sh} k-mer pairs "
+        f"observed in both: the rows {sh_rows:.4f} pA, the trained "
+        f"densities' means {sh_dens:.4f} pA (drawn 3 pA)")
     log(f"[train hdp] canonical + mC samples, {ev10c} events: "
         f"{len(kmers10)} buildAlignment rows ({n_e_rows} E-labelled), "
         f"{int(hdp10.observed.sum())} k-mers observed ({n_e_obs} with E)"
@@ -1263,9 +1263,12 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
                               model10.kmer_length, "P", "CE")
     p_e = [float(r.variant_calls["E"].mean()) for r in res10]
     pe_c, pe_m = float(np.mean(p_e[:g])), float(np.mean(p_e[g:]))
-    check(pe_m > pe_c and (not cuda or all(call_launches.values())),
-          f"10d: mean p_E of the mC reads {pe_m} is not above the "
-          f"canonical reads' {pe_c}; launches {call_launches}")
+    # a trainer whose E and C densities are equal gives p_E = 0.5 at
+    # every site of both samples; SEP_10D asks for more than that
+    check(pe_m - pe_c >= SEP_10D
+          and (not cuda or all(call_launches.values())),
+          f"10d: mean p_E of the mC reads {pe_m} is not {SEP_10D} above "
+          f"the canonical reads' {pe_c}; launches {call_launches}")
     ev10d = sum(r.n_events for r, _ in held)
     log(f"[train call] {g} + {g} held-out reads, {ev10d} events, "
         f"{n_rows10} site rows: mean p_E canonical {pe_c:.4f}, mC "
@@ -1275,7 +1278,42 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     log(f"[train call] {t10d:.2f} s: {ev10d / t10d:.0f} events/s; peak "
         f"device memory {peak:.2f} GiB; launches {call_launches}")
     del hdp10, res10
-    return train_paths
+    return train_paths, train_pair2
+
+
+def level_shifts(build_alignment, hdp, mod="E", base="C"):
+    """How far the data and the trained densities put each ``mod`` k-mer
+    above the same k-mer with ``base`` in its place, per ``mod`` base, in
+    pA, averaged over the pairs observed in both the training table and
+    the .nhdp: (rows' mean shift, densities' mean shift, pairs). The drawn
+    shift is methylated_pore_model's (3 pA)."""
+    sums = {}
+    with open(build_alignment) as fh:
+        for line in fh:
+            kmer, _, value = line.split("\t", 3)[:3]
+            e = sums.setdefault(kmer, [0, 0.0])
+            e[0] += 1
+            e[1] += float(value)
+    a = hdp.alphabet
+    grid = np.asarray(hdp.grid, dtype=np.float64)
+
+    def dens_mean(kmer):
+        d = np.asarray(hdp.densities[a.kmer_index(kmer)], dtype=np.float64)
+        return float((grid * d).sum() / d.sum())
+
+    rows, dens = [], []
+    for kmer, (n, tot) in sums.items():
+        c = kmer.replace(mod, base)
+        if mod not in kmer or c not in sums:
+            continue
+        i, j = a.kmer_index(kmer), a.kmer_index(c)
+        if not (hdp.observed[i] and hdp.observed[j]):
+            continue
+        per = kmer.count(mod)
+        rows.append((tot / n - sums[c][1] / sums[c][0]) / per)
+        dens.append((dens_mean(kmer) - dens_mean(c)) / per)
+    return (float(np.mean(rows)) if rows else float("nan"),
+            float(np.mean(dens)) if dens else float("nan"), len(rows))
 
 
 def check_calls(results, edition, k, codes, bases):
@@ -2213,9 +2251,8 @@ def main():
         stages = {}
         try:
             t0 = time.perf_counter()
-            with Recorder(runner_mod) as rec8:
-                results = run_alignment_batch(rgs, reference, model, config,
-                                              device=dev, stage_seconds=stages)
+            results = run_alignment_batch(rgs, reference, model, config,
+                                          device=dev, stage_seconds=stages)
             t_prob = time.perf_counter() - t0
         finally:
             del os.environ[runner_mod.PROB_SWITCH]
@@ -2265,12 +2302,13 @@ def main():
 
         phase_mark("8d")
         # 8d. probability-space against log-space kernel time on every
-        # W <= 512 bucket of phase 4, in the runner's chunks, CUDA events:
-        # 8c's chunks before its re-runs (its prep, with the switch set,
-        # gave every Gaussian problem the probability-space normaliser)
+        # W <= 512 bucket of phase 4, in the runner's chunks, CUDA events
         sums8 = {}
-        for W, P, sub, _ in rec8.made[:want_prob + want_log]:
-            if W <= bfb.PROB_MAX_W:
+        for (W, Dpad, P), probs in sorted(buckets4.items()):
+            if W > bfb.PROB_MAX_W:
+                continue
+            for chunk in _stack_chunks(list(range(len(probs))), W, Dpad, P):
+                sub = [probs[i] for i in chunk]
                 e = sums8.setdefault(W, [0, 0.0, 0.0, 0.0, 0.0])
                 e[0] += len(sub)
                 f_ms, b_ms = sweep_ms(hk, bfb, problem_tensors(
@@ -2286,7 +2324,7 @@ def main():
         log(f"[prob sums] W <= 512: probability-space fwd {tot8[0]:.3f} ms, "
             f"bwd {tot8[1]:.3f} ms; log-space fwd {tot8[2]:.3f} ms, bwd "
             f"{tot8[3]:.3f} ms")
-        del buckets4, main_results, rec4, rec8
+        del buckets4, main_results, rec4
 
         phase_mark("9a")
         # ---- 9a. `run` from its files but the fast5s (no h5py on this
@@ -2403,6 +2441,7 @@ def main():
                                           backward=bwd)
                           for bwd in (False, True)]
             r["plain"] = sweep_ms(hk, bfb, pte, threshold, R, 5)
+            r["pair"] = ks_[0] > 0      # the per-pair instance at P = 2
             exp10_rows[(W_, P_)] = r
             nd_ = max(pte.n_diag)
             log(f"[em kernels P={P_} W={W_} K={ks_[0]}/{ks_[1]}"
@@ -2423,7 +2462,7 @@ def main():
             del pte
         del exp10_sets
 
-        train_paths = train_phases(dev, tmp, phase_mark)
+        train_paths, train_pair2 = train_phases(dev, tmp, phase_mark)
 
     def err(r, name):
         return max(r["tf_err"], r["fdiff"]) if name == "sa_fwd_sweep" \
@@ -2531,6 +2570,8 @@ def main():
                               for (t, W), r in exp_rows.items()},
             "bound_ms_by_W": {f"{t},{W}": r["bounds"][name][0]
                               for (t, W), r in exp_rows.items()}})
+    paths10 = {k_: r for k_, r in exp10_rows.items() if not r["pair"]}
+    pair10 = {k_: r for k_, r in exp10_rows.items() if r["pair"]}
     for name, src, ms in (
             ("sa_fwd_sweep", "signalalign_tpu/ops/banded_fb_pallas_batch.py:569"
              " (expect mode, :740-745) and, at P > 1, the XLA expectation "
@@ -2539,34 +2580,36 @@ def main():
              "signalalign_tpu/ops/banded_fb_pallas_batch.py:775 (expect mode, "
              ":971-1015) and, at P > 1, signalalign_tpu/ops/banded_fb.py:642",
              "bwd_")):
-        r8 = exp10_rows[(256, 8)]
-        kernels.append({
-            "name": f"{name} (expect, P > 2 instances)", "route": "cuda",
-            "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
-            "replaces": src,
-            # 10b's transitions EM (train_models), counted from 0
-            "launches": train_paths[name],
-            "max_abs_err": max(max(r["texp_abs"], r["kx_abs"])
-                               for r in exp10_rows.values())
-            if name == "sa_bwd_sweep_compact" else 0.0,
-            "ms": r8[ms + "ms"], "plain_ms": r8[ms + "plain_ms"],
-            "bound_ms": r8["bounds"][name][0],
-            "bound_by": r8["bounds"][name][1],
-            "library_ms": None,
-            "serial_floor_ms": r8["floor"][ms == "bwd_"],
-            "launches_by_phase": {"10b": train_paths[name]},
-            "max_rel_err_texp": max(r["texp_rel"]
-                                    for r in exp10_rows.values()),
-            "max_rel_err_kx": max(r["kx_rel"] for r in exp10_rows.values()),
-            "ms_by_W_P": {f"{W},{P}": r[ms + "ms"]
-                          for (W, P), r in exp10_rows.items()},
-            "plain_instance_ms_by_W_P": {
-                f"{W},{P}": r["plain"][ms == "bwd_"]
-                for (W, P), r in exp10_rows.items()},
-            "plain_ms_by_W_P": {f"{W},{P}": r[ms + "plain_ms"]
-                                for (W, P), r in exp10_rows.items()},
-            "bound_ms_by_W_P": {f"{W},{P}": r["bounds"][name][0]
-                                for (W, P), r in exp10_rows.items()}})
+        for tag, rows, r_, counts in (
+                ("P > 2 instances", paths10, paths10[(256, 8)], train_paths),
+                ("per-pair instance at P = 2", pair10, pair10[(256, 2)],
+                 train_pair2)):
+            kernels.append({
+                "name": f"{name} (expect, {tag})", "route": "cuda",
+                "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
+                "replaces": src,
+                # 10b's transitions EM (train_models), counted from 0
+                "launches": counts[name],
+                "max_abs_err": max(max(r["texp_abs"], r["kx_abs"])
+                                   for r in rows.values())
+                if name == "sa_bwd_sweep_compact" else 0.0,
+                "ms": r_[ms + "ms"], "plain_ms": r_[ms + "plain_ms"],
+                "bound_ms": r_["bounds"][name][0],
+                "bound_by": r_["bounds"][name][1],
+                "library_ms": None,
+                "serial_floor_ms": r_["floor"][ms == "bwd_"],
+                "launches_by_phase": {"10b": counts[name]},
+                "max_rel_err_texp": max(r["texp_rel"] for r in rows.values()),
+                "max_rel_err_kx": max(r["kx_rel"] for r in rows.values()),
+                "ms_by_W_P": {f"{W},{P}": r[ms + "ms"]
+                              for (W, P), r in rows.items()},
+                "plain_instance_ms_by_W_P": {
+                    f"{W},{P}": r["plain"][ms == "bwd_"]
+                    for (W, P), r in rows.items()},
+                "plain_ms_by_W_P": {f"{W},{P}": r[ms + "plain_ms"]
+                                    for (W, P), r in rows.items()},
+                "bound_ms_by_W_P": {f"{W},{P}": r["bounds"][name][0]
+                                    for (W, P), r in rows.items()}})
     for name, src, ms, tot in (
             ("sa_fwd_sweep_prob",
              "signalalign_tpu/ops/banded_fb_pallas_batch.py:161", "fwd_", 0),

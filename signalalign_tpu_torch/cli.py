@@ -113,12 +113,13 @@ def cmd_run(args) -> int:
 
 
 def cmd_train(args) -> int:
+    from signalalign_tpu_torch.io.fast5 import import_h5py
     from signalalign_tpu_torch.io.guide import guide_from_sam_record
-    from signalalign_tpu_torch.io.read import NanoporeReadData
     from signalalign_tpu_torch.io.reference import ProcessedReference
     from signalalign_tpu_torch.io.sam import filter_reads
     from signalalign_tpu_torch.models.hdp_model import load_nhdp
     from signalalign_tpu_torch.models.pore_model import PoreModel
+    from signalalign_tpu_torch.pipeline.runner import read_fast5
     from signalalign_tpu_torch.pipeline.train import (sample_reference,
                                                       train_models)
 
@@ -156,6 +157,7 @@ def cmd_train(args) -> int:
             return 2
         em_hdp = load_nhdp(hdp_path)
 
+    import_h5py()       # before any file is read: fast5 input needs it
     model = PoreModel.from_file(model_path)
     reference = ProcessedReference(ref)
 
@@ -174,13 +176,19 @@ def cmd_train(args) -> int:
     rgs_by_sample = [[] for _ in samples]
     for f5, rec, si in pairs:
         try:
-            read = NanoporeReadData.from_fast5(f5)
+            read = read_fast5(f5)
             guide = guide_from_sam_record(rec)
             if guide and guide.validate(read.read_length):
                 rgs.append((read, guide, sample_refs[si]))
                 rgs_by_sample[si].append((read, guide))
+        except (NotImplementedError, ImportError):
+            raise       # not a fault of this read: every read would skip
         except Exception as exc:
             print(f"[train] skipping {f5}: {exc}", file=sys.stderr)
+    if not rgs:
+        raise ValueError(f"train: none of the {len(pairs)} listed reads "
+                         "loaded with a valid guide alignment; no model "
+                         "is trained on zero reads")
 
     out = train_models(cfg, samples, sample_refs, rgs, rgs_by_sample,
                        reference, model, output_dir, iterations, em_hdp,

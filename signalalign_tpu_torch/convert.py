@@ -76,6 +76,8 @@ def problem_from_numpy(src) -> bfb.BandedProblem:
     copied, so the two never share memory."""
     kw = {}
     for f in dataclasses.fields(bfb.BandedProblem):
+        if not hasattr(src, f.name):
+            continue            # norm_source: the JAX problem forms ev_best
         v = getattr(src, f.name)
         kw[f.name] = np.array(v) if isinstance(v, np.ndarray) else v
     return bfb.BandedProblem(**kw)
@@ -240,11 +242,7 @@ def _prob_tensors(problems, ref: np.ndarray, LE: int, dev) -> bfb.ProbTensors:
     best-case event row, the ``_pack16`` pack and the normaliser."""
     ev_best = np.zeros((len(problems), LE), np.float32)
     for i, p in enumerate(problems):
-        if p.ev_best is None:
-            raise ValueError("a problem made without its event normaliser "
-                             "(prepare_problem(..., event_best=False)) in a "
-                             "probability-space bucket")
-        ev_best[i, :p.ev_best.shape[0]] = p.ev_best
+        ev_best[i, :p.ev_best.shape[0]] = bfb.event_normaliser(p).ev_best
     return bfb.ProbTensors(
         cexp=dev(np.ascontiguousarray(np.exp(ref[:, [2, 4], 0]))),
         ev_best=dev(ev_best),

@@ -1885,7 +1885,7 @@ bool hdp_ok(const HdpTab& h) {
 // instance, -K of a P > 2 (PATHS) one (K > MAX_K: the wide instance); 0
 // for a shape they do not take.
 // The expectation pass takes the same instances as the plain sweeps: at
-// P = 2 the per-pair instance measured 7-46% faster than the P > 2
+// P = 2 the per-pair instance measured 7-32% faster than the P > 2
 // instances' expectation pass on every P = 2 class (PERF.md §6).
 int launch_k(int W, int P, bool expect, bool backward) {
   if (!shape_ok(W, P)) return 0;

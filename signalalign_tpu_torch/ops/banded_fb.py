@@ -118,9 +118,13 @@ class BandedProblem:
     hdp_dens: Optional[np.ndarray] = None
     hdp_slopes: Optional[np.ndarray] = None
     hdp_grid: Optional[np.ndarray] = None
-    # per-event best-case match log-emission + its sum over valid events
+    # per-event best-case match log-emission + its sum over valid events,
+    # which only the probability-space sweeps read: formed by
+    # event_normaliser from norm_source (Gaussian problems: the float64
+    # event means, the model and the read's scaling)
     ev_best: Optional[np.ndarray] = None
     ev_norm_total: float = 0.0
+    norm_source: Optional[tuple] = None
     # bookkeeping for output decoding
     num_kmers: int = 0             # model alphabet size**k (emission EM)
     seq: str = ""                  # segment nucleotide sequence
@@ -190,17 +194,15 @@ def prepare_problem(
     scale_noise: bool = False,
     drift_deltas: Optional[np.ndarray] = None,
     hdp=None,
-    event_best: bool = True,
 ) -> BandedProblem:
     """Precompute all device arrays for one segment.
 
     ``W`` must be >= the maximum band width; ``Dpad`` >= lX+lY; ``P`` >= the
     maximum paths per cell. ``drift_deltas`` optionally supplies per-event
     delta-times for drift correction of event means (nanopore.c:633-653).
-    ``event_best`` False leaves out the probability-space sweeps' event
-    normaliser (``ev_best`` None, ``ev_norm_total`` 0): a best case over
-    every k-mer of the model for each event, the bulk of a Gaussian
-    problem's prep at 46,656 k-mers, which only those sweeps read.
+    The probability-space sweeps' event normaliser is left to
+    ``event_normaliser``: a best case over every k-mer of the model for
+    each event, the bulk of a Gaussian problem's prep at 46,656 k-mers.
     """
     k = model.kmer_length
     lX = len(seq) - k + 1
@@ -320,26 +322,6 @@ def prepare_problem(
         hdp_dens, hdp_slopes, g0, dx = hdp.density_arrays()
         hdp_grid = np.array([g0, dx], dtype=np.float32)
 
-    # per-event best-case match log-emission over ALL model kmers (the
-    # probability-space sweeps subtract it inside each emission's exponent
-    # and add the sum back to the totals)
-    ev_best = None
-    ev_norm_total = 0.0
-    if mode == MODE_MEAN_ONLY and event_best:
-        mu_hat_all = params.scale * mu + params.shift
-        with np.errstate(divide="ignore"):
-            inv_all = 1.0 / (params.var * sd_m)
-            cst_all = _gauss_const(sd_m) - math.log(params.var)
-        best = np.full(lY, -1e30)
-        for k0 in range(0, len(mu_hat_all), 512):
-            z = (means[:, None] - mu_hat_all[None, k0:k0 + 512]) \
-                * inv_all[None, k0:k0 + 512]
-            cand = cst_all[None, k0:k0 + 512] - 0.5 * z * z
-            best = np.maximum(best, cand.max(axis=1))
-        ev_best = np.zeros(LEpad, dtype=DTYPE)
-        ev_best[rev] = best[::-1]
-        ev_norm_total = float(best.sum())
-
     start = start_state_logs(model, ragged_start)
     end = end_state_logs(model, ragged_end)
     return BandedProblem(
@@ -353,11 +335,37 @@ def prepare_problem(
         ref_params=ref_params.astype(DTYPE),
         kmer_ids=kmer_ids, path_valid=path_valid, legal=legal, n_paths=n_paths,
         ev_params=ev_params.astype(DTYPE), ev_front_pad=ev_front_pad,
-        ev_best=ev_best, ev_norm_total=ev_norm_total,
+        norm_source=((means, model, params) if mode == MODE_MEAN_ONLY
+                     else None),
         hdp_dens=hdp_dens, hdp_slopes=hdp_slopes, hdp_grid=hdp_grid,
         num_kmers=model.alphabet.num_kmers,
         seq=seq, kmer_len=k, path_kmers=path_kmers,
     )
+
+
+def event_normaliser(p: BandedProblem) -> BandedProblem:
+    """Form ``p.ev_best`` and ``p.ev_norm_total`` once, from
+    ``p.norm_source``: for each event the best-case match log-emission
+    over ALL model k-mers (the probability-space sweeps subtract it inside
+    each emission's exponent and add the sum back to the totals), the JAX
+    ``prepare_problem``'s fields."""
+    if p.ev_best is not None or p.norm_source is None:
+        return p
+    means, model, params = p.norm_source
+    mu_hat_all = params.scale * model.level_mean + params.shift
+    with np.errstate(divide="ignore"):
+        inv_all = 1.0 / (params.var * model.level_sd)
+        cst_all = _gauss_const(model.level_sd) - math.log(params.var)
+    best = np.full(p.lY, -1e30)
+    for k0 in range(0, len(mu_hat_all), 512):
+        z = (means[:, None] - mu_hat_all[None, k0:k0 + 512]) \
+            * inv_all[None, k0:k0 + 512]
+        cand = cst_all[None, k0:k0 + 512] - 0.5 * z * z
+        best = np.maximum(best, cand.max(axis=1))
+    ev_best = np.zeros(p.ev_params.shape[1], dtype=DTYPE)
+    ev_best[p.ev_front_pad:p.ev_front_pad + p.lY] = best[::-1]
+    p.ev_best, p.ev_norm_total = ev_best, float(best.sum())
+    return p
 
 
 def extract_aligned_pairs(problem: BandedProblem, post: np.ndarray,

@@ -15,7 +15,8 @@ missing table or a refused launch raises. Each wrapper counts its kernel
 launches in ``<wrapper>.launches`` and those of its expectation instances
 (``expect=True``) in ``<wrapper>.expect_launches``, of which those of the
 P > 2 instances (every expectation bucket of P > 1, and of P = 1 past
-2,048 cells) also in ``<wrapper>.expect_paths_launches``; of its
+2,048 cells) also in ``<wrapper>.expect_paths_launches`` and those of the
+per-pair instance at P = 2 in ``<wrapper>.expect_pair2_launches``; of its
 launches, those of the wide instance (P * W > 8192 cells a diagonal) also
 in ``<wrapper>.wide_launches``.
 
@@ -187,12 +188,15 @@ def _count(fn, pt: bfb.ProblemTensors, expect: bool, wide: bool,
     """Count a launch of ``fn``'s kernel on ``pt``: in ``fn.launches``, or
     ``fn.expect_launches`` for the expectation pass (and those of the
     P > 2 instances, the wide one among them, also in
-    ``fn.expect_paths_launches``); a wide instance's also in
+    ``fn.expect_paths_launches``, those of the per-pair instance at P = 2
+    in ``fn.expect_pair2_launches``); a wide instance's also in
     ``fn.wide_launches``."""
     if expect:
         fn.expect_launches += 1
         if cells_per_thread(pt.W, pt.P, True, backward) < 0:
             fn.expect_paths_launches += 1
+        elif pt.P == 2:
+            fn.expect_pair2_launches += 1
     else:
         fn.launches += 1
     if wide:
@@ -202,6 +206,7 @@ def _count(fn, pt: bfb.ProblemTensors, expect: bool, wide: bool,
 forward_sweep.launches = 0
 forward_sweep.expect_launches = 0
 forward_sweep.expect_paths_launches = 0
+forward_sweep.expect_pair2_launches = 0
 forward_sweep.wide_launches = 0
 
 
@@ -305,6 +310,7 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
 backward_sweep_compact.launches = 0
 backward_sweep_compact.expect_launches = 0
 backward_sweep_compact.expect_paths_launches = 0
+backward_sweep_compact.expect_pair2_launches = 0
 backward_sweep_compact.wide_launches = 0
 
 
@@ -427,6 +433,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         fn.expect_launches = 0
         fn.expect_paths_launches = 0
+        fn.expect_pair2_launches = 0
         fn.wide_launches = 0
     forward_sweep_prob.launches = 0
     backward_sweep_compact_prob.launches = 0

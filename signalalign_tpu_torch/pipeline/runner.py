@@ -198,14 +198,11 @@ def prepare_read(read: NanoporeReadData, guide: GuideAlignment,
                     continue
                 W, Dpad, P = segment_shape(seg_chars, slY, p_anchors, k,
                                            config)
-                # the probability-space sweeps' event normaliser only
-                # where they may run (prob_bucket)
                 problem = bfb.prepare_problem(
                     seg_chars, seg_events, model, params, config.ambig_map,
                     W=W, Dpad=Dpad, P=P, mode=config.emission_mode,
                     anchor_pairs=p_anchors,
-                    expansion=config.diagonal_expansion, hdp=hdp,
-                    event_best=os.environ.get(PROB_SWITCH) == "1")
+                    expansion=config.diagonal_expansion, hdp=hdp)
                 tasks.append(((x1 + ax1, y1 + ay1), problem, W, Dpad, P))
     return target, params, events, ev_start, tasks
 
@@ -225,6 +222,17 @@ def _stack_chunks(idxs: List[int], W: int, Dpad: int, P: int,
     diagonal: 1, or 3 in the expectation pass) fit STACK_BYTES."""
     per = max(1, STACK_BYTES // ((Dpad + 1) * states * P * W * 4))
     return [idxs[i:i + per] for i in range(0, len(idxs), per)]
+
+
+def _host_map(fn, items: Sequence) -> list:
+    """``[fn(x) for x in items]``, on threads past three items: the host
+    work is numpy-heavy and independent per item, and threads overlap the
+    parts of numpy that release the interpreter lock; order is kept."""
+    if len(items) <= 3:
+        return [fn(x) for x in items]
+    nw = min(8, max(2, (os.cpu_count() or 4) - 2))
+    with ThreadPoolExecutor(max_workers=nw) as ex:
+        return list(ex.map(fn, items))
 
 
 def prob_bucket(W: int, P: int, n: int, config: AlignmentConfig,
@@ -352,14 +360,7 @@ def run_alignment_batch(
             # (reference: KEY:FAILED handling, signalAlignment.py:627-737)
             return None, f"{type(exc).__name__}: {exc}"
 
-    # numpy-heavy and independent per read: threads overlap the parts of
-    # numpy that release the interpreter lock; order is preserved
-    if len(reads_and_guides) > 3:
-        nw = min(8, max(2, (os.cpu_count() or 4) - 2))
-        with ThreadPoolExecutor(max_workers=nw) as ex:
-            prep_out = list(ex.map(prep_one, reads_and_guides))
-    else:
-        prep_out = [prep_one(rg) for rg in reads_and_guides]
+    prep_out = _host_map(prep_one, reads_and_guides)
 
     tasks = []      # (read index, x1, y1, problem, W, Dpad, P)
     prepped = []    # (read, guide, target, params, events, ev_start, [task ids])
@@ -401,6 +402,11 @@ def run_alignment_batch(
                 seg_results[i] = {"total_f": 0.0, "total_b": 0.0}
             continue
         prob = prob_bucket(W, P, len(idxs), config, site_mode)
+        if prob:
+            # the probability-space sweeps' event normaliser, for their
+            # buckets alone (host work, booked to the prep)
+            _host_map(bfb.event_normaliser, [tasks[i][3] for i in idxs])
+            mark("prep")
         for chunk in _stack_chunks(idxs, W, Dpad, P, 3 if expect else 1):
             aligner = HopperAligner([tasks[i][3] for i in chunk], W, device,
                                     tables, expect=expect, log_space=not prob)
@@ -596,6 +602,23 @@ def align_and_write(
     return written
 
 
+def read_fast5(path: str, quality_threshold: Optional[float] = 7.0
+               ) -> NanoporeReadData:
+    """``NanoporeReadData.from_fast5``, where a fast5 without a usable
+    event table raises ``NotImplementedError``: the JAX package aligns
+    its raw signal, which is not ported yet (ROADMAP §1 item 4)."""
+    try:
+        return NanoporeReadData.from_fast5(
+            path, quality_threshold=quality_threshold)
+    except ValueError as exc:
+        if "no basecall events" not in str(exc) and \
+                "index-scale" not in str(exc):
+            raise
+        raise NotImplementedError(
+            f"{path}: no usable event table; kmer-event alignment from raw "
+            "signal is not ported yet (ROADMAP §1 item 4)") from exc
+
+
 def run_signal_align(
     alignment_file: str,
     readdb: Optional[str],
@@ -679,17 +702,7 @@ def run_signal_align(
     rgs = []
     for f5, rec in pairs:
         try:
-            try:
-                read = NanoporeReadData.from_fast5(
-                    f5, quality_threshold=quality_threshold)
-            except ValueError as exc:
-                if "no basecall events" not in str(exc) and \
-                        "index-scale" not in str(exc):
-                    raise
-                raise NotImplementedError(
-                    f"{f5}: no usable event table; kmer-event alignment "
-                    "from raw signal is not ported yet (ROADMAP §1 item 4)"
-                ) from exc
+            read = read_fast5(f5, quality_threshold)
             guide = guide_from_sam_record(rec)
             if guide is None or not guide.validate(read.read_length):
                 raise ValueError("invalid guide alignment")

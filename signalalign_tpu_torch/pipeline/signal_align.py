@@ -156,7 +156,7 @@ def align_read(read: NanoporeReadData, guide: GuideAlignment,
             seg_chars, seg_events, model, params, config.ambig_map, W=W,
             Dpad=Dpad, P=P, mode=config.emission_mode,
             anchor_pairs=seg_anchors, expansion=config.diagonal_expansion,
-            hdp=hdp, event_best=False)
+            hdp=hdp)
         r = HopperAligner([problem], W, device, tables,
                           expect=expect).execute(config.threshold)[0]
         total_lp += r["total_f"]

@@ -130,11 +130,12 @@ def _ambiguous_args():
 
 @pytest.mark.parametrize("case", ["short", "bulge", "ambiguous"])
 def test_prepare_problem_matches_jax(case):
-    """Field for field and bit for bit, dtypes included."""
+    """Field for field and bit for bit, dtypes included (the event
+    normaliser, which the port forms apart, by ``event_normaliser``)."""
     args, kw = {"short": _problem_args()[0], "bulge": _problem_args()[3],
                 "ambiguous": _ambiguous_args()}[case]
     want = jbfb.prepare_problem(*args, **kw)
-    got = bfb.prepare_problem(*_port_args(args), **kw)
+    got = bfb.event_normaliser(bfb.prepare_problem(*_port_args(args), **kw))
     for f in dataclasses.fields(want):
         a, b = getattr(want, f.name), getattr(got, f.name)
         if isinstance(a, np.ndarray):

@@ -2,8 +2,8 @@
 jax: with ``signalalign_tpu``, jax and h5py blocked it imports and aligns a
 read on the CPU, every module of it imports (the CLI and the fast5, SAM
 and runner modules among them) and opening a fast5 raises ImportError
-naming h5py, as the CLI's ``run`` and a readdb built from fast5 files do
-with h5py blocked; where jax is installed importing the port leaves it out of
+naming h5py, as the CLI's ``run`` and ``train`` and a readdb built from
+fast5 files do with h5py blocked; where jax is installed importing the port leaves it out of
 sys.modules; and no source file of the port has an import line naming the
 JAX package."""
 
@@ -116,6 +116,34 @@ def test_run_raises_naming_h5py_when_it_is_blocked(tmp_path, monkeypatch):
     assert not out.exists()
     with pytest.raises(ImportError, match="h5py"):
         filter_reads(files["sam"], None, [files["fast5_dir"]])
+
+
+def test_train_raises_naming_h5py_when_it_is_blocked(tmp_path, monkeypatch):
+    """With h5py blocked, the CLI's ``train`` on written SAM, readdb,
+    FASTA and model files raises ImportError naming h5py before it reads a
+    read, and writes no model (no read is skipped as bad, and no model is
+    trained on zero reads)."""
+    from signalalign_tpu_torch import cli
+    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                       synthetic_pore_model,
+                                                       write_synthetic_run)
+    model = synthetic_pore_model(0)
+    rgs, _, _, _, fasta = build_synthetic_batch(
+        model, n_reads=1, ev_min=300, ev_max=400, seed=2, genome_len=5000,
+        fasta_path=str(tmp_path / "g.fa"))
+    files = write_synthetic_run(rgs, str(tmp_path / "in"), fasta,
+                                model=model, fast5=False)
+    label = rgs[0][0].read_label
+    open(os.path.join(files["fast5_dir"], f"{label}.fast5"), "w").close()
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    out = tmp_path / "out"
+    with pytest.raises(ImportError, match="h5py"):
+        cli.main(["train", "--alignment_file", files["sam"], "--readdb",
+                  files["readdb"], "--fast5_dir", files["fast5_dir"],
+                  "--ref", files["fasta"], "--model", files["model"],
+                  "--output_dir", str(out), "--iterations", "1",
+                  "--device", "cpu"])
+    assert not out.exists()
 
 
 def test_importing_the_port_leaves_jax_out():

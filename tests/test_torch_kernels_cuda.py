@@ -504,6 +504,8 @@ def test_expect_paths_instances_match_twins(dev, case, hdp):
     rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
     n0 = (hk.forward_sweep.expect_launches,
           hk.backward_sweep_compact.expect_launches)
+    pair0 = (hk.forward_sweep.expect_pair2_launches,
+             hk.backward_sweep_compact.expect_pair2_launches)
     fk = hk.forward_sweep(pt, expect=True)
     fr = hk.forward_sweep_ref(pt, expect=True)
     torch.cuda.synchronize()
@@ -518,6 +520,11 @@ def test_expect_paths_instances_match_twins(dev, case, hdp):
     torch.cuda.synchronize()
     assert (hk.forward_sweep.expect_launches,
             hk.backward_sweep_compact.expect_launches) == (n0[0] + 1, n0[1] + 1)
+    # the per-pair instance's two-path launches are counted apart
+    on_pair = int(P == 2 and ks[0] > 0)
+    assert (hk.forward_sweep.expect_pair2_launches,
+            hk.backward_sweep_compact.expect_pair2_launches) == (
+        pair0[0] + on_pair, pair0[1] + on_pair)
     assert torch.equal(bk[0][rows], br[0][rows]) and torch.equal(bk[1], br[1])
     assert torch.equal(bk[4][rows], br[4][rows])
     keep = torch.arange(R, device=dev) < bk[4][:, :, None]

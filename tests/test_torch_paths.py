@@ -137,13 +137,14 @@ def _assert_pairs_close(want, got, tol_int, edge=1e-4):
 
 @pytest.mark.parametrize("P", [2, 4, 8])
 def test_prepare_problem_matches_jax(P):
-    """Field for field and bit for bit, dtypes included."""
+    """Field for field and bit for bit, dtypes included (the event
+    normaliser, which the port forms apart, by ``event_normaliser``)."""
     args, kw = _problem_args(P, 1, 7)
     want = jbfb.prepare_problem(*args, **kw)
     seq, ev, _, params, amb = args
-    got = bfb.prepare_problem(
+    got = bfb.event_normaliser(bfb.prepare_problem(
         seq, ev, PORT_MODEL, port_pm.ScalingParams(**dataclasses.asdict(params)),
-        dict(amb), **kw)
+        dict(amb), **kw))
     for f in dataclasses.fields(want):
         a, b = getattr(want, f.name), getattr(got, f.name)
         if isinstance(a, np.ndarray):

@@ -31,7 +31,8 @@ from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
                                                    outlier_segments,
                                                    synthetic_read)
 from test_torch_banded_fb import (MODEL, PORT_MODEL, THR, W,
-                                  _assert_pairs_close, _problem_args)
+                                  _assert_pairs_close, _port_args,
+                                  _problem_args)
 
 CPU = torch.device("cpu")
 # posteriors of two f32 implementations whose log terms reach ~2^10 nats
@@ -230,31 +231,28 @@ def test_prob_bucket_is_the_jax_gate(monkeypatch):
     assert not runner.prob_bucket(256, 1, 64, cfg, False)
 
 
-def test_event_normaliser_only_with_the_switch(monkeypatch):
-    """The runner's prep computes the probability-space sweeps' event
-    normaliser (a best case over every k-mer of the model for each event)
-    only with SIGNALALIGN_TPU_PROB_KERNELS=1, and then equals
-    prepare_problem's default (the JAX field); without it the problems
-    carry none, and a probability-space bucket of them is refused."""
-    model = PORT_MODEL
-    with tempfile.TemporaryDirectory() as tmp:
-        rgs, ref = build_synthetic_batch(
-            model, n_reads=1, ev_min=300, ev_max=400, seed=9,
-            genome_len=5_000, fasta_path=os.path.join(tmp, "g.fa"))[:2]
-    cfg = AlignmentConfig()
-    monkeypatch.delenv(runner.PROB_SWITCH, raising=False)
-    off = [t[1] for t in runner.prepare_read(*rgs[0], ref, model, cfg)[4]]
-    monkeypatch.setenv(runner.PROB_SWITCH, "1")
-    tasks = runner.prepare_read(*rgs[0], ref, model, cfg)[4]
-    on, W = [t[1] for t in tasks], tasks[0][2]
-    assert off and all(p.ev_best is None and p.ev_norm_total == 0.0
-                       for p in off)
-    for a, b in zip(on, off):
-        assert a.ev_best is not None and a.ev_norm_total < 0.0
-        assert np.array_equal(a.ref_params, b.ref_params)
-    with pytest.raises(ValueError, match="event normaliser"):
-        problem_tensors(off[:1], W, CPU, prob=True)
-    assert problem_tensors(on[:1], W, CPU, prob=True).prob is not None
+def test_event_normaliser_only_with_the_switch(problems):
+    """The probability-space sweeps' event normaliser (a best case over
+    every k-mer of the model for each event) is left out of the prep:
+    ``prepare_problem`` gives Gaussian problems without it, log-space
+    tensors of them form none, and ``problem_tensors(..., prob=True)``
+    forms it, equal to the JAX ``prepare_problem``'s field. Which buckets
+    of the runner form it (those run with SIGNALALIGN_TPU_PROB_KERNELS=1)
+    is held by ``test_runner_prob_switch``."""
+    jp = problems[0]
+    port = [bfb.prepare_problem(*_port_args(a), **kw)
+            for a, kw in _problem_args()]
+    assert all(p.ev_best is None and p.ev_norm_total == 0.0
+               and p.norm_source is not None for p in port)
+    assert problem_tensors(port, W, CPU).prob is None
+    assert all(p.ev_best is None for p in port)
+    pt = problem_tensors(port, W, CPU, prob=True)
+    for i, (p, j) in enumerate(zip(port, jp)):
+        assert np.array_equal(p.ev_best, j.ev_best)
+        assert p.ev_norm_total == j.ev_norm_total < 0.0
+        assert np.array_equal(pt.prob.ev_best[i, :p.ev_best.shape[0]].numpy(),
+                              j.ev_best)
+        assert np.array_equal(p.ref_params, j.ref_params)
 
 
 def test_runner_prob_switch(monkeypatch, capsys):
@@ -281,17 +279,21 @@ def test_runner_prob_switch(monkeypatch, capsys):
     cfg = AlignmentConfig(split_bigger_than=2500)
     seen = []
 
+    normalised = []     # per aligner: its problems with an event normaliser
+
     class Recording(hk.HopperAligner):
         def __init__(self, problems, W, device, *args, **kw):
+            normalised.append(sum(q.ev_best is not None for q in problems))
             super().__init__(problems, W, device, *args, **kw)
             seen.append((W, self.pt.P, len(problems), self.log_space))
 
     monkeypatch.setattr(runner, "HopperAligner", Recording)
     monkeypatch.delenv(runner.PROB_SWITCH, raising=False)
     base = runner.run_alignment_batch(rgs, ref, model, cfg, device=CPU)
-    assert all(s[3] for s in seen)
+    assert all(s[3] for s in seen) and not any(normalised)
     buckets = seen[:]
     seen.clear()
+    normalised.clear()
     monkeypatch.setenv(runner.PROB_SWITCH, "1")
     stages = {}
     got = runner.run_alignment_batch(rgs, ref, model, cfg, device=CPU,
@@ -300,6 +302,10 @@ def test_runner_prob_switch(monkeypatch, capsys):
     assert prob == [(w, p, n, False) for w, p, n, _ in buckets
                     if runner.prob_bucket(w, p, n, cfg, False)]
     assert prob and any(n < runner.PROB_MIN_BUCKET for _, _, n, _ in buckets)
+    # the runner forms the event normaliser for the probability-space
+    # buckets alone, before their aligners
+    assert normalised[:len(buckets)] == [0 if s[3] else s[2]
+                                         for s in seen[:len(buckets)]]
     n_prob = sum(n for _, _, n, _ in prob)
     n_rerun = sum(n for _, _, n, _ in seen[len(buckets):])
     assert 0 < n_rerun < n_prob and "rerun" in stages

@@ -19,7 +19,10 @@ one table only: at most 2% of the rows may differ. The .nhdp observed
 sets may differ only at the k-mers of such rows."""
 
 import json
+import os
 from collections import Counter
+
+import h5py
 
 import numpy as np
 import pytest
@@ -163,3 +166,35 @@ def test_three_state_hdp_needs_its_hdp_model(tmp_path, capsys):
         "stateMachineType": "threeStateHdp"}}))
     assert port_cli.main(["train", "--config", str(path)]) == 2
     assert "template_hdp_model" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("fault", ["no_events", "no_reads"])
+def test_train_stops_on_reads_it_cannot_load(tmp_path, fault):
+    """``train`` skips a read it cannot load, as the JAX CLI does, but
+    stops where the fault is not the read's: a fast5 without an event
+    table raises NotImplementedError naming ROADMAP §1 item 4 (the JAX
+    package aligns its raw signal), and a run where no read loads raises
+    ValueError; neither writes a model."""
+    model = synthetic_pore_model(0)
+    rgs, _, _, _, fasta = build_synthetic_batch(
+        model, n_reads=2, ev_min=300, ev_max=400, seed=2, genome_len=5000,
+        fasta_path=str(tmp_path / "g.fa"))
+    files = write_synthetic_run(rgs, str(tmp_path / "in"), fasta,
+                                model=model)
+    for read, _ in rgs[:1 if fault == "no_events" else 2]:
+        path = os.path.join(files["fast5_dir"], f"{read.read_label}.fast5")
+        if fault == "no_events":
+            with h5py.File(path, "r+") as fh:
+                del fh["Analyses"]
+        else:
+            open(path, "w").close()         # not an HDF5 file: skipped
+    out = tmp_path / "out"
+    raises = ((NotImplementedError, "ROADMAP §1 item 4") if fault ==
+              "no_events" else (ValueError, "none of the 2 listed reads"))
+    with pytest.raises(raises[0], match=raises[1]):
+        port_cli.main(["train", "--alignment_file", files["sam"],
+                       "--readdb", files["readdb"], "--fast5_dir",
+                       files["fast5_dir"], "--ref", files["fasta"],
+                       "--model", files["model"], "--output_dir", str(out),
+                       "--iterations", "1", "--device", "cpu"])
+    assert not out.exists()
