@@ -135,6 +135,28 @@ Phases (any failure stops the run with a non-zero exit):
           reads';
      each with its stage seconds, events/s, peak device memory and launch
      counts.
+  11. the reads `run` and `train` take besides basecalled 1D fast5s, from
+     the in-memory twins of their fast5s (utils.synthetic; no h5py here):
+     11a. the first 32 of phase 4's reads as raw current (each event
+          round(length x 4 kHz) samples at its level) through
+          align_raw_signal (trim, t-statistic event detection, method of
+          moments scaling, the adaptive banded alignment and its QC), then
+          align_and_write(..., "both"): every read past QC, detected
+          events within 20% of the drawn ones, pairs in [n/2, 3n],
+          |total_f - total_b| < 1 nat; then the first 16 of them again
+          with each sample scattered by its event's stdv, as a real
+          event's samples are: the detector splits such events, so these
+          are held to QC, pairs and totals, their detected / drawn ratio
+          reported;
+     11c. --embed's tables of 11a's results in memory: the full rows with
+          their raw coordinates and the MEA labels;
+     11b. 16 2D reads (the template strand under phase 4's model, the
+          complement under synthetic_pore_model(1)) on a 400 kb genome,
+          mapped by generate_guide_alignment's minimizer index within 50
+          b of their drawn windows, both strands through
+          align_2d_and_write: the same gates on each strand;
+     each with its stage seconds (detect, adaptive align, guide, prep,
+     kernels, write), events/s, peak device memory and launch counts.
 Each kernel's line carries its bound: the larger of the bytes it must
 move over the HBM rate and its transcendentals over the SFU rate, with
 the serial-diagonal floor (longest problem's diagonals times the measured
@@ -224,6 +246,19 @@ GIBBS_10C = {"gibbs_samples": 15, "burnin_multiplier": 32, "thinning": 100}
 # (0.0202 measured on an H100, PERF.md §6)
 SEP_10D = 0.01
 EM_SEGMENT_DIAGONALS = 3200   # em_train's segment cap
+# phase 11: 11a's reads (the first of phase 4's), the least share of a
+# read's drawn events the detector may miss or add, 11b's 2D reads and
+# their complement strands' model, and how far (bases) a 2D read's guide
+# may end from its drawn window
+N_RAW_11A = 32
+EVENT_TOL_11A = 0.2
+# 11a's noisy reads: how many, and each sample's scatter in its event's
+# stdv (synthetic.raw_adc)
+N_NOISY_11A = 16
+NOISE_11A = 1.0
+SEED_2D = 16
+SEED_COMPLEMENT = 1
+MAP_TOL_11B = 50
 # H100 SXM peaks for the bounds: HBM bytes per second, and transcendental
 # results per second (16 special-function results per clock per SM, 132
 # SMs, 1,980 MHz boost clock)
@@ -1279,6 +1314,246 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
         f"device memory {peak:.2f} GiB; launches {call_launches}")
     del hdp10, res10
     return train_paths, train_pair2
+
+
+def raw_2d_phases(dev, tmp, phase_mark, model, rgs, reference, n_2d=16,
+                  ev_min=2000, ev_max=50000, genome_len=400_000):
+    """Phases 11a-11c on ``dev`` (the CPU rehearses them at a small size):
+    the reads ``run`` and ``train`` take besides basecalled 1D fast5s,
+    from the in-memory twins of their fast5s (no h5py on the card's host):
+    11a ``rgs`` (phase 4's reads and guides) as raw signal through
+    ``align_raw_signal`` and ``align_and_write(..., "both")``, then the
+    first N_NOISY_11A of them with noisy samples the same way; 11c the
+    embed tables and MEA labels of 11a's results; 11b ``n_2d`` 2D reads
+    (a genome of ``genome_len`` bases: past SEEDED_MIN_REF, the guide
+    aligner's minimizer index) mapped by ``generate_guide_alignment`` and
+    both strands through ``align_2d_and_write``. Returns 11a's, its noisy
+    reads' and 11b's launches, by phase and kernel."""
+    from signalalign_tpu_torch.io import embed
+    from signalalign_tpu_torch.io.minialign import (SEEDED_MIN_REF,
+                                                    generate_guide_alignment)
+    from signalalign_tpu_torch.ops import banded_fb_hopper as hk
+    from signalalign_tpu_torch.pipeline.event_align import (
+        align_raw_signal, basecall_event_table, read_from_raw_result)
+    from signalalign_tpu_torch.pipeline.runner import (align_2d_and_write,
+                                                       align_and_write)
+    from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
+    from signalalign_tpu_torch.utils.synthetic import (
+        build_synthetic_2d_batch, raw_signal_read, synthetic_pore_model,
+        twod_read)
+    cuda = dev.type == "cuda"
+
+    def reset():
+        hk.reset_launch_counts()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {"sa_fwd_sweep": hk.forward_sweep.launches,
+                "sa_bwd_sweep_compact": hk.backward_sweep_compact.launches}
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    def check_strand(reads, results, tag):
+        """Every read aligned; pairs in [n/2, 3n]; totals agree."""
+        check(len(results) == len(reads),
+              f"{tag}: {len(reads) - len(results)} reads failed")
+        for read, r in zip(reads, results):
+            n = read.n_events
+            check(n // 2 <= len(r.aligned_pairs) <= 3 * n,
+                  f"{tag} {r.read_label}: {len(r.aligned_pairs)} pairs for "
+                  f"{n} events")
+            check(r.max_total_gap < 1.0 and np.isfinite(r.total_log_prob),
+                  f"{tag} {r.read_label}: total {r.total_log_prob}, "
+                  f"total_f - total_b gap {r.max_total_gap}")
+
+    phase_mark("11a")
+    # ---- 11a. raw signal: event detection, the adaptive banded
+    # alignment, then the main path
+    t0 = time.perf_counter()
+    signals = [raw_signal_read(read, i) for i, (read, _) in enumerate(rgs)]
+    stages = {"fixtures": time.perf_counter() - t0}
+    raw_rgs, raw_res = [], []
+    drawn = detected = 0
+    for (read, guide), signal in zip(rgs, signals):
+        res = align_raw_signal(*signal, model, read.template_read,
+                               stage_seconds=stages)
+        check(res.qc_ok, f"11a {read.read_label}: QC failed ({res.qc_msg})")
+        n = len(res.events)
+        check(abs(n - read.n_events) <= EVENT_TOL_11A * read.n_events,
+              f"11a {read.read_label}: {n} events detected, "
+              f"{read.n_events} drawn")
+        drawn += read.n_events
+        detected += n
+        raw_rgs.append((read_from_raw_result(
+            res, read.read_label, read.template_read, None,
+            model.kmer_length), guide))
+        raw_res.append(res)
+    del signals
+    reset()
+    results = []
+    t0 = time.perf_counter()
+    written = align_and_write(raw_rgs, reference, model,
+                              os.path.join(tmp, "out11a"), AlignmentConfig(),
+                              output_format="both", device=dev,
+                              stage_seconds=stages, results_out=results)
+    t_align = time.perf_counter() - t0
+    launches_a = counts()
+    peak = peak_gib()
+    check_strand([r for r, _ in raw_rgs], results, "11a")
+    check(not cuda or all(launches_a.values()),
+          f"11a: a kernel was not launched: {launches_a}")
+    t_raw = stages["detect"] + stages["adaptive_align"]
+    log(f"[raw] {len(rgs)} reads, {drawn} events drawn, {detected} "
+        f"detected ({detected / drawn:.4f}), every read past QC, "
+        f"{sum(len(r.aligned_pairs) for r in results)} pairs, "
+        f"{len(written)} files")
+    log("[raw] stages " + " ".join(f"{s_}={v:.2f}s"
+                                   for s_, v in stages.items()))
+    log(f"[raw] detect + adaptive align {t_raw:.2f} s: "
+        f"{detected / t_raw:.0f} events/s; align_and_write {t_align:.2f} s; "
+        f"end to end {detected / (t_raw + t_align):.0f} events/s; peak "
+        f"device memory {peak:.2f} GiB; launches {launches_a}")
+
+    phase_mark("11a noisy")
+    # ---- 11a, noisy: the first N_NOISY_11A reads with each sample
+    # scattered by its event's stdv. The t-statistic detector splits
+    # 8-sample events under such noise (the JAX package's on the same
+    # signal, tests/test_torch_raw_signal.py), so these reads are held to
+    # QC, pairs and totals, and their detected / drawn ratio is reported
+    t0 = time.perf_counter()
+    signals = [raw_signal_read(read, i, noise=NOISE_11A)
+               for i, (read, _) in enumerate(rgs[:N_NOISY_11A])]
+    nstages = {"fixtures": time.perf_counter() - t0}
+    noisy_rgs = []
+    ndrawn = ndetected = 0
+    for (read, guide), signal in zip(rgs, signals):
+        res = align_raw_signal(*signal, model, read.template_read,
+                               stage_seconds=nstages)
+        check(res.qc_ok,
+              f"11a noisy {read.read_label}: QC failed ({res.qc_msg})")
+        ndrawn += read.n_events
+        ndetected += len(res.events)
+        noisy_rgs.append((read_from_raw_result(
+            res, read.read_label, read.template_read, None,
+            model.kmer_length), guide))
+    del signals
+    reset()
+    nresults = []
+    t0 = time.perf_counter()
+    nwritten = align_and_write(noisy_rgs, reference, model,
+                               os.path.join(tmp, "out11a_noisy"),
+                               AlignmentConfig(), output_format="both",
+                               device=dev, stage_seconds=nstages,
+                               results_out=nresults)
+    t_nalign = time.perf_counter() - t0
+    launches_n = counts()
+    check_strand([r for r, _ in noisy_rgs], nresults, "11a noisy")
+    check(not cuda or all(launches_n.values()),
+          f"11a noisy: a kernel was not launched: {launches_n}")
+    t_nraw = nstages["detect"] + nstages["adaptive_align"]
+    log(f"[raw noisy] {len(noisy_rgs)} reads at {NOISE_11A} of each "
+        f"event's stdv, {ndrawn} events drawn, {ndetected} detected "
+        f"({ndetected / ndrawn:.4f}), every read past QC, "
+        f"{sum(len(r.aligned_pairs) for r in nresults)} pairs, "
+        f"{len(nwritten)} files")
+    log("[raw noisy] stages " + " ".join(f"{s_}={v:.2f}s"
+                                         for s_, v in nstages.items()))
+    log(f"[raw noisy] detect + adaptive align {t_nraw:.2f} s: "
+        f"{ndetected / t_nraw:.0f} events/s; align_and_write "
+        f"{t_nalign:.2f} s; end to end "
+        f"{ndetected / (t_nraw + t_nalign):.0f} events/s; launches "
+        f"{launches_n}")
+    del noisy_rgs, nresults
+
+    phase_mark("11c")
+    # ---- 11c. --embed's tables and MEA labels of 11a's results, in
+    # memory (the card's host has no h5py to write them)
+    t0 = time.perf_counter()
+    n_rows = n_labels = 0
+    for res, r in zip(raw_res, results):
+        sa = embed.add_raw_fields(embed.full_rows_to_table(r.full_rows(model)),
+                                  basecall_event_table(res))
+        check(np.array_equal(sa["raw_start"], res.raw_start[sa["event_index"]])
+              and (sa["raw_length"] > 0).all(),
+              f"11c {r.read_label}: raw coordinates of the rows")
+        labels = embed.mea_labels_from_events(sa)
+        check(0 < len(labels) <= len(sa)
+              and np.all(np.diff(labels["raw_start"]) >= 0)
+              and np.all(np.diff(labels["reference_index"]) >= 0),
+              f"11c {r.read_label}: {len(labels)} MEA labels of {len(sa)} "
+              "rows, not ascending")
+        n_rows += len(sa)
+        n_labels += len(labels)
+    t_embed = time.perf_counter() - t0
+    log(f"[embed] {len(results)} reads: {n_rows} full rows with raw "
+        f"coordinates, {n_labels} MEA labels in {t_embed:.2f} s")
+    del raw_rgs, raw_res, results
+
+    phase_mark("11b")
+    # ---- 11b. 2D reads: the guide aligner's seeded path, then both
+    # strands, each under its own model
+    cmodel = synthetic_pore_model(SEED_COMPLEMENT)
+    t0 = time.perf_counter()
+    rgs2, comps, ref2, _ = build_synthetic_2d_batch(
+        model, cmodel, seed=SEED_2D, n_reads=n_2d, ev_min=ev_min,
+        ev_max=ev_max, genome_len=genome_len,
+        fasta_path=os.path.join(tmp, "genome11b.fa"))
+    reads2d = [twod_read(read, comp) for (read, _), comp in zip(rgs2, comps)]
+    stages = {"fixtures": time.perf_counter() - t0}
+    check(len(ref2.forward["synth"]) > SEEDED_MIN_REF,
+          "11b's genome does not take the seeded guide path")
+    t0 = time.perf_counter()
+    pairs2d = []
+    worst = 0
+    for (read, drawn_guide), read2d in zip(rgs2, reads2d):
+        g = generate_guide_alignment(read2d.twod_sequence, ref2)
+        check(g is not None and g.validate(len(read2d.twod_sequence)),
+              f"11b {read.read_label}: no valid guide")
+        off = max(abs(g.window_start - drawn_guide.window_start),
+                  abs(g.window_end - drawn_guide.window_end))
+        check(g.forward == drawn_guide.forward and off <= MAP_TOL_11B,
+              f"11b {read.read_label}: mapped to {g.window_start}-"
+              f"{g.window_end}, drawn {drawn_guide.window_start}-"
+              f"{drawn_guide.window_end}")
+        worst = max(worst, off)
+        pairs2d.append((read2d, g))
+    stages["guide"] = time.perf_counter() - t0
+    reset()
+    results = []
+    t0 = time.perf_counter()
+    written = align_2d_and_write(pairs2d, ref2, model, cmodel,
+                                 os.path.join(tmp, "out11b"),
+                                 AlignmentConfig(), output_format="full",
+                                 device=dev, stage_seconds=stages,
+                                 results_out=results)
+    t_align = time.perf_counter() - t0
+    launches_b = counts()
+    peak = peak_gib()
+    n = len(pairs2d)
+    check_strand([r.template for r, _ in pairs2d], results[:n],
+                 "11b template")
+    check_strand([r.complement for r, _ in pairs2d], results[n:],
+                 "11b complement")
+    check(all(not r.strand_template for r in results[n:])
+          and len(written) == n,
+          f"11b: {len(written)} files for {n} reads")
+    check(not cuda or all(launches_b.values()),
+          f"11b: a kernel was not launched: {launches_b}")
+    ev2 = sum(r.template.n_events + r.complement.n_events for r, _ in pairs2d)
+    log(f"[2d] {n} reads mapped within {worst} b of their drawn windows; "
+        f"{ev2} events (both strands), "
+        f"{sum(len(r.aligned_pairs) for r in results)} pairs, "
+        f"{len(written)} files")
+    log("[2d] stages " + " ".join(f"{s_}={v:.2f}s"
+                                  for s_, v in stages.items()))
+    log(f"[2d] align_2d_and_write {t_align:.2f} s: {ev2 / t_align:.0f} "
+        f"events/s, with the guides {ev2 / (t_align + stages['guide']):.0f} "
+        f"events/s; peak device memory {peak:.2f} GiB; launches "
+        f"{launches_b}")
+    return {"11a": launches_a, "11a_noisy": launches_n, "11b": launches_b}
 
 
 def level_shifts(build_alignment, hdp, mod="E", base="C"):
@@ -2463,6 +2738,8 @@ def main():
         del exp10_sets
 
         train_paths, train_pair2 = train_phases(dev, tmp, phase_mark)
+        raw_2d_launches = raw_2d_phases(dev, tmp, phase_mark, model,
+                                        rgs[:N_RAW_11A], reference)
 
     def err(r, name):
         return max(r["tf_err"], r["fdiff"]) if name == "sa_fwd_sweep" \
@@ -2484,12 +2761,15 @@ def main():
         err_hdp = max(err(r, name) for r in hdp_rows.values())
         by_phase = {"4": launches[name], "5": site_launches[name],
                     "6": hdp_launches[name], "9a": files_launches[name],
-                    "9b": positions_launches[name]}
+                    "9b": positions_launches[name],
+                    "11a": raw_2d_launches["11a"][name],
+                    "11a_noisy": raw_2d_launches["11a_noisy"][name],
+                    "11b": raw_2d_launches["11b"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "signalalign_tpu_torch/csrc/banded_fb.cu", "replaces": src,
-            # the main-path runs (phases 4, 5, 6c, 9a and 9b), each
-            # counted from 0
+            # the main-path runs (phases 4, 5, 6c, 9a, 9b, 11a and 11b),
+            # each counted from 0
             "launches": sum(by_phase.values()),
             "max_abs_err": max(err(p1, name), err_pn, err_hdp),
             "ms": p1[ms + "ms"], "plain_ms": p1[ms + "plain_ms"],

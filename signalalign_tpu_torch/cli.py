@@ -8,13 +8,19 @@ The JSON config schema follows the reference's documented keys
 (README.md:85-251) where they map onto the pipeline; process-pool keys
 (job_count etc.) are accepted and ignored. ``--device`` picks the torch
 device (default ``cuda``; ``cpu`` runs the kernels' plain versions).
-The other subcommands of the JAX CLI are not ported yet.
+``run`` takes fast5s with event tables or raw signal only,
+``--force_kmer_event_alignment``, ``--embed`` and ``--2d`` with
+``--complement_model``; ``train`` takes ``--2d`` / ``--complement_model``
+(the complement strand's EM). The other subcommands of the JAX CLI are
+not ported yet.
 
 Usage:
   python -m signalalign_tpu_torch.cli run --config config.json
   python -m signalalign_tpu_torch.cli run --alignment_file x.bam \\
       --readdb x.readdb --fast5_dir d/ --ref ref.fa --model m.model \\
       --output_dir out/ [--device cpu]
+  python -m signalalign_tpu_torch.cli run --2d --fast5_dir d/ --ref ref.fa \\
+      --model t.model --complement_model c.model --output_dir out/
   python -m signalalign_tpu_torch.cli train --config trainModels-config.json \\
       [--device cpu]
 """
@@ -53,9 +59,6 @@ def cmd_run(args) -> int:
     from signalalign_tpu_torch.pipeline.signal_align import AlignmentConfig
     from signalalign_tpu_torch.utils.alphabet import load_ambig_model
 
-    if args.twod:
-        raise NotImplementedError(
-            "run --2d: 2D reads are not ported yet (ROADMAP §1 item 6)")
     cfg = _load_config(args.config)
     sample = _sample_from_config(cfg)
 
@@ -68,6 +71,30 @@ def cmd_run(args) -> int:
     model_path = args.model or cfg.get("template_hmm_model")
     output_dir = args.output_dir or cfg.get("output_dir") or "signalalign_out"
     hdp_path = args.hdp or cfg.get("template_hdp_model")
+
+    if args.twod:
+        from signalalign_tpu_torch.pipeline.runner import run_signal_align_2d
+        cmodel_path = args.complement_model or cfg.get("complement_hmm_model")
+        missing = [n for n, v in [("fast5_dir", fast5_dirs), ("ref", ref),
+                                  ("model", model_path),
+                                  ("complement_model", cmodel_path)] if not v]
+        if missing:
+            print(f"missing required arguments: {missing}", file=sys.stderr)
+            return 1
+        config = AlignmentConfig(
+            threshold=float(args.threshold),
+            diagonal_expansion=int(args.diagonal_expansion),
+            constraint_trim=int(args.constraint_trim))
+        written = run_signal_align_2d(
+            fast5_dirs=fast5_dirs, reference_fasta=ref,
+            template_model=PoreModel.from_file(model_path),
+            complement_model=PoreModel.from_file(cmodel_path),
+            output_dir=output_dir, config=config,
+            output_format=args.output_format, max_reads=args.max_reads,
+            device=torch.device(args.device))
+        print(f"[signalalign_tpu_torch] wrote {len(written)} output files to "
+              f"{output_dir}")
+        return 0
 
     missing = [n for n, v in [("alignment_file", alignment_file),
                               ("fast5_dir", fast5_dirs),
@@ -119,8 +146,9 @@ def cmd_train(args) -> int:
     from signalalign_tpu_torch.io.sam import filter_reads
     from signalalign_tpu_torch.models.hdp_model import load_nhdp
     from signalalign_tpu_torch.models.pore_model import PoreModel
-    from signalalign_tpu_torch.pipeline.runner import read_fast5
+    from signalalign_tpu_torch.io.read import NanoporeReadData
     from signalalign_tpu_torch.pipeline.train import (sample_reference,
+                                                      train_complement,
                                                       train_models)
 
     cfg = _load_config(args.config)
@@ -129,10 +157,11 @@ def cmd_train(args) -> int:
         raise NotImplementedError(
             "train --distributed: EM across hosts is not ported yet "
             "(ROADMAP §1 item 5)")
-    if args.complement_model or args.twod or training.get("complement"):
-        raise NotImplementedError(
-            "train with a complement model (2D chemistry) is not ported yet "
-            "(ROADMAP §1 item 6)")
+    # complement-strand training (2D chemistry): the reference trains
+    # both strand HMMs (trainModels twoD path)
+    cmodel_path = args.complement_model or cfg.get("complement_hmm_model")
+    complement = bool(cmodel_path and (args.twod
+                                       or training.get("complement", False)))
     # multi-sample training: expectations pool over every sample block
     # (trainModels.py samples[] semantics); CLI read-source arguments
     # define exactly one sample
@@ -175,14 +204,14 @@ def cmd_train(args) -> int:
     rgs = []            # (read, guide, sample reference) triples
     rgs_by_sample = [[] for _ in samples]
     for f5, rec, si in pairs:
+        # a fast5 without an event table is skipped, as the JAX train
+        # skips it (cli.py:205-213): only run aligns raw signal
         try:
-            read = read_fast5(f5)
+            read = NanoporeReadData.from_fast5(f5)
             guide = guide_from_sam_record(rec)
             if guide and guide.validate(read.read_length):
                 rgs.append((read, guide, sample_refs[si]))
                 rgs_by_sample[si].append((read, guide))
-        except (NotImplementedError, ImportError):
-            raise       # not a fault of this read: every read would skip
         except Exception as exc:
             print(f"[train] skipping {f5}: {exc}", file=sys.stderr)
     if not rgs:
@@ -190,15 +219,56 @@ def cmd_train(args) -> int:
                          "loaded with a valid guide alignment; no model "
                          "is trained on zero reads")
 
+    c_rgs = []          # complement strands of the samples' 2D fast5s
+    if complement:
+        c_rgs = complement_reads(samples, args.fast5_dir, reference)
+        if args.max_reads:
+            c_rgs = c_rgs[:args.max_reads]
+
     out = train_models(cfg, samples, sample_refs, rgs, rgs_by_sample,
                        reference, model, output_dir, iterations, em_hdp,
                        device=torch.device(args.device))
+    if c_rgs:
+        cres = train_complement(
+            c_rgs, reference, PoreModel.from_file(cmodel_path), output_dir,
+            iterations, bool(training.get("em_emissions", False)),
+            device=torch.device(args.device))
+        print(f"[train] complement log-likelihoods: {cres.log_likelihoods}")
+        print(f"[train] wrote {output_dir}/complement_trained.model")
     if "nhdp" in out:
         print(f"[train] wrote {out['nhdp']}")
     if out["em"] is not None:
         print(f"[train] log-likelihoods: {out['em'].log_likelihoods}")
     print(f"[train] wrote {out['model_path']}")
     return 0
+
+
+def complement_reads(samples, fast5_dir_args, reference):
+    """(complement strand, guide) of every 2D fast5 in the samples'
+    ``fast5_dirs`` (or in ``fast5_dir_args``, the CLI's, once), each
+    mapped by its 2D sequence, as the JAX ``train`` collects them
+    (``cli.py:319-345``); a read that does not load or map is skipped
+    with its message; a native library that cannot be built raises."""
+    from signalalign_tpu_torch.pipeline.runner import (read_2d,
+                                                       twod_fast5_paths)
+    from signalalign_tpu_torch.utils.native import NativeLibraryError
+    c_rgs = []
+    for sample in samples:
+        dirs = fast5_dir_args or sample.get("fast5_dirs") or []
+        if isinstance(dirs, str):
+            dirs = [dirs]
+        for f5 in twod_fast5_paths(dirs):
+            try:
+                read2d, guide = read_2d(f5, reference)
+                c_rgs.append((read2d.complement, guide))
+            except NativeLibraryError:
+                raise
+            except Exception as exc:
+                print(f"[train] skipping complement {f5}: {exc}",
+                      file=sys.stderr)
+        if fast5_dir_args:
+            break
+    return c_rgs
 
 
 def main(argv=None) -> int:
@@ -232,16 +302,16 @@ def main(argv=None) -> int:
     runp.add_argument("--constraint_trim", default=14)
     runp.add_argument("--max_reads", type=int)
     runp.add_argument("--force_kmer_event_alignment", action="store_true",
-                      help="regenerate event tables from raw signal (not "
-                           "ported yet)")
+                      help="regenerate event tables from raw signal even "
+                           "when basecall events exist")
     runp.add_argument("--distributed", action="store_true",
                       help="shard the read list over hosts (not ported "
                            "yet)")
     runp.add_argument("--embed", action="store_true",
-                      help="write alignment + MEA labels into the fast5s "
-                           "(not ported yet)")
+                      help="write alignment + MEA labels into the fast5s")
     runp.add_argument("--2d", dest="twod", action="store_true",
-                      help="2D chemistry (not ported yet)")
+                      help="2D chemistry: align template + complement")
+    runp.add_argument("--complement_model")
     runp.add_argument("--device", default="cuda",
                       help="torch device to align on (default cuda)")
     runp.set_defaults(func=cmd_run)
@@ -258,9 +328,10 @@ def main(argv=None) -> int:
     trainp.add_argument("--max_reads", type=int)
     trainp.add_argument("--complement_model",
                         help="train a complement-strand model too (2D "
-                             "chemistry; not ported yet)")
+                             "chemistry; reads from the 2D fast5s)")
     trainp.add_argument("--2d", dest="twod", action="store_true",
-                        help="2D chemistry (not ported yet)")
+                        help="2D chemistry: with a complement model, train "
+                             "it on the 2D fast5s' complement strands")
     trainp.add_argument("--distributed", action="store_true",
                         help="EM across hosts (not ported yet)")
     trainp.add_argument("--device", default="cuda",

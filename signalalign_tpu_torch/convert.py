@@ -87,7 +87,7 @@ def _check_slice(p: bfb.BandedProblem) -> None:
     if p.mode not in (bfb.MODE_MEAN_ONLY, bfb.MODE_HDP):
         raise NotImplementedError(
             f"emission mode {p.mode}: the port runs MODE_MEAN_ONLY and "
-            "MODE_HDP")
+            "MODE_HDP (ROADMAP §3 item 4)")
 
 
 def _pack_words(bits: np.ndarray) -> np.ndarray:

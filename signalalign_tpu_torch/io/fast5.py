@@ -1,6 +1,6 @@
-"""Fast5 (HDF5) access, read side: raw signal, channel scaling, basecall
-tables. The port's copy of the reading half of ``signalalign_tpu.io.fast5``
-(same paths, same formulas).
+"""Fast5 (HDF5) access: raw signal, channel scaling, basecall tables, and
+the writers of generated event tables and analyses. The port's copy of
+``signalalign_tpu.io.fast5`` (same paths, same formulas).
 
 reference: src/signalalign/fast5.py (h5py path management) and the C HDF5
 getters in impl/eventAligner.c:100-790.
@@ -42,12 +42,20 @@ def import_h5py():
     return h5py
 
 
-class Fast5:
-    """Read-side wrapper over one fast5 file."""
+def adc_to_pA(adc: np.ndarray, cp: dict) -> np.ndarray:
+    """ADC samples in picoamps under the channel parameters ``cp``
+    (``Fast5.channel_params``): (adc + offset) * range / digitisation."""
+    adc = np.asarray(adc, dtype=np.float32)
+    return (adc + cp["offset"]) * (cp["range"] / cp["digitisation"])
 
-    def __init__(self, path: str):
+
+class Fast5:
+    """Wrapper over one fast5 file, opened in h5py's ``mode`` ("r", or
+    "r+" to write)."""
+
+    def __init__(self, path: str, mode: str = "r"):
         self.path = path
-        self.fh = import_h5py().File(path, "r")
+        self.fh = import_h5py().File(path, mode)
 
     def close(self):
         self.fh.close()
@@ -118,9 +126,11 @@ class Fast5:
         grp = self.read_group
         if grp is None:
             raise KeyError("no raw reads in " + self.path)
-        adc = np.asarray(self.fh[f"{grp}/Signal"][()], dtype=np.float32)
-        cp = self.channel_params()
-        return (adc + cp["offset"]) * (cp["range"] / cp["digitisation"])
+        return adc_to_pA(self.fh[f"{grp}/Signal"][()], self.channel_params())
+
+    def start_time(self) -> float:
+        grp = self.read_group
+        return float(self.fh[grp].attrs.get("start_time", 0.0))
 
     # ----------------------------------------------------------- basecalls
 
@@ -170,3 +180,43 @@ class Fast5:
         return {k: float(a[k]) for k in
                 ("scale", "shift", "drift", "var", "scale_sd", "var_sd")
                 if k in a}
+
+    # -------------------------------------------------------------- writing
+
+    def next_analysis_path(self, base: str) -> str:
+        n = 0
+        while f"{ANALYSES}/{base}_{n:03d}" in self.fh:
+            n += 1
+        return f"{ANALYSES}/{base}_{n:03d}"
+
+    def write_event_table(self, events: np.ndarray, fastq: str,
+                          base: str = "SignalAlign_Basecall_1D") -> str:
+        """Embed a basecalled event table + fastq (load_from_raw output).
+
+        reference: fast5_set_basecall_event_table (eventAligner.c).
+        """
+        path = self.next_analysis_path(base)
+        self.fh.create_dataset(f"{path}/BaseCalled_template/Events", data=events)
+        self.fh.create_dataset(f"{path}/BaseCalled_template/Fastq",
+                               data=np.bytes_(fastq))
+        self.fh[path].attrs["signalalign_tpu"] = np.bytes_("0.1")
+        return path
+
+
+def remove_analyses(path: str, match: Optional[str] = None) -> int:
+    """Delete /Analyses groups whose name contains ``match`` (all if None).
+
+    reference: remove_sa_analyses.py:42-79 (SignalAlign / Basecall /
+    everything variants). Returns the number of groups removed.
+    """
+    n = 0
+    with Fast5(path, "r+") as f5:
+        if ANALYSES not in f5.fh:
+            return 0
+        for name in list(f5.fh[ANALYSES]):
+            if match is None or match in name:
+                del f5.fh[ANALYSES][name]
+                n += 1
+        if match is None:
+            del f5.fh[ANALYSES]
+    return n

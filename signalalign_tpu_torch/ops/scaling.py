@@ -1,11 +1,12 @@
 """Per-read signal normalization (assignments, weighted least squares,
-drift correction): the port's copy of the parts of
-``signalalign_tpu.ops.scaling`` it calls.
+method-of-moments, drift correction): the port's copy of
+``signalalign_tpu.ops.scaling``.
 
 reference: impl/nanopore.c:601-960 (nanopore_getOneDAssignmentsFromRead,
 nanopore_compute_mean_scale_params, nanopore_compute_noise_scale_params,
-drift adjustment). These are tiny dense linear-algebra problems; they
-run vectorized in NumPy on the host.
+drift adjustment) and impl/eventAligner.c:790-840 (MoM scaling). These
+are tiny dense linear-algebra problems; they run vectorized in NumPy on
+the host.
 """
 
 from __future__ import annotations
@@ -126,3 +127,14 @@ def adjust_events_for_drift(events: np.ndarray, drift: float) -> np.ndarray:
     out[:, 0] -= out[:, 3] * drift
     return out
 
+
+def estimate_scalings_using_mom(kmer_ids: np.ndarray, model: PoreModel,
+                                event_means: np.ndarray) -> ScalingParams:
+    """Method-of-moments shift/scale from event and model level moments.
+
+    reference: estimate_scalings_using_mom (eventAligner.c:790-840).
+    """
+    mu = model.level_mean[kmer_ids]
+    shift = float(event_means.mean() - mu.mean())
+    scale = float(((event_means - shift) ** 2).mean() / (mu ** 2).mean())
+    return ScalingParams(shift=shift, scale=scale, drift=0.0, var=1.0)

@@ -1,5 +1,7 @@
 """Multi-read signal alignment in the port: ``run_signal_align`` (the CLI's
-``run``: fast5, SAM/BAM, readdb and positions files in, TSVs out) and the
+``run``: fast5, SAM/BAM, readdb and positions files in, TSVs out; fast5s
+with event tables or raw signal only, and ``--embed``),
+``run_signal_align_2d`` (``run --2d``: both strands of 2D fast5s) and the
 Gaussian (MODE_MEAN_ONLY) and HDP (MODE_HDP) branches of
 ``signalalign_tpu.pipeline.runner.run_alignment_batch`` for segments of
 any number of paths per cell, with pair output, site-mode
@@ -21,6 +23,7 @@ here.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 import sys
 import time
@@ -32,13 +35,15 @@ import numpy as np
 import torch
 
 from signalalign_tpu_torch.io.fast5 import Fast5, import_h5py
+from signalalign_tpu_torch.io.embed import embed_alignment
 from signalalign_tpu_torch.io.guide import (GuideAlignment,
                                             adjust_reference_coordinate,
                                             guide_from_sam_record)
 from signalalign_tpu_torch.io.output import (posterior_score,
                                              write_assignments_tsv,
                                              write_full_tsv, write_vc_tsv)
-from signalalign_tpu_torch.io.read import NanoporeReadData
+from signalalign_tpu_torch.io.minialign import generate_guide_alignment
+from signalalign_tpu_torch.io.read import NanoporeRead2DData, NanoporeReadData
 from signalalign_tpu_torch.convert import hdp_tables
 from signalalign_tpu_torch.io.reference import ProcessedReference
 from signalalign_tpu_torch.io.sam import filter_reads
@@ -53,6 +58,7 @@ from signalalign_tpu_torch.ops.band_geometry import (band_widths, build_band,
 from signalalign_tpu_torch.ops.banded_fb_hopper import HopperAligner
 from signalalign_tpu_torch.ops.scaling import (adjust_events_for_drift,
                                                estimate_nanopore_params)
+from signalalign_tpu_torch.pipeline.event_align import nanopore_read_from_raw
 from signalalign_tpu_torch.pipeline.signal_align import (AlignmentConfig,
                                                          ReadAlignment,
                                                          _bucket_d, _bucket_w)
@@ -61,6 +67,7 @@ from signalalign_tpu_torch.pipeline.variant_caller import (
     variant_calls_dataframe)
 from signalalign_tpu_torch.utils.alphabet import (max_paths_per_kmer,
                                                   paths_per_kmer)
+from signalalign_tpu_torch.utils.native import NativeLibraryError
 
 # forward-stack bytes one aligner call may hold on the device; larger
 # buckets run in several calls
@@ -211,7 +218,7 @@ def _check_slice(config: AlignmentConfig, hdp) -> None:
     if config.emission_mode not in (bfb.MODE_MEAN_ONLY, bfb.MODE_HDP):
         raise NotImplementedError(
             f"emission mode {config.emission_mode}: the port runs "
-            "MODE_MEAN_ONLY and MODE_HDP")
+            "MODE_MEAN_ONLY and MODE_HDP (ROADMAP §3 item 4)")
     if config.emission_mode == bfb.MODE_HDP and hdp is None:
         raise ValueError("MODE_HDP requires an hdp model (hdp=)")
 
@@ -561,6 +568,7 @@ def align_and_write(
     device: torch.device = torch.device("cuda"),
     verbose: bool = False,
     stage_seconds: Optional[Dict[str, float]] = None,
+    results_out: Optional[List[ReadAlignment]] = None,
 ) -> List[str]:
     """The alignment half of ``run_signal_align``: ``run_alignment_batch``
     on ``device``, then ``write_outputs``. Returns the written files.
@@ -568,7 +576,7 @@ def align_and_write(
     ``output_format="variants"`` runs site-mode calling with the candidate
     bases ``variants`` (e.g. "CT"), derived from ``config.ambig_map`` when
     that offers one set only. ``stage_seconds`` receives the runner's
-    stages and "write".
+    stages and "write"; ``results_out``, when given, the read results.
     """
     config = config or AlignmentConfig()
     call_variants = None
@@ -599,24 +607,64 @@ def align_and_write(
                             variants=variants)
     if stage_seconds is not None:
         stage_seconds["write"] = time.perf_counter() - t0
+    if results_out is not None:
+        results_out.extend(results)
     return written
 
 
-def read_fast5(path: str, quality_threshold: Optional[float] = 7.0
-               ) -> NanoporeReadData:
-    """``NanoporeReadData.from_fast5``, where a fast5 without a usable
-    event table raises ``NotImplementedError``: the JAX package aligns
-    its raw signal, which is not ported yet (ROADMAP §1 item 4)."""
+def read_fast5(path: str, rec, model: PoreModel,
+               quality_threshold: Optional[float] = 7.0,
+               force_kmer_event_alignment: bool = False,
+               verbose: bool = False) -> NanoporeReadData:
+    """One read of ``run`` as the JAX ``run_signal_align``
+    loads it (``runner.py:790-808``): ``NanoporeReadData.from_fast5``,
+    or, for a fast5 without a usable event table (no basecall events, or
+    RNA events in index scale) and with ``force_kmer_event_alignment``,
+    the raw signal's kmer-event alignment against the SAM/BAM record
+    ``rec``'s sequence under ``model`` (``nanopore_read_from_raw``, which
+    embeds the generated table into the fast5). A raw alignment that
+    fails QC raises ValueError with its message."""
     try:
+        if force_kmer_event_alignment:
+            raise ValueError("no basecall events (forced)")
         return NanoporeReadData.from_fast5(
             path, quality_threshold=quality_threshold)
     except ValueError as exc:
         if "no basecall events" not in str(exc) and \
                 "index-scale" not in str(exc):
             raise
-        raise NotImplementedError(
-            f"{path}: no usable event table; kmer-event alignment from raw "
-            "signal is not ported yet (ROADMAP §1 item 4)") from exc
+    if verbose:
+        print(f"[runner] {os.path.basename(path)}: no usable event table; "
+              "running kmer-event alignment", file=sys.stderr)
+    return nanopore_read_from_raw(path, model, rec)
+
+
+def embed_results(rgs: Sequence[Tuple[NanoporeReadData, GuideAlignment]],
+                  results: Sequence[ReadAlignment], model: PoreModel,
+                  verbose: bool = False) -> None:
+    """``--embed``: each aligned read's full rows with their raw
+    coordinates, its MEA labels and its variantCaller rows written into
+    its fast5 under /Analyses/SignalAlign_NNN (``io.embed.embed_alignment``,
+    as the JAX ``run_signal_align`` does at ``runner.py:890-908``). A read
+    whose embedding fails is reported under ``verbose`` and skipped, as
+    there."""
+    by_label = {read.read_label: read for read, _ in rgs}
+    for r in results:
+        read = by_label.get(r.read_label)
+        if read is None or read.fast5_path is None:
+            continue
+        try:
+            with Fast5(read.fast5_path) as f5:
+                raw_events = f5.template_events(read.analysis_path)
+            embed_alignment(
+                read.fast5_path, r.full_rows(model), raw_events,
+                vc_rows=r.vc_rows(model),
+                basecall_events_path=(read.analysis_path or "")
+                + "/BaseCalled_template/Events")
+        except Exception as exc:
+            if verbose:
+                print(f"[runner] embed failed for {r.read_label}: {exc}",
+                      file=sys.stderr)
 
 
 def run_signal_align(
@@ -643,36 +691,29 @@ def run_signal_align(
     device: torch.device = torch.device("cuda"),
 ) -> List[str]:
     """Full CLI-equivalent run, the JAX ``run_signal_align``: filter reads
-    (primary, mapped, SAM quality) -> ``NanoporeReadData.from_fast5`` ->
-    guide from the SAM/BAM record -> ``align_and_write`` on ``device``.
-    Returns the written files.
+    (primary, mapped, SAM quality) -> ``read_fast5`` (the fast5's event
+    table, or its raw signal's kmer-event alignment) -> guide from the
+    SAM/BAM record -> ``align_and_write`` on ``device``. Returns the
+    written files.
 
     ``positions`` (an ``AmbiguityPositions``) and ``motifs`` edit the
     reference; ``max_reads`` keeps the first reads that pass the filter;
     ``overwrite=False`` skips reads whose outputs exist; a read whose
-    guide is invalid or outside ``target_regions`` is skipped with its
-    message. The ambiguity map is ``config.ambig_map``. Without h5py it
-    raises ImportError before any file is read.
+    guide is invalid, outside ``target_regions``, or whose raw alignment
+    fails QC is skipped with its message; a native library that cannot
+    be built raises. ``force_kmer_event_alignment``
+    aligns every read's raw signal; ``embed`` writes each read's
+    alignment into its fast5 (``embed_results``). The ambiguity map is
+    ``config.ambig_map``. Without h5py it raises ImportError before any
+    file is read.
 
-    Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP item: ``distributed=True`` (several hosts or GPUs, §1 item 5),
-    ``embed=True`` and ``force_kmer_event_alignment=True`` (§1 item 4),
-    and a fast5 without a usable event table (the JAX package aligns its
-    raw signal, §1 item 4): that error reaches the caller, where other
-    faults of a read only skip the read.
+    ``distributed=True`` (several hosts or GPUs) is not ported yet and
+    raises ``NotImplementedError`` naming ROADMAP §1 item 5.
     """
     if distributed:
         raise NotImplementedError(
             "run_signal_align(distributed=True): sharding reads over hosts "
             "or GPUs is not ported yet (ROADMAP §1 item 5)")
-    if embed:
-        raise NotImplementedError(
-            "run_signal_align(embed=True): writing alignments into fast5 "
-            "files is not ported yet (ROADMAP §1 item 4)")
-    if force_kmer_event_alignment:
-        raise NotImplementedError(
-            "run_signal_align(force_kmer_event_alignment=True): kmer-event "
-            "alignment from raw signal is not ported yet (ROADMAP §1 item 4)")
     import_h5py()
     config = config or AlignmentConfig()
     reference = ProcessedReference(reference_fasta, positions=positions,
@@ -702,18 +743,160 @@ def run_signal_align(
     rgs = []
     for f5, rec in pairs:
         try:
-            read = read_fast5(f5, quality_threshold)
+            read = read_fast5(f5, rec, model, quality_threshold,
+                              force_kmer_event_alignment, verbose)
             guide = guide_from_sam_record(rec)
             if guide is None or not guide.validate(read.read_length):
                 raise ValueError("invalid guide alignment")
             if target_regions is not None and not target_regions.accepts(guide):
                 raise ValueError("alignment outside target regions")
             rgs.append((read, guide))
-        except NotImplementedError:
-            raise
+        except NativeLibraryError:
+            raise       # not a fault of this read: every read would skip
         except Exception as exc:
             if verbose:
                 print(f"[runner] skipping {f5}: {exc}", file=sys.stderr)
-    return align_and_write(rgs, reference, model, output_dir, config,
-                           output_format=output_format, variants=variants,
-                           hdp=hdp, device=device, verbose=verbose)
+    results: List[ReadAlignment] = []
+    written = align_and_write(rgs, reference, model, output_dir, config,
+                              output_format=output_format, variants=variants,
+                              hdp=hdp, device=device, verbose=verbose,
+                              results_out=results)
+    if embed:
+        embed_results(rgs, results, model, verbose)
+    return written
+
+
+def twod_fast5_paths(fast5_dirs: Sequence[str],
+                     max_reads: Optional[int] = None) -> List[str]:
+    """The ``*.fast5`` files of ``fast5_dirs``, each directory's sorted,
+    the first ``max_reads`` of them."""
+    paths = []
+    for d in fast5_dirs:
+        paths.extend(sorted(glob.glob(os.path.join(d, "*.fast5"))))
+    return paths[:max_reads] if max_reads else paths
+
+
+def read_2d(path: str, reference: ProcessedReference):
+    """A 2D read of ``path`` and its guide from ``generate_guide_alignment``
+    of its 2D sequence against ``reference``; ValueError if it maps
+    nowhere valid."""
+    read = NanoporeRead2DData.from_fast5(path)
+    guide = generate_guide_alignment(read.twod_sequence, reference)
+    if guide is None or not guide.validate(len(read.twod_sequence)):
+        raise ValueError("could not map 2D read")
+    return read, guide
+
+
+def align_2d_and_write(
+    reads_and_guides: Sequence[Tuple[NanoporeRead2DData, GuideAlignment]],
+    reference: ProcessedReference,
+    template_model: PoreModel,
+    complement_model: PoreModel,
+    output_dir: str,
+    config: Optional[AlignmentConfig] = None,
+    *,
+    output_format: str = "full",
+    device: torch.device = torch.device("cuda"),
+    verbose: bool = False,
+    stage_seconds: Optional[Dict[str, float]] = None,
+    results_out: Optional[List[ReadAlignment]] = None,
+) -> List[str]:
+    """The alignment half of ``run_signal_align_2d``: the template strands
+    through ``run_alignment_batch`` with the template model, the
+    complement strands with the complement model
+    (``strand_template=False``), both on ``device``; then one output file
+    per read holding both strands, the template's rows first
+    (outputAlignment, signalMachine.c:276-309). ``stage_seconds`` receives
+    each strand's runner stages (prefixed "template_" and "complement_")
+    and "write"; ``results_out``, when given, the template strands'
+    results, then the complement strands'."""
+    config = config or AlignmentConfig()
+    if output_format not in ("full", "variantCaller", "both"):
+        raise ValueError(f"2D output format {output_format!r}: full, "
+                         "variantCaller or both")
+    strand_stages: Dict[str, Dict[str, float]] = {}
+    strand_results = []
+    for name, model, template in (
+            ("template", template_model, True),
+            ("complement", complement_model, False)):
+        strand_stages[name] = {}
+        strand_results.append(run_alignment_batch(
+            [(getattr(read, name), guide) for read, guide in reads_and_guides],
+            reference, model, config, device=device,
+            strand_template=template, verbose=verbose,
+            stage_seconds=strand_stages[name]))
+    t0 = time.perf_counter()
+    by_label: Dict[str, list] = {}
+    for t in strand_results[0]:
+        by_label[t.read_label] = [t, None]
+    for c in strand_results[1]:
+        by_label.setdefault(c.read_label, [None, None])[1] = c
+    guides = {read.read_label: guide for read, guide in reads_and_guides}
+    os.makedirs(output_dir, exist_ok=True)
+    written = []
+    for label, (t, c) in by_label.items():
+        guide = guides.get(label)
+        if guide is None:
+            continue
+        fwd_label = "forward" if guide.forward else "backward"
+        path = os.path.join(output_dir, f"{label}.sm.{fwd_label}.tsv")
+        vcp = os.path.join(output_dir, f"{label}.sm.vc.tsv")
+        if output_format in ("full", "both"):
+            write_full_tsv(path, t.full_rows(template_model) if t else [],
+                           append=False)
+            if c:
+                write_full_tsv(path, c.full_rows(complement_model),
+                               append=True)
+            written.append(path)
+        if output_format in ("variantCaller", "both"):
+            write_vc_tsv(vcp, t.vc_rows(template_model) if t else [],
+                         append=False)
+            if c:
+                write_vc_tsv(vcp, c.vc_rows(complement_model), append=True)
+            written.append(vcp)
+    if stage_seconds is not None:
+        for name, stages in strand_stages.items():
+            stage_seconds.update({f"{name}_{k}": v for k, v in stages.items()})
+        stage_seconds["write"] = time.perf_counter() - t0
+    if results_out is not None:
+        results_out.extend(strand_results[0] + strand_results[1])
+    if verbose:
+        print(f"[runner2d] aligned {len(by_label)} 2D reads",
+              file=sys.stderr)
+    return written
+
+
+def run_signal_align_2d(
+    fast5_dirs: Sequence[str],
+    reference_fasta: str,
+    template_model: PoreModel,
+    complement_model: PoreModel,
+    output_dir: str,
+    config: Optional[AlignmentConfig] = None,
+    output_format: str = "full",
+    max_reads: Optional[int] = None,
+    verbose: bool = True,
+    device: torch.device = torch.device("cuda"),
+) -> List[str]:
+    """2D (template + complement) run over a directory of 2D fast5s, the
+    JAX ``run_signal_align_2d`` (``runner.py:913-1004``): each read's 2D
+    alignment-table sequence mapped by ``generate_guide_alignment`` (the
+    built-in Smith-Waterman or minimizer index in place of bwa), a read
+    that does not map skipped with its message (a native library that
+    cannot be built raises), then
+    ``align_2d_and_write`` on ``device``. Returns the written files.
+    Without h5py it raises ImportError before any file is read."""
+    import_h5py()
+    reference = ProcessedReference(reference_fasta)
+    rgs = []
+    for f5 in twod_fast5_paths(fast5_dirs, max_reads):
+        try:
+            rgs.append(read_2d(f5, reference))
+        except NativeLibraryError:
+            raise
+        except Exception as exc:
+            if verbose:
+                print(f"[runner2d] skipping {f5}: {exc}", file=sys.stderr)
+    return align_2d_and_write(
+        rgs, reference, template_model, complement_model, output_dir, config,
+        output_format=output_format, device=device, verbose=verbose)

@@ -1,6 +1,7 @@
 """Per-read alignment records and configuration for the port: the
 counterparts of ``AlignmentConfig``, ``ReadAlignment``, the shape
-buckets and ``align_read`` in ``signalalign_tpu.pipeline.signal_align``.
+buckets, ``align_read`` and ``align_read_2d`` in
+``signalalign_tpu.pipeline.signal_align``.
 """
 
 from __future__ import annotations
@@ -183,3 +184,24 @@ def align_read(read: NanoporeReadData, guide: GuideAlignment,
         transition_expectations=texp if expect else None,
         likelihood=likelihood,
         emission_expectations=kexp if expect else None)
+
+
+def align_read_2d(read2d, guide: GuideAlignment,
+                  reference: ProcessedReference,
+                  template_model: PoreModel, complement_model: PoreModel,
+                  config: Optional[AlignmentConfig] = None, *,
+                  device: torch.device = torch.device("cuda")
+                  ) -> Tuple[ReadAlignment, ReadAlignment]:
+    """Both strands of a 2D read (signalMachine.c twoD path, 850-916), as
+    the JAX ``align_read_2d`` (``signal_align.py:235-249``): the template
+    aligned with the template model against the template target, the
+    complement with the complement model against the opposite edition;
+    both share the guide anchors remapped through their own 2D event
+    maps."""
+    t = align_read(read2d.template, guide, reference, template_model,
+                   config, strand_template=True,
+                   device=device)
+    c = align_read(read2d.complement, guide, reference, complement_model,
+                   config, strand_template=False,
+                   device=device)
+    return t, c

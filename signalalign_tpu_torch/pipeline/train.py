@@ -2,7 +2,8 @@
 ``normalize_transitions_expectations``, ``run_alignment_batch_grouped``,
 ``em_train`` and ``em_train_transitions`` in
 ``signalalign_tpu.pipeline.train`` (same M-steps, same checkpoint and
-expectations files), and copies of its HDP training-data helpers
+expectations files), ``train_complement`` (the complement strand's EM of
+the JAX CLI's ``train``), and copies of its HDP training-data helpers
 (``collect_kmer_observations``, ``train_gaussian_emissions``,
 ``write_hdp_training_file``, ``build_alignment_from_tsvs``).
 
@@ -148,8 +149,8 @@ def em_train(
     """
     if cross_host:
         raise NotImplementedError(
-            "cross_host EM (expectations summed across processes) comes with "
-            "ROADMAP slice 4 (several GPUs)")
+            "cross_host EM (expectations summed across processes) is not "
+            "ported yet (ROADMAP §1 item 5, slice 4: several GPUs)")
     model = copy.deepcopy(model)
     config = config or AlignmentConfig()
     # segment cap for parity of segmentation with the JAX em_train, which
@@ -412,6 +413,25 @@ def train_models(cfg: dict, samples, sample_refs, rgs, rgs_by_sample,
     if stage_seconds is not None:
         stage_seconds.update(stages)
     return out
+
+
+def train_complement(c_rgs, reference, cmodel: PoreModel, output_dir: str,
+                     iterations: int, update_emissions: bool = False, *,
+                     device: torch.device = torch.device("cuda")) -> EMResult:
+    """The complement strand's EM of the CLI's ``train`` (2D chemistry,
+    the JAX ``cmd_train`` at ``cli.py:346-370``): transitions EM over
+    ``c_rgs`` (complement strands and their guides,
+    ``strand_template=False``) from ``cmodel``, with
+    ``complement_trained_<i>`` checkpoints and expectations files and
+    ``complement_trained.model`` in ``output_dir``."""
+    cres = em_train(
+        c_rgs, reference, cmodel, iterations=iterations, verbose=True,
+        update_transitions=True, update_emissions=update_emissions,
+        checkpoint_dir=output_dir, checkpoint_prefix="complement_trained",
+        write_expectations=True, strand_template=False, device=device)
+    cres.model.likelihood = cres.model.likelihood or 0.0
+    cres.model.write(os.path.join(output_dir, "complement_trained.model"))
+    return cres
 
 
 def collect_kmer_observations(results, model: PoreModel,

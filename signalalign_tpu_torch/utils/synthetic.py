@@ -18,8 +18,10 @@ k-mers, and ``write_nhdp_text`` writes a small one as an ``.nhdp`` file
 that both packages' ``load_nhdp`` read. ``outlier_segments`` makes
 segments whose range exhausts the probability-space DP's f32 window.
 ``write_synthetic_run`` writes reads held in memory as the files the
-CLI's ``run`` reads: fast5 files, a readdb, a SAM file, the FASTA, a
-positions file and the pore model.
+CLI's ``run`` reads: fast5 files (basecalled, raw signal only, or 2D), a
+readdb, a SAM file, the FASTA, a positions file and the pore model.
+``raw_signal_read`` and ``twod_read`` are the in-memory twins of its raw
+and 2D fast5s, for hosts without h5py.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from signalalign_tpu_torch.io.fast5 import BASECALL_EVENT_COLUMNS, import_h5py
+from signalalign_tpu_torch.io.fast5 import (BASECALL_EVENT_COLUMNS, adc_to_pA,
+                                            import_h5py)
 from signalalign_tpu_torch.io.guide import GuideAlignment
-from signalalign_tpu_torch.io.read import NanoporeReadData
+from signalalign_tpu_torch.io.read import NanoporeRead2DData, NanoporeReadData
 from signalalign_tpu_torch.io.reference import (ProcessedReference, iter_fasta,
                                                 make_positions_file)
 from signalalign_tpu_torch.models.hdp_model import NanoporeHDP
@@ -204,8 +207,30 @@ def synthetic_read(rng: np.random.Generator, genome: str, model: PoreModel,
     if len(read_seq) < 2 * k:
         raise ValueError("window too small for a read")
 
-    ids = model.alphabet.seq_to_kmer_ids(
-        read_seq.replace(*event_motif) if event_motif else read_seq)
+    events, event_map = draw_events(
+        rng, read_seq.replace(*event_motif) if event_motif else read_seq,
+        model, stay_p)
+    read = NanoporeReadData(
+        read_label=label, template_read=read_seq, events=events,
+        event_map=event_map, model_states=None, p_model_state=None,
+        kmer_length=k, params=ScalingParams(), rna=False)
+    guide = GuideAlignment(
+        contig=contig, forward=True, window_start=start,
+        window_end=start + n_bases, query_start=0,
+        query_end=len(read_seq),
+        ops=[(int(n), op) for n, op in ops])
+    return read, guide
+
+
+def draw_events(rng: np.random.Generator, seq: str, model: PoreModel,
+                stay_p: float = 0.28) -> Tuple[np.ndarray, np.ndarray]:
+    """Events of ``seq`` under ``model`` as ``synthetic_read`` draws them:
+    a geometric count per k-mer (at most 8), each event's mean from the
+    k-mer's level Gaussian and its noise around the k-mer's noise mean,
+    2 ms long. Returns (events (n, 4), event map with one entry per
+    base)."""
+    k = model.kmer_length
+    ids = model.alphabet.seq_to_kmer_ids(seq)
     n_ev_per = 1 + rng.geometric(1.0 - stay_p, size=len(ids)) - 1
     n_ev_per = np.minimum(n_ev_per, 8)
     total = int(n_ev_per.sum())
@@ -220,16 +245,7 @@ def synthetic_read(rng: np.random.Generator, genome: str, model: PoreModel,
     events = np.stack([means, noises,
                        np.full(total, 0.002),
                        np.arange(total) * 0.002], axis=1)
-    read = NanoporeReadData(
-        read_label=label, template_read=read_seq, events=events,
-        event_map=event_map, model_states=None, p_model_state=None,
-        kmer_length=k, params=ScalingParams(), rna=False)
-    guide = GuideAlignment(
-        contig=contig, forward=True, window_start=start,
-        window_end=start + n_bases, query_start=0,
-        query_end=len(read_seq),
-        ops=[(int(n), op) for n, op in ops])
-    return read, guide
+    return events, event_map
 
 
 def build_synthetic_batch(model: PoreModel, n_reads: int = 100,
@@ -320,10 +336,138 @@ def _basecall_events(read: NanoporeReadData) -> np.ndarray:
     return table
 
 
+# raw-signal fast5s: one channel's parameters (an R9.4 flowcell's), and
+# the samples around a read: trim_and_segment_raw cuts 200 samples before
+# it and 10 after it, and drops the samples past the last whole chunk of
+# 100, so the tail pads the signal to whole chunks. Lead and tail step
+# between two levels every 10 samples: any 100 of them hold 50 of each,
+# so a chunk of them has a median absolute deviation of 30 pA, above the
+# least of the read's chunks, and the MAD trim keeps the read
+CHANNEL = {"digitisation": 8192.0, "offset": 10.0, "range": 1402.882,
+           "sampling_rate": SAMPLE_RATE}
+RAW_LEAD, RAW_TAIL, RAW_CHUNK = 200, 10, 100
+
+
+def _steps(n: int) -> np.ndarray:
+    return np.where((np.arange(n) // 10) % 2 == 0, 70.0, 130.0)
+
+
+def raw_adc(read: NanoporeReadData, noise: float = 0.0,
+            seed: int = 0) -> np.ndarray:
+    """``read``'s raw signal as int16 ADC samples under ``CHANNEL``: each
+    event becomes round(length * SAMPLE_RATE) samples (8 at 2 ms) around
+    its mean, between a lead of RAW_LEAD samples and a tail. Each sample
+    scatters by ``noise`` times its event's stdv (Gaussian, drawn from
+    ``seed``): 1.0 is what a real event's stdv, its samples' spread,
+    says. At 0 the samples carry no noise beyond the ADC step and the
+    t-statistic detector (``ops.event_detect``) finds 1.07-1.09x the
+    drawn events; at 1.0 it splits 8-sample events into 1.5x, and every
+    read still passes the raw alignment's QC."""
+    n = np.maximum(np.rint(read.events[:, 2] * SAMPLE_RATE).astype(np.int64),
+                   1)
+    level = np.repeat(read.events[:, 0], n)
+    if noise:
+        rng = np.random.default_rng(seed)
+        level = level + noise * np.repeat(read.events[:, 1], n) \
+            * rng.standard_normal(len(level))
+    tail = RAW_TAIL + (-(RAW_LEAD + len(level) + RAW_TAIL)) % RAW_CHUNK
+    pa = np.concatenate([_steps(RAW_LEAD), level, _steps(tail)])
+    cp = CHANNEL
+    return np.rint(pa * cp["digitisation"] / cp["range"]
+                   - cp["offset"]).astype(np.int16)
+
+
+def raw_start_time(read_number: int) -> int:
+    """The start time (samples) written for read ``read_number``."""
+    return 4000 * (read_number + 1)
+
+
+def raw_signal_read(read: NanoporeReadData, read_number: int,
+                    noise: float = 0.0):
+    """The in-memory twin of a raw fast5 ``write_synthetic_run`` writes
+    with the same ``noise``: (current in pA as ``Fast5.raw_signal_pA``
+    reads it, the channel parameters as ``Fast5.channel_params`` does,
+    the start time), the arguments of
+    ``pipeline.event_align.align_raw_signal``."""
+    return (adc_to_pA(raw_adc(read, noise, read_number), CHANNEL),
+            dict(CHANNEL),
+            float(raw_start_time(read_number)))
+
+
+def synthetic_complement(rng: np.random.Generator, read: NanoporeReadData,
+                         model: PoreModel, stay_p: float = 0.28
+                         ) -> NanoporeReadData:
+    """The complement strand of a 2D read whose template strand is
+    ``read``: the events of its sequence's reverse complement drawn under
+    ``model`` (``draw_events``)."""
+    seq = reverse_complement(read.template_read)
+    events, event_map = draw_events(rng, seq, model, stay_p)
+    return NanoporeReadData(
+        read_label=read.read_label, template_read=seq, events=events,
+        event_map=event_map, model_states=None, p_model_state=None,
+        kmer_length=model.kmer_length, params=ScalingParams(), rna=False)
+
+
+def build_synthetic_2d_batch(model: PoreModel, complement_model: PoreModel,
+                             seed: int = 0, **kw):
+    """2D reads: ``build_synthetic_batch(model, seed=seed, **kw)``'s reads
+    as template strands, each with a complement strand drawn under
+    ``complement_model`` from a generator seeded ``seed + 1``. Returns
+    (rgs, complements, reference, fasta_path)."""
+    rgs, reference, _, _, fasta = build_synthetic_batch(model, seed=seed, **kw)
+    rng = np.random.default_rng(seed + 1)
+    complements = [synthetic_complement(rng, read, complement_model)
+                   for read, _ in rgs]
+    return rgs, complements, reference, fasta
+
+
+# the quality of every base of a 2D read's strand Fastqs (phred 20)
+TWOD_QUALITY = chr(33 + 20)
+
+
+def twod_tables(read: NanoporeReadData, complement: NanoporeReadData):
+    """What a 2D fast5 holds of ``read`` and its complement strand: the
+    Basecall_2D alignment table (one row per k-mer of the read: the
+    template strand's first event of that k-mer, the complement strand's
+    first event of the reverse-complement k-mer over the same bases, the
+    k-mer) and per strand (basecall event table, Fastq, Model attributes),
+    the arguments of ``NanoporeRead2DData.from_tables``."""
+    k = read.kmer_length
+    seq = read.template_read
+    n_kmers = len(seq) - k + 1
+    table = np.zeros(n_kmers, dtype=[("template", "<i8"),
+                                     ("complement", "<i8"),
+                                     ("kmer", f"S{k}")])
+    table["template"] = read.event_map[:n_kmers]
+    table["complement"] = complement.event_map[:n_kmers][::-1]
+    table["kmer"] = [seq[i:i + k].encode() for i in range(n_kmers)]
+    strands = {}
+    for name, strand in (("template", read), ("complement", complement)):
+        fastq = (f"@{read.read_label}\n{strand.template_read}\n+\n"
+                 f"{TWOD_QUALITY * strand.read_length}\n")
+        strands[name] = (_basecall_events(strand), fastq, {})
+    return table, strands
+
+
+def twod_read(read: NanoporeReadData,
+              complement: NanoporeReadData) -> NanoporeRead2DData:
+    """The in-memory twin of a 2D fast5 ``write_synthetic_run`` writes."""
+    return NanoporeRead2DData.from_tables(read.read_label,
+                                          *twod_tables(read, complement))
+
+
 def _write_fast5(path: str, read_id: str, read_number: int,
-                 events: np.ndarray, fastq: str) -> None:
+                 read: NanoporeReadData, fastq: str, *,
+                 events: bool = True, signal: bool = False,
+                 noise: float = 0.0,
+                 complement: Optional[NanoporeReadData] = None) -> None:
     """One read in the layout ``io.fast5.Fast5`` reads: the Raw read group
-    with its read_id and the 1D basecall's template Events and Fastq."""
+    with its read_id and the 1D basecall's template Events and Fastq; with
+    ``signal`` the read's raw signal (``raw_adc`` at ``noise``), the
+    channel parameters and a start time; without ``events`` no Analyses
+    group; with a ``complement`` strand, the 2D read's tables
+    (``twod_tables``): both strands under Basecall_1D_000 and the
+    alignment table and 2D Fastq under Basecall_2D_000."""
     h5py = import_h5py()
     with h5py.File(path, "w") as fh:
         fh.create_group("UniqueGlobalKey/context_tags").attrs[
@@ -332,9 +476,25 @@ def _write_fast5(path: str, read_id: str, read_number: int,
         grp.attrs["read_id"] = np.bytes_(read_id)
         grp.attrs["read_number"] = read_number
         grp.attrs["start_time"] = 0
-        base = "Analyses/Basecall_1D_000/BaseCalled_template"
-        fh.create_dataset(f"{base}/Events", data=events)
-        fh.create_dataset(f"{base}/Fastq", data=np.bytes_(fastq))
+        if signal:
+            grp.attrs["start_time"] = raw_start_time(read_number)
+            grp.create_dataset("Signal",
+                               data=raw_adc(read, noise, read_number))
+            fh.create_group("UniqueGlobalKey/channel_id").attrs.update(
+                CHANNEL)
+        base = "Analyses/Basecall_1D_000/BaseCalled_"
+        if complement is not None:
+            table, strands = twod_tables(read, complement)
+            for name, (ev, fq, _) in strands.items():
+                fh.create_dataset(f"{base}{name}/Events", data=ev)
+                fh.create_dataset(f"{base}{name}/Fastq", data=np.bytes_(fq))
+            twod = "Analyses/Basecall_2D_000/BaseCalled_2D"
+            fh.create_dataset(f"{twod}/Alignment", data=table)
+            fh.create_dataset(f"{twod}/Fastq", data=np.bytes_(fastq))
+        elif events:
+            fh.create_dataset(f"{base}template/Events",
+                              data=_basecall_events(read))
+            fh.create_dataset(f"{base}template/Fastq", data=np.bytes_(fastq))
 
 
 def _sam_line(qname: str, flag: int, rname: str, pos: int, mapq: int,
@@ -365,14 +525,22 @@ def write_synthetic_run(rgs: Sequence[Tuple[NanoporeReadData, GuideAlignment]],
                         out_dir: str, fasta_path: str, *,
                         model: Optional[PoreModel] = None,
                         motifs: Optional[List[Tuple[str, str]]] = None,
-                        fast5: bool = True) -> Dict[str, str]:
+                        fast5: bool = True, raw: bool = False,
+                        signal: bool = False, noise: float = 0.0,
+                        complements: Optional[Sequence[NanoporeReadData]]
+                        = None) -> Dict[str, str]:
     """Write reads held in memory (``build_synthetic_batch``) as the inputs
     of the CLI's ``run``, under ``out_dir``; returns their paths by key:
 
     * "fasta": a copy of ``fasta_path`` (the reads' genome);
     * "fast5_dir": one ``<label>.fast5`` per read (``_basecall_events``,
       and a Fastq with qualities drawn from a fixed seed), when ``fast5``;
-      writing them needs h5py;
+      writing them needs h5py. With ``raw`` each holds the read's raw
+      signal (``raw_adc``) and no Analyses group, as a fast5 before
+      basecalling; with ``signal`` the raw signal beside the event table;
+      ``noise`` scatters the raw samples (``raw_adc``);
+      with ``complements`` (each read's complement strand,
+      ``build_synthetic_2d_batch``) each is a 2D read (``twod_tables``);
     * "readdb": a read id and its fast5 file name per line;
     * "sam": ``@SQ`` headers, then each read's primary record
       (``_primary_record``: forward or reverse-mapped, clipped or not,
@@ -426,8 +594,12 @@ def write_synthetic_run(rgs: Sequence[Tuple[NanoporeReadData, GuideAlignment]],
     if fast5:
         for label, (i, read, qual) in fastqs.items():
             fastq = f"@{label}\n{read.template_read}\n+\n{qual}\n"
+            comp = None
+            if complements is not None:     # the decoys copy read 0
+                comp = complements[i if i < len(rgs) else 0]
             _write_fast5(os.path.join(paths["fast5_dir"], f"{label}.fast5"),
-                         label, i, _basecall_events(read), fastq)
+                         label, i, read, fastq, events=not raw,
+                         signal=raw or signal, noise=noise, complement=comp)
     if motifs:
         paths["positions"] = make_positions_file(
             paths["fasta"], os.path.join(out_dir, "positions.tsv"), motifs)

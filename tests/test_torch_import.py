@@ -74,7 +74,9 @@ def test_every_module_imports_with_jax_and_h5py_blocked(tmp_path):
         for name in names:
             importlib.import_module(name)
         for name in ("cli", "io.fast5", "io.sam", "pipeline.runner",
-                     "hdp.train", "utils.native"):
+                     "hdp.train", "utils.native", "ops.event_detect",
+                     "pipeline.event_align", "pipeline.mea", "io.embed",
+                     "io.minialign"):
             assert "signalalign_tpu_torch." + name in names, name
         from signalalign_tpu_torch.io.fast5 import Fast5
         try:
@@ -86,6 +88,94 @@ def test_every_module_imports_with_jax_and_h5py_blocked(tmp_path):
         print(len(names), "modules")
     """)
     assert "modules" in out
+
+
+def test_raw_and_2d_reads_align_with_jax_and_h5py_blocked(tmp_path):
+    """With signalalign_tpu, jax and h5py blocked, the in-memory twins of
+    a raw-signal fast5 and of a 2D fast5 go through the port's arrays
+    entry points (align_raw_signal, the guide aligner, both strands'
+    alignment, the embed tables and MEA labels) on the CPU, and
+    run_signal_align_2d raises ImportError naming h5py."""
+    out = _run(f"""
+        import sys
+        sys.modules["signalalign_tpu"] = None
+        sys.modules["jax"] = None
+        sys.modules["h5py"] = None
+        import numpy as np, torch
+        from signalalign_tpu_torch.io import embed
+        from signalalign_tpu_torch.io.minialign import generate_guide_alignment
+        from signalalign_tpu_torch.pipeline import event_align
+        from signalalign_tpu_torch.pipeline.runner import (
+            align_2d_and_write, align_and_write, run_signal_align_2d)
+        from signalalign_tpu_torch.utils import synthetic as syn
+        cpu = torch.device("cpu")
+        model, cmodel = syn.synthetic_pore_model(0), syn.synthetic_pore_model(1)
+        rgs, comps, ref, _ = syn.build_synthetic_2d_batch(
+            model, cmodel, n_reads=1, ev_min=150, ev_max=200, seed=2,
+            genome_len=5000, fasta_path={str(tmp_path / "g.fa")!r})
+        (read, guide), comp = rgs[0], comps[0]
+        res = event_align.align_raw_signal(*syn.raw_signal_read(read, 0),
+                                           model, read.template_read)
+        assert res.qc_ok, res.qc_msg
+        raw_read = event_align.read_from_raw_result(
+            res, read.read_label, read.template_read, None, 5)
+        results = []
+        written = align_and_write([(raw_read, guide)], ref, model,
+                                  {str(tmp_path / "raw")!r}, device=cpu,
+                                  results_out=results)
+        sa = embed.add_raw_fields(
+            embed.full_rows_to_table(results[0].full_rows(model)),
+            event_align.basecall_event_table(res))
+        labels = embed.mea_labels_from_events(sa)
+        assert len(labels) > 50 and len(written) == 1
+        read2d = syn.twod_read(read, comp)
+        g2 = generate_guide_alignment(read2d.twod_sequence, ref)
+        w2 = align_2d_and_write([(read2d, g2)], ref, model, cmodel,
+                                {str(tmp_path / "twod")!r}, device=cpu)
+        strands = [l.split("\\t")[4] for l in open(w2[0])]
+        assert set(strands) == {{"t", "c"}}, set(strands)
+        try:
+            run_signal_align_2d([{str(tmp_path)!r}], "ref.fa", model, cmodel,
+                                {str(tmp_path / "x")!r}, device=cpu)
+        except ImportError as exc:
+            assert "h5py" in str(exc), exc
+        else:
+            raise AssertionError("run_signal_align_2d ran without h5py")
+        print("labels", len(labels), "rows", len(strands))
+    """)
+    assert "labels" in out
+
+
+def test_native_bindings_match_the_jax_package():
+    """The port's ctypes bindings of the native library's entry points
+    have the JAX package's restypes (``sa_minidx_build`` a c_void_p: the
+    default c_int would truncate its 64-bit index pointer) and, where the
+    JAX package sets them, its argtypes. ``sa_sw_align`` is bound with
+    the C declaration's long, where the JAX package leaves ctypes' c_int
+    default: both read the function's 0 or -1 alike."""
+    import ctypes
+
+    from signalalign_tpu.utils import native as jax_native
+    from signalalign_tpu_torch.utils import native
+    port = native.load()
+    jax_lib = jax_native._load()
+    assert jax_lib is not None
+    for name in ("sa_peak_detector", "sa_adaptive_banded_align",
+                 "sa_minidx_build", "sa_minidx_free", "sa_minidx_map",
+                 "sa_sw_align_banded"):
+        assert getattr(port, name).restype == getattr(jax_lib, name).restype, \
+            name
+    for name in ("sa_peak_detector", "sa_adaptive_banded_align",
+                 "sa_minidx_build", "sa_minidx_free"):
+        assert getattr(port, name).argtypes == \
+            getattr(jax_lib, name).argtypes, name
+    assert port.sa_minidx_build.restype is ctypes.c_void_p
+    assert port.sa_sw_align.restype is ctypes.c_long
+    assert jax_lib.sa_sw_align.restype is ctypes.c_int
+    for name in ("sa_minidx_map", "sa_sw_align", "sa_sw_align_banded"):
+        assert len(getattr(port, name).argtypes) == {
+            "sa_minidx_map": 13, "sa_sw_align": 17,
+            "sa_sw_align_banded": 19}[name]
 
 
 def test_run_raises_naming_h5py_when_it_is_blocked(tmp_path, monkeypatch):
@@ -173,7 +263,9 @@ def test_no_source_file_imports_the_jax_package():
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     for name in ("cli.py", "io/fast5.py", "io/sam.py", "pipeline/runner.py",
-                 "hdp/train.py", "utils/native.py"):
+                 "hdp/train.py", "utils/native.py", "ops/event_detect.py",
+                 "pipeline/event_align.py", "pipeline/mea.py", "io/embed.py",
+                 "io/minialign.py"):
         assert os.path.join(ROOT, "signalalign_tpu_torch", name) in files
     bad = []
     for path in files:

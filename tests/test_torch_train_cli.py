@@ -20,6 +20,7 @@ sets may differ only at the k-mers of such rows."""
 
 import json
 import os
+import shutil
 from collections import Counter
 
 import h5py
@@ -144,11 +145,7 @@ def test_cli_train_nhdp_observed_sets_match_jax(outputs):
 
 
 @pytest.mark.parametrize("extra, config, item", [
-    (["--distributed"], {}, "item 5"),
-    (["--complement_model", "complement.model"], {}, "item 6"),
-    (["--2d"], {}, "item 6"),
-    ([], {"training": {"complement": True}}, "item 6")],
-    ids=["distributed", "complement_model", "2d", "training_complement"])
+    (["--distributed"], {}, "item 5")], ids=["distributed"])
 def test_unported_train_options_raise(tmp_path, extra, config, item):
     """The options whose slices are not ported raise NotImplementedError
     naming their ROADMAP item before any file is read."""
@@ -168,33 +165,56 @@ def test_three_state_hdp_needs_its_hdp_model(tmp_path, capsys):
     assert "template_hdp_model" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("fault", ["no_events", "no_reads"])
-def test_train_stops_on_reads_it_cannot_load(tmp_path, fault):
-    """``train`` skips a read it cannot load, as the JAX CLI does, but
-    stops where the fault is not the read's: a fast5 without an event
-    table raises NotImplementedError naming ROADMAP §1 item 4 (the JAX
-    package aligns its raw signal), and a run where no read loads raises
-    ValueError; neither writes a model."""
+def _train_files(tmp_path, **kw):
     model = synthetic_pore_model(0)
     rgs, _, _, _, fasta = build_synthetic_batch(
         model, n_reads=2, ev_min=300, ev_max=400, seed=2, genome_len=5000,
         fasta_path=str(tmp_path / "g.fa"))
-    files = write_synthetic_run(rgs, str(tmp_path / "in"), fasta,
-                                model=model)
-    for read, _ in rgs[:1 if fault == "no_events" else 2]:
+    return rgs, write_synthetic_run(rgs, str(tmp_path / "in"), fasta,
+                                    model=model, **kw)
+
+
+def _train_args(files, out):
+    return ["train", "--alignment_file", files["sam"], "--readdb",
+            files["readdb"], "--fast5_dir", files["fast5_dir"], "--ref",
+            files["fasta"], "--model", files["model"], "--output_dir",
+            str(out), "--iterations", "1", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("fault", ["no_reads"])
+def test_train_stops_on_reads_it_cannot_load(tmp_path, fault):
+    """``train`` skips a read it cannot load, as the JAX CLI does, but
+    stops where no read loads: ValueError, and no model is written."""
+    rgs, files = _train_files(tmp_path)
+    for read, _ in rgs:
         path = os.path.join(files["fast5_dir"], f"{read.read_label}.fast5")
-        if fault == "no_events":
-            with h5py.File(path, "r+") as fh:
-                del fh["Analyses"]
-        else:
-            open(path, "w").close()         # not an HDF5 file: skipped
+        open(path, "w").close()         # not an HDF5 file: skipped
     out = tmp_path / "out"
-    raises = ((NotImplementedError, "ROADMAP §1 item 4") if fault ==
-              "no_events" else (ValueError, "none of the 2 listed reads"))
-    with pytest.raises(raises[0], match=raises[1]):
-        port_cli.main(["train", "--alignment_file", files["sam"],
-                       "--readdb", files["readdb"], "--fast5_dir",
-                       files["fast5_dir"], "--ref", files["fasta"],
-                       "--model", files["model"], "--output_dir", str(out),
-                       "--iterations", "1", "--device", "cpu"])
+    with pytest.raises(ValueError, match="none of the 2 listed reads"):
+        port_cli.main(_train_args(files, out))
     assert not out.exists()
+
+
+def test_train_skips_a_fast5_without_events_as_jax(tmp_path, capsys):
+    """A fast5 with raw signal and no event table among the reads:
+    ``train`` skips it, as the JAX CLI's does, trains on the other read
+    and writes nothing into the skipped file; both CLIs' trained
+    transitions agree within 1e-5."""
+    rgs, files = _train_files(tmp_path)
+    raw = write_synthetic_run(rgs, str(tmp_path / "raw"), files["fasta"],
+                              raw=True)
+    label = rgs[0][0].read_label
+    path = os.path.join(files["fast5_dir"], f"{label}.fast5")
+    shutil.copyfile(os.path.join(raw["fast5_dir"], f"{label}.fast5"), path)
+    out, jout = tmp_path / "out", tmp_path / "jax_out"
+    assert port_cli.main(_train_args(files, out)) == 0
+    err = capsys.readouterr().err
+    assert f"skipping {path}" in err and "(1 reads)" in err
+    assert jax_cli.main(_train_args(files, jout)[:-2]) == 0
+    assert f"skipping {path}" in capsys.readouterr().err
+    with h5py.File(path) as fh:
+        assert "Analyses" not in fh
+    got = PoreModel.from_file(str(out / "template_trained.model"))
+    want = PoreModel.from_file(str(jout / "template_trained.model"))
+    np.testing.assert_allclose(got.transitions, want.transitions,
+                               atol=TOL_TRANS, rtol=0)
