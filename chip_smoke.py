@@ -7,7 +7,8 @@ Phases (any failure stops the run with a non-zero exit):
   2. the kernel build from signalalign_tpu_torch/csrc with nvcc, and the
      latency of one diagonal's synchronisation (csrc/barrier_probe.cu):
      the per-pair and probability-space instances' one barrier at 1 to 16
-     warps, the P > 2 instances' two at 1 to 32;
+     warps, the P > 2 instances' two at 1 to 32, the cluster instance's
+     two cluster barriers at 2, 4 and 8 blocks of 16 and 32 warps;
   3. each kernel against its plain PyTorch twin on the card, on 8 problems
      of the phase-4 batch (W=256, about 4k diagonals), with its time;
      then the whole main path on the GPU against the CPU (twins) on the
@@ -21,12 +22,16 @@ Phases (any failure stops the run with a non-zero exit):
      sites in one k-mer of the shortest read) the same way, and that read
      through run_alignment_batch on the GPU against the CPU; then two P =
      1 segments whose band is wider than the per-pair instances take (W =
-     2304: the P > 2 instances at P = 1), bit for bit; then the wide
+     2304: the P > 2 instances at P = 1), bit for bit; then the cluster
      instance (past 8,192 cells a diagonal) bit for bit on a P = 64
      segment (three X sites in one k-mer of a 300-base read, W = 256) and
      a P = 16 one at W = 768, and that P = 64 read through
-     run_alignment_batch on the GPU (the wide instance's launches counted
-     from 0) against the CPU;
+     run_alignment_batch on the GPU (the cluster instance's launches
+     counted from 0) against the CPU; then the scratch instance (past the
+     cluster instance's CAP) bit for bit on a short P = 64 problem at W =
+     1024, and a read with four X sites in one k-mer (P = 256, W = 256)
+     through run_alignment_batch on the GPU (the scratch instance's
+     launches counted from 0), then its segment bit for bit;
   3d. site-mode calling ("CT") and P > 1 pair output on the GPU against
      the CPU (twins) on the two shortest reads of the phase-5 batch;
   4. the main path at a realistic size: 64 synthetic reads (about 1M
@@ -169,17 +174,19 @@ The last two lines are a JSON object per kernel and the result line
 
 times only the kernels of the port in TREE (a checkout; by default this
 one) on phase 3a's problems (plain, expectation and probability-space
-instances), on 3c's wide-instance segments, and on every bucket of
-phases 4 (plain and expectation instances, and the probability-space
-pair on W <= 512), 5 and 6 (every (W, P) class, Gaussian and HDP) and 7c
-(the expectation instances on em_train's buckets), by class, and prints
-one JSON line (no result line): run it for two checkouts in turns (A, B,
-B, A) in one job to compare their kernels.
+instances), on 3c's wide segments (plain and expectation instances), and
+on every bucket of phases 4 (plain and expectation instances, and the
+probability-space pair on W <= 512), 5 and 6 (every (W, P) class,
+Gaussian and HDP), 7c and 10b (the expectation instances on em_train's
+and train_models' buckets; 10b summed by instance too), by class, and
+prints one JSON line (no result line): run it for two checkouts in turns
+(A, B, B, A) in one job to compare their kernels.
 """
 
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -234,6 +241,9 @@ SEED_WIDE = 12          # 3c's wide P = 1 segments
 WIDE_P1_W = 2304        # their bucket width: past the per-pair instances
 SEED_X64 = 13           # 3c's P = 64 read
 SEED_WIDE16 = 14        # 3c's P = 16 segment at W = 768
+SEED_PASTCAP = 17       # 3c's problem and read past the cluster CAP
+# the cluster synchronisation probe's cluster sizes and warps a block
+CLUSTER_SIZES, CLUSTER_WARPS = (2, 4, 8), (16, 32)
 SEED_TRAIN = 15         # phase 10's reads
 # phase 10c's Gibbs schedule: the CLI's defaults (burn-in multiplier 32,
 # thinning 100) but 15 samples, not 1000, so that 10c fits about 120 s.
@@ -290,21 +300,41 @@ def wide_p1_problems(bfb, model, ScalingParams, ambig):
     return out
 
 
-def x64_read(model, plain, tmp):
-    """3c's P = 64 case: the plain genome edited with three X (ACGT) sites
-    in one k-mer, and a 300-base read over them drawn from the plain
-    genome: ((read, guide), the edited reference). Its one segment has 64
-    paths per cell at W = 256 (16,384 cells a diagonal: the wide
-    instance)."""
+def x_read(model, plain, tmp, n_x, seed=SEED_X64):
+    """The plain genome edited with ``n_x`` X (ACGT) sites in one k-mer,
+    and a 300-base read over them drawn from the plain genome: ((read,
+    guide), the edited reference). Its one segment has 4^n_x paths per
+    cell at W = 256: three X sites 64 (16,384 cells a diagonal, the
+    cluster instance), four 256 (65,536: past the cluster instance's CAP,
+    the scratch instance)."""
     from signalalign_tpu_torch.io.reference import ProcessedReference
     from signalalign_tpu_torch.utils.synthetic import (synthetic_read,
                                                        write_genome_fasta)
     site = len(plain) // 2
-    fa = os.path.join(tmp, "x64.fa")
-    write_genome_fasta(plain[:site] + "XXX" + plain[site + 3:], fa)
-    rg = synthetic_read(np.random.default_rng(SEED_X64), plain, model,
-                        site - 150, 300, "x64")
+    fa = os.path.join(tmp, f"x{n_x}.fa")
+    write_genome_fasta(plain[:site] + "X" * n_x + plain[site + n_x:], fa)
+    rg = synthetic_read(np.random.default_rng(seed), plain, model,
+                        site - 150, 300, f"x{4 ** n_x}")
     return rg, ProcessedReference(fa)
+
+
+def pastcap_problems(bfb, model, ScalingParams, ambig):
+    """3c's short problem past the cluster instance's CAP: 100 seeded
+    bases with an XGXGX cluster (P = 64) at 40, events drawn from the
+    resolved sequence (sd 1.2 pA), anchors every 20 events, at W = 1024
+    (65,536 cells a diagonal: the scratch instance), ~200 diagonals."""
+    rng = np.random.default_rng(SEED_PASTCAP)
+    seq = list(rng.choice(list("ACGT"), size=100))
+    seq[40:45] = "XGXGX"
+    seq = "".join(seq)
+    ids = model.alphabet.seq_to_kmer_ids(seq.replace("X", "A"))
+    ev = np.stack([model.level_mean[ids] + rng.normal(0, 1.2, len(ids)),
+                   np.ones(len(ids)), np.full(len(ids), .005),
+                   np.arange(len(ids)) * .005], 1)
+    anchors = [(j, j) for j in range(8, len(ids) - 8, 20)]
+    return [bfb.prepare_problem(seq, ev, model, ScalingParams(), ambig,
+                                W=1024, Dpad=256, P=64, anchor_pairs=anchors,
+                                expansion=10, mode=bfb.MODE_MEAN_ONLY)]
 
 
 def wide_p16_problems(bfb, model, ScalingParams, ambig):
@@ -700,33 +730,49 @@ def barrier_latency_us(cuda_build):
     warps): us}, step "one" (the per-pair and probability-space
     instances: the warp maxima double-buffered, one barrier) at 1 to 16
     warps, "two" (the P > 2 instances: a block max reduction and a second
-    barrier) at 1 to 32 warps."""
+    barrier) at 1 to 32 warps; and {("cluster", C, warps): us}, the
+    cluster instance's (each warp's max stored to every block of the
+    cluster, a cluster barrier, the max over the C x warps slots, a second
+    cluster barrier) at C = CLUSTER_SIZES blocks of CLUSTER_WARPS warps."""
     lib = cuda_build.load()
     out = torch.empty(132, device="cuda")
     iters = 20000
     lat = {}
+    stream = torch.cuda.current_stream().cuda_stream
     for one, top in ((1, 16), (0, 32)):
         for warps in range(1, top + 1):
             def probe():
-                rc = lib.sa_barrier_probe(
-                    132, 32 * warps, iters, one, out.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream)
+                rc = lib.sa_barrier_probe(132, 32 * warps, iters, one,
+                                          out.data_ptr(), stream)
                 check(rc == 0, f"sa_barrier_probe launch failed: CUDA error "
                       f"{rc}")
             ms, _ = cuda_ms(probe, 3)
             lat[("one" if one else "two", warps)] = 1e3 * ms / iters
+    for C in CLUSTER_SIZES:
+        for warps in CLUSTER_WARPS:
+            def probe():
+                rc = lib.sa_barrier_probe_cluster(132 // C, 32 * warps, iters,
+                                                  C, out.data_ptr(), stream)
+                check(rc == 0, f"sa_barrier_probe_cluster launch failed: "
+                      f"CUDA error {rc}")
+            ms, _ = cuda_ms(probe, 3)
+            lat[("cluster", C, warps)] = 1e3 * ms / iters
     return lat
 
 
 def block_warps(hk, W, P, expect=False, backward=False):
-    """(step, warps) of the instance the forward (or ``backward``) sweep
-    launches for a bucket of P paths at width W: a per-pair instance's one
-    barrier at ceil(P W / K) threads, or a P > 2 instance's two at min(P W,
-    1024)."""
+    """The key in ``barrier_latency_us``'s table of the instance the
+    forward (or ``backward``) sweep launches for a bucket of P paths at
+    width W: a per-pair instance's one barrier at ceil(P W / K) threads, a
+    P > 2 instance's two at min(P W, 1024), or the cluster instance's
+    two cluster barriers at its C blocks of its threads."""
     k = hk.cells_per_thread(W, P, expect, backward)
     check(k != 0, f"the sweeps take no bucket of P={P} at W={W}")
     if k > 0:
         return "one", -(-(-(-P * W // k)) // 32)
+    C = hk.cluster_ctas(W, P, expect, backward) if k < -8 else 0
+    if C:
+        return "cluster", C, hk.cluster_threads(W, P, expect, backward) // 32
     return "two", min(32, -(-P * W // 32))
 
 
@@ -738,6 +784,7 @@ def serial_floor_ms(hk, barrier, pt, expect=False, prob=False,
     threads)."""
     key = (("one", -(-pt.W // 32)) if prob
            else block_warps(hk, pt.W, pt.P, expect, backward))
+    check(key in barrier, f"no synchronisation latency measured for {key}")
     return 1e-3 * barrier[key] * max(pt.n_diag)
 
 
@@ -933,12 +980,13 @@ def kernel_sums_of_tree(tree):
     expectation and probability-space instances) and on every bucket of
     phases 4 (plain and expectation instances; the probability-space pair
     on W <= 512), 5 (Gaussian, plain and expectation instances), 6 (HDP)
-    and 7c (expectation instances),
-    one launch each, summed as in 5b and by (W, P) class. Prints one JSON
-    line and no result line. It also times the wide instance (P * W >
-    8192) on 3c's P = 64 and P = 16 W = 768 segments. Run it for two
-    checkouts in turns (A, B, B, A) in one job on one card to compare
-    their kernels."""
+    and 7c and 10b (expectation instances; 10b's segments by (W, P) and
+    its sums by instance: per-pair, P > 2 register, wide cluster, wide
+    scratch), one launch each, summed as in 5b and by (W, P) class.
+    Prints one JSON line and no result line. It also times the wide
+    instances (P * W > 8192; plain and EXPECT, mean of 5 launches) on 3c's
+    P = 64 and P = 16 W = 768 segments. Run it for two checkouts in turns
+    (A, B, B, A) in one job on one card to compare their kernels."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: --kernel-sums needs a CUDA GPU")
     tree = os.path.abspath(tree)
@@ -984,7 +1032,7 @@ def kernel_sums_of_tree(tree):
     from signalalign_tpu_torch.pipeline.runner import prepare_read
     from signalalign_tpu_torch.utils.alphabet import DEFAULT_AMBIG_BASES
     with tempfile.TemporaryDirectory() as tmp:
-        rg64, ref64 = x64_read(model, reference.forward["synth"], tmp)
+        rg64, ref64 = x_read(model, reference.forward["synth"], tmp, 3)
         try:
             wide = [(W, [q]) for _, q, W, _, P in prepare_read(
                 *rg64, ref64, model, config)[4] if P == 64]
@@ -995,6 +1043,11 @@ def kernel_sums_of_tree(tree):
                 out[f"wide_p{pt.P}_w{W}_fwd_ms"], \
                     out[f"wide_p{pt.P}_w{W}_bwd_ms"] = sweep_ms(
                         hk, bfb, pt, threshold, R, 5)
+                pt = problem_tensors(probs, W, dev, kmer_ids=True)
+                out[f"wide_p{pt.P}_w{W}_expect_fwd_ms"], \
+                    out[f"wide_p{pt.P}_w{W}_expect_bwd_ms"] = sweep_ms(
+                        hk, bfb, pt, threshold, R, 5, expect=True)
+                out[f"wide_p{pt.P}_w{W}_n_diag"] = max(pt.n_diag)
                 del pt
         except NotImplementedError as exc:
             out["wide"] = f"refused: {exc}"
@@ -1055,7 +1108,83 @@ def kernel_sums_of_tree(tree):
     out["phase7c_expect_fwd_sum_ms"] = sum(e[1] for e in by_wp.values())
     out["phase7c_expect_bwd_sum_ms"] = sum(e[2] for e in by_wp.values())
     out["phase7c_by_W_P"] = by_class_json(by_wp)
+    del buckets, by_wp
+    # 10b's EM buckets: train_models' transitions EM over the canonical,
+    # CG -> XG and CCGG -> CPGG samples (one run_alignment_batch each, as
+    # run_alignment_batch_grouped runs them), from the in-memory reads and
+    # guides train_phases writes to its SAMs
+    from signalalign_tpu_torch.pipeline.train import sample_reference
+    with tempfile.TemporaryDirectory() as tmp:
+        model10, fa10, ref10, _, samples10 = em10b_samples(tmp)
+        segs, inst, merged = {}, {}, {}
+        for name, (rgs_, extra) in samples10.items():
+            ref = sample_reference({"name": name, **extra}, ref10, fa10)
+            buckets = {}
+            for W, Dpad, P, prob in prepare_all(rgs_, ref, model10,
+                                                em_cfg.for_batch(len(rgs_))):
+                buckets.setdefault((W, Dpad, P), []).append(prob)
+                segs[f"{W},{P}"] = segs.get(f"{W},{P}", 0) + 1
+            by_wp = kernel_sums(hk, bfb, problem_tensors, _stack_chunks,
+                                buckets, dev, threshold, R, expect=True)
+            for (W, P), e in by_wp.items():
+                m = merged.setdefault((W, P), [0, 0.0, 0.0, []])
+                m[0] += e[0]
+                m[1] += e[1]
+                m[2] += e[2]
+                m[3] += e[3]
+                for bwd in (0, 1):
+                    i = inst.setdefault(sweep_instance(hk, W, P, True, bwd),
+                                        {"launches": [0, 0], "ms": [0.0, 0.0]})
+                    i["launches"][bwd] += len(e[3])
+                    i["ms"][bwd] += e[1 + bwd]
+            del buckets, by_wp
+    out["10b_segments_by_W_P"] = segs
+    # {instance: {"launches": [fwd, bwd], "ms": [fwd sum, bwd sum]}}
+    out["10b_expect_by_instance"] = inst
+    out["10b_expect_fwd_sum_ms"] = sum(e[1] for e in merged.values())
+    out["10b_expect_bwd_sum_ms"] = sum(e[2] for e in merged.values())
+    out["10b_by_W_P"] = by_class_json(merged)
     log(json.dumps(out))
+
+
+def sweep_instance(hk, W, P, expect, backward):
+    """The instance the forward (or ``backward``) sweep runs on a bucket,
+    by name; a tree without the cluster instance runs every wide bucket on
+    its scratch instance."""
+    k = hk.cells_per_thread(W, P, expect, backward)
+    if k > 0:
+        return f"per-pair P = {P}"
+    if k >= -8:
+        return "P > 2 register"
+    if hasattr(hk, "cluster_ctas") and hk.cluster_ctas(W, P, expect,
+                                                       backward):
+        return "wide cluster"
+    return "wide scratch"
+
+
+def em10b_samples(tmp, n_reads=96, ev_min=2000, ev_max=50000,
+                  genome_len=400_000):
+    """Phase 10b's model, genome and EM samples: the 6-mer ACEGOT model
+    with 5-mC levels 3 pA above C's, the genome's FASTA (written in
+    ``tmp``) and reference, the canonical reads and guides drawn from it,
+    and {name: (reads and guides, the sample's settings)} of the
+    canonical (canonical reads [0, 2g)), CG -> XG ([2g, 4g)) and CCGG ->
+    CPGG ([4g, 4.5g)) samples, g = n_reads / 6: what ``train_phases``
+    trains on and ``--kernel-sums`` times."""
+    from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
+                                                       methylated_pore_model,
+                                                       synthetic_pore_model)
+    g = n_reads // 6
+    model10 = methylated_pore_model(
+        synthetic_pore_model(SEED_MODEL, alphabet="ACEGOT", k=6))
+    fa10 = os.path.join(tmp, "genome10.fa")
+    can10, ref10 = build_synthetic_batch(
+        model10, n_reads=n_reads, ev_min=ev_min, ev_max=ev_max,
+        seed=SEED_TRAIN, genome_len=genome_len, fasta_path=fa10)[:2]
+    return model10, fa10, ref10, can10, {
+        "canonical": (can10[:2 * g], {}),
+        "x": (can10[2 * g:4 * g], {"motifs": [["CG", "XG"]]}),
+        "p": (can10[4 * g:4 * g + g // 2], {"motifs": [["CCGG", "CPGG"]]})}
 
 
 def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
@@ -1087,8 +1216,6 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     from signalalign_tpu_torch.pipeline.train import (sample_reference,
                                                       train_models)
     from signalalign_tpu_torch.utils.synthetic import (build_synthetic_batch,
-                                                       methylated_pore_model,
-                                                       synthetic_pore_model,
                                                        write_synthetic_run)
     gibbs = gibbs or GIBBS_10C
     g = n_reads // 6
@@ -1109,21 +1236,16 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     # reference is the CG -> XG edition (P > 1 buckets), on the 6-mer
     # ACEGOT model with 5-mC levels a few pA off C's
     t0 = time.perf_counter()
-    model10 = methylated_pore_model(
-        synthetic_pore_model(SEED_MODEL, alphabet="ACEGOT", k=6))
-    fa10 = os.path.join(tmp, "genome10.fa")
-    can10 = build_synthetic_batch(
-        model10, n_reads=n_reads, ev_min=ev_min, ev_max=ev_max,
-        seed=SEED_TRAIN, genome_len=genome_len, fasta_path=fa10)[0]
+    model10, fa10, _, can10, samples10 = em10b_samples(
+        tmp, n_reads, ev_min, ev_max, genome_len)
     # the same reads with their events drawn from the CG -> EG edition
     mc10 = build_synthetic_batch(
         model10, n_reads=n_reads, ev_min=ev_min, ev_max=ev_max,
         seed=SEED_TRAIN, genome_len=genome_len, fasta_path=fa10,
         event_motif=("CG", "EG"))[0]
     reads10 = {r.read_label: r for r, _ in can10}
-    sample_sets = {"canonical": can10[:2 * g], "x": can10[2 * g:4 * g],
-                   "p": can10[4 * g:4 * g + g // 2],
-                   "mc": mc10[3 * g:5 * g]}
+    sample_sets = {name: rgs_ for name, (rgs_, _) in samples10.items()}
+    sample_sets["mc"] = mc10[3 * g:5 * g]
     files10 = {name: write_synthetic_run(
         rgs_, os.path.join(tmp, f"train_{name}"), fa10, fast5=False)
         for name, rgs_ in sample_sets.items()}
@@ -1145,8 +1267,9 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     ref10 = ProcessedReference(files10["canonical"]["fasta"])
     t_inputs = time.perf_counter() - t0
 
-    motifs = {"x": [["CG", "XG"]], "p": [["CCGG", "CPGG"]],
-              "mc": [["CG", "EG"]]}
+    motifs = {name: extra["motifs"] for name, (_, extra) in samples10.items()
+              if extra}
+    motifs["mc"] = [["CG", "EG"]]
 
     def train_steps(cfg, names):
         samples = [{"name": n, **({"motifs": motifs[n]} if n in motifs
@@ -1181,9 +1304,11 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
         "sa_fwd_sweep": hk.forward_sweep.expect_pair2_launches,
         "sa_bwd_sweep_compact":
             hk.backward_sweep_compact.expect_pair2_launches}
-    train_wide = {"sa_fwd_sweep": hk.forward_sweep.wide_launches,
-                  "sa_bwd_sweep_compact":
-                      hk.backward_sweep_compact.wide_launches}
+    train_wide = {name: {"cluster": fn.cluster_launches,
+                         "scratch": fn.wide_scratch_launches}
+                  for name, fn in (("sa_fwd_sweep", hk.forward_sweep),
+                                   ("sa_bwd_sweep_compact",
+                                    hk.backward_sweep_compact))}
     peak = peak_gib()
     em10 = out10b["em"]
     ll10 = em10.log_likelihoods[0]
@@ -1227,8 +1352,8 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
         f"{s_}={v:.2f}s" for s_, v in st10b.items()))
     log(f"[train em] {t10b:.2f} s: {ev10b / t10b:.0f} events/s; peak "
         f"device memory {peak:.2f} GiB; launches "
-        f"{train_launches} (P > 2 instances {train_paths}, wide "
-        f"{train_wide}, per-pair P = 2 {train_pair2})")
+        f"{train_launches} (P > 2 instances {train_paths}, of them wide "
+        f"by instance {train_wide}, per-pair P = 2 {train_pair2})")
 
     phase_mark("10c")
     # ---- 10c. hdp_emissions: each sample's observations on its own
@@ -1682,9 +1807,16 @@ def main():
     # ---- 2. build
     b = cuda_build.build()
     log(f"[build] {b.path} in {b.seconds:.1f} s")
+    # ptxas' report, each line under its kernel: name<template arguments>
+    kernel = ""
     for line in b.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            m = re.search(r"(sa_[a-z_]+?_kernel|[a-z_]+_probe_kernel)"
+                          r"(?:I(\w*?E)E)?", line)
+            kernel = (m.group(1) + "<" + ",".join(re.findall(
+                r"L[ib](\d+)E", m.group(2) or "")) + ">") if m else ""
+        elif "registers" in line or "spill" in line:
+            log(f"[build] {kernel}: {line.strip()}")
     cuda_build.load()
     barrier = barrier_latency_us(cuda_build)
     for step, top in (("one", 16), ("two", 32)):
@@ -1692,6 +1824,11 @@ def main():
             f"block per SM, us at 1, 2, 4, 8, 16{', 32' if top > 16 else ''} "
             "warps: " + ", ".join(f"{barrier[(step, w)]:.4f}" for w in
                                    (1, 2, 4, 8, 16, 32) if w <= top))
+    log("[build] one diagonal's synchronisation on a cluster (two cluster "
+        "barriers, the warps' maxima in distributed shared memory), a block "
+        "per SM, us at C blocks x warps: " + ", ".join(
+            f"{C}x{w} {barrier[('cluster', C, w)]:.4f}"
+            for C in CLUSTER_SIZES for w in CLUSTER_WARPS))
 
     with tempfile.TemporaryDirectory() as tmp:
         model = synthetic_pore_model(SEED_MODEL)
@@ -1994,7 +2131,7 @@ def main():
         # bit for bit like the classes above; then the P = 64 read through
         # run_alignment_batch, its launches counted from 0, on the GPU and
         # the CPU
-        rg64, ref64 = x64_read(model, reference.forward["synth"], tmp)
+        rg64, ref64 = x_read(model, reference.forward["synth"], tmp, 3)
         segs64 = [(W, q) for _, q, W, _, P in prepare_read(
             *rg64, ref64, model, config)[4] if P == 64]
         check(len(segs64) == 1, f"{len(segs64)} P = 64 segments in the x64 read")
@@ -2008,9 +2145,13 @@ def main():
             ptw = problem_tensors(probs, W_, dev)
             kw_ = hk.cells_per_thread(W_, P_)
             bw = int(ptw.width.max())
-            check(kw_ < -8 and (P_ == 64 or bw > 512),
+            cl_ = [(hk.cluster_ctas(W_, P_, False, b_),
+                    hk.cluster_threads(W_, P_, False, b_)) for b_ in (0, 1)]
+            check(kw_ < -8 and (P_ == 64 or bw > 512)
+                  and all(c_ for c_, _ in cl_),
                   f"the P = {P_} W = {W_} segment: band {bw} offsets, "
-                  f"cells per thread {kw_}: not the wide instance's shape")
+                  f"cells per thread {kw_}, cluster (blocks, threads) "
+                  f"{cl_}: not the cluster instance's shape")
             r = kernels_vs_twins(hk, bfb, ptw, threshold, R)
             check(r["bit_equal"], f"the wide instance (P = {P_}, W = {W_}) "
                   "differs from its twins")
@@ -2019,7 +2160,9 @@ def main():
                 sweep_bounds(bfb, ptw, r["n_kernel"])
             nd_ = max(ptw.n_diag)
             r["floor"] = serial_floor_ms(hk, barrier, ptw)
-            log(f"[kernels P={P_} W={W_} K={kw_} (wide)] 1 problem n_diag "
+            log(f"[kernels P={P_} W={W_} K={kw_} (wide, cluster of "
+                f"{cl_[0][0]} x {cl_[0][1]} / {cl_[1][0]} x {cl_[1][1]})] 1 "
+                f"problem n_diag "
                 f"{nd_}, band {bw} offsets: sa_fwd_sweep {r['fwd_ms']:.3f} ms "
                 f"({1e3 * r['fwd_ms'] / nd_:.2f} us a diagonal; twin "
                 f"{r['fwd_plain_ms']:.1f} ms, bound "
@@ -2032,11 +2175,11 @@ def main():
             del ptw
         hk.reset_launch_counts()
         on_gpu = run_alignment_batch([rg64], ref64, model, config, device=dev)
-        wide_launches = {"sa_fwd_sweep": hk.forward_sweep.wide_launches,
+        wide_launches = {"sa_fwd_sweep": hk.forward_sweep.cluster_launches,
                          "sa_bwd_sweep_compact":
-                             hk.backward_sweep_compact.wide_launches}
+                             hk.backward_sweep_compact.cluster_launches}
         check(all(v >= 1 for v in wide_launches.values()),
-              f"the P = 64 read ran no wide instance: {wide_launches}")
+              f"the P = 64 read ran no cluster instance: {wide_launches}")
         on_cpu = run_alignment_batch([rg64], ref64, model, config,
                                      device=torch.device("cpu"))
         check(len(on_cpu) == len(on_gpu) == 1, "the P = 64 read was dropped")
@@ -2050,10 +2193,77 @@ def main():
               f"the P = 64 read: totals {d64}, pairs {w64}, "
               f"{len(on_gpu[0].aligned_pairs)} pairs of {n64} events")
         log(f"[x64] the P = 64 read ({n64} events) through "
-            f"run_alignment_batch: wide launches {wide_launches}; gpu = cpu, "
-            f"|d total| {d64:.3e} nats, |d p| {w64:.3e} (tol {TOL_PATH}), "
-            f"{len(on_gpu[0].aligned_pairs)} pairs")
+            f"run_alignment_batch: cluster launches {wide_launches}; gpu = "
+            f"cpu, |d total| {d64:.3e} nats, |d p| {w64:.3e} (tol "
+            f"{TOL_PATH}), {len(on_gpu[0].aligned_pairs)} pairs")
         del segs64, ref64
+        # past the cluster instance's CAP, the scratch instance: a short P
+        # = 64 problem at W = 1024, and a read with four X sites in one
+        # k-mer (P = 256 at W = 256) through run_alignment_batch on the
+        # GPU, its launches counted from 0 (its CPU run would take the
+        # twins minutes), and its one segment; both held bit for bit like
+        # the classes above
+        scratch_rows, scratch_bounds = {}, {}
+
+        def past_cap(ptw, what):
+            W_, P_ = ptw.W, ptw.P
+            kw_ = hk.cells_per_thread(W_, P_)
+            check(kw_ < -8 and not any(hk.cluster_ctas(W_, P_, e_, b_)
+                                       for e_ in (0, 1) for b_ in (0, 1)),
+                  f"the P = {P_} W = {W_} {what}: cells per thread {kw_}, "
+                  "not past the cluster instance's CAP")
+            r = kernels_vs_twins(hk, bfb, ptw, threshold, R)
+            check(r["bit_equal"], f"the scratch instance (P = {P_}, W = "
+                  f"{W_}) differs from its twins")
+            scratch_rows[(W_, P_)] = r
+            scratch_bounds[(W_, P_)] = bd = sweep_bounds(bfb, ptw,
+                                                         r["n_kernel"])
+            nd_ = max(ptw.n_diag)
+            r["floor"] = serial_floor_ms(hk, barrier, ptw)
+            log(f"[kernels P={P_} W={W_} K={kw_} (wide, scratch: past CAP)] "
+                f"1 {what} n_diag {nd_}: sa_fwd_sweep {r['fwd_ms']:.3f} ms "
+                f"({1e3 * r['fwd_ms'] / nd_:.2f} us a diagonal; twin "
+                f"{r['fwd_plain_ms']:.1f} ms, bound "
+                f"{bd['sa_fwd_sweep'][0]:.4f} ms), sa_bwd_sweep_compact "
+                f"{r['bwd_ms']:.3f} ms ({1e3 * r['bwd_ms'] / nd_:.2f} us a "
+                f"diagonal; twin {r['bwd_plain_ms']:.1f} ms, bound "
+                f"{bd['sa_bwd_sweep_compact'][0]:.4f} ms), serial floor "
+                f"{r['floor']:.3f} ms; bit for bit {r['bit_equal']}, "
+                f"survivors {r['n_kernel']}")
+
+        ptw = problem_tensors(pastcap_problems(
+            bfb, model, ScalingParams, DEFAULT_AMBIG_BASES), 1024, dev)
+        past_cap(ptw, "problem")
+        del ptw
+        rg256, ref256 = x_read(model, reference.forward["synth"], tmp, 4,
+                               SEED_PASTCAP)
+        hk.reset_launch_counts()
+        on_gpu = run_alignment_batch([rg256], ref256, model, config,
+                                     device=dev)
+        scratch_launches = {
+            "sa_fwd_sweep": hk.forward_sweep.wide_scratch_launches,
+            "sa_bwd_sweep_compact":
+                hk.backward_sweep_compact.wide_scratch_launches}
+        n256 = rg256[0].n_events
+        check(all(v >= 1 for v in scratch_launches.values())
+              and len(on_gpu) == 1
+              and abs(on_gpu[0].total_log_prob) < 1e29
+              and n256 // 2 <= len(on_gpu[0].aligned_pairs) <= 3 * n256
+              and not any("X" in r_[3] for r_ in on_gpu[0].aligned_pairs),
+              f"the P = 256 read: scratch launches {scratch_launches}, "
+              f"{len(on_gpu)} results")
+        log(f"[x256] the P = 256 read ({n256} events) through "
+            f"run_alignment_batch on the GPU: scratch launches "
+            f"{scratch_launches}, total {on_gpu[0].total_log_prob:.2f}, "
+            f"{len(on_gpu[0].aligned_pairs)} pairs")
+        segs256 = [(W, q) for _, q, W, _, P in prepare_read(
+            *rg256, ref256, model, config)[4] if P == 256]
+        check(len(segs256) == 1,
+              f"{len(segs256)} P = 256 segments in the x256 read")
+        scratch_wp = (segs256[0][0], 256)
+        ptw = problem_tensors([segs256[0][1]], segs256[0][0], dev)
+        past_cap(ptw, "segment (the read's)")
+        del ptw, segs256, ref256
         check(sum(min(2, len(v)) for (_, P), v in by_class.items() if P == 8)
               >= 2, "fewer than two P=8 problems")
 
@@ -2710,7 +2920,19 @@ def main():
             check(all(ks_) and (P_ == 2 or all(k_ < 0 for k_ in ks_)),
                   f"the expectation pass of P = {P_} W = {W_} runs cells "
                   f"per thread {ks_}, not the P > 2 instances")
+            # past 8,192 cells, the cluster instance
+            wide_ = ks_[0] < -8
+            cl_ = [hk.cluster_ctas(W_, P_, True, b_) for b_ in (0, 1)]
+            check(not wide_ or all(cl_), f"the expectation pass of P = {P_} "
+                  f"W = {W_} runs cluster blocks {cl_}")
+            c0_ = (hk.forward_sweep.cluster_launches,
+                   hk.backward_sweep_compact.cluster_launches)
             r = expect_vs_twins(hk, bfb, pte, threshold, R)
+            check(not wide_ or (hk.forward_sweep.cluster_launches > c0_[0]
+                                and hk.backward_sweep_compact.cluster_launches
+                                > c0_[1]),
+                  f"the expectation pass of P = {P_} W = {W_} launched no "
+                  "cluster instance")
             r["bounds"] = sweep_bounds(bfb, pte, r["n_kernel"], True)
             r["floor"] = [serial_floor_ms(hk, barrier, pte, True,
                                           backward=bwd)
@@ -2719,8 +2941,8 @@ def main():
             r["pair"] = ks_[0] > 0      # the per-pair instance at P = 2
             exp10_rows[(W_, P_)] = r
             nd_ = max(pte.n_diag)
-            log(f"[em kernels P={P_} W={W_} K={ks_[0]}/{ks_[1]}"
-                f"{' (wide)' if ks_[0] < -8 else ''}] "
+            tag_ = f" (wide, cluster of {cl_[0]} / {cl_[1]})" if wide_ else ""
+            log(f"[em kernels P={P_} W={W_} K={ks_[0]}/{ks_[1]}{tag_}] "
                 f"{len(probs)} problems n_diag {min(pte.n_diag)}..{nd_}: "
                 f"expect fwd {r['fwd_ms']:.3f} ms ({1e3 * r['fwd_ms'] / nd_:.2f} "
                 f"us a diagonal; twin {r['fwd_plain_ms']:.1f} ms, bound "
@@ -2800,7 +3022,7 @@ def main():
              "fuse_post, + :1407, past 8,192 cells a diagonal)", "bwd_")):
         r64 = wide_rows[(segs64_w, 64)]
         kernels.append({
-            "name": f"{name} (wide)", "route": "cuda",
+            "name": f"{name} (wide, cluster)", "route": "cuda",
             "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
             "replaces": src,
             # 3c's P = 64 read through run_alignment_batch, counted from 0
@@ -2818,6 +3040,27 @@ def main():
                                 for (W, P), r in wide_rows.items()},
             "bound_ms_by_W_P": {f"{W},{P}": b[name][0]
                                 for (W, P), b in wide_bounds.items()}})
+        rs = scratch_rows[scratch_wp]
+        kernels.append({
+            "name": f"{name} (wide, scratch)", "route": "cuda",
+            "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
+            "replaces": src + ", past the cluster instance's CAP",
+            # 3c's P = 256 read through run_alignment_batch, counted from
+            # 0; its times, bound and floor those of its segment
+            "launches": scratch_launches[name],
+            "max_abs_err": max(err(r, name) for r in scratch_rows.values()),
+            "ms": rs[ms + "ms"], "plain_ms": rs[ms + "plain_ms"],
+            "bound_ms": scratch_bounds[scratch_wp][name][0],
+            "bound_by": scratch_bounds[scratch_wp][name][1],
+            "library_ms": None,
+            "serial_floor_ms": rs["floor"],
+            "launches_by_phase": {"3c": scratch_launches[name]},
+            "ms_by_W_P": {f"{W},{P}": r[ms + "ms"]
+                          for (W, P), r in scratch_rows.items()},
+            "plain_ms_by_W_P": {f"{W},{P}": r[ms + "plain_ms"]
+                                for (W, P), r in scratch_rows.items()},
+            "bound_ms_by_W_P": {f"{W},{P}": b[name][0]
+                                for (W, P), b in scratch_bounds.items()}})
     for name, src, ms in (
             ("sa_fwd_sweep", "signalalign_tpu/ops/banded_fb_pallas_batch.py:569"
              " (expect mode, :740-745)", "fwd_"),

@@ -104,16 +104,26 @@
 // of each of its ceil(P / 32) words in turn (legal_lse_words), in path
 // order as before.
 //
-// The wide instance (P * W > REG_CELLS = 8,192 cells a diagonal: P = 64
-// at W = 256, P = 16 at W = 768) is the P > 2 design with 1,024 threads
-// that each loop over every 1,024th cell, and its ring (6 P W floats, 393
-// KB at P = 64, W = 256, past the 227 KB of shared memory a block may
-// have), cell states and survivor ranks in a per-problem device scratch
-// the wrapper allocates, L2-resident; __syncthreads orders its writes
-// before its reads within the block as it does shared memory's. Same
-// operations, same order: bit-equal to the twin. Its cost is the L1/L2
-// latency of every ring read and the loop over the cells; a later design
-// splits the ring over a thread-block cluster's shared memory.
+// The wide instances (P * W > REG_CELLS = 8,192 cells a diagonal: P = 64
+// at W = 256, P = 16 at W = 768) are the P > 2 design on more than one
+// block's shared memory. Up to CAP (P = 64 at W = 768, 49,152 cells, the
+// widest bucket of the runner at P <= 64, fits) a problem runs on a
+// thread-block cluster of up to 8 blocks on neighbouring SMs (the
+// cluster instance, sa_fwd_cluster_kernel / sa_bwd_cluster_kernel): each
+// block owns a run of band offsets with all their paths, keeps its slice
+// of the ring (6 P W floats in all, 393 KB at P = 64, W = 256, past the
+// 227 KB one block may have) in its shared memory and its cells in
+// registers, reads a neighbour's edge offsets through distributed shared
+// memory, and synchronises by two cluster barriers a diagonal; its stack
+// rows pass through shared memory, so they are written and read in runs
+// of offsets. Past CAP the scratch instance (K = WIDE) runs: 1,024
+// threads that each loop over every 1,024th cell, its ring, cell states
+// and survivor ranks in a per-problem device scratch the wrapper
+// allocates, L2-resident; __syncthreads orders its writes before its
+// reads within the block as it does shared memory's. Same operations,
+// same order: both are bit-equal to the twin. The scratch instance's
+// cost is the L1/L2 latency of every ring read and one SM doing the work
+// of several (PR 8: 45 us a diagonal at P = 64, W = 256 on an H100).
 //
 // HDP emissions (log((1/var) * Hermite spline of the descaled mean) over
 // the k-mer's density/slope rows on a uniform grid, hdp_log_emission
@@ -163,8 +173,11 @@
 // Only the end-of-sweep logsumexp (block_lse_cells) and EXPECT's texp sum
 // in thread order, so they depend on K.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -424,8 +437,9 @@ struct Problem {
   __device__ void load(const int* x0_, const int* width_, const float* ref_,
                        const unsigned* leg_, const float* ev_,
                        const int* meta_, const float* par_, const HdpTab& h,
-                       int D1, int P_, int LX_, int LE_) {
-    const int b = blockIdx.x;
+                       int D1, int P_, int LX_, int LE_, int b_ = -1) {
+    // problem b_ (by default the block's: one block a problem)
+    const int b = b_ < 0 ? (int)blockIdx.x : b_;
     x0 = x0_ + (size_t)b * D1;
     width = width_ + (size_t)b * D1;
     ref = ref_ + (size_t)b * NREF * P_ * LX_;
@@ -504,15 +518,15 @@ __device__ void block_texp(const double (&acc)[7], double* out) {
 
 // ------------------------------------------------ P > 2 (PATHS) instances
 
-// The cells per thread that mark the wide instance: P * W > REG_CELLS
+// The cells per thread that mark the scratch instance (past CAP, where
+// the cluster instance does not fit: cluster_cfg): P * W > REG_CELLS
 // cells, MAX_THREADS threads that each loop over every MAX_THREADS-th
 // cell of the diagonal, and the ring, the cells' states and the
 // backward's survivor ranks in a per-problem device scratch (L2-resident:
-// 9-11 floats a cell, 720 KB at P = 64, W = 256) in place of shared
-// memory and registers. The same operations in the same order as the
-// register instances (only the end logsumexp sums in thread order), and
-// __syncthreads orders the scratch's writes before its reads as it does
-// shared memory's.
+// 9-11 floats a cell) in place of shared memory and registers. The same
+// operations in the same order as the register instances (only the end
+// logsumexp sums in thread order), and __syncthreads orders the
+// scratch's writes before its reads as it does shared memory's.
 constexpr int WIDE = 0;
 
 // The scratch of one problem of the wide instance, in 4-byte words: the
@@ -1028,6 +1042,687 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
   const float l = block_lse(ring, pr.start, N, part);   // diagonal 0 = slot 0
   if (threadIdx.x == 0) lse_b[b] = l;
   if constexpr (EXPECT) block_texp(acc, texp + (size_t)b * 7);
+}
+
+// ------------------------------------------- the cluster (wide) instance
+
+// Past REG_CELLS cells a diagonal and up to the shared memory of
+// CLUSTER_MAX blocks (CAP: cluster_cfg below), a problem runs on a
+// thread-block cluster of C blocks on neighbouring SMs, the P > 2 design
+// (same operations, same order, two cluster barriers a diagonal) split
+// by band offset: block r owns offsets [r opc, (r + 1) opc), opc =
+// ceil(W / C), with all P paths, so its cells c = o P + p are one run
+// and the cluster's cell order is its blocks' order. Each block keeps
+// its slice of the ring (2 slots x 3 planes x opc P floats) in its own
+// shared memory and its cells in registers (K a thread, K <= MAX_K).
+// A read of a neighbour offset (the forward's o + s1, o + s2, the
+// backward's o + u1 (+1), o + u2: the band moves by a couple of offsets
+// a diagonal, so only a block's edge offsets cross) takes the owner's
+// ring through distributed shared memory (map_shared_rank), in place.
+// Per diagonal:
+// - barrier 1: each warp's max goes to its slot in every block's `part`
+//   (one DSMEM store per lane r < C), one cluster barrier, then every
+//   warp reduces the C x nw slots: all blocks hold the same m;
+// - barrier 2: after the normalised terms (and the backward's survivor
+//   counts) are written, one cluster barrier, split into arrive and wait
+//   around the next diagonal's band origin and width;
+// - survivors: a warp with survivors adds its count, by DSMEM atomics,
+//   to the base of every higher-ranked block and to block 0's total
+//   (by diagonal parity), so a block's ranks continue its lower
+//   neighbours' in the cell order: the slots of the wcnt walk, with R as
+//   before;
+// - the forward stages its slice of the stack row (NF planes x P paths x
+//   its offsets, row stride opc + 1 against bank conflicts) in shared
+//   memory and writes each path's run of offsets contiguously after
+//   barrier 2; the backward copies its slice of row d (cp.async, 4
+//   bytes a thread, coalesced) into the same layout at the start of the
+//   diagonal and reads the moments, the EXPECT transitions and the
+//   posterior there (a warp's lanes then read neighbouring words, where
+//   the strided reads of the (B, D1, NF, P, W) stack were W floats
+//   apart). One stage buffer: P = 64 at W = 768 (49,152 cells, the widest
+//   P <= 64 bucket of the runner) then fits 227 KB at C = 8;
+// - EXPECT: texp by a block reduction and then the blocks' sums in rank
+//   order (deterministic); kx by an atomic add in device memory from the
+//   target cell's owner, one writer per (path, position) a diagonal, the
+//   diagonals in barrier order: the sums keep their order. A target's
+//   moments visit its legal source paths through the forward's masks
+//   (leg_tgt, by target path), not all P masks of the backward's.
+// The end logsumexps reduce over the cluster in rank, then warp, order.
+constexpr int CLUSTER_MAX = 8;   // the portable cluster size
+// shared memory a block may have on sm_90, and the room kept in it for
+// the kernels' static arrays
+constexpr size_t SMEM_OPTIN = 232448;
+constexpr size_t SMEM_STATIC_ROOM = 6144;
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");   // release
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");     // acquire
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// 4 bytes from device memory into shared memory, asynchronously; the
+// thread waits with cp_async_wait, a barrier then publishes the words
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The offsets block `rank` of a C-block cluster owns: [o0, o0 + noff) of
+// W, with all P paths (cells o0 P + i, i < nc). Every block lays its ring
+// out with the plane stride ncs = opc P, and its stage with the row
+// stride opc + 1.
+struct Slice {
+  int opc, o0, noff, ncs, nc, rank, C;
+  __device__ Slice(int W, int P, int C_, int rank_) {
+    C = C_;
+    rank = rank_;
+    opc = (W + C - 1) / C;
+    o0 = min(rank * opc, W);
+    noff = min(opc, W - o0);
+    ncs = opc * P;
+    nc = noff * P;
+  }
+  // the cells of band offset i (0 <= i < W) in plane `off` (a float
+  // offset into a block's ring) of the block that owns it
+  __device__ __forceinline__ float* at(cg::cluster_group& cl, float* ring,
+                                       int off, int i, int P) const {
+    const int r = i / opc;
+    float* base = r == rank ? ring : cl.map_shared_rank(ring, (unsigned)r);
+    return base + off + (i - r * opc) * P;
+  }
+};
+
+// The max over the cluster of every thread's v: each warp's max goes to
+// slot (rank, warp) of every block's `part` (lane r stores to block r),
+// one cluster barrier, then each warp reduces the C x nw slots. The caller
+// separates a reuse of `part` from these reads by a cluster barrier.
+__device__ float cluster_max(cg::cluster_group& cl, float v, float* part,
+                             const Slice& s) {
+  v = warp_max(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  if (lane < s.C)
+    *cl.map_shared_rank(part + s.rank * nw + warp, (unsigned)lane) = v;
+  cluster_sync();
+  float r = -INFINITY;
+  for (int i = lane; i < s.C * nw; i += 32) r = fmaxf(r, part[i]);
+  return warp_max(r);
+}
+
+// The sum over the cluster: each warp's sum (block_reduce's shuffles) to
+// its slot of every block, one cluster barrier, then the slots in rank,
+// then warp, order (block_reduce's order within a block).
+__device__ float cluster_sum(cg::cluster_group& cl, float v, float* part,
+                             const Slice& s) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  if (lane < s.C)
+    *cl.map_shared_rank(part + s.rank * nw + warp, (unsigned)lane) = v;
+  cluster_sync();
+  float r = part[0];
+  for (int i = 1; i < s.C * nw; ++i) r += part[i];
+  return r;
+}
+
+// cluster_max/cluster_sum's logsumexp over the three states of this
+// thread's cells in registers (block_lse_cells over the cluster); `pm`
+// and `ps` are two partial arrays, so no barrier separates the two
+// reductions
+template <int K>
+__device__ float cluster_lse_cells(cg::cluster_group& cl, const float (&vm)[K],
+                                   const float (&vx)[K], const float (&vy)[K],
+                                   const float* logs, int nk,
+                                   const Slice& s, float* pm, float* ps) {
+  float mx = NEG;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (k < nk && (int)threadIdx.x + k * (int)blockDim.x < s.nc) {
+      mx = fmaxf(mx, fmaxf(vm[k] + logs[0], NEG));
+      mx = fmaxf(mx, fmaxf(vx[k] + logs[1], NEG));
+      mx = fmaxf(mx, fmaxf(vy[k] + logs[2], NEG));
+    }
+  mx = cluster_max(cl, mx, pm, s);
+  float sm = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (k < nk && (int)threadIdx.x + k * (int)blockDim.x < s.nc) {
+      sm += expf(fmaxf(vm[k] + logs[0], NEG) - mx);
+      sm += expf(fmaxf(vx[k] + logs[1], NEG) - mx);
+      sm += expf(fmaxf(vy[k] + logs[2], NEG) - mx);
+    }
+  sm = cluster_sum(cl, sm, ps, s);
+  return logf(sm) + mx;
+}
+
+template <int K, bool HDP, bool EXPECT>
+__global__ void __launch_bounds__(MAX_THREADS, 1) sa_fwd_cluster_kernel(
+    const int* __restrict__ x0_, const int* __restrict__ width_,
+    const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
+    const float* __restrict__ ev_, const int* __restrict__ meta_,
+    const float* __restrict__ par_, const HdpTab h,
+    float* __restrict__ fstack, float* __restrict__ f_incr,
+    float* __restrict__ lse_f, int D1, int W, int P_, int LX, int LE,
+    int C) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float smem[];
+  __shared__ Problem pr;
+  __shared__ float pmax[CLUSTER_MAX * 32], psum[CLUSTER_MAX * 32];
+  const int N = P_ * W;
+  const int b = blockIdx.x / C;
+  const Slice sl(W, P_, C, (int)cl.block_rank());
+  const int ncs = sl.ncs, opcp = sl.opc + 1;
+  constexpr int NF = EXPECT ? 3 : 1;   // states a diagonal's stack row keeps
+  // [2 slots][3 source terms SRC_X, SRC_Y, SRC_M][ncs], cell (o - o0) P + p
+  float* ring = smem;
+  float* stage = smem + 6 * ncs;   // [NF][P][opc + 1]: this block's row
+  if (threadIdx.x == 0)
+    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE, b);
+  const SrcTerms neg =
+      src_terms(NEG, NEG, NEG, par_ + (size_t)b * NPACK + PACK_TRANS);
+  for (int i = threadIdx.x; i < 6 * ncs; i += blockDim.x) {
+    const int pl = (i / ncs) % 3;
+    ring[i] = pl == SRC_X ? neg.x : pl == SRC_Y ? neg.y : neg.m;
+  }
+  __syncthreads();
+
+  const int P = pr.P, NW = pr.NW;
+  float* fs = fstack + (size_t)b * D1 * N * NF;   // (D1, NF, P, W)
+  float* inc = f_incr + (size_t)b * D1;
+  const int nd = pr.nd;
+  const bool lead = sl.rank == 0 && threadIdx.x == 0;
+  if (sl.rank == 0)
+    for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) inc[d] = 0.f;
+  // diagonal 0: the single start cell (0, 0) on path 0, block 0's, slot 0
+  if (lead) {
+    const SrcTerms st = src_terms(pr.start[MATCH], pr.start[GAP_X],
+                                  pr.start[GAP_Y], pr.t);
+    ring[SRC_X * ncs] = st.x;
+    ring[SRC_Y * ncs] = st.y;
+    ring[SRC_M * ncs] = st.m;
+    inc[0] = 0.f;
+  }
+  for (int c = sl.rank * blockDim.x + threadIdx.x; c < NF * N;
+       c += C * blockDim.x)
+    fs[c] = c % N == 0 ? pr.start[c / N] : NEG;
+  // every block of the cluster runs, and its ring is set, before any
+  // reads a neighbour's
+  cluster_sync();
+
+  // this block's part of the stack row of diagonal d, from the stage
+  auto flush = [&](int d) {
+    float* row = fs + (size_t)d * NF * N + sl.o0;
+    const int pn = P * sl.noff;
+    for (int e = threadIdx.x; e < NF * pn; e += blockDim.x) {
+      const int s = e / pn, q = (e - s * pn) / sl.noff;
+      const int j = e - s * pn - q * sl.noff;
+      row[(size_t)s * N + q * W + j] = stage[(s * P + q) * opcp + j];
+    }
+  };
+
+  const float* tr = pr.t;
+  float m_prev = 0.f;
+  const int T = blockDim.x;
+  const int nk = (sl.nc + T - 1) / T;
+  // this thread's cells (cell o0 P + threadIdx.x + k T) of the diagonal in
+  // hand; after the loop, the normalised states of diagonal nd
+  float vm[K], vx[K], vy[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool start = sl.rank == 0 && threadIdx.x + k * T == 0;
+    vm[k] = start ? pr.start[MATCH] : NEG;
+    vx[k] = start ? pr.start[GAP_X] : NEG;
+    vy[k] = start ? pr.start[GAP_Y] : NEG;
+  }
+  int xn = nd >= 1 ? pr.x0[1] : 0, wn = nd >= 1 ? pr.width[1] : 0;
+  int xp = pr.x0[0], xpp = 0;   // x0 of d-1 and d-2
+  for (int d = 1; d <= nd; ++d) {
+    if (d >= 2) flush(d - 1);
+    const int curoff = (d & 1) * 3 * ncs;   // slot of d, holds d-2
+    const int p1off = ((d - 1) & 1) * 3 * ncs;
+    float* cur = ring + curoff;
+    const int xd = xn, wd = wn;
+    const int s1 = xd - xp - 1;
+    const int s2 = d >= 2 ? xd - xpp - 1 : W + 5;
+    const int rs = clampi(xd, 0, pr.reflen - W);
+    const int es = clampi(pr.lY - d + xd + pr.efp, 0, pr.evlen - W);
+
+    float tmax = NEG;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = threadIdx.x + k * T;   // cell of this block
+      float mm = NEG, gx = NEG, gy = NEG;
+      const int o = sl.o0 + i / P, p = i % P;
+      if (k < nk && i < sl.nc && o < wd) {
+        const int xr = rs + o, je = es + o;
+        float e_match, e_stay;
+        const float m_hat = pr.rf(0, p, xr), inv_m = pr.rf(1, p, xr);
+        const float ev_mean = pr.ev[je];
+        const bool kvalid = inv_m > 0.f;
+        const bool ok = kvalid && pr.ev[pr.LE + je] > 0.5f;
+        const unsigned* lw = pr.lg(xr, p);
+        if constexpr (HDP) {
+          e_match = e_stay = ok ? pr.hdp(p, xr, m_hat, ev_mean, h) : NEG;
+        } else {
+          const float c_m = pr.rf(2, p, xr), inv_y = pr.rf(3, p, xr),
+                      c_y = pr.rf(4, p, xr);
+          const float am = (ev_mean - m_hat) * inv_m;
+          const float ay = (ev_mean - m_hat) * inv_y;
+          e_match = ok ? c_m - 0.5f * am * am : NEG;
+          e_stay = ok ? c_y - 0.5f * ay * ay : NEG;
+        }
+        const float e_gapx = kvalid ? pr.gapx : NEG;
+        // gapX from (x-1, y) and match from (x-1, y-1) over the legal
+        // source paths, from whichever block owns those offsets
+        const int il = o + s1, im = o + s2;
+        const float* rx =
+            il >= 0 && il < W ? sl.at(cl, ring, p1off + SRC_X * ncs, il, P)
+                              : nullptr;
+        const float* rm =
+            im >= 0 && im < W ? sl.at(cl, ring, curoff + SRC_M * ncs, im, P)
+                              : nullptr;
+        gx = legal_lse_any(rx, neg.x, 0.f, lw, NW, P) + e_gapx;
+        mm = legal_lse_any(rm, neg.m, m_prev, lw, NW, P) + e_match;
+        const int iy = il + 1;   // gapY from (x, y-1), same path
+        gy = (iy >= 0 && iy < W
+                  ? sl.at(cl, ring, p1off + SRC_Y * ncs, iy, P)[p]
+                  : neg.y) +
+             e_stay;
+      }
+      vm[k] = mm;
+      vx[k] = gx;
+      vy[k] = gy;
+      tmax = fmaxf(tmax, fmaxf(mm, fmaxf(gx, gy)));
+    }
+    // barrier 1; it also ends every read of diagonal d-2 in `cur`
+    float m = cluster_max(cl, tmax, pmax, sl);
+    m = m > NEG * 0.5f ? m : 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = threadIdx.x + k * T;
+      if (k < nk && i < sl.nc) {
+        const int ol = i / P, p = i % P;
+        const float mm = fmaxf(vm[k] - m, NEG);
+        const float gx = fmaxf(vx[k] - m, NEG);
+        const float gy = fmaxf(vy[k] - m, NEG);
+        const SrcTerms st = src_terms(mm, gx, gy, tr);
+        cur[SRC_X * ncs + i] = st.x;
+        cur[SRC_Y * ncs + i] = st.y;
+        cur[SRC_M * ncs + i] = st.m;
+        vm[k] = mm;
+        vx[k] = gx;
+        vy[k] = gy;
+        float* sd = stage + p * opcp + ol;
+        sd[0] = mm;
+        if constexpr (EXPECT) {
+          sd[GAP_X * P * opcp] = gx;
+          sd[GAP_Y * P * opcp] = gy;
+        }
+      }
+    }
+    if (lead) inc[d] = m;
+    m_prev = m;
+    // barrier 2: publishes the terms and the stage; the next diagonal's
+    // band origin and width load in between
+    cluster_arrive();
+    xpp = xp;
+    xp = xd;
+    if (d < nd) {
+      xn = pr.x0[d + 1];
+      wn = pr.width[d + 1];
+    }
+    cluster_wait();
+  }
+  if (nd >= 1) flush(nd);
+  const float l =
+      cluster_lse_cells<K>(cl, vm, vx, vy, pr.end, nk, sl, pmax, psum);
+  if (lead) lse_f[b] = l;
+}
+
+template <int K, bool HDP, bool EXPECT>
+__global__ void __launch_bounds__(MAX_THREADS, 1) sa_bwd_cluster_kernel(
+    const int* __restrict__ x0_, const int* __restrict__ width_,
+    const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
+    const float* __restrict__ ev_, const int* __restrict__ meta_,
+    const float* __restrict__ par_, const HdpTab h,
+    const float* __restrict__ fstack,
+    const double* __restrict__ cvecf, float* __restrict__ b_incr,
+    float* __restrict__ lse_b, int* __restrict__ slot_cell,
+    float* __restrict__ slot_val, int* __restrict__ cnt,
+    double* __restrict__ texp, double* __restrict__ kx,
+    const unsigned* __restrict__ leg_tgt_, int D1, int W, int P_, int LX,
+    int LE, int R, float threshold, int C) {
+  constexpr bool MOMENTS = EXPECT && !HDP;
+  constexpr int NF = EXPECT ? 3 : 1;   // forward states a stack row holds
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float smem[];
+  __shared__ Problem pr;
+  __shared__ float pmax[CLUSTER_MAX * 32], psum[CLUSTER_MAX * 32];
+  __shared__ int wcnt[MAX_K * 32];   // [k][warp] survivors of a chunk
+  // by diagonal parity: survivors of the lower-ranked blocks, and (block
+  // 0) of the whole cluster
+  __shared__ int cbase[2], ctot[2];
+  __shared__ double tsum[7];
+  const int N = P_ * W;
+  const int b = blockIdx.x / C;
+  const Slice sl(W, P_, C, (int)cl.block_rank());
+  const int ncs = sl.ncs, opcp = sl.opc + 1;
+  float* ring = smem;              // [2 slots][3 states][ncs]
+  float* stage = smem + 6 * ncs;   // [NF][P][opc + 1]: this block's row
+  if (threadIdx.x == 0)
+    pr.load(x0_, width_, ref_, leg_, ev_, meta_, par_, h, D1, P_, LX, LE, b);
+  for (int i = threadIdx.x; i < 6 * ncs; i += blockDim.x) ring[i] = NEG;
+  if (threadIdx.x < 2) cbase[threadIdx.x] = ctot[threadIdx.x] = 0;
+  __syncthreads();
+
+  const int P = pr.P, NW = pr.NW;
+  const float* fs = fstack + (size_t)b * D1 * N * NF;
+  const double* cv = cvecf + (size_t)b * D1;
+  double* kb = MOMENTS ? kx + (size_t)b * 3 * P * LX : nullptr;
+  // MOMENTS: the forward's legality masks (by target path: bit q, legal
+  // from source path q), so a target visits its legal sources only
+  const unsigned* ltb =
+      MOMENTS ? leg_tgt_ + (size_t)b * LX * P * NW : nullptr;
+  double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  float* inc = b_incr + (size_t)b * D1;
+  int* so = slot_cell + (size_t)b * D1 * R;
+  float* sv = slot_val + (size_t)b * D1 * R;
+  int* cn = cnt + (size_t)b * D1;
+  const int nd = pr.nd;
+  const bool lead = sl.rank == 0 && threadIdx.x == 0;
+  if (sl.rank == 0)
+    for (int d = nd + 1 + threadIdx.x; d < D1; d += blockDim.x) {
+      inc[d] = 0.f;
+      cn[d] = 0;
+    }
+  cluster_sync();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int T = blockDim.x;
+  const int nk = (sl.nc + T - 1) / T;
+  const float* tr = pr.t;
+  // NEG outside the band, else state s of offset i on path p in the ring
+  // plane at `off` of its owner
+  auto rd_c = [&](int off, int s, int i, int p) {
+    return i >= 0 && i < W ? sl.at(cl, ring, off + s * ncs, i, P)[p] : NEG;
+  };
+  float m_prev = 0.f;
+  double bo = 0.0;   // running backward offset: Bo(d) = sum of m over >= d
+  float vm[K], vx[K], vy[K];   // this thread's cells of the diagonal
+  float pk[K];                 // and their posteriors
+  int rk[K];                   // and ranks inside their warp (-1: none)
+  int xd = pr.x0[nd], wd = pr.width[nd];
+  int x1 = nd + 1 < D1 ? pr.x0[nd + 1] : 0;   // x0 of d+1
+  int x2 = 0;                                   // and of d+2
+  for (int d = nd; d >= 0; --d) {
+    // this block's slice of stack row d into the stage: its last reads
+    // (row d+1) ended before barrier 2 of d+1
+    {
+      const float* row = fs + (size_t)d * NF * N + sl.o0;
+      const int pn = P * sl.noff;
+      for (int e = threadIdx.x; e < NF * pn; e += blockDim.x) {
+        const int s = e / pn, q = (e - s * pn) / sl.noff;
+        const int j = e - s * pn - q * sl.noff;
+        cp_async4(stage + (s * P + q) * opcp + j, row + (size_t)s * N + q * W + j);
+      }
+    }
+    const int curoff = (d & 1) * 3 * ncs;   // slot of d, holds d+2
+    const int b1off = ((d + 1) & 1) * 3 * ncs;
+    float* cur = ring + curoff;
+    const bool fin = d == nd;
+    const int u1 = d + 1 < D1 ? xd - x1 : W + 5;
+    const int u2 = d + 2 < D1 ? xd + 1 - x2 : W + 5;
+    const int r1 = clampi(xd + 1, 0, pr.reflen - W);
+    const int r0 = clampi(xd, 0, pr.reflen - W);
+    const int es = clampi(pr.lY - d + xd + pr.efp - 1, 0, pr.evlen - W);
+    // the target-side terms of this thread's cells (o, p), once each, to
+    // the gapX and gapY planes of `cur` (dead at this step: diagonal
+    // d+2's gapX and gapY were read at d+1)
+    if (!fin) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int i = threadIdx.x + k * T;
+        const int o = sl.o0 + i / P, p = i % P;
+        if (k < nk && i < sl.nc && o < wd) {
+          const int xr1 = r1 + o, je = es + o;
+          const float ev_mean = pr.ev[je];
+          const bool evok = pr.ev[pr.LE + je] > 0.5f;
+          const float m_hat1 = pr.rf(0, p, xr1), inv_m1 = pr.rf(1, p, xr1);
+          float e_match_to;
+          if constexpr (HDP) {
+            e_match_to = (inv_m1 > 0.f && evok)
+                             ? pr.hdp(p, xr1, m_hat1, ev_mean, h) : NEG;
+          } else {
+            const float c_m1 = pr.rf(2, p, xr1);
+            const float am = (ev_mean - m_hat1) * inv_m1;
+            e_match_to = (inv_m1 > 0.f && evok) ? c_m1 - 0.5f * am * am
+                                                : NEG;
+          }
+          const float gapx_valid = inv_m1 > 0.f ? pr.gapx : NEG;
+          cur[GAP_X * ncs + i] = rd_c(b1off, GAP_X, o + u1 + 1, p) + gapx_valid;
+          cur[GAP_Y * ncs + i] =
+              rd_c(curoff, MATCH, o + u2, p) + e_match_to - m_prev;
+        }
+      }
+    }
+    if constexpr (EXPECT) {
+      // the stage row is read from here on
+      cp_async_wait();
+      __syncthreads();
+    } else if (32 % P == 0) {
+      __syncwarp();   // an offset's P cells share a warp
+    } else {
+      __syncthreads();
+    }
+    if constexpr (MOMENTS) {
+      // the into-match posterior of each target (x+1, y+1) on path p of
+      // this thread, summed over the source paths q at (x, y) it may
+      // follow (bit p of legal[., q] at x+1), its term tmm read back from
+      // `cur`; normalised to Bo(d+1), which `bo` still holds here
+      if (!fin) {
+        const float normA = (float)(cv[d] + bo);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int i = threadIdx.x + k * T;
+          const int ol = i / P, o = sl.o0 + ol, p = i % P;
+          if (k < nk && i < sl.nc && o < wd) {
+            const int xr1 = r1 + o, je = es + o;
+            const float tmm = cur[GAP_Y * ncs + i];
+            const unsigned* lt = ltb + ((size_t)xr1 * P + p) * NW;
+            float mtp = 0.f;   // the legal source paths q in path order
+            for (int w = 0; w < NW; ++w)
+              for (unsigned mq = lt[w]; mq; mq &= mq - 1) {
+                const float* f = stage + (32 * w + __ffs(mq) - 1) * opcp + ol;
+                mtp += expf(f[MATCH * P * opcp] + tr[T_MM] + tmm + normA) +
+                       expf(f[GAP_X * P * opcp] + tr[T_XM] + tmm + normA) +
+                       expf(f[GAP_Y * P * opcp] + tr[T_YM] + tmm + normA);
+              }
+            if (mtp != 0.f) {
+              const float ev_mean = pr.ev[je];
+              const float m_hat1 = pr.rf(0, p, xr1), inv_m1 = pr.rf(1, p, xr1);
+              const float dxv =
+                  inv_m1 > 0.f ? (ev_mean - m_hat1) / pr.var : 0.f;
+              double* kc = kb + (size_t)p * LX + xr1;
+              const size_t plane = (size_t)P * LX;
+              // device-memory atomics: the owner of this target adds in
+              // diagonal order (the barriers), whichever block held the
+              // position on earlier diagonals
+              atomicAdd(kc, (double)mtp);
+              atomicAdd(kc + plane, (double)(mtp * dxv));
+              atomicAdd(kc + 2 * plane, (double)(mtp * dxv * dxv));
+            }
+          }
+        }
+      }
+    }
+    float tmax = NEG;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = threadIdx.x + k * T;
+      float bm = NEG, bx = NEG, by = NEG;
+      const int ol = i / P, o = sl.o0 + ol, q = i % P;   // q: source path
+      if (k < nk && i < sl.nc && o < wd) {
+        if (fin) {
+          bm = pr.end[MATCH];
+          bx = pr.end[GAP_X];
+          by = pr.end[GAP_Y];
+        } else {
+          const int xr1 = r1 + o, xr0 = r0 + o, je = es + o;
+          const float ev_mean = pr.ev[je];
+          const bool evok = pr.ev[pr.LE + je] > 0.5f;
+          float e_stay_same;   // gapY TO cell (x, y+1) on the same path
+          if constexpr (HDP) {
+            const float m_hat0 = pr.rf(0, q, xr0), inv_m0 = pr.rf(1, q, xr0);
+            e_stay_same = (inv_m0 > 0.f && evok)
+                              ? pr.hdp(q, xr0, m_hat0, ev_mean, h) : NEG;
+          } else {
+            const float m_hat0 = pr.rf(0, q, xr0), inv_m0 = pr.rf(1, q, xr0),
+                        inv_y0 = pr.rf(3, q, xr0), c_y0 = pr.rf(4, q, xr0);
+            const float ay = (ev_mean - m_hat0) * inv_y0;
+            e_stay_same = (inv_m0 > 0.f && evok) ? c_y0 - 0.5f * ay * ay : NEG;
+          }
+          const float gy_term = rd_c(b1off, GAP_Y, o + u1, q) + e_stay_same;
+          // gapX TO (x+1, y) and match TO (x+1, y+1) over the target
+          // paths p that may follow q (legal[p, q] at x+1): this block's
+          const unsigned* lw = pr.lg(xr1, q);
+          const float gx_red = legal_lse_any(cur + GAP_X * ncs + ol * P, NEG,
+                                             0.f, lw, NW, P);
+          const float mm_red = legal_lse_any(cur + GAP_Y * ncs + ol * P, NEG,
+                                             0.f, lw, NW, P);
+          if constexpr (EXPECT) {
+            const float normA = (float)(cv[d] + bo);
+            const float* f = stage + q * opcp + ol;
+            const float f_m = f[MATCH * P * opcp], f_x = f[GAP_X * P * opcp],
+                        f_y = f[GAP_Y * P * opcp];
+            acc[0] += (double)expf(f_m + tr[T_MX] + gx_red + normA);
+            acc[1] += (double)expf(f_x + tr[T_XX] + gx_red + normA);
+            acc[2] += (double)expf(f_m + tr[T_MM] + mm_red + normA);
+            acc[3] += (double)expf(f_x + tr[T_XM] + mm_red + normA);
+            acc[4] += (double)expf(f_y + tr[T_YM] + mm_red + normA);
+            acc[5] += (double)expf(f_m + tr[T_MY] + gy_term + normA);
+            acc[6] += (double)expf(f_y + tr[T_YY] + gy_term + normA);
+          }
+          bm = lae(lae(gx_red + tr[T_MX], mm_red + tr[T_MM]),
+                   gy_term + tr[T_MY]);
+          bx = lae(gx_red + tr[T_XX], mm_red + tr[T_XM]);
+          by = lae(mm_red + tr[T_YM], gy_term + tr[T_YY]);
+        }
+      }
+      vm[k] = bm;
+      vx[k] = bx;
+      vy[k] = by;
+      tmax = fmaxf(tmax, fmaxf(bm, fmaxf(bx, by)));
+    }
+    if constexpr (!EXPECT) cp_async_wait();   // the posterior's row
+    // barrier 1; it also ends every read of diagonal d+2 in `cur` and,
+    // in every block, of the counts of diagonal d+1's parity
+    float m = cluster_max(cl, tmax, pmax, sl);
+    if (threadIdx.x == 0) cbase[(d + 1) & 1] = ctot[(d + 1) & 1] = 0;
+    m = fin ? 0.f : (m > NEG * 0.5f ? m : 0.f);
+    bo += (double)m;                                     // Bo(d)
+    // absolute log posterior = f + b + cvecf[d] + Bo(d), b normalised
+    const float cd = (float)(cv[d] + bo);
+    int nsurv = 0;   // this warp's survivors of the diagonal
+    bool mine = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = threadIdx.x + k * T;
+      if (k < nk) {
+        bool surv = false;
+        float p = 0.f;
+        if (i < sl.nc) {
+          const int ol = i / P, q = i % P;
+          const float bmn = fmaxf(vm[k] - m, NEG);
+          vx[k] = fmaxf(vx[k] - m, NEG);
+          vy[k] = fmaxf(vy[k] - m, NEG);
+          cur[MATCH * ncs + i] = bmn;
+          cur[GAP_X * ncs + i] = vx[k];
+          cur[GAP_Y * ncs + i] = vy[k];
+          vm[k] = bmn;
+          const int x = xd + sl.o0 + ol, y = d - x;
+          if (sl.o0 + ol < wd && x > 0 && y > 0 && x <= pr.lX && y <= pr.lY) {
+            const float fm = stage[q * opcp + ol];
+            p = expf(fmaxf(fm + bmn + cd, NEG));
+            surv = p >= threshold;
+          }
+        }
+        // ranked in cell (= offset, then path) order: block, chunk,
+        // warp, lane
+        const unsigned ball = __ballot_sync(0xffffffffu, surv);
+        if (lane == 0) wcnt[k * 32 + warp] = __popc(ball);
+        nsurv += __popc(ball);
+        pk[k] = p;
+        rk[k] = surv ? __popc(ball & ((1u << lane) - 1u)) : -1;
+        mine |= surv;
+      }
+    }
+    if (nsurv) {
+      if (lane > sl.rank && lane < C)
+        atomicAdd(cl.map_shared_rank(cbase + (d & 1), (unsigned)lane), nsurv);
+      if (lane == 0)
+        atomicAdd(cl.map_shared_rank(ctot + (d & 1), 0u), nsurv);
+    }
+    // barrier 2: publishes the normalised diagonal, the warp counts and
+    // the blocks' bases; the next diagonal's band origin and width load
+    // in between. The next diagonal writes wcnt and this parity's bases
+    // only after its barrier 1, which every thread reaches after reading
+    // them below.
+    cluster_arrive();
+    x2 = x1;
+    x1 = xd;
+    if (d > 0) {
+      xd = pr.x0[d - 1];
+      wd = pr.width[d - 1];
+    }
+    cluster_wait();
+    if (mine) {
+      int before = cbase[d & 1];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k >= nk) break;
+        int base = before;
+        for (int w = 0; w < warp; ++w) base += wcnt[k * 32 + w];
+        const int r = base + rk[k];
+        if (rk[k] >= 0 && r < R) {
+          so[(size_t)d * R + r] = sl.o0 * P + threadIdx.x + k * T;
+          sv[(size_t)d * R + r] = pk[k];
+        }
+        for (int w = 0; w < nw; ++w) before += wcnt[k * 32 + w];
+      }
+    }
+    if (lead) {
+      inc[d] = m;
+      cn[d] = ctot[d & 1];
+    }
+    m_prev = m;
+  }
+  // diagonal 0 is slot 0: its normalised states are this thread's cells
+  const float l =
+      cluster_lse_cells<K>(cl, vm, vx, vy, pr.start, nk, sl, pmax, psum);
+  if (lead) lse_b[b] = l;
+  if constexpr (EXPECT) {
+    block_texp(acc, tsum);
+    cluster_sync();
+    if (sl.rank == 0 && threadIdx.x < 7) {
+      double s = 0.0;
+      for (int r = 0; r < C; ++r)
+        s += cl.map_shared_rank(tsum, (unsigned)r)[threadIdx.x];
+      texp[(size_t)b * 7 + threadIdx.x] = s;
+    }
+    cluster_sync();   // block 0 has read every block's sums
+  }
 }
 
 // ------------------------------------------------- P <= 2 (per-pair) instances
@@ -1717,10 +2412,75 @@ struct Bucket {
   int B, D1, W, P, LX, LE;
 };
 
+// the kernel's dynamic shared memory; a refusal is the launch's error
 template <typename Kern>
 int launch_setup(Kern kern, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The cluster instance's launch for a bucket: C blocks of T threads a
+// problem, nk <= MAX_K cells a thread, its dynamic shared memory (the
+// ring slice and the stage; cluster_smem). C = 0 where it does not take
+// the bucket: P * W <= REG_CELLS (the register instances), or past CAP
+// (the scratch instance).
+struct ClusterCfg {
+  int C, T, nk;
+  size_t smem;
+};
+
+size_t cluster_smem(int W, int P, int C, bool expect) {
+  const size_t opc = (W + C - 1) / C;
+  return (6 * opc * P + (expect ? 3 : 1) * P * (opc + 1)) * sizeof(float);
+}
+
+// (C, threads) of the cluster instance: of C = 2, 4, 8 at 512 and 1,024
+// threads (scripts/time_torch_cluster.py --scan, PERF.md §6), 8 blocks of
+// 1,024 threads were the fastest on an H100 at P = 64, W = 256 and 512,
+// and within 5% of 8 x 512 at P = 16, W = 768, plain and EXPECT: the
+// most blocks, so the fewest cells a thread, won where the cells fit.
+constexpr int CLUSTER_C = 8, CLUSTER_T = 1024;
+
+// The cluster instance's launch for a bucket at (CLUSTER_C, CLUSTER_T),
+// C = 0 past CAP: where its cells or shared memory do not fit.
+ClusterCfg cluster_cfg(int W, int P, bool expect, bool backward) {
+  (void)backward;   // both sweeps take the same slices
+  if (!shape_ok(W, P) || P * W <= REG_CELLS) return {0, 0, 0, 0};
+  const int C = CLUSTER_C, T = CLUSTER_T;
+  const int nk = ((W + C - 1) / C * P + T - 1) / T;
+  const size_t smem = cluster_smem(W, P, C, expect);
+  if (nk > MAX_K || smem > SMEM_OPTIN - SMEM_STATIC_ROOM) return {0, 0, 0, 0};
+  return {C, T, nk, smem};
+}
+
+// The launch configuration of a cluster instance `kern` on B problems:
+// its shared memory set, and at least one cluster of its size, threads and
+// shared memory schedulable on the card (else cudaErrorLaunchOutOfResources).
+template <typename Kern>
+int cluster_setup(Kern kern, const ClusterCfg& g, int B, cudaStream_t stream,
+                  cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  if (int e = launch_setup(kern, g.smem)) return e;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = g.C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(B * g.C);
+  cfg.blockDim = dim3(g.T);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg))
+    return (int)e;
+  return n >= 1 ? 0 : (int)cudaErrorLaunchOutOfResources;
+}
+
+// cudaLaunchKernelEx's error, else cudaGetLastError()
+int launch_error(cudaError_t e) {
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 template <int K, bool HDP, bool EXPECT>
@@ -1728,7 +2488,7 @@ int fwd_pair_launch(const Bucket& a, float* fstack, float* f_incr,
                     float* lse_f, cudaStream_t stream) {
   const int N = a.P * a.W;
   const size_t smem = (9 * (size_t)N + 64) * sizeof(float);
-  launch_setup(sa_fwd_pair_kernel<K, HDP, EXPECT>, smem);
+  if (int e = launch_setup(sa_fwd_pair_kernel<K, HDP, EXPECT>, smem)) return e;
   sa_fwd_pair_kernel<K, HDP, EXPECT>
       <<<a.B, round_warps((N + K - 1) / K), smem, stream>>>(
           a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
@@ -1746,12 +2506,24 @@ int fwd_paths_launch(const Bucket& a, float* fstack, float* f_incr,
                      float* lse_f, float* scratch, cudaStream_t stream) {
   const int N = a.P * a.W;
   const size_t smem = ((K == WIDE ? 0 : 6 * (size_t)N) + 32) * sizeof(float);
-  launch_setup(sa_fwd_paths_kernel<K, HDP, EXPECT>, smem);
+  if (int e = launch_setup(sa_fwd_paths_kernel<K, HDP, EXPECT>, smem)) return e;
   sa_fwd_paths_kernel<K, HDP, EXPECT>
       <<<a.B, paths_threads(N), smem, stream>>>(
       a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack, f_incr,
       lse_f, scratch, a.D1, a.W, a.P, a.LX, a.LE);
   return (int)cudaGetLastError();
+}
+
+template <int K, bool HDP, bool EXPECT>
+int fwd_cluster_launch(const Bucket& a, const ClusterCfg& g, float* fstack,
+                       float* f_incr, float* lse_f, cudaStream_t stream) {
+  auto kern = sa_fwd_cluster_kernel<K, HDP, EXPECT>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int e = cluster_setup(kern, g, a.B, stream, cfg, attr)) return e;
+  return launch_error(cudaLaunchKernelEx(
+      &cfg, kern, a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h,
+      fstack, f_incr, lse_f, a.D1, a.W, a.P, a.LX, a.LE, g.C));
 }
 
 template <bool HDP, bool EXPECT>
@@ -1777,9 +2549,16 @@ int fwd_paths_dispatch(const Bucket& a, float* fstack, float* f_incr,
       return fwd_paths_launch<4, HDP, EXPECT>(a, fstack, f_incr, lse_f, 0, s);
     case 8:
       return fwd_paths_launch<8, HDP, EXPECT>(a, fstack, f_incr, lse_f, 0, s);
-    default:
-      return fwd_paths_launch<WIDE, HDP, EXPECT>(a, fstack, f_incr, lse_f,
-                                                 scratch, s);
+    default: {
+      const ClusterCfg g = cluster_cfg(a.W, a.P, EXPECT, false);
+      if (!g.C)   // past CAP
+        return fwd_paths_launch<WIDE, HDP, EXPECT>(a, fstack, f_incr, lse_f,
+                                                   scratch, s);
+      return g.nk <= 4 ? fwd_cluster_launch<4, HDP, EXPECT>(a, g, fstack,
+                                                            f_incr, lse_f, s)
+                       : fwd_cluster_launch<8, HDP, EXPECT>(a, g, fstack,
+                                                            f_incr, lse_f, s);
+    }
   }
 }
 
@@ -1804,7 +2583,8 @@ int bwd_pair_launch(const Bucket& a, const float* fstack, const double* cvecf,
   const size_t smem = (MOMENTS ? 3 * (size_t)N * sizeof(double) : 0) +
                       (9 * (size_t)N + 64) * sizeof(float) +
                       (2 * K * 32 + (MOMENTS ? N : 0)) * sizeof(int);
-  launch_setup(sa_bwd_pair_kernel<K, HDP, EXPECT, MP>, smem);
+  if (int e = launch_setup(sa_bwd_pair_kernel<K, HDP, EXPECT, MP>, smem))
+    return e;
   sa_bwd_pair_kernel<K, HDP, EXPECT, MP>
       <<<a.B, round_warps((N + K - 1) / K), smem, stream>>>(
           a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
@@ -1821,13 +2601,30 @@ int bwd_paths_launch(const Bucket& a, const float* fstack, const double* cvecf,
   const size_t smem = K == WIDE ? 32 * sizeof(float)
                                 : (6 * (size_t)N + 32) * sizeof(float) +
                                       K * 32 * sizeof(int);
-  launch_setup(sa_bwd_paths_kernel<K, HDP, EXPECT>, smem);
+  if (int e = launch_setup(sa_bwd_paths_kernel<K, HDP, EXPECT>, smem))
+    return e;
   sa_bwd_paths_kernel<K, HDP, EXPECT>
       <<<a.B, paths_threads(N), smem, stream>>>(
           a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
           cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt, o.texp,
           o.kx, scratch, a.D1, a.W, a.P, a.LX, a.LE, R, threshold);
   return (int)cudaGetLastError();
+}
+
+template <int K, bool HDP, bool EXPECT>
+int bwd_cluster_launch(const Bucket& a, const ClusterCfg& g,
+                       const float* fstack, const double* cvecf,
+                       const BwdOut& o, int R, float threshold,
+                       const unsigned* leg_tgt, cudaStream_t stream) {
+  auto kern = sa_bwd_cluster_kernel<K, HDP, EXPECT>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int e = cluster_setup(kern, g, a.B, stream, cfg, attr)) return e;
+  return launch_error(cudaLaunchKernelEx(
+      &cfg, kern, a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h,
+      fstack, cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt,
+      o.texp, o.kx, leg_tgt, a.D1, a.W, a.P, a.LX, a.LE, R, threshold,
+      g.C));
 }
 
 template <bool HDP, bool EXPECT>
@@ -1858,7 +2655,8 @@ int bwd_pair_dispatch(const Bucket& a, int K, const float* fstack,
 template <bool HDP, bool EXPECT>
 int bwd_paths_dispatch(const Bucket& a, const float* fstack,
                        const double* cvecf, const BwdOut& o, int R,
-                       float threshold, float* scratch, cudaStream_t s) {
+                       float threshold, float* scratch,
+                       const unsigned* leg_tgt, cudaStream_t s) {
   switch (paths_k(a.P * a.W)) {
     case 1: return bwd_paths_launch<1, HDP, EXPECT>(a, fstack, cvecf, o, R,
                                                     threshold, 0, s);
@@ -1868,8 +2666,19 @@ int bwd_paths_dispatch(const Bucket& a, const float* fstack,
                                                     threshold, 0, s);
     case 8: return bwd_paths_launch<8, HDP, EXPECT>(a, fstack, cvecf, o, R,
                                                     threshold, 0, s);
-    default: return bwd_paths_launch<WIDE, HDP, EXPECT>(
-        a, fstack, cvecf, o, R, threshold, scratch, s);
+    default: {
+      const ClusterCfg g = cluster_cfg(a.W, a.P, EXPECT, true);
+      if (!g.C)   // past CAP
+        return bwd_paths_launch<WIDE, HDP, EXPECT>(a, fstack, cvecf, o, R,
+                                                   threshold, scratch, s);
+      return g.nk <= 4
+                 ? bwd_cluster_launch<4, HDP, EXPECT>(a, g, fstack, cvecf, o,
+                                                      R, threshold, leg_tgt,
+                                                      s)
+                 : bwd_cluster_launch<8, HDP, EXPECT>(a, g, fstack, cvecf, o,
+                                                      R, threshold, leg_tgt,
+                                                      s);
+    }
   }
 }
 
@@ -1894,10 +2703,11 @@ int launch_k(int W, int P, bool expect, bool backward) {
 }
 
 // the scratch bytes per problem of the sweep's launch (0 unless it is the
-// wide instance's)
+// scratch instance's: past CAP)
 size_t scratch_bytes(int W, int P, bool expect, bool backward) {
   const int K = launch_k(W, P, expect, backward);
-  return K < -MAX_K ? 4 * wide_scratch_words(P * W, backward) : 0;
+  return K < -MAX_K && !cluster_cfg(W, P, expect, backward).C
+             ? 4 * wide_scratch_words(P * W, backward) : 0;
 }
 
 }  // namespace
@@ -1907,21 +2717,34 @@ size_t scratch_bytes(int W, int P, bool expect, bool backward) {
 // do not synchronise. leg holds (B, LX, P, ceil(P / 32)) uint32 legality
 // masks: the forward's by target path (ProblemTensors.leg), the
 // backward's by source path (ProblemTensors.leg_src). `scratch` holds
-// B x sa_sweep_scratch_bytes bytes, which the wide instance (P * W >
-// 8192) uses for its ring and cells (null, and unread, otherwise).
+// B x sa_sweep_scratch_bytes bytes, which the scratch instance (P * W
+// past CAP) uses for its ring and cells (null, and unread, otherwise).
 // kid, mu, dens and slopes are the HDP tables (kid and mu (B, P, LX),
 // dens and slopes (nk, ng) on the grid g0 + i * dx with last knot gN),
 // all null for a Gaussian bucket. `expect` != 0 runs the EM expectation
 // instances: fstack is (B, D1, 3, P, W), and the backward writes texp (B,
 // 7) and adds into kx (B, 3, P, LX), which the caller zeroes (both null
-// otherwise). Each returns cudaGetLastError() after its launch, or
+// otherwise). Each returns cudaGetLastError() after its launch (a
+// refused shared-memory size or cluster launch among them; a cluster
+// that cannot be scheduled: cudaErrorLaunchOutOfResources), or
 // cudaErrorInvalidValue for a shape it does not take (W or P below 1), an
 // incomplete set of HDP tables, missing expectation outputs or a missing
-// scratch.
+// scratch. The backward also takes leg_tgt, the forward's masks
+// (ProblemTensors.leg), for its expectation pass (null otherwise).
 
 // launch_k and scratch_bytes, for the Python side
 extern "C" int sa_cells_per_thread(int W, int P, int expect, int backward) {
   return launch_k(W, P, expect, backward);
+}
+
+// the cluster instance's blocks a problem (C) and threads a block, 0 for
+// a bucket it does not take
+extern "C" int sa_cluster_ctas(int W, int P, int expect, int backward) {
+  return cluster_cfg(W, P, expect, backward).C;
+}
+
+extern "C" int sa_cluster_threads(int W, int P, int expect, int backward) {
+  return cluster_cfg(W, P, expect, backward).T;
 }
 
 extern "C" long long sa_sweep_scratch_bytes(int W, int P, int expect,
@@ -1973,7 +2796,8 @@ extern "C" int sa_bwd_sweep_compact(
     const float* mu, const float* dens, const float* slopes,
     const float* fstack, const double* cvecf, float* b_incr, float* lse_b,
     int* slot_cell, float* slot_val, int* cnt, double* texp, double* kx,
-    float* scratch, int B, int D1, int W, int P, int LX, int LE, int R,
+    float* scratch, const unsigned* leg_tgt, int B, int D1, int W, int P,
+    int LX, int LE, int R,
     int expect,
     int nk, int ng, float threshold, float g0, float dx,
     float gN, void* stream) {
@@ -1981,21 +2805,21 @@ extern "C" int sa_bwd_sweep_compact(
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
   const int K = launch_k(W, P, expect, true);
-  if (K == 0 || !hdp_ok(a.h) || (expect && (!texp || !kx)) ||
+  if (K == 0 || !hdp_ok(a.h) || (expect && (!texp || !kx || !leg_tgt)) ||
       (!scratch && scratch_bytes(W, P, expect, true)))
     return (int)cudaErrorInvalidValue;
   const BwdOut o{b_incr, lse_b, slot_cell, slot_val, cnt, texp, kx};
   cudaStream_t s = (cudaStream_t)stream;
   if (K < 0 && expect)
     return dens ? bwd_paths_dispatch<true, true>(a, fstack, cvecf, o, R,
-                                                 threshold, scratch, s)
+                                                 threshold, scratch, leg_tgt, s)
                 : bwd_paths_dispatch<false, true>(a, fstack, cvecf, o, R,
-                                                  threshold, scratch, s);
+                                                  threshold, scratch, leg_tgt, s);
   if (K < 0)
     return dens ? bwd_paths_dispatch<true, false>(a, fstack, cvecf, o, R,
-                                                  threshold, scratch, s)
+                                                  threshold, scratch, leg_tgt, s)
                 : bwd_paths_dispatch<false, false>(a, fstack, cvecf, o, R,
-                                                   threshold, scratch, s);
+                                                   threshold, scratch, leg_tgt, s);
   if (expect)
     return dens ? bwd_pair_dispatch<true, true>(a, K, fstack, cvecf, o, R,
                                                 threshold, s)

@@ -17,8 +17,10 @@ launches in ``<wrapper>.launches`` and those of its expectation instances
 P > 2 instances (every expectation bucket of P > 1, and of P = 1 past
 2,048 cells) also in ``<wrapper>.expect_paths_launches`` and those of the
 per-pair instance at P = 2 in ``<wrapper>.expect_pair2_launches``; of its
-launches, those of the wide instance (P * W > 8192 cells a diagonal) also
-in ``<wrapper>.wide_launches``.
+launches, those of the wide instances (P * W > 8192 cells a diagonal) also
+in ``<wrapper>.wide_launches``, and of these those of the cluster instance
+(up to CAP, ``cluster_ctas``) in ``<wrapper>.cluster_launches`` and those
+of the scratch instance (past CAP) in ``<wrapper>.wide_scratch_launches``.
 
 ``forward_sweep_prob`` and ``backward_sweep_compact_prob`` launch the
 probability-space kernels ``sa_fwd_sweep_prob`` and
@@ -140,16 +142,35 @@ def cells_per_thread(W: int, P: int, expect: bool = False,
     """The kernel instance the forward (or ``backward``) sweep launches
     for a bucket of P paths at width W: K cells per thread of a per-pair
     instance (P <= 2 and P * W <= 2048, the dispatch table of
-    ``csrc/banded_fb.cu``), -K of a P > 2 one (K > 8: the wide instance,
-    P * W > 8192, every 1024th cell of a diagonal a thread), 0 for a shape
-    they do not take. Loads (and on first use builds) the kernels."""
+    ``csrc/banded_fb.cu``), -K of a P > 2 one (K > 8: a wide instance,
+    P * W > 8192, K = ceil(P * W / 1024); ``cluster_ctas`` says which), 0
+    for a shape they do not take. Loads (and on first use builds) the
+    kernels."""
     return cuda_build.load().sa_cells_per_thread(W, P, int(expect),
                                                  int(backward))
 
 
+def cluster_ctas(W: int, P: int, expect: bool = False,
+                 backward: bool = False) -> int:
+    """Blocks a problem of the cluster instance the sweep launches for a
+    bucket of P paths at width W (a wide bucket, P * W > 8192, up to
+    CAP: its ring slices in the blocks' shared memory), 0 where another
+    instance runs (past CAP: the scratch instance)."""
+    return cuda_build.load().sa_cluster_ctas(W, P, int(expect),
+                                             int(backward))
+
+
+def cluster_threads(W: int, P: int, expect: bool = False,
+                    backward: bool = False) -> int:
+    """Threads a block of that cluster instance, 0 where it does not
+    run."""
+    return cuda_build.load().sa_cluster_threads(W, P, int(expect),
+                                                int(backward))
+
+
 def _scratch(pt: bfb.ProblemTensors, expect: bool, backward: bool):
-    """The device scratch of the sweep's launch on ``pt`` (the wide
-    instance's ring and cells, L2-resident), or None."""
+    """The device scratch of the sweep's launch on ``pt`` (the scratch
+    instance's ring and cells, L2-resident; past CAP), or None."""
     per = cuda_build.load().sa_sweep_scratch_bytes(pt.W, pt.P, int(expect),
                                                    int(backward))
     if not per:
@@ -179,28 +200,34 @@ def forward_sweep(pt: bfb.ProblemTensors, expect: bool = False):
     _launch("sa_fwd_sweep", pt, pt.leg, (fstack, f_incr, lse_f, scratch),
             (B, D1, pt.W, pt.P, pt.ref.shape[-1], pt.ev.shape[-1],
              int(expect)))
-    _count(forward_sweep, pt, expect, scratch is not None, False)
+    _count(forward_sweep, pt, expect, False)
     return fstack, f_incr, lse_f
 
 
-def _count(fn, pt: bfb.ProblemTensors, expect: bool, wide: bool,
+def _count(fn, pt: bfb.ProblemTensors, expect: bool,
            backward: bool) -> None:
     """Count a launch of ``fn``'s kernel on ``pt``: in ``fn.launches``, or
     ``fn.expect_launches`` for the expectation pass (and those of the
-    P > 2 instances, the wide one among them, also in
+    P > 2 instances, the wide ones among them, also in
     ``fn.expect_paths_launches``, those of the per-pair instance at P = 2
     in ``fn.expect_pair2_launches``); a wide instance's also in
-    ``fn.wide_launches``."""
+    ``fn.wide_launches``, and in ``fn.cluster_launches`` or
+    ``fn.wide_scratch_launches`` by instance."""
+    k = cells_per_thread(pt.W, pt.P, expect, backward)
     if expect:
         fn.expect_launches += 1
-        if cells_per_thread(pt.W, pt.P, True, backward) < 0:
+        if k < 0:
             fn.expect_paths_launches += 1
         elif pt.P == 2:
             fn.expect_pair2_launches += 1
     else:
         fn.launches += 1
-    if wide:
+    if k < -8:
         fn.wide_launches += 1
+        if cluster_ctas(pt.W, pt.P, expect, backward):
+            fn.cluster_launches += 1
+        else:
+            fn.wide_scratch_launches += 1
 
 
 forward_sweep.launches = 0
@@ -208,6 +235,8 @@ forward_sweep.expect_launches = 0
 forward_sweep.expect_paths_launches = 0
 forward_sweep.expect_pair2_launches = 0
 forward_sweep.wide_launches = 0
+forward_sweep.cluster_launches = 0
+forward_sweep.wide_scratch_launches = 0
 
 
 # ------------------------------------------------------------- backward
@@ -299,10 +328,10 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     scratch = _scratch(pt, expect, True)
     _launch("sa_bwd_sweep_compact", pt, pt.leg_src,
             (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt, texp,
-             kx, scratch),
+             kx, scratch, pt.leg if expect else None),
             (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1], R, int(expect)),
             (float(threshold),))
-    _count(backward_sweep_compact, pt, expect, scratch is not None, True)
+    _count(backward_sweep_compact, pt, expect, True)
     out = (b_incr, lse_b, slot_cell, slot_val, cnt)
     return out + (texp, kx) if expect else out
 
@@ -312,6 +341,8 @@ backward_sweep_compact.expect_launches = 0
 backward_sweep_compact.expect_paths_launches = 0
 backward_sweep_compact.expect_pair2_launches = 0
 backward_sweep_compact.wide_launches = 0
+backward_sweep_compact.cluster_launches = 0
+backward_sweep_compact.wide_scratch_launches = 0
 
 
 # ------------------------------------------- probability-space sweeps
@@ -435,6 +466,8 @@ def reset_launch_counts() -> None:
         fn.expect_paths_launches = 0
         fn.expect_pair2_launches = 0
         fn.wide_launches = 0
+        fn.cluster_launches = 0
+        fn.wide_scratch_launches = 0
     forward_sweep_prob.launches = 0
     backward_sweep_compact_prob.launches = 0
 

@@ -44,13 +44,16 @@ _F = ctypes.c_float
 # (argtypes, restype)
 _SIGNATURES = {
     "sa_fwd_sweep": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
-    "sa_bwd_sweep_compact": ([_P] * 21 + [_I] * 10 + [_F] * 4 + [_P], _I),
+    "sa_bwd_sweep_compact": ([_P] * 22 + [_I] * 10 + [_F] * 4 + [_P], _I),
     "sa_cells_per_thread": ([_I] * 4, _I),
     "sa_sweep_scratch_bytes": ([_I] * 4, ctypes.c_longlong),
+    "sa_cluster_ctas": ([_I] * 4, _I),
+    "sa_cluster_threads": ([_I] * 4, _I),
     "sa_fwd_sweep_prob": ([_P] * 11 + [_I] * 5 + [_P], _I),
     "sa_bwd_sweep_compact_prob": ([_P] * 15 + [_I] * 6 + [_F] + [_P], _I),
     # csrc/barrier_probe.cu (a timing probe, not a port of a TPU kernel)
     "sa_barrier_probe": ([_I] * 4 + [_P] * 2, _I),
+    "sa_barrier_probe_cluster": ([_I] * 4 + [_P] * 2, _I),
 }
 
 

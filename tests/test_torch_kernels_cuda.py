@@ -5,7 +5,9 @@ at P = 1 too past 2048 cells; the per-pair instances of P <= 2 at each
 K the dispatch table uses, on shapes that select it), with Gaussian and
 with HDP emissions, the EM expectation instances (P = 1 per-pair at each
 K the table uses; the P > 2 and wide instances' expectation pass at P =
-2, 4, 8, 16, 64 and at P = 1 W = 2304; Gaussian and HDP), and the
+2, 4, 8, 16, 64 and at P = 1 W = 2304, the wide ones on the cluster
+instance and past its CAP on the scratch instance; Gaussian and HDP),
+and the
 probability-space kernels (P = 1, W = 256 and 512, and
 segments that exhaust their f32 range). Needs a CUDA GPU and nvcc;
 skipped without a GPU. On a GPU host:
@@ -59,13 +61,13 @@ def _hdp_model():
 
 
 def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False, dense=None,
-              prep_w=None):
+              prep_w=None, cluster_at=200):
     """n problems with random lengths in ``sizes`` whose anchors (every 20
     events) leave out ``gap``, so the band bulges there. For P > 1 the
     sequence carries the ambiguity code (Y, or P with ``hdp``; B for
     P = 3) every 40 positions and a cluster of log2(P) codes in one 5-mer
-    every 400 (events read each code as C; P = 64: three four-way X
-    codes in one 5-mer, read as A); ``dense`` = (start, stop)
+    every 400 from ``cluster_at`` (events read each code as C; P = 64:
+    three four-way X codes in one 5-mer, read as A); ``dense`` = (start, stop)
     puts the code at every other position there, where most path pairs
     of neighbouring cells are illegal. ``prep_w`` prepares the problems
     at another band width than W. Returns (problems, the HDP or None)."""
@@ -80,7 +82,7 @@ def _problems(n, sizes, gap, W, Dpad, seed, P=1, hdp=False, dense=None,
         if P > 1:
             for j in range(20, len(seq) - 8, 40):
                 seq[j] = code
-            for j in range(200, len(seq) - 8, 400):
+            for j in range(cluster_at, len(seq) - 8, 400):
                 seq[j:j + len(cluster)] = cluster
         if dense:
             seq[dense[0]:dense[1]:2] = code * len(range(*dense, 2))
@@ -220,7 +222,8 @@ def test_aligner_on_gpu_matches_cpu(dev, bucket):
 
 PATH_CASES = ["p2", "p3w512", "p4w1024", "p8w128", "p8", "p8w512", "p8w768",
               "p2w4096", "p1w2304", "p1w8192", "p16", "p64", "p16w768",
-              "edges", "clamp", "illegal"]
+              "edges", "clamp", "illegal", "wedges", "wclamp", "willegal",
+              "p64w768", "pastcap"]
 
 
 @pytest.fixture(scope="module",
@@ -230,9 +233,13 @@ def paths_case(request):
     (hdp_), at every cells-per-thread instance: pP[wW] (W = 256 by
     default) gives K = 1 (P*W <= 1024), 2 (p3w512, p8), 4 (p4w1024,
     p8w512, p16, p1w2304), 8 (p8w768, p2w4096, p1w8192) or the wide
-    instance past 8192 cells (p64: 16,384 cells and two legality words a
-    mask; p16w768: 12,288 cells, bands past 512 offsets). P = 2 runs
-    the per-pair instances up to 2048 cells (p2 among them), P > 2 and
+    instances past 8192 cells (p64: 16,384 cells and two legality words a
+    mask; p16w768: 12,288 cells, bands past 512 offsets; p64w768: P =
+    64 at W = 768, 49,152 cells (the cluster instance's CAP, its K = 8
+    instances), a band past 512 offsets; all on the cluster instance;
+    pastcap: P = 64 at W = 1024, 65,536 cells, past the cluster
+    instance's CAP, on the scratch instance, ~200 diagonals). P =
+    2 runs the per-pair instances up to 2048 cells (p2 among them), P > 2 and
     wider P <= 2 buckets the P > 2 ones: p1w2304 is the runner's bucket
     of a P = 1 band 2,271 offsets wide, p1w8192 the same problems at the
     widest P = 1 bucket. ``edges``: P = 8 problems whose band
@@ -241,7 +248,11 @@ def paths_case(request):
     W = 128 and run at W = 256, so the reference and event windows clamp
     at reflen - W and evlen - W; ``illegal``: P = 8 problems with the
     code at every other position over 60 positions, where most path
-    pairs of neighbouring cells are illegal."""
+    pairs of neighbouring cells are illegal. ``wedges``, ``wclamp`` and
+    ``willegal`` are the same on the cluster instance, where a block's
+    edge offsets read its neighbours' rings: P = 16 at W = its widest
+    band (past 512 offsets), P = 16 prepared at W = 512 and run at W =
+    768, and P = 16 at W = 768 with the dense codes."""
     name = request.param
     hdp = name.startswith("hdp_")
     return _paths_bucket(name[4:] if hdp else name, hdp)
@@ -249,6 +260,36 @@ def paths_case(request):
 
 def _paths_bucket(name, hdp):
     """``paths_case``'s bucket ``name`` (without its hdp_ prefix)."""
+    if name == "wedges":
+        probe, _ = _problems(2, (1300, 1400), (200, 850), 768, 4096, 22, P=16,
+                             hdp=hdp)
+        W = max(int(p.width.max()) for p in probe)
+        assert W > 512
+        probs = _problems(2, (1300, 1400), (200, 850), W, 4096, 22, P=16,
+                          hdp=hdp)
+        assert max(int(p.width.max()) for p in probs[0]) == W
+        return _case(probs, W)
+    if name == "wclamp":
+        probs = _problems(2, (500, 700), (100, 160), 768, 2048, 23, P=16,
+                          hdp=hdp, prep_w=512)
+        assert all(p.x0[:p.n_diag + 1].max() > p.ref_params.shape[-1] - 768
+                   for p in probs[0])
+        return _case(probs, 768)
+    if name == "willegal":
+        probs = _problems(2, (1300, 1400), (200, 850), 768, 4096, 24, P=16,
+                          hdp=hdp, dense=(100, 160))
+        legal = np.concatenate([p.legal.reshape(256, -1)[:, 101:160]
+                                for p in probs[0]], axis=1)
+        assert legal.mean() < 0.25
+        return _case(probs, 768)
+    if name == "p64w768":
+        probs = _problems(1, (600, 660), (30, 560), 768, 1536, 26, P=64,
+                          hdp=hdp)
+        assert int(probs[0][0].width.max()) > 512
+        return _case(probs, 768)
+    if name == "pastcap":
+        return _case(_problems(1, (90, 110), (0, 0), 1024, 256, 25, P=64,
+                               hdp=hdp, cluster_at=40), 1024)
     if name == "edges":
         probe, _ = _problems(2, (700, 900), (100, 300), 512, 2048, 18, P=8,
                              hdp=hdp)
@@ -284,6 +325,29 @@ def _paths_bucket(name, hdp):
     return _case(_problems(2, sizes, gap, W, dpad, 30 + P, P=P, hdp=hdp), W)
 
 
+# the widest bucket of the runner at P <= 64 (P = 64 at W = 768), which
+# the cluster instance takes (its CAP); past it the scratch instance runs
+CLUSTER_CELLS = 64 * 768
+
+
+def _wide_counts():
+    return [(fn.cluster_launches, fn.wide_scratch_launches)
+            for fn in (hk.forward_sweep, hk.backward_sweep_compact)]
+
+
+def _check_wide(pt, before, expect=False):
+    """Each sweep of a bucket past 8192 cells a diagonal ran once on the
+    cluster instance (up to CLUSTER_CELLS) or on the scratch instance
+    (past them); a narrower bucket on neither."""
+    for bwd, (c0, s0), (c1, s1) in zip((0, 1), before, _wide_counts()):
+        if hk.cells_per_thread(pt.W, pt.P, expect, bwd) >= -8:
+            assert (c1, s1) == (c0, s0)
+            continue
+        C = hk.cluster_ctas(pt.W, pt.P, expect, bwd)
+        assert (C > 0) == (pt.P * pt.W <= CLUSTER_CELLS)
+        assert (c1, s1) == ((c0 + 1, s0) if C else (c0, s0 + 1))
+
+
 def test_paths_kernels_equal_twins_bit_for_bit(dev, paths_case):
     """Both kernels on a P > 1 bucket or a P = 1 bucket past the per-pair
     instances (for the P > 2 instances the source-side terms in the
@@ -295,6 +359,7 @@ def test_paths_kernels_equal_twins_bit_for_bit(dev, paths_case):
     assert pt.P > 1 or hk.cells_per_thread(pt.W, pt.P) < 0
     nds = pt.meta[:, bfb.M_NDIAG]
     rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    wide0 = _wide_counts()
     nds, fk, fr = _forward_both(pt)
     assert torch.equal(fk[0][rows], fr[0][rows])
     assert torch.equal(fk[1][rows], fr[1][rows]) and torch.equal(fk[2], fr[2])
@@ -304,6 +369,7 @@ def test_paths_kernels_equal_twins_bit_for_bit(dev, paths_case):
     bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R)
     br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, THR, R)
     torch.cuda.synchronize()
+    _check_wide(pt, wide0)
     assert torch.equal(bk[0][rows], br[0][rows]) and torch.equal(bk[1], br[1])
     assert torch.equal(bk[4][rows], br[4][rows]) and int(bk[4].max()) <= R
     keep = torch.arange(R, device=dev) < bk[4][:, :, None]
@@ -478,10 +544,13 @@ def test_expect_instances_at_every_k(dev, W, kf, kb, hdp):
 # the expectation buckets of more than one path, and of one past the
 # per-pair instances: P = 2 at W = 256 (the per-pair instance widened to
 # two paths) and at W = 4096 (the P > 2 instances), P = 4 and 8 at W =
-# 256, a P = 1 band of 2,271 offsets (W = 2304) and the wide instance (P
-# = 64 at W = 256, P = 16 at W = 768)
+# 256, a P = 1 band of 2,271 offsets (W = 2304), the cluster instance (P
+# = 64 at W = 256 and at W = 768, its CAP; P = 16 at W = 768; and
+# paths_case's wide-shaped band edges and sparse legality) and the
+# scratch instance past its CAP. Windows clamped at reflen - W are held
+# apart (test_expect_clamped_windows)
 EXPECT_PATH_CASES = ["p2", "p2w4096", "p4", "p8", "p1w2304", "p64",
-                     "p16w768"]
+                     "p16w768", "p64w768", "wedges", "willegal", "pastcap"]
 
 
 @pytest.mark.parametrize("hdp", [False, True], ids=["gauss", "hdp"])
@@ -506,6 +575,7 @@ def test_expect_paths_instances_match_twins(dev, case, hdp):
           hk.backward_sweep_compact.expect_launches)
     pair0 = (hk.forward_sweep.expect_pair2_launches,
              hk.backward_sweep_compact.expect_pair2_launches)
+    wide0 = _wide_counts()
     fk = hk.forward_sweep(pt, expect=True)
     fr = hk.forward_sweep_ref(pt, expect=True)
     torch.cuda.synchronize()
@@ -525,6 +595,7 @@ def test_expect_paths_instances_match_twins(dev, case, hdp):
     assert (hk.forward_sweep.expect_pair2_launches,
             hk.backward_sweep_compact.expect_pair2_launches) == (
         pair0[0] + on_pair, pair0[1] + on_pair)
+    _check_wide(pt, wide0, expect=True)
     assert torch.equal(bk[0][rows], br[0][rows]) and torch.equal(bk[1], br[1])
     assert torch.equal(bk[4][rows], br[4][rows])
     keep = torch.arange(R, device=dev) < bk[4][:, :, None]
@@ -537,6 +608,56 @@ def test_expect_paths_instances_match_twins(dev, case, hdp):
         assert _rel(bk[6], br[6]) <= 1e-3 and bk[6].abs().max() > 0
     else:
         assert not bk[6].any()
+
+
+@pytest.mark.parametrize("hdp", [False, True], ids=["gauss", "hdp"])
+@pytest.mark.parametrize("case", ["clamp", "wclamp"])
+def test_expect_clamped_windows(dev, case, hdp):
+    """The expectation pass on windows clamped at reflen - W (problems
+    prepared at a narrower W than they run: the register instance at P =
+    4, the cluster instance at P = 16): three-state stacks, offsets,
+    totals' terms and survivors equal the twins' bit for bit. The sums
+    are not compared: there the forward reads a cell's emission at
+    clamp(x0[d]) + o, the backward a target's at clamp(x0[d] + 1) + o and
+    the twin's sums at the target diagonal's clamped window, so forward
+    and backward run different models (the twin's totals part by more
+    than a nat on every problem) and f + b - total is no log posterior.
+    The runner prepares every problem at the W it runs, so its windows
+    never clamp (test_torch_runner.py::test_runner_windows_never_clamp).
+    Prints each problem's readings (pytest -s)."""
+    problems, W, h = _paths_bucket(case, hdp)
+    pt = problem_tensors(problems, W, dev, _hdp_tables(h, dev),
+                         kmer_ids=True)
+    nds = pt.meta[:, bfb.M_NDIAG]
+    rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    wide0 = _wide_counts()
+    fk = hk.forward_sweep(pt, expect=True)
+    fr = hk.forward_sweep_ref(pt, expect=True)
+    torch.cuda.synchronize()
+    assert torch.equal(fk[0][rows], fr[0][rows])
+    assert torch.equal(fk[1][rows], fr[1][rows]) and torch.equal(fk[2], fr[2])
+    fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
+    cvecf = (fo - tf[:, None]).contiguous()
+    R = hk.survivor_slots(THR)
+    bk = hk.backward_sweep_compact(pt, fr[0], cvecf, THR, R, expect=True)
+    br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, THR, R, expect=True)
+    torch.cuda.synchronize()
+    _check_wide(pt, wide0, expect=True)
+    assert torch.equal(bk[0][rows], br[0][rows]) and torch.equal(bk[1], br[1])
+    assert torch.equal(bk[4][rows], br[4][rows])
+    keep = torch.arange(R, device=dev) < bk[4][:, :, None]
+    assert torch.equal(bk[2][keep], br[2][keep])
+    assert torch.equal(bk[3][keep], br[3][keep])
+    _, tb = bfb.backward_offsets(br[0], br[1])
+    reflen = pt.meta[:, bfb.M_REFLEN]
+    for i, p in enumerate(problems):
+        clamped = int((pt.x0[i, :p.n_diag + 1] + 1 > reflen[i] - W).sum())
+        gap = abs(float(tf[i]) - float(tb[i]))
+        print(f"{case} {'hdp' if hdp else 'gauss'} P={pt.P} W={W} problem "
+              f"{i}: n_diag {p.n_diag}, clamped diagonals {clamped}, twin "
+              f"|total_f - total_b| {gap:.3f} nats, texp sums kernel "
+              f"{float(bk[5][i].sum()):.4g} twin {float(br[5][i].sum()):.4g}")
+        assert clamped > 0 and gap > 1.0
 
 
 # ---------------------------------------------- probability-space kernels

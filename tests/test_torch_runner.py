@@ -298,3 +298,35 @@ def test_p_greater_than_one_raises(x64):
         assert _pairs_close(w.aligned_pairs, g.aligned_pairs, TOL_POST * 1e7)
         assert len(g.aligned_pairs) > 30 and g.max_total_gap < 1.0
         assert g.target == w.target and g.event_offset == w.event_offset
+
+
+def test_runner_windows_never_clamp(tmp_path):
+    """Every problem prepare_read makes, on plain reads and on the same
+    reads against the CG -> YG edition (P > 1), reads its W-wide
+    reference and event windows inside its own tables on every diagonal
+    the sweeps run: the clamps at 0, reflen - W and evlen - W (the JAX
+    package's dynamic slices, which the kernels and twins copy) never
+    move a window, since the runner prepares each problem at the W it
+    runs (prepare_problem's tables are lX + 1 + W and lY + 6 + W long).
+    Only a problem run wider than it was prepared clamps (the CUDA tests'
+    clamp cases)."""
+    _, model = _models(1)
+    _, reference, rgs, amb_ref, _ = build_synthetic_batch(
+        model, n_reads=6, ev_min=300, ev_max=3000, seed=5, genome_len=30000,
+        fasta_path=str(tmp_path / "g.fa"), ambig_frac=1.0)
+    config = AlignmentConfig()
+    shapes = set()
+    for ref in (reference, amb_ref):
+        for read, guide in rgs:
+            for _, p, W, _, P in prepare_read(read, guide, ref, model,
+                                              config)[4]:
+                shapes.add((W, P))
+                d = np.arange(p.n_diag + 1)
+                x0 = p.x0[:p.n_diag + 1].astype(np.int64)
+                es = p.lY - d + x0 + p.ev_front_pad
+                # the backward reads its targets' columns from x0 + 1
+                assert x0.min() >= 0
+                assert x0.max() + 1 <= p.ref_params.shape[-1] - W
+                assert es.min() - 1 >= 0
+                assert es.max() <= p.ev_params.shape[-1] - W
+    assert any(P > 1 for _, P in shapes) and any(P == 1 for _, P in shapes)
