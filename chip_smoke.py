@@ -122,14 +122,20 @@ Phases (any failure stops the run with a non-zero exit):
           against the twins, timed by CUDA events beside its bound and the
           plain instances on the same problems: phase 5's W = 256 classes
           of P = 2, 4 and 8, 3c's two P = 1 segments at W = 2304 and its
-          wide P = 64 and P = 16 W = 768 segments;
+          wide P = 64 and P = 16 W = 768 segments; on the P > 2 register
+          instances' classes (P = 4, 8, and P = 1 at W = 2304) also the
+          backward's stored stack against the twin's bit for bit,
+          sa_expect_sums against bfb.expectation_sums within TOL_SPLIT,
+          two of its launches bit for bit, and the backward and
+          sa_expect_sums timed apart;
      10b. one iteration of transitions EM over a canonical sample (32
           reads), a sample whose reference is the CG -> XG edition (32
           reads: P = 4, 16 and 64 buckets) and one whose reference is the
           CCGG -> CPGG edition (8 reads: P = 2 buckets): finite
           likelihood, transition rows summing to 1, the checkpoint and
           expectations file round trip, launches of the P > 2 instances'
-          and of the per-pair P = 2 instance's expectation pass;
+          and of the per-pair P = 2 instance's expectation pass, and of
+          sa_expect_sums once for each P > 2 register backward;
      10c. hdp_emissions over the canonical sample and an mC sample (32
           reads, motifs CG -> EG): buildAlignment.tsv, the Gibbs trainer
           on a 1,200-point grid (GIBBS_10C), template.nhdp, which loads
@@ -178,9 +184,11 @@ instances), on 3c's wide segments (plain and expectation instances), and
 on every bucket of phases 4 (plain and expectation instances, and the
 probability-space pair on W <= 512), 5 and 6 (every (W, P) class,
 Gaussian and HDP), 7c and 10b (the expectation instances on em_train's
-and train_models' buckets; 10b summed by instance too), by class, and
-prints one JSON line (no result line): run it for two checkouts in turns
-(A, B, B, A) in one job to compare their kernels.
+and train_models' buckets; 10b summed by instance too, and where the
+port's register instances store their stack the backward alone and
+sa_expect_sums alone on their buckets), by class, and prints one JSON
+line (no result line): run it for two checkouts in turns (A, B, B, A) in
+one job to compare their kernels.
 """
 
 import dataclasses
@@ -231,6 +239,11 @@ MIN_SHARE_C_HDP = 0.75
 # Compared as max |difference| over max |value|; 1e-3 is TOL_PATH's
 # 8 ulps
 TOL_EXPECT = 1e-3
+# sa_expect_sums against its twin (bfb.expectation_sums) on the same
+# stacks: both add the same float32 pair terms, in float64 in another
+# order (and the into-match posterior's float32 sum over the source paths
+# in the same order)
+TOL_SPLIT = 1e-6
 # the expectation pass on the GPU against the CPU: the tolerances of the
 # JAX package's own Pallas-vs-XLA expectation tests
 TEXP_TOL = dict(rtol=2e-4, atol=5e-3)
@@ -504,15 +517,23 @@ def kernels_vs_twins(hk, bfb, pt, threshold, R, reps=5):
 
 
 def expect_vs_twins(hk, bfb, pt, threshold, R, reps=5):
-    """Both expectation instances against their twins on one P = 1
-    bucket: the three-state stacks, offsets, totals and survivors must be
-    equal bit for bit, texp and kx (float64 sums of float32 terms, formed
-    in another association by the twin) within TOL_EXPECT of the twin's
-    relative to their largest value. Returns the kernels' times (3a's
-    method), the twins' wall times, the errors and the survivor count."""
+    """Both expectation instances against their twins on one bucket: the
+    three-state stacks, offsets, totals and survivors must be equal bit
+    for bit, texp and kx (float64 sums of float32 terms, formed in another
+    association by the twin) within TOL_EXPECT of the twin's relative to
+    their largest value. On a bucket of the P > 2 register instances
+    (``hk.expect_split``) the backward's wrapper runs the backward, which
+    stores its three-state stack, then sa_expect_sums: the stack must
+    equal the twin's ``store_full`` stack bit for bit, sa_expect_sums on
+    it the twin's sums within TOL_SPLIT, and two of its launches the same
+    bits; the backward alone and sa_expect_sums alone are timed too.
+    Returns the kernels' times (3a's method), the twins' wall times, the
+    errors and the survivor count."""
     dev = pt.device
     nds = pt.meta[:, bfb.M_NDIAG]
     rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
+    split = hk.expect_split(pt.W, pt.P)
+    tol = TOL_SPLIT if split else TOL_EXPECT
     t0 = time.perf_counter()
     fr = hk.forward_sweep_ref(pt, expect=True)
     torch.cuda.synchronize()
@@ -524,11 +545,18 @@ def expect_vs_twins(hk, bfb, pt, threshold, R, reps=5):
           f"sa_fwd_sweep (expect) differs from its twin (W={pt.W})")
     fo, tf = bfb.forward_offsets(fr[1], fr[2], nds)
     cvecf = (fo - tf[:, None]).contiguous()
+    # the twin: the backward keeping its stack, then the sums
+    # (backward_sweep_compact_ref's two steps, timed apart)
     t0 = time.perf_counter()
-    br = hk.backward_sweep_compact_ref(pt, fr[0], cvecf, threshold, R,
-                                       expect=True)
+    stack_ref = hk.backward_sweep_stack_ref(pt, fr[0], cvecf, threshold, R)
     torch.cuda.synchronize()
-    bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    bo_ref, _ = bfb.backward_offsets(stack_ref[0], stack_ref[1])
+    sums_ref = hk.expect_sums_ref(pt, fr[0], stack_ref[5], cvecf, bo_ref)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    br = stack_ref[:5] + sums_ref
+    bwd_plain_ms = (t2 - t0) * 1e3
     bwd_ms, bk = cuda_ms(lambda: hk.backward_sweep_compact(
         pt, fr[0], cvecf, threshold, R, expect=True), reps)
     sk, sr = survivors(*bk[2:5], R), survivors(*br[2:5], R)
@@ -541,16 +569,42 @@ def expect_vs_twins(hk, bfb, pt, threshold, R, reps=5):
     texp_rel = rel(bk[5], br[5])
     hdp = pt.hdp is not None
     kx_rel = 0.0 if hdp else rel(bk[6], br[6])
-    check(texp_rel <= TOL_EXPECT and kx_rel <= TOL_EXPECT
+    check(texp_rel <= tol and kx_rel <= tol
           and (not hdp or not bk[6].any()),
-          f"expectation sums differ from the twin's (W={pt.W}, HDP {hdp}): "
-          f"texp {texp_rel:.3e}, kx {kx_rel:.3e} (tol {TOL_EXPECT})")
-    return {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "bwd_ms": bwd_ms,
-            "bwd_plain_ms": bwd_plain_ms, "texp_rel": texp_rel,
-            "kx_rel": kx_rel,
-            "texp_abs": (bk[5] - br[5]).abs().max().item(),
-            "kx_abs": (bk[6] - br[6]).abs().max().item(), "n_kernel": len(sk),
-            "texp_sum": br[5].sum().item()}
+          f"expectation sums differ from the twin's (W={pt.W}, P={pt.P}, "
+          f"HDP {hdp}): texp {texp_rel:.3e}, kx {kx_rel:.3e} (tol {tol})")
+    out = {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "bwd_ms": bwd_ms,
+           "bwd_plain_ms": bwd_plain_ms, "texp_rel": texp_rel,
+           "kx_rel": kx_rel,
+           "texp_abs": (bk[5] - br[5]).abs().max().item(),
+           "kx_abs": (bk[6] - br[6]).abs().max().item(), "n_kernel": len(sk),
+           "texp_sum": br[5].sum().item(), "split": split}
+    if not split:
+        return out
+    stack_ms, st = cuda_ms(lambda: hk.backward_sweep_stack(
+        pt, fr[0], cvecf, threshold, R), reps)
+    check(torch.equal(st[5][rows], stack_ref[5][rows]),
+          f"the stored backward stack differs from the twin's (W={pt.W}, "
+          f"P={pt.P})")
+    bo, _ = bfb.backward_offsets(st[0], st[1])
+    sums_ms, s1 = cuda_ms(lambda: hk.expect_sums(pt, fr[0], st[5], cvecf,
+                                                 bo), reps)
+    s2 = hk.expect_sums(pt, fr[0], st[5], cvecf, bo)
+    torch.cuda.synchronize()
+    check(torch.equal(s1[0], s2[0]) and torch.equal(s1[1], s2[1]),
+          f"two launches of sa_expect_sums differ (W={pt.W}, P={pt.P})")
+    s_texp, s_kx = rel(s1[0], sums_ref[0]), 0.0 if hdp else rel(s1[1],
+                                                                 sums_ref[1])
+    check(s_texp <= TOL_SPLIT and s_kx <= TOL_SPLIT,
+          f"sa_expect_sums differs from its twin (W={pt.W}, P={pt.P}, HDP "
+          f"{hdp}): texp {s_texp:.3e}, kx {s_kx:.3e} (tol {TOL_SPLIT})")
+    out.update({"stack_ms": stack_ms, "sums_ms": sums_ms,
+                "stack_plain_ms": (t1 - t0) * 1e3,
+                "sums_plain_ms": (t2 - t1) * 1e3,
+                "sums_abs": max((s1[0] - sums_ref[0]).abs().max().item(),
+                                (s1[1] - sums_ref[1]).abs().max().item()),
+                "sums_texp_rel": s_texp, "sums_kx_rel": s_kx})
+    return out
 
 
 def prob_vs_twins(hk, bfb, pt, threshold, R, reps=5):
@@ -642,7 +696,15 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     which read three reference rows, the two exp-constant rows, the
     best-case event row and a second pack and no legality masks, and
     spend two exponentials and a logarithm per in-band cell forward, and
-    those and the posterior's exponential backward."""
+    those and the posterior's exponential backward. With ``expect`` also
+    sa_expect_sums, the sums of a P > 2 register instance's bucket from
+    both stacks: each stack read once at in-band cells (out of the band
+    every value is the NEG constant, as in the backward's fstack read),
+    the inputs of the emissions, texp and kx written once; five
+    exponentials per legal (source, target) pair of an in-band TO cell
+    (the forward's count), two per cell for the stays and an HDP spline's
+    logarithm. The backward's bound stays that of the whole expectation
+    pass (backward and sums)."""
     B, D1 = pt.x0.shape
     P, W = pt.P, pt.W
     x0 = pt.x0.cpu().numpy()
@@ -715,9 +777,15 @@ def sweep_bounds(bfb, pt, n_surv, expect=False, prob=False):
     if prob:
         fwd_ops, bwd_ops = 3 * cp, 4 * cp
         names = ("sa_fwd_sweep_prob", "sa_bwd_sweep_compact_prob")
+    bounds = [(names[0], fwd_bytes, fwd_ops), (names[1], bwd_bytes, bwd_ops)]
+    if expect:
+        pairs = lse[0][0] if P > 1 else cp
+        sums_bytes = (in_bytes + 2 * 3 * cells * P * 4 + 2 * rows * 8
+                      + B * 7 * 8 + (0 if hdp else 3 * P * ref_cols * 8))
+        bounds.append(("sa_expect_sums", sums_bytes,
+                       5 * pairs + 2 * cp + (cp if hdp else 0)))
     out = {}
-    for name, nbytes, ops in ((names[0], fwd_bytes, fwd_ops),
-                              (names[1], bwd_bytes, bwd_ops)):
+    for name, nbytes, ops in bounds:
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SFU_PER_S
         out[name] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else
                      "operations")
@@ -788,11 +856,16 @@ def serial_floor_ms(hk, barrier, pt, expect=False, prob=False,
     return 1e-3 * barrier[key] * max(pt.n_diag)
 
 
-def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False):
+def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False,
+             split=None):
     """Mean CUDA-event milliseconds (forward, backward) of both kernels on
     ``pt`` over ``reps`` launches each, after two warm-up calls; with
     ``expect`` their expectation instances, with ``prob`` the
-    probability-space kernels (``pt`` made with ``prob=True``)."""
+    probability-space kernels (``pt`` made with ``prob=True``). With a
+    dict ``split``, on a bucket whose expectation backward stores its
+    stack for sa_expect_sums (``hk.expect_split``, where the port has it),
+    also the backward alone and sa_expect_sums alone, in ``split["stack"]``
+    and ``split["sums"]`` (the backward's time is both together)."""
     # the argument goes in only when set, so that --kernel-sums also runs
     # a port whose functions predate it
     kw = {"expect": True} if expect else {}
@@ -802,16 +875,25 @@ def sweep_ms(hk, bfb, pt, threshold, R, reps, expect=False, prob=False):
     fo, tf = bfb.forward_offsets(fi, lf, pt.meta[:, bfb.M_NDIAG])
     cvecf = (fo - tf[:, None]).contiguous()
     b_ms, _ = cuda_ms(lambda: bwd(pt, f, cvecf, threshold, R, **kw), reps)
+    if (split is not None and expect and hasattr(hk, "expect_split")
+            and hk.expect_split(pt.W, pt.P)):
+        split["stack"], st = cuda_ms(lambda: hk.backward_sweep_stack(
+            pt, f, cvecf, threshold, R), reps)
+        bo, _ = bfb.backward_offsets(st[0], st[1])
+        split["sums"], _ = cuda_ms(lambda: hk.expect_sums(pt, f, st[5], cvecf,
+                                                          bo), reps)
     return f_ms, b_ms
 
 
 def chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
-               tables=None, expect=False):
+               tables=None, expect=False, split=None):
     """Both kernels on every chunk again ([(W, P, problems)], the runner's
     aligners), timed by CUDA events (one launch each after two warm-up
     calls): {(W, P): [problems, fwd ms, bwd ms, [(us per diagonal of each
     launch's longest problem, fwd, bwd)]]}. ``expect``: the expectation
-    instances."""
+    instances; a dict ``split`` gathers {(W, P): [launches, backward alone
+    ms, sa_expect_sums ms]} of the buckets whose backward stores its stack
+    for sa_expect_sums (``sweep_ms``)."""
     # the tables and the expectation arguments go in only when given, so
     # that --kernel-sums also runs a port whose functions predate them
     extra = () if tables is None else (tables,)
@@ -819,7 +901,14 @@ def chunk_sums(hk, bfb, problem_tensors, chunks, dev, threshold, R,
     for W, P, probs in chunks:
         ptb = problem_tensors(probs, W, dev, *extra,
                               **({"kmer_ids": True} if expect else {}))
-        f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1, expect)
+        sp = {} if split is not None else None
+        f_ms, b_ms = sweep_ms(hk, bfb, ptb, threshold, R, 1, expect,
+                              split=sp)
+        if sp:
+            e = split.setdefault((W, P), [0, 0.0, 0.0])
+            e[0] += 1
+            e[1] += sp["stack"]
+            e[2] += sp["sums"]
         # one block per problem: a launch lasts about as long as its
         # longest problem
         nd = max(ptb.n_diag)
@@ -841,12 +930,12 @@ def bucket_chunks(stack_chunks, buckets, expect=False):
 
 
 def kernel_sums(hk, bfb, problem_tensors, stack_chunks, buckets, dev,
-                threshold, R, tables=None, expect=False):
+                threshold, R, tables=None, expect=False, split=None):
     """``chunk_sums`` over {(W, Dpad, P): problems} cut into the runner's
     chunks."""
     return chunk_sums(hk, bfb, problem_tensors,
                       bucket_chunks(stack_chunks, buckets, expect), dev,
-                      threshold, R, tables, expect)
+                      threshold, R, tables, expect, split)
 
 
 class Recorder:
@@ -982,7 +1071,9 @@ def kernel_sums_of_tree(tree):
     on W <= 512), 5 (Gaussian, plain and expectation instances), 6 (HDP)
     and 7c and 10b (expectation instances; 10b's segments by (W, P) and
     its sums by instance: per-pair, P > 2 register, wide cluster, wide
-    scratch), one launch each, summed as in 5b and by (W, P) class.
+    scratch, and in a port whose register instances store their stack
+    the backward alone and sa_expect_sums on their buckets), one launch
+    each, summed as in 5b and by (W, P) class.
     Prints one JSON line and no result line. It also times the wide
     instances (P * W > 8192; plain and EXPECT, mean of 5 launches) on 3c's
     P = 64 and P = 16 W = 768 segments. Run it for two checkouts in turns
@@ -1116,7 +1207,7 @@ def kernel_sums_of_tree(tree):
     from signalalign_tpu_torch.pipeline.train import sample_reference
     with tempfile.TemporaryDirectory() as tmp:
         model10, fa10, ref10, _, samples10 = em10b_samples(tmp)
-        segs, inst, merged = {}, {}, {}
+        segs, inst, merged, split10 = {}, {}, {}, {}
         for name, (rgs_, extra) in samples10.items():
             ref = sample_reference({"name": name, **extra}, ref10, fa10)
             buckets = {}
@@ -1125,7 +1216,8 @@ def kernel_sums_of_tree(tree):
                 buckets.setdefault((W, Dpad, P), []).append(prob)
                 segs[f"{W},{P}"] = segs.get(f"{W},{P}", 0) + 1
             by_wp = kernel_sums(hk, bfb, problem_tensors, _stack_chunks,
-                                buckets, dev, threshold, R, expect=True)
+                                buckets, dev, threshold, R, expect=True,
+                                split=split10)
             for (W, P), e in by_wp.items():
                 m = merged.setdefault((W, P), [0, 0.0, 0.0, []])
                 m[0] += e[0]
@@ -1139,6 +1231,18 @@ def kernel_sums_of_tree(tree):
                     i["ms"][bwd] += e[1 + bwd]
             del buckets, by_wp
     out["10b_segments_by_W_P"] = segs
+    # a tree whose register instances store their stack: the backward
+    # alone and sa_expect_sums alone on those buckets (the "P > 2
+    # register" backward sum is both together)
+    if split10:
+        inst["P > 2 register, backward alone"] = {
+            "launches": [0, sum(e[0] for e in split10.values())],
+            "ms": [0.0, sum(e[1] for e in split10.values())]}
+        inst["sa_expect_sums"] = {
+            "launches": [0, sum(e[0] for e in split10.values())],
+            "ms": [0.0, sum(e[2] for e in split10.values())]}
+        out["10b_split_by_W_P"] = {f"{W},{P}": e
+                                   for (W, P), e in sorted(split10.items())}
     # {instance: {"launches": [fwd, bwd], "ms": [fwd sum, bwd sum]}}
     out["10b_expect_by_instance"] = inst
     out["10b_expect_fwd_sum_ms"] = sum(e[1] for e in merged.values())
@@ -1200,7 +1304,7 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     site) [4g, 4.5g), the mC sample mC reads [3g, 5g), and 10d holds out
     canonical [4g, 5g) and mC [5g, 6g). Returns 10b's EXPECT launches of
     the P > 2 instances and of the per-pair instance at P = 2, by
-    kernel."""
+    kernel, and its launches of sa_expect_sums."""
     from signalalign_tpu_torch.io.guide import guide_from_sam_record
     from signalalign_tpu_torch.io.reference import ProcessedReference
     from signalalign_tpu_torch.io.sam import passes_filter, read_alignment_file
@@ -1309,6 +1413,11 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
                   for name, fn in (("sa_fwd_sweep", hk.forward_sweep),
                                    ("sa_bwd_sweep_compact",
                                     hk.backward_sweep_compact))}
+    # sa_expect_sums: once for each backward of the P > 2 register
+    # instances (the P > 2 instances' launches less the wide ones')
+    train_sums = hk.expect_sums.launches
+    reg_bwd = train_paths["sa_bwd_sweep_compact"] - sum(
+        train_wide["sa_bwd_sweep_compact"].values())
     peak = peak_gib()
     em10 = out10b["em"]
     ll10 = em10.log_likelihoods[0]
@@ -1321,10 +1430,12 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     # (the CPU rehearsal runs the twins, which launch nothing)
     check(any(P_ > 2 for _, P_ in wp10) and any(P_ == 2 for _, P_ in wp10)
           and (not cuda or all(train_paths.values())
-               and all(train_pair2.values())),
+               and all(train_pair2.values())
+               and train_sums == reg_bwd > 0),
           f"10b ran no P = 2 or no P > 2 expectation bucket: {wp10}, "
           f"{train_launches} (P > 2 instances {train_paths}, per-pair "
-          f"P = 2 {train_pair2})")
+          f"P = 2 {train_pair2}), or sa_expect_sums did not run once per "
+          f"register backward ({train_sums} for {reg_bwd})")
     # the files: the checkpoint holds the trained transitions, the
     # expectations file gives them back, the final model is the
     # checkpoint's
@@ -1353,7 +1464,8 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     log(f"[train em] {t10b:.2f} s: {ev10b / t10b:.0f} events/s; peak "
         f"device memory {peak:.2f} GiB; launches "
         f"{train_launches} (P > 2 instances {train_paths}, of them wide "
-        f"by instance {train_wide}, per-pair P = 2 {train_pair2})")
+        f"by instance {train_wide}, per-pair P = 2 {train_pair2}); "
+        f"sa_expect_sums {train_sums}")
 
     phase_mark("10c")
     # ---- 10c. hdp_emissions: each sample's observations on its own
@@ -1438,7 +1550,7 @@ def train_phases(dev, tmp, phase_mark, n_reads=96, ev_min=2000,
     log(f"[train call] {t10d:.2f} s: {ev10d / t10d:.0f} events/s; peak "
         f"device memory {peak:.2f} GiB; launches {call_launches}")
     del hdp10, res10
-    return train_paths, train_pair2
+    return train_paths, train_pair2, train_sums
 
 
 def raw_2d_phases(dev, tmp, phase_mark, model, rgs, reference, n_2d=16,
@@ -2955,11 +3067,24 @@ def main():
                 f"{r['floor'][0]:.3f} / {r['floor'][1]:.3f} ms; stacks, "
                 f"totals, survivors equal ({r['n_kernel']}); texp rel "
                 f"{r['texp_rel']:.3e} (sum {r['texp_sum']:.1f}), kx rel "
-                f"{r['kx_rel']:.3e} (tol {TOL_EXPECT})")
+                f"{r['kx_rel']:.3e} (tol "
+                f"{TOL_SPLIT if r['split'] else TOL_EXPECT})")
+            if r["split"]:
+                bd_ = r["bounds"]["sa_expect_sums"]
+                log(f"[em kernels P={P_} W={W_}] split: the backward alone "
+                    f"{r['stack_ms']:.3f} ms (its stored stack equal to the "
+                    f"twin's; twin {r['stack_plain_ms']:.1f} ms), "
+                    f"sa_expect_sums {r['sums_ms']:.4f} ms (twin "
+                    f"{r['sums_plain_ms']:.1f} ms, bound {bd_[0]:.4f} ms by "
+                    f"{bd_[1]}; texp rel {r['sums_texp_rel']:.3e}, kx rel "
+                    f"{r['sums_kx_rel']:.3e}, tol {TOL_SPLIT}; two launches "
+                    f"equal); together {r['bwd_ms']:.3f} ms = "
+                    f"{r['bwd_ms'] / r['plain'][1]:.3f} x the plain backward")
             del pte
         del exp10_sets
 
-        train_paths, train_pair2 = train_phases(dev, tmp, phase_mark)
+        train_paths, train_pair2, train_sums = train_phases(dev, tmp,
+                                                            phase_mark)
         raw_2d_launches = raw_2d_phases(dev, tmp, phase_mark, model,
                                         rgs[:N_RAW_11A], reference)
 
@@ -3133,6 +3258,39 @@ def main():
                                     for (W, P), r in rows.items()},
                 "bound_ms_by_W_P": {f"{W},{P}": r["bounds"][name][0]
                                     for (W, P), r in rows.items()}})
+            if name == "sa_bwd_sweep_compact":
+                # the register instances' buckets: ms is the backward and
+                # sa_expect_sums together, as the wrapper runs them
+                kernels[-1]["backward_alone_ms_by_W_P"] = {
+                    f"{W},{P}": r["stack_ms"] for (W, P), r in rows.items()
+                    if r["split"]}
+    # sa_expect_sums on the register instances' 10a classes (P = 8 at W =
+    # 256 the headline), launched by 10b's transitions EM
+    sums10 = {k_: r for k_, r in exp10_rows.items() if r["split"]}
+    r_ = sums10[(256, 8)]
+    kernels.append({
+        "name": "sa_expect_sums", "route": "cuda",
+        "source": "signalalign_tpu_torch/csrc/banded_fb.cu",
+        "replaces": "signalalign_tpu/ops/banded_fb_pallas_batch.py:971-1015 "
+                    "(the sums of _bwd_kernel_log's expect mode) and the XLA "
+                    "expectation core signalalign_tpu/ops/banded_fb.py:642, "
+                    "on the P > 2 register instances' buckets",
+        # 10b's transitions EM (train_models), counted from 0
+        "launches": train_sums,
+        "max_abs_err": max(r["sums_abs"] for r in sums10.values()),
+        "ms": r_["sums_ms"], "plain_ms": r_["sums_plain_ms"],
+        "bound_ms": r_["bounds"]["sa_expect_sums"][0],
+        "bound_by": r_["bounds"]["sa_expect_sums"][1],
+        # no PyTorch call computes these sums
+        "library_ms": None,
+        "launches_by_phase": {"10b": train_sums},
+        "max_rel_err_texp": max(r["sums_texp_rel"] for r in sums10.values()),
+        "max_rel_err_kx": max(r["sums_kx_rel"] for r in sums10.values()),
+        "ms_by_W_P": {f"{W},{P}": r["sums_ms"] for (W, P), r in sums10.items()},
+        "plain_ms_by_W_P": {f"{W},{P}": r["sums_plain_ms"]
+                            for (W, P), r in sums10.items()},
+        "bound_ms_by_W_P": {f"{W},{P}": r["bounds"]["sa_expect_sums"][0]
+                            for (W, P), r in sums10.items()}})
     for name, src, ms, tot in (
             ("sa_fwd_sweep_prob",
              "signalalign_tpu/ops/banded_fb_pallas_batch.py:161", "fwd_", 0),

@@ -145,25 +145,34 @@
 // mode of _fwd_kernel_log / _bwd_kernel_log, and at P > 1 the JAX XLA
 // expectation core the JAX runner sends such buckets to: the forward
 // writes all three normalised states of each diagonal (fstack (B, D1, 3,
-// P, W)); the backward, at each FROM diagonal d < n_diag, already holds
-// the to-cell reductions gx_red, mm_red (over the legal target paths) and
-// gy_term of every cell, so it adds the seven transition posteriors
-// exp(f_s + t + red + normA), normA = cvecf[d] + Bo(d+1), into per-thread
-// double sums (one block reduction at the end, in a fixed order: texp (B,
-// 7)): a reduction over the targets is the sum of the (source, target)
-// pair posteriors the XLA core adds up, to f32 round-off. In the Gaussian
-// instances it adds the into-match posterior's moments [p, p dx, p dx^2],
-// dx = (event mean - m_hat(x+1)) / var (0 where inv_m <= 0), into kx[b,
-// :, p, x+1] for each target (x+1, y+1) on path p: the per-pair instances
-// (P <= 2 within PAIR_CELLS) through the shared-memory window above, the
-// P > 2 instances (every other expectation bucket) by a read-modify-write
-// in device memory from the cell that staged the target's term, which
-// sums the pair posteriors of its legal source paths; one writer per
-// (path, position) a diagonal, the diagonals in barrier order, so the
-// sums are deterministic. The HDP instances
-// accumulate texp only (the TPU kernel's contract: HDP emissions train
-// from assignments, not Gaussian moments). The non-expect instances
-// compile without any of it (if constexpr).
+// P, W)). Where the sums are taken depends on the backward's instance:
+// - the per-pair, cluster and scratch instances sum in the sweep: at each
+//   FROM diagonal d < n_diag the backward already holds the to-cell
+//   reductions gx_red, mm_red (over the legal target paths) and gy_term
+//   of every cell, so it adds the seven transition posteriors exp(f_s + t
+//   + red + normA), normA = cvecf[d] + Bo(d+1), into per-thread double
+//   sums (one block reduction at the end, in a fixed order: texp (B, 7)):
+//   a reduction over the targets is the sum of the (source, target) pair
+//   posteriors the XLA core adds up, to f32 round-off. In the Gaussian
+//   instances it adds the into-match posterior's moments [p, p dx, p
+//   dx^2], dx = (event mean - m_hat(x+1)) / var (0 where inv_m <= 0),
+//   into kx[b, :, p, x+1] for each target (x+1, y+1) on path p: the
+//   per-pair instances (P <= 2 within PAIR_CELLS) through the
+//   shared-memory window above, the cluster and scratch instances (past
+//   REG_CELLS) by adds into device memory from the cell that staged the
+//   target's term, which sums the pair posteriors of its legal source
+//   paths; one writer per (path, position) a diagonal, the diagonals in
+//   barrier order;
+// - the P > 2 register instances (every other expectation bucket:
+//   expect_split) sum nothing in the sweep: they write each diagonal's
+//   three normalised backward states from registers into bstack (B, D1,
+//   3, P, W), laid out as fstack, and sa_expect_sums then sums texp and kx
+//   from both stacks over every diagonal at once, term for term as the
+//   twin (its note below). The sums had cost these sweeps 1.30-1.42x the
+//   plain backward on their serial chain (H100, PERF.md §6).
+// The HDP instances accumulate texp only (the TPU kernel's contract: HDP
+// emissions train from assignments, not Gaussian moments). The
+// non-expect instances compile without any of it (if constexpr).
 //
 // Numerics: float32 values with precise expf/logf/log1pf (no fast math),
 // built with --fmad=false so each operation rounds as in the plain twin,
@@ -171,11 +180,14 @@
 // logsumexp over paths (max, then exp-sum in path order); the backward
 // running offset and the forward normaliser stream cvecf are float64.
 // Only the end-of-sweep logsumexp (block_lse_cells) and EXPECT's texp sum
-// in thread order, so they depend on K.
+// in thread order, so they depend on K; sa_expect_sums sums in an order
+// fixed by its grid.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 namespace cg = cooperative_groups;
 
@@ -779,10 +791,16 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
     const double* __restrict__ cvecf, float* __restrict__ b_incr,
     float* __restrict__ lse_b, int* __restrict__ slot_cell,
     float* __restrict__ slot_val, int* __restrict__ cnt,
-    double* __restrict__ texp, double* __restrict__ kx, float* scratch,
-    int D1, int W, int P_, int LX, int LE, int R, float threshold) {
+    double* __restrict__ texp, double* __restrict__ kx,
+    float* __restrict__ bstack, float* scratch, int D1, int W, int P_,
+    int LX, int LE, int R, float threshold) {
   constexpr bool WIDE_ = K == WIDE;
-  constexpr bool MOMENTS = EXPECT && !HDP;
+  // EXPECT: the register instances store the diagonal's three states
+  // (bstack, laid out as fstack) and leave texp and kx to sa_expect_sums;
+  // the scratch instance sums them here
+  constexpr bool SUMS = EXPECT && WIDE_;
+  constexpr bool STACK = EXPECT && !WIDE_;
+  constexpr bool MOMENTS = SUMS && !HDP;
   constexpr int NF = EXPECT ? 3 : 1;   // forward states a stack row holds
   extern __shared__ float smem[];
   const int N = P_ * W;
@@ -801,12 +819,13 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
 
   const int P = pr.P, NW = pr.NW;
   const float* fs = fstack + (size_t)b * D1 * N * NF;
+  float* bs = STACK ? bstack + (size_t)b * D1 * 3 * N : nullptr;
   const double* cv = cvecf + (size_t)b * D1;
   // MOMENTS: (3, P, LX) sums per (path, position), one writer per cell a
   // diagonal, the diagonals in order (the barriers order them)
   double* kb = MOMENTS ? kx + (size_t)b * 3 * P * LX : nullptr;
-  // EXPECT: this thread's sums of the seven transition posteriors, in
-  // the order of texp's rows (mx, xx, mm, xm, ym, my, yy)
+  // SUMS: this thread's sums of the seven transition posteriors, in the
+  // order of texp's rows (mx, xx, mm, xm, ym, my, yy)
   double acc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   float* inc = b_incr + (size_t)b * D1;
   int* so = slot_cell + (size_t)b * D1 * R;
@@ -942,7 +961,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
               legal_lse_any(cur + GAP_X * N + o * P, NEG, 0.f, lw, NW, P);
           const float mm_red =
               legal_lse_any(cur + GAP_Y * N + o * P, NEG, 0.f, lw, NW, P);
-          if constexpr (EXPECT) {
+          if constexpr (SUMS) {
             // transitions out of (x, y) on path q at d, summed over their
             // legal targets by the to-cell reductions (normalised to
             // Bo(d+1), which `bo` still holds here)
@@ -986,9 +1005,19 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
       if (c < N) {
         const int o = c / P, q = c - o * P;
         const float bmn = fmaxf(v.M(k, c) - m, NEG);
+        const float bxn = fmaxf(v.X(k, c) - m, NEG);
+        const float byn = fmaxf(v.Y(k, c) - m, NEG);
         cur[MATCH * N + c] = bmn;
-        cur[GAP_X * N + c] = fmaxf(v.X(k, c) - m, NEG);
-        cur[GAP_Y * N + c] = fmaxf(v.Y(k, c) - m, NEG);
+        cur[GAP_X * N + c] = bxn;
+        cur[GAP_Y * N + c] = byn;
+        if constexpr (STACK) {
+          // from registers, as the forward writes its row; nothing in
+          // the chain waits on these stores
+          float* bd = bs + (size_t)d * 3 * N + q * W + o;
+          bd[0] = bmn;
+          bd[GAP_X * N] = bxn;
+          bd[GAP_Y * N] = byn;
+        }
         const int x = xd + o, y = d - x;
         if (o < wd && x > 0 && y > 0 && x <= pr.lX && y <= pr.lY) {
           const float fm = fs[(size_t)d * NF * N + q * W + o];
@@ -1041,7 +1070,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sa_bwd_paths_kernel(
   }
   const float l = block_lse(ring, pr.start, N, part);   // diagonal 0 = slot 0
   if (threadIdx.x == 0) lse_b[b] = l;
-  if constexpr (EXPECT) block_texp(acc, texp + (size_t)b * 7);
+  if constexpr (SUMS) block_texp(acc, texp + (size_t)b * 7);
 }
 
 // ------------------------------------------- the cluster (wide) instance
@@ -2371,6 +2400,298 @@ __global__ void __launch_bounds__(PAIR_THREADS) sa_bwd_pair_kernel(
   }
 }
 
+// ------------------------------------- the EM sums of the register buckets
+
+// sa_expect_sums: the expectation sums of a bucket whose backward ran a
+// P > 2 register instance (its EXPECT pass stores the three-state stack,
+// bstack, and sums nothing), from both stacks at once. It replaces, for
+// those buckets, the sums of _bwd_kernel_log's expect mode
+// (banded_fb_pallas_batch.py:971-1015) and the JAX XLA
+// _expectations_core (signalalign_tpu/ops/banded_fb.py:642) that the JAX
+// runner sends P > 1 buckets to, and computes what the plain twin
+// expectation_sums (ops/banded_fb.py) computes: at each TO cell (d, p, o)
+// every legal (source q, target p) pair's five pair posteriors and the
+// two gapY stays, exp(max(src + e_to + t + b + c, NEG)) as float32 terms
+// in the twin's order of operations, summed in float64 into texp (B, 7)
+// and, Gaussian only, the into-match posteriors' moments into kx (B, 3,
+// P, LX).
+//
+// What bounds it: the bytes of the two stacks, each read once (the other
+// inputs are a few percent of them), over the HBM rate; its exponentials
+// are five per legal pair and two per cell. In the sweep the same sums
+// sat on every diagonal's serial chain, between its barriers, on the
+// block's few warps (1.30-1.42x the plain backward on an H100, PERF.md
+// §6); here they are bandwidth work over every SM, and nothing waits on
+// them. A block owns ES_COLS consecutive reference columns x of one
+// (problem, target path p), a lane one column; its ES_WARPS warps split
+// the run of TO diagonals whose band may cover the block's columns (found
+// by bisection in two envelopes of the band that sa_expect_env_kernel
+// writes first), each warp walking its slice in order with all its lanes
+// on the same diagonal, so that neighbouring lanes read neighbouring
+// offsets of the same stack rows. A lane's reference rows and legality
+// words are its column's on every diagonal, loaded once. Sums are float64
+// in an order the code fixes (a lane's diagonals in order and the warps'
+// slices in warp order for kx; shuffles, then warps, then blocks in index
+// order for texp, whose per-block partials sa_expect_texp_kernel adds
+// up), never the scheduler: a lane owns its (problem, path, column) of
+// kx, there are no atomics, and two launches give the same bits.
+constexpr int ES_COLS = 32;                 // columns a block: a warp's lanes
+constexpr int ES_WARPS = 8;                 // diagonal slices a block
+constexpr int ES_THREADS = 32 * ES_WARPS;
+
+// blocks of sa_expect_sums_kernel a problem and path: its column tiles
+__host__ __device__ __forceinline__ int es_tiles(int LX) {
+  return (LX + ES_COLS - 1) / ES_COLS;
+}
+
+// The scratch of sa_expect_sums per problem, in 8-byte words: its texp
+// partials (7 a block) and the two band envelopes (2 D1 ints).
+__host__ __device__ __forceinline__ size_t es_scratch_words(int D1, int P,
+                                                            int LX) {
+  return (size_t)7 * P * es_tiles(LX) + ((size_t)2 * D1 + 1) / 2;
+}
+
+// The band's envelopes of each problem over its TO diagonals d = 1..n, n
+// = min(n_diag, D1 - 1), where diagonal d covers the reference columns
+// [rs(d), rs(d) + width(d)), rs(d) = clamp(x0[d], 0, reflen - W) (the
+// twin's windows): hi[d] the largest last column of diagonals 1..d, lo[d]
+// the smallest first column of diagonals d..n (an empty diagonal covers
+// none). Both are nondecreasing in d, so every diagonal that covers a
+// column in [xa, xb] has hi[d] >= xa and lo[d] <= xb: a run that
+// bisection finds, whatever the band's shape. One block a problem: each
+// thread a run of diagonals, then a scan of the runs' extremes.
+__global__ void __launch_bounds__(MAX_THREADS) sa_expect_env_kernel(
+    const int* __restrict__ x0_, const int* __restrict__ width_,
+    const int* __restrict__ meta_, int* __restrict__ env, int D1, int W) {
+  __shared__ int shi[MAX_THREADS], slo[MAX_THREADS];
+  const int b = blockIdx.x, t = threadIdx.x, T = blockDim.x;
+  const int* x0 = x0_ + (size_t)b * D1;
+  const int* width = width_ + (size_t)b * D1;
+  const int* meta = meta_ + (size_t)b * NMETA;
+  const int n = min(meta[M_NDIAG], D1 - 1), room = meta[M_REFLEN] - W;
+  int* hi = env + (size_t)b * 2 * D1;
+  int* lo = hi + D1;
+  const int run = (n + T - 1) / T;
+  const int d0 = 1 + t * run, d1 = min(d0 + run, n + 1);
+  auto first = [&](int d) {
+    return width[d] > 0 ? clampi(x0[d], 0, room) : INT_MAX;
+  };
+  auto last = [&](int d) {
+    return width[d] > 0 ? clampi(x0[d], 0, room) + width[d] - 1 : INT_MIN;
+  };
+  int h = INT_MIN, l = INT_MAX;
+  for (int d = d0; d < d1; ++d) {
+    h = max(h, last(d));
+    l = min(l, first(d));
+  }
+  shi[t] = h;
+  slo[t] = l;
+  __syncthreads();
+  // inclusive prefix max and suffix min over the threads' runs
+  for (int off = 1; off < T; off <<= 1) {
+    const int a = t >= off ? shi[t - off] : INT_MIN;
+    const int c = t + off < T ? slo[t + off] : INT_MAX;
+    __syncthreads();
+    shi[t] = max(shi[t], a);
+    slo[t] = min(slo[t], c);
+    __syncthreads();
+  }
+  h = t > 0 ? shi[t - 1] : INT_MIN;
+  l = t + 1 < T ? slo[t + 1] : INT_MAX;
+  for (int d = d0; d < d1; ++d) hi[d] = h = max(h, last(d));
+  for (int d = d1 - 1; d >= d0; --d) lo[d] = l = min(l, first(d));
+}
+
+template <bool HDP>
+__global__ void __launch_bounds__(ES_THREADS) sa_expect_sums_kernel(
+    const int* __restrict__ x0_, const int* __restrict__ width_,
+    const float* __restrict__ ref_, const unsigned* __restrict__ leg_,
+    const float* __restrict__ ev_, const int* __restrict__ meta_,
+    const float* __restrict__ par_, const HdpTab h,
+    const float* __restrict__ fstack, const float* __restrict__ bstack,
+    const double* __restrict__ cvecf, const double* __restrict__ bo_,
+    const int* __restrict__ env, double* __restrict__ part,
+    double* __restrict__ kx, int D1, int W, int P, int LX, int LE) {
+  __shared__ double ksum[ES_WARPS][3][32];
+  __shared__ double tsum[ES_WARPS][7];
+  const int tile = blockIdx.x, p = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = tile * ES_COLS + lane;
+  const int N = P * W, NW = leg_words(P);
+  const int* meta = meta_ + (size_t)b * NMETA;
+  const float* par = par_ + (size_t)b * NPACK;
+  const int lY = meta[M_LY], efp = meta[M_EVPAD];
+  const int reflen = meta[M_REFLEN], evlen = meta[M_EVLEN];
+  const int n = min(meta[M_NDIAG], D1 - 1);
+  const int* x0 = x0_ + (size_t)b * D1;
+  const int* width = width_ + (size_t)b * D1;
+  const float* ev = ev_ + (size_t)b * NEV * LE;
+  const float* fs = fstack + (size_t)b * D1 * 3 * N;
+  const float* bs = bstack + (size_t)b * D1 * 3 * N + (size_t)p * W;
+  const double* cv = cvecf + (size_t)b * D1;
+  const double* bo = bo_ + (size_t)b * D1;
+  const float* tr = par + PACK_TRANS;
+  const float gapx = par[PACK_GAPX], var = par[PACK_VAR];
+
+  // the run of TO diagonals that may cover the block's columns, and this
+  // warp's slice of it
+  const int* hi = env + (size_t)b * 2 * D1;
+  const int* lo = hi + D1;
+  const int xa = tile * ES_COLS, xb = min(xa + ES_COLS, LX) - 1;
+  int a = 1, z = n + 1;   // the first d with hi[d] >= xa
+  while (a < z) {
+    const int mid = (a + z) >> 1;
+    if (hi[mid] >= xa) z = mid; else a = mid + 1;
+  }
+  const int dlo = a;
+  a = 1;
+  z = n + 1;              // the first d with lo[d] > xb
+  while (a < z) {
+    const int mid = (a + z) >> 1;
+    if (lo[mid] > xb) z = mid; else a = mid + 1;
+  }
+  const int len = max(a - dlo, 0);
+  const int dbeg = dlo + (int)((long long)len * warp / ES_WARPS);
+  const int dend = dlo + (int)((long long)len * (warp + 1) / ES_WARPS);
+
+  // this lane's column: its reference rows and legality words (target
+  // path p: bit q, legal from source path q), the same on every diagonal
+  const bool col = x < LX;
+  float m_hat = 0.f, inv_m = 0.f, c_m = 0.f, inv_y = 0.f, c_y = 0.f;
+  float mu = 0.f;
+  int kid = 0;
+  const unsigned* lw = nullptr;
+  if (col) {
+    const size_t plane = (size_t)P * LX, i = (size_t)p * LX + x;
+    const float* rf = ref_ + (size_t)b * NREF * plane + i;
+    m_hat = rf[0];
+    inv_m = rf[plane];
+    c_m = rf[2 * plane];
+    inv_y = rf[3 * plane];
+    c_y = rf[4 * plane];
+    if constexpr (HDP) {
+      kid = h.kid[(size_t)b * plane + i];
+      mu = h.mu[(size_t)b * plane + i];
+    }
+    lw = leg_ + (((size_t)b * LX + x) * P + p) * NW;
+  }
+  const bool kvalid = inv_m > 0.f;
+  const float e_gapx = kvalid ? gapx : NEG;
+
+  double tacc[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  double k0 = 0.0, k1 = 0.0, k2 = 0.0;
+  for (int d = dbeg; d < dend; ++d) {
+    const int xd = x0[d];
+    const int o = x - clampi(xd, 0, reflen - W);
+    if (!col || o < 0 || o >= width[d]) continue;
+    const int je = clampi(lY - d + xd + efp, 0, evlen - W) + o;
+    const float ev_mean = ev[je];
+    const bool ok = kvalid && ev[LE + je] > 0.5f;
+    float e_match, e_stay;
+    if constexpr (HDP) {
+      e_match = e_stay =
+          ok ? hdp_log_emission(mu + (ev_mean - m_hat) / var, kid, var, h)
+             : NEG;
+    } else {
+      const float am = (ev_mean - m_hat) * inv_m;
+      const float ay = (ev_mean - m_hat) * inv_y;
+      e_match = ok ? c_m - 0.5f * am * am : NEG;
+      e_stay = ok ? c_y - 0.5f * ay * ay : NEG;
+    }
+    const float* bd = bs + (size_t)d * 3 * N + o;
+    const float b_m = bd[MATCH * N], b_x = bd[GAP_X * N],
+                b_y = bd[GAP_Y * N];
+    const float c1 = (float)(cv[d - 1] + bo[d]);
+    const float c2 = (float)(cv[d >= 2 ? d - 2 : 0] + bo[d]);
+    // the sources (x-1, y) and (x, y-1) on diagonal d-1 and (x-1, y-1)
+    // on d-2, in the twin's windows (NEG outside them)
+    const int i1 = o + xd - x0[d - 1] - 1;
+    const int i2 = d >= 2 ? o + xd - x0[d - 2] - 1 : W + 5;
+    const bool in1 = i1 >= 0 && i1 < W, in2 = i2 >= 0 && i2 < W;
+    const bool iny = i1 + 1 >= 0 && i1 + 1 < W;
+    const float* f1 = fs + (size_t)(d - 1) * 3 * N;
+    const float* f2 = fs + (size_t)(in2 ? d - 2 : 0) * 3 * N;
+    // the two gapY stays, on path p
+    const float fy_m = iny ? f1[MATCH * N + p * W + i1 + 1] : NEG;
+    const float fy_y = iny ? f1[GAP_Y * N + p * W + i1 + 1] : NEG;
+    tacc[5] += (double)expf(fmaxf(fy_m + e_stay + tr[T_MY] + b_y + c1, NEG));
+    tacc[6] += (double)expf(fmaxf(fy_y + e_stay + tr[T_YY] + b_y + c1, NEG));
+    // the pairs from the legal source paths q, in path order
+    float mtp = 0.f;
+    for (int w = 0; w < NW; ++w)
+      for (unsigned m = lw[w]; m; m &= m - 1) {
+        const int q = 32 * w + __ffs(m) - 1;
+        const float f1m = in1 ? f1[MATCH * N + q * W + i1] : NEG;
+        const float f1x = in1 ? f1[GAP_X * N + q * W + i1] : NEG;
+        const float f2m = in2 ? f2[MATCH * N + q * W + i2] : NEG;
+        const float f2x = in2 ? f2[GAP_X * N + q * W + i2] : NEG;
+        const float f2y = in2 ? f2[GAP_Y * N + q * W + i2] : NEG;
+        const float p_mx =
+            expf(fmaxf(f1m + e_gapx + tr[T_MX] + b_x + c1, NEG));
+        const float p_xx =
+            expf(fmaxf(f1x + e_gapx + tr[T_XX] + b_x + c1, NEG));
+        const float p_mm =
+            expf(fmaxf(f2m + e_match + tr[T_MM] + b_m + c2, NEG));
+        const float p_xm =
+            expf(fmaxf(f2x + e_match + tr[T_XM] + b_m + c2, NEG));
+        const float p_ym =
+            expf(fmaxf(f2y + e_match + tr[T_YM] + b_m + c2, NEG));
+        tacc[0] += (double)p_mx;
+        tacc[1] += (double)p_xx;
+        tacc[2] += (double)p_mm;
+        tacc[3] += (double)p_xm;
+        tacc[4] += (double)p_ym;
+        mtp += p_mm + p_xm + p_ym;
+      }
+    if constexpr (!HDP) {
+      const float dxv = kvalid ? (ev_mean - m_hat) / var : 0.f;
+      k0 += (double)mtp;
+      k1 += (double)(mtp * dxv);
+      k2 += (double)(mtp * dxv * dxv);
+    }
+  }
+
+  // texp: the lanes by shuffles, then the warps in order, to the block's
+  // partial
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    double v = tacc[i];
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) tsum[warp][i] = v;
+  }
+  if constexpr (!HDP) {
+    ksum[warp][0][lane] = k0;
+    ksum[warp][1][lane] = k1;
+    ksum[warp][2][lane] = k2;
+  }
+  __syncthreads();
+  if (threadIdx.x < 7) {
+    double s = 0.0;
+    for (int w = 0; w < ES_WARPS; ++w) s += tsum[w][threadIdx.x];
+    part[(((size_t)b * P + p) * gridDim.x + tile) * 7 + threadIdx.x] = s;
+  }
+  if constexpr (!HDP) {
+    // kx row `warp` of this column: the warps' slices in warp order
+    if (warp < 3 && col) {
+      double s = 0.0;
+      for (int w = 0; w < ES_WARPS; ++w) s += ksum[w][warp][lane];
+      kx[(((size_t)b * 3 + warp) * P + p) * LX + x] = s;
+    }
+  }
+}
+
+// texp of each problem: its nblk blocks' partials in block order
+__global__ void sa_expect_texp_kernel(const double* __restrict__ part,
+                                      double* __restrict__ texp, int nblk) {
+  const int b = blockIdx.x, i = threadIdx.x;
+  if (i >= 7) return;
+  const double* pb = part + (size_t)b * nblk * 7;
+  double s = 0.0;
+  for (int j = 0; j < nblk; ++j) s += pb[(size_t)j * 7 + i];
+  texp[(size_t)b * 7 + i] = s;
+}
+
 // ------------------------------------------------------------- dispatch
 
 int round_warps(int n) { return ((n + 31) / 32) * 32; }
@@ -2563,7 +2884,9 @@ int fwd_paths_dispatch(const Bucket& a, float* fstack, float* f_incr,
 }
 
 // The backward's outputs: the survivor slots, and for an expectation
-// pass texp (B, 7) and kx (B, 3, LX) (null otherwise).
+// pass texp (B, 7) and kx (B, 3, P, LX), or in the P > 2 register
+// instances' (expect_split) the three-state stack bstack (B, D1, 3, P, W)
+// (null otherwise).
 struct BwdOut {
   float* b_incr;
   float* lse_b;
@@ -2572,6 +2895,7 @@ struct BwdOut {
   int* cnt;
   double* texp;
   double* kx;
+  float* bstack;
 };
 
 template <int K, bool HDP, bool EXPECT, int MP = 1>
@@ -2607,7 +2931,7 @@ int bwd_paths_launch(const Bucket& a, const float* fstack, const double* cvecf,
       <<<a.B, paths_threads(N), smem, stream>>>(
           a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
           cvecf, o.b_incr, o.lse_b, o.slot_cell, o.slot_val, o.cnt, o.texp,
-          o.kx, scratch, a.D1, a.W, a.P, a.LX, a.LE, R, threshold);
+          o.kx, o.bstack, scratch, a.D1, a.W, a.P, a.LX, a.LE, R, threshold);
   return (int)cudaGetLastError();
 }
 
@@ -2702,6 +3026,37 @@ int launch_k(int W, int P, bool expect, bool backward) {
                            : -paths_k(P * W);
 }
 
+// Whether the backward's expectation pass on a bucket of P paths at
+// width W runs a P > 2 register instance, which stores the three-state
+// stack and leaves texp and kx to sa_expect_sums (the per-pair, cluster
+// and scratch instances sum in the sweep).
+bool expect_split(int W, int P) {
+  const int K = launch_k(W, P, true, true);
+  return K < 0 && K >= -MAX_K;
+}
+
+// sa_expect_sums on a bucket: the envelopes, the sums, then texp from the
+// partials, on one stream; `scratch` holds B es_scratch_words.
+template <bool HDP>
+int expect_sums_launch(const Bucket& a, const float* fstack,
+                       const float* bstack, const double* cvecf,
+                       const double* bo, double* texp, double* kx,
+                       double* scratch, cudaStream_t s) {
+  const int tiles = es_tiles(a.LX);
+  double* part = scratch;
+  int* env = reinterpret_cast<int*>(scratch + (size_t)a.B * 7 * a.P * tiles);
+  sa_expect_env_kernel<<<a.B, MAX_THREADS, 0, s>>>(a.x0, a.width, a.meta,
+                                                   env, a.D1, a.W);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  sa_expect_sums_kernel<HDP>
+      <<<dim3(tiles, a.P, a.B), ES_THREADS, 0, s>>>(
+          a.x0, a.width, a.ref, a.leg, a.ev, a.meta, a.par, a.h, fstack,
+          bstack, cvecf, bo, env, part, kx, a.D1, a.W, a.P, a.LX, a.LE);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  sa_expect_texp_kernel<<<a.B, 32, 0, s>>>(part, texp, a.P * tiles);
+  return (int)cudaGetLastError();
+}
+
 // the scratch bytes per problem of the sweep's launch (0 unless it is the
 // scratch instance's: past CAP)
 size_t scratch_bytes(int W, int P, bool expect, bool backward) {
@@ -2723,8 +3078,11 @@ size_t scratch_bytes(int W, int P, bool expect, bool backward) {
 // dens and slopes (nk, ng) on the grid g0 + i * dx with last knot gN),
 // all null for a Gaussian bucket. `expect` != 0 runs the EM expectation
 // instances: fstack is (B, D1, 3, P, W), and the backward writes texp (B,
-// 7) and adds into kx (B, 3, P, LX), which the caller zeroes (both null
-// otherwise). Each returns cudaGetLastError() after its launch (a
+// 7) and adds into kx (B, 3, P, LX), which the caller zeroes, or, on a
+// bucket of the P > 2 register instances (expect_split, sa_expect_split),
+// writes the three-state stack bstack (B, D1, 3, P, W) instead, from
+// which sa_expect_sums then sums them (unused pointers null). Each
+// returns cudaGetLastError() after its launch (a
 // refused shared-memory size or cluster launch among them; a cluster
 // that cannot be scheduled: cudaErrorLaunchOutOfResources), or
 // cudaErrorInvalidValue for a shape it does not take (W or P below 1), an
@@ -2750,6 +3108,13 @@ extern "C" int sa_cluster_threads(int W, int P, int expect, int backward) {
 extern "C" long long sa_sweep_scratch_bytes(int W, int P, int expect,
                                             int backward) {
   return (long long)scratch_bytes(W, P, expect, backward);
+}
+
+// expect_split, and the bytes a problem of sa_expect_sums' scratch
+extern "C" int sa_expect_split(int W, int P) { return expect_split(W, P); }
+
+extern "C" long long sa_expect_sums_scratch_bytes(int D1, int P, int LX) {
+  return (long long)(8 * es_scratch_words(D1, P, LX));
 }
 
 extern "C" int sa_fwd_sweep(const int* x0, const int* width, const float* ref,
@@ -2796,8 +3161,8 @@ extern "C" int sa_bwd_sweep_compact(
     const float* mu, const float* dens, const float* slopes,
     const float* fstack, const double* cvecf, float* b_incr, float* lse_b,
     int* slot_cell, float* slot_val, int* cnt, double* texp, double* kx,
-    float* scratch, const unsigned* leg_tgt, int B, int D1, int W, int P,
-    int LX, int LE, int R,
+    float* bstack, float* scratch, const unsigned* leg_tgt, int B, int D1,
+    int W, int P, int LX, int LE, int R,
     int expect,
     int nk, int ng, float threshold, float g0, float dx,
     float gN, void* stream) {
@@ -2805,10 +3170,12 @@ extern "C" int sa_bwd_sweep_compact(
                  HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
                  B, D1, W, P, LX, LE};
   const int K = launch_k(W, P, expect, true);
-  if (K == 0 || !hdp_ok(a.h) || (expect && (!texp || !kx || !leg_tgt)) ||
+  const bool split = expect && expect_split(W, P);
+  if (K == 0 || !hdp_ok(a.h) ||
+      (expect && (split ? !bstack : !texp || !kx || !leg_tgt)) ||
       (!scratch && scratch_bytes(W, P, expect, true)))
     return (int)cudaErrorInvalidValue;
-  const BwdOut o{b_incr, lse_b, slot_cell, slot_val, cnt, texp, kx};
+  const BwdOut o{b_incr, lse_b, slot_cell, slot_val, cnt, texp, kx, bstack};
   cudaStream_t s = (cudaStream_t)stream;
   if (K < 0 && expect)
     return dens ? bwd_paths_dispatch<true, true>(a, fstack, cvecf, o, R,
@@ -2829,4 +3196,35 @@ extern "C" int sa_bwd_sweep_compact(
                                                threshold, s)
               : bwd_pair_dispatch<false, false>(a, K, fstack, cvecf, o, R,
                                                 threshold, s);
+}
+
+// sa_expect_sums: texp (B, 7) and, in a Gaussian bucket, kx (B, 3, P, LX)
+// (every entry written; null and untouched in an HDP bucket) of a bucket
+// of the P > 2 register instances (expect_split) from the forward's and
+// the backward's three-state stacks (B, D1, 3, P, W), cvecf (B, D1) =
+// Fo(d) - total_f and the backward offsets bo (B, D1) = Bo(d), both
+// float64; leg holds the forward's masks (ProblemTensors.leg), scratch
+// B x sa_expect_sums_scratch_bytes bytes. Three launches on `stream`;
+// returns the first error, or cudaErrorInvalidValue for a bucket that is
+// not expect_split, incomplete HDP tables or a missing output.
+extern "C" int sa_expect_sums(
+    const int* x0, const int* width, const float* ref, const unsigned* leg,
+    const float* ev, const int* meta, const float* par, const int* kid,
+    const float* mu, const float* dens, const float* slopes,
+    const float* fstack, const float* bstack, const double* cvecf,
+    const double* bo, double* texp, double* kx, double* scratch, int B,
+    int D1, int W, int P, int LX, int LE, int nk, int ng, float g0, float dx,
+    float gN, void* stream) {
+  const Bucket a{x0, width, ref, leg, ev, meta, par,
+                 HdpTab{kid, mu, dens, slopes, nk, ng, g0, dx, gN},
+                 B, D1, W, P, LX, LE};
+  if (!expect_split(W, P) || !hdp_ok(a.h) || !texp || !scratch ||
+      (!dens && !kx))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return dens ? expect_sums_launch<true>(a, fstack, bstack, cvecf, bo, texp,
+                                         nullptr, scratch, s)
+              : expect_sums_launch<false>(a, fstack, bstack, cvecf, bo, texp,
+                                          kx, scratch, s);
 }

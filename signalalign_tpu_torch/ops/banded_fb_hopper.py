@@ -22,6 +22,14 @@ in ``<wrapper>.wide_launches``, and of these those of the cluster instance
 (up to CAP, ``cluster_ctas``) in ``<wrapper>.cluster_launches`` and those
 of the scratch instance (past CAP) in ``<wrapper>.wide_scratch_launches``.
 
+On a bucket of ``expect_split`` (the P > 2 register instances: past the
+per-pair instances, up to 8,192 cells a diagonal) the expectation
+backward stores its three-state stack (``backward_sweep_stack``) and
+``expect_sums`` launches ``sa_expect_sums``, which sums texp and kx from
+both stacks (its twin ``expect_sums_ref``; launches in
+``expect_sums.launches``); ``backward_sweep_compact(..., expect=True)``
+runs the two in turn, so its contract does not change.
+
 ``forward_sweep_prob`` and ``backward_sweep_compact_prob`` launch the
 probability-space kernels ``sa_fwd_sweep_prob`` and
 ``sa_bwd_sweep_compact_prob`` (``csrc/banded_fb_prob.cu``; P = 1
@@ -38,9 +46,9 @@ the P = 1 ``fuse_compact`` branch, the P > 1 ``fuse_post`` +
 forward sweep, float64 normaliser scan, backward sweep with in-sweep
 posterior + survivor compaction, then either the survivors decoded to
 aligned pairs or their posteriors summed per site on the device; in the
-expectation pass the backward also sums the transition posteriors and
-the per-(path, position) emission moments, which ``kexp_by_kmer`` keys by
-k-mer.
+expectation pass the backward (or, after it, ``sa_expect_sums``) also
+sums the transition posteriors and the per-(path, position) emission
+moments, which ``kexp_by_kmer`` keys by k-mer.
 With ``log_space=False`` it is the counterpart of
 ``PallasBatchAligner(log_space=False)``: the probability-space sweeps,
 and every result carries ``numerics_suspect``.
@@ -277,19 +285,40 @@ def backward_sweep_compact_ref(pt: bfb.ProblemTensors, fstack, cvecf,
     int32 survivors per diagonal); slots at ranks >= cnt hold -1 / 0.
     Survivors of a diagonal rank in (band offset, path) order. With
     ``expect`` (``fstack`` the three-state stack) it also returns texp
-    (B, 7) and kx (B, 3, P, LX) float64 from ``bfb.expectation_sums`` over
+    (B, 7) and kx (B, 3, P, LX) float64 from ``expect_sums_ref`` over
     the three-state backward stack (kx zero in MODE_HDP).
     """
-    bstack, b_incr, lse_b = bfb.sweep_backward(pt, store_full=expect)
+    if expect:
+        out = backward_sweep_stack_ref(pt, fstack, cvecf, threshold, R)
+        bo, _ = bfb.backward_offsets(out[0], out[1])
+        return out[:5] + expect_sums_ref(pt, fstack, out[5], cvecf, bo)
+    bstack, b_incr, lse_b = bfb.sweep_backward(pt)
     bo, _ = bfb.backward_offsets(b_incr, lse_b)
-    fm, bm = ((fstack[:, :, bfb.MATCH], bstack[:, :, bfb.MATCH]) if expect
-              else (fstack, bstack))
-    out = (b_incr, lse_b) + _compact_ref(pt, fm, bm, bo, cvecf, threshold, R)
-    if not expect:
-        return out
-    return out + bfb.expectation_sums(pt, fstack, bstack,
-                                      *bfb.expect_cvecs(cvecf, bo),
-                                      moments=pt.hdp is None)
+    return (b_incr, lse_b) + _compact_ref(pt, fstack, bstack, bo, cvecf,
+                                          threshold, R)
+
+
+def backward_sweep_stack_ref(pt: bfb.ProblemTensors, fstack, cvecf,
+                             threshold: float, R: int):
+    """Plain twin of ``backward_sweep_stack``: the full backward sweep
+    with all three states kept, then the posterior, threshold and
+    compaction; (b_incr, lse_b, slot_cell, slot_val, cnt) as
+    ``backward_sweep_compact_ref`` and bstack (B, D1, 3, P, W)."""
+    bstack, b_incr, lse_b = bfb.sweep_backward(pt, store_full=True)
+    bo, _ = bfb.backward_offsets(b_incr, lse_b)
+    return (b_incr, lse_b) + _compact_ref(
+        pt, fstack[:, :, bfb.MATCH], bstack[:, :, bfb.MATCH], bo, cvecf,
+        threshold, R) + (bstack,)
+
+
+def expect_split(W: int, P: int) -> bool:
+    """Whether the backward's expectation pass on a bucket of P paths at
+    width W runs a P > 2 register instance (P * W up to 8,192 cells, past
+    the per-pair instances), which stores its three-state stack and leaves
+    texp and kx to ``expect_sums``; the per-pair, cluster and scratch
+    instances sum them in the sweep. The kernels' own rule
+    (``sa_expect_split``); loads (and on first use builds) them."""
+    return bool(cuda_build.load().sa_expect_split(W, P))
 
 
 def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
@@ -304,11 +333,25 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     transition posterior sums in ``bfb.TEXP_ROWS`` order, and kx (B, 3, P,
     LX) float64, the into-match posteriors' moments [Σp, Σp·dx, Σp·dx²]
     at each TO (path, position), summed over the legal source paths (zero
-    in MODE_HDP).
+    in MODE_HDP): summed in the sweep, or on a bucket of ``expect_split``
+    by ``backward_sweep_stack`` and then ``expect_sums`` on the same
+    stream.
     """
     if pt.device.type == "cpu":
         return backward_sweep_compact_ref(pt, fstack, cvecf, threshold, R,
                                           expect)
+    if expect and expect_split(pt.W, pt.P):
+        out = backward_sweep_stack(pt, fstack, cvecf, threshold, R)
+        bo, _ = bfb.backward_offsets(out[0], out[1])
+        return out[:5] + expect_sums(pt, fstack, out[5], cvecf, bo)
+    return _backward(pt, fstack, cvecf, threshold, R, expect, False)
+
+
+def _backward(pt: bfb.ProblemTensors, fstack, cvecf, threshold: float,
+              R: int, expect: bool, stack: bool):
+    """Launch ``sa_bwd_sweep_compact`` on CUDA tensors: the survivor
+    outputs, then with ``expect`` texp and kx summed in the sweep, or with
+    ``stack`` (a bucket of ``expect_split``) the three-state bstack."""
     _check_cuda(pt)
     B, D1 = pt.x0.shape
     LX = pt.ref.shape[-1]
@@ -321,18 +364,23 @@ def backward_sweep_compact(pt: bfb.ProblemTensors, fstack, cvecf,
     slot_cell = torch.empty(B, D1, R, dtype=torch.int32, device=dev)
     slot_val = torch.empty(B, D1, R, dtype=torch.float32, device=dev)
     cnt = torch.empty(B, D1, dtype=torch.int32, device=dev)
-    texp = kx = None
-    if expect:
+    texp = kx = bstack = None
+    if stack:
+        bstack = torch.empty(B, D1, 3, pt.P, pt.W, dtype=torch.float32,
+                             device=dev)
+    elif expect:
         texp = torch.empty(B, 7, dtype=torch.float64, device=dev)
         kx = torch.zeros(B, 3, pt.P, LX, dtype=torch.float64, device=dev)
     scratch = _scratch(pt, expect, True)
     _launch("sa_bwd_sweep_compact", pt, pt.leg_src,
             (fstack, cvecf, b_incr, lse_b, slot_cell, slot_val, cnt, texp,
-             kx, scratch, pt.leg if expect else None),
+             kx, bstack, scratch, pt.leg if expect else None),
             (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1], R, int(expect)),
             (float(threshold),))
     _count(backward_sweep_compact, pt, expect, True)
     out = (b_incr, lse_b, slot_cell, slot_val, cnt)
+    if stack:
+        return out + (bstack,)
     return out + (texp, kx) if expect else out
 
 
@@ -343,6 +391,73 @@ backward_sweep_compact.expect_pair2_launches = 0
 backward_sweep_compact.wide_launches = 0
 backward_sweep_compact.cluster_launches = 0
 backward_sweep_compact.wide_scratch_launches = 0
+
+
+def backward_sweep_stack(pt: bfb.ProblemTensors, fstack, cvecf,
+                         threshold: float, R: int):
+    """The expectation backward of a bucket of ``expect_split`` (a P > 2
+    register instance, ``fstack`` the three-state stack): the backward
+    with the posterior, threshold and compaction fused in, which also
+    stores each diagonal's three normalised states and sums nothing.
+    Returns (b_incr, lse_b, slot_cell, slot_val, cnt) as
+    ``backward_sweep_compact`` and bstack (B, D1, 3, P, W) f32, laid out as
+    fstack (on CUDA its rows past a problem's n_diag are left unwritten).
+    Counted as ``backward_sweep_compact``'s expectation launches."""
+    if pt.device.type == "cpu":
+        return backward_sweep_stack_ref(pt, fstack, cvecf, threshold, R)
+    if not expect_split(pt.W, pt.P):
+        raise ValueError(f"a bucket of P={pt.P} at W={pt.W} sums its "
+                         "expectations in the sweep: no stack to store")
+    return _backward(pt, fstack, cvecf, threshold, R, True, True)
+
+
+# ---------------------------------------------------- expectation sums
+
+def expect_sums_ref(pt: bfb.ProblemTensors, fstack, bstack, cvecf, bo):
+    """Plain twin of ``expect_sums``: ``bfb.expectation_sums`` over the
+    two three-state stacks with the normalisers of ``bfb.expect_cvecs``
+    (kx zero in MODE_HDP)."""
+    return bfb.expectation_sums(pt, fstack, bstack,
+                                *bfb.expect_cvecs(cvecf, bo),
+                                moments=pt.hdp is None)
+
+
+def expect_sums(pt: bfb.ProblemTensors, fstack, bstack, cvecf, bo):
+    """The EM sums of a bucket of ``expect_split`` from the forward's and
+    the backward's three-state stacks (B, D1, 3, P, W), ``cvecf`` = Fo(d)
+    - total_f and the backward offsets ``bo`` = Bo(d) (B, D1) float64:
+    texp (B, 7) float64 in ``bfb.TEXP_ROWS`` order and kx (B, 3, P, LX)
+    float64 [Σp, Σp·dx, Σp·dx²] (zero in MODE_HDP), as ``expect_sums_ref``.
+    On CUDA it launches ``sa_expect_sums`` (csrc/banded_fb.cu): every
+    (problem, diagonal, cell) at once, the sums in an order fixed by the
+    code, so two launches give the same bits."""
+    if pt.device.type == "cpu":
+        return expect_sums_ref(pt, fstack, bstack, cvecf, bo)
+    _check_cuda(pt)
+    B, D1 = pt.x0.shape
+    LX = pt.ref.shape[-1]
+    dev = pt.device
+    if not expect_split(pt.W, pt.P):
+        raise ValueError(f"a bucket of P={pt.P} at W={pt.W} sums its "
+                         "expectations in the sweep")
+    for name, t in (("fstack", fstack), ("bstack", bstack)):
+        _check_out(name, t, (B, D1, 3, pt.P, pt.W), torch.float32, dev)
+    for name, t in (("cvecf", cvecf), ("bo", bo)):
+        _check_out(name, t, (B, D1), torch.float64, dev)
+    texp = torch.empty(B, 7, dtype=torch.float64, device=dev)
+    kx = (torch.empty if pt.hdp is None else torch.zeros)(
+        B, 3, pt.P, LX, dtype=torch.float64, device=dev)
+    per = cuda_build.load().sa_expect_sums_scratch_bytes(D1, pt.P, LX)
+    scratch = torch.empty(B * per // 8, dtype=torch.float64, device=dev)
+    _launch("sa_expect_sums", pt, pt.leg,
+            (fstack, bstack, cvecf, bo, texp,
+             kx if pt.hdp is None else None, scratch),
+            (B, D1, pt.W, pt.P, LX, pt.ev.shape[-1]))
+    expect_sums.launches += 1
+    return texp, kx
+
+
+expect_sums.launches = 0
 
 
 # ------------------------------------------- probability-space sweeps
@@ -468,6 +583,7 @@ def reset_launch_counts() -> None:
         fn.wide_launches = 0
         fn.cluster_launches = 0
         fn.wide_scratch_launches = 0
+    expect_sums.launches = 0
     forward_sweep_prob.launches = 0
     backward_sweep_compact_prob.launches = 0
 
@@ -504,20 +620,23 @@ def decode_pairs(problem: bfb.BandedProblem, d: np.ndarray, cell: np.ndarray,
 
 
 def _check_fits(problems: Sequence[bfb.BandedProblem], W: int,
-                device: torch.device, states: int) -> None:
+                device: torch.device, expect: bool) -> None:
     """Raises MemoryError, with its byte count, for a bucket whose longest
-    problem's forward stack (``states`` rows per diagonal) alone exceeds
-    the CUDA device's memory: the one shape the sweeps refuse."""
+    problem's stacks (three rows per diagonal with ``expect``, one
+    otherwise; the forward's, and on a bucket of ``expect_split`` the
+    backward's too) alone exceed the CUDA device's memory: the one shape
+    the sweeps refuse."""
     if device.type != "cuda" or not problems:
         return
     P = max(p.ref_params.shape[1] for p in problems)
     D1 = max(p.n_diag for p in problems) + 1
-    need = D1 * states * P * W * 4
+    stacks = 2 if expect and expect_split(W, P) else 1
+    need = D1 * (3 if expect else 1) * P * W * 4 * stacks
     total = torch.cuda.get_device_properties(device).total_memory
     if need > total:
         raise MemoryError(
             f"a problem of P={P} paths at W={W} over {D1} diagonals needs "
-            f"{need} bytes of forward stack, more than the device's {total}")
+            f"{need} bytes of stacks, more than the device's {total}")
 
 
 class HopperAligner:
@@ -541,7 +660,7 @@ class HopperAligner:
                  hdp_tables: Optional[bfb.HdpTables] = None,
                  expect: bool = False, log_space: bool = True):
         self.problems = list(problems)
-        _check_fits(self.problems, W, device, 3 if expect else 1)
+        _check_fits(self.problems, W, device, expect)
         if not log_space and expect:
             bfb.check_prob(W, 1, hdp_tables is not None, expect)
         self.pt = problem_tensors(self.problems, W, device, hdp_tables,

@@ -70,7 +70,9 @@ from signalalign_tpu_torch.utils.alphabet import (max_paths_per_kmer,
 from signalalign_tpu_torch.utils.native import NativeLibraryError
 
 # forward-stack bytes one aligner call may hold on the device; larger
-# buckets run in several calls
+# buckets run in several calls. An expectation bucket whose backward keeps
+# its three-state stack too (banded_fb_hopper.expect_split) holds a
+# backward stack of the same size beside it
 STACK_BYTES = 8 << 30
 # the JAX runner's switch for its probability-space kernels (read where
 # it reads it), and the smallest bucket it sends to them: smaller ones

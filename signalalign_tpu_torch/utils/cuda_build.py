@@ -30,9 +30,12 @@ BUILD_DIR = os.path.join(_ROOT, "build", "torch_kernels")
 LIB_NAME = "libsa_torch_kernels.so"
 # --fmad=false: no multiply-add contraction, so every operation rounds as
 # in the plain PyTorch twin (one kernel per op); measured on an H100, the
-# contracted build drifted 1e-3 in posteriors over 4k diagonals
+# contracted build drifted 1e-3 in posteriors over 4k diagonals.
+# --split-compile=0: nvcc optimises a source's kernels on as many threads
+# as the host has (banded_fb.cu's many instances build in parallel)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "--split-compile=0", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -44,7 +47,10 @@ _F = ctypes.c_float
 # (argtypes, restype)
 _SIGNATURES = {
     "sa_fwd_sweep": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
-    "sa_bwd_sweep_compact": ([_P] * 22 + [_I] * 10 + [_F] * 4 + [_P], _I),
+    "sa_bwd_sweep_compact": ([_P] * 23 + [_I] * 10 + [_F] * 4 + [_P], _I),
+    "sa_expect_sums": ([_P] * 18 + [_I] * 8 + [_F] * 3 + [_P], _I),
+    "sa_expect_split": ([_I] * 2, _I),
+    "sa_expect_sums_scratch_bytes": ([_I] * 3, ctypes.c_longlong),
     "sa_cells_per_thread": ([_I] * 4, _I),
     "sa_sweep_scratch_bytes": ([_I] * 4, ctypes.c_longlong),
     "sa_cluster_ctas": ([_I] * 4, _I),

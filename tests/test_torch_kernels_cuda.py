@@ -20,7 +20,10 @@ the final logsumexp reductions sum in another order): totals within
 within 1e-4 of the threshold; the expectation instances' three-state
 stacks, offsets and survivors equal their twins', and their texp and kx
 (per-cell float32 terms summed in float64, in another association than
-the twin's XLA-form core) within 1e-5 relative of the twin's.
+the twin's XLA-form core) within 1e-5 relative of the twin's (P = 1 per
+pair) or 1e-3 of its largest value (P > 1 summed in the sweep), and
+within 1e-6 of it where sa_expect_sums adds the twin's own terms (the
+P > 2 register instances' buckets).
 """
 
 import numpy as np
@@ -543,14 +546,23 @@ def test_expect_instances_at_every_k(dev, W, kf, kb, hdp):
 
 # the expectation buckets of more than one path, and of one past the
 # per-pair instances: P = 2 at W = 256 (the per-pair instance widened to
-# two paths) and at W = 4096 (the P > 2 instances), P = 4 and 8 at W =
-# 256, a P = 1 band of 2,271 offsets (W = 2304), the cluster instance (P
-# = 64 at W = 256 and at W = 768, its CAP; P = 16 at W = 768; and
-# paths_case's wide-shaped band edges and sparse legality) and the
-# scratch instance past its CAP. Windows clamped at reflen - W are held
-# apart (test_expect_clamped_windows)
-EXPECT_PATH_CASES = ["p2", "p2w4096", "p4", "p8", "p1w2304", "p64",
-                     "p16w768", "p64w768", "wedges", "willegal", "pastcap"]
+# two paths) and at W = 4096, P = 3, 4, 8 and 16 at W = 256, P = 64 at W =
+# 128 (two legality words) and a P = 1 band of 2,271 offsets (W = 2304)
+# (the P > 2 register instances, whose sums sa_expect_sums takes), the
+# cluster instance (P = 64 at W = 256 and at W = 768, its CAP; P = 16 at
+# W = 768; and paths_case's wide-shaped band edges and sparse legality)
+# and the scratch instance past its CAP. Windows clamped at reflen - W
+# are held apart (test_expect_clamped_windows)
+EXPECT_PATH_CASES = ["p2", "p2w4096", "p3", "p4", "p8", "p16", "p64w128",
+                     "p1w2304", "p64", "p16w768", "p64w768", "wedges",
+                     "willegal", "pastcap"]
+# texp and kx against the twin's, relative to its largest value: the
+# register instances' buckets (sa_expect_sums adds the twin's own
+# float32 pair terms, in float64 in another order) and the others (the
+# sweep sums a source cell's transitions through its to-cell logsumexp
+# over the legal targets, the twin each (source, target) pair, as the
+# JAX XLA core does)
+TOL_SPLIT, TOL_SWEEP = 1e-6, 1e-3
 
 
 @pytest.mark.parametrize("hdp", [False, True], ids=["gauss", "hdp"])
@@ -559,16 +571,21 @@ def test_expect_paths_instances_match_twins(dev, case, hdp):
     """The expectation pass at P > 1 (and at P = 1 past 2,048 cells),
     Gaussian or HDP, on the instance the dispatch picks, against the
     twins: three-state stacks, offsets and survivors equal bit for bit;
-    texp and kx (B, 3, P, LX) within 1e-3 of the twin's largest value
-    (the kernel sums a source cell's transitions through its to-cell
-    logsumexp over the legal targets, the twin each (source, target)
-    pair, as the JAX XLA core does); kx zero under HDP."""
+    texp and kx (B, 3, P, LX) within TOL_SPLIT of the twin's largest
+    value on the register instances' buckets, TOL_SWEEP on the others; kx
+    zero under HDP. On the register instances' buckets also: the
+    backward's stored three-state stack equals the twin's ``store_full``
+    stack bit for bit, sa_expect_sums launched once (and on no other
+    bucket), and two launches of it on the same stacks give the same
+    bits."""
     problems, W, h = _paths_bucket(case, hdp)
     pt = problem_tensors(problems, W, dev, _hdp_tables(h, dev),
                          kmer_ids=True)
     P = pt.P
     ks = [hk.cells_per_thread(W, P, True, b) for b in (0, 1)]
     assert all(ks) and (case == "p2" or all(k < 0 for k in ks))
+    split = hk.expect_split(W, P)
+    assert split == (-8 <= ks[1] < 0)
     nds = pt.meta[:, bfb.M_NDIAG]
     rows = torch.arange(pt.x0.shape[1], device=dev)[None, :] <= nds[:, None]
     n0 = (hk.forward_sweep.expect_launches,
@@ -576,6 +593,7 @@ def test_expect_paths_instances_match_twins(dev, case, hdp):
     pair0 = (hk.forward_sweep.expect_pair2_launches,
              hk.backward_sweep_compact.expect_pair2_launches)
     wide0 = _wide_counts()
+    sums0 = hk.expect_sums.launches
     fk = hk.forward_sweep(pt, expect=True)
     fr = hk.forward_sweep_ref(pt, expect=True)
     torch.cuda.synchronize()
@@ -590,6 +608,7 @@ def test_expect_paths_instances_match_twins(dev, case, hdp):
     torch.cuda.synchronize()
     assert (hk.forward_sweep.expect_launches,
             hk.backward_sweep_compact.expect_launches) == (n0[0] + 1, n0[1] + 1)
+    assert hk.expect_sums.launches == sums0 + int(split)
     # the per-pair instance's two-path launches are counted apart
     on_pair = int(P == 2 and ks[0] > 0)
     assert (hk.forward_sweep.expect_pair2_launches,
@@ -603,11 +622,24 @@ def test_expect_paths_instances_match_twins(dev, case, hdp):
     assert torch.equal(bk[2][keep], br[2][keep])
     assert torch.equal(bk[3][keep], br[3][keep])
     assert bk[6].shape == (pt.x0.shape[0], 3, P, pt.ref.shape[-1])
-    assert _rel(bk[5], br[5]) <= 1e-3 and bk[5].sum() > 0
+    tol = TOL_SPLIT if split else TOL_SWEEP
+    assert _rel(bk[5], br[5]) <= tol and bk[5].sum() > 0
     if h is None:
-        assert _rel(bk[6], br[6]) <= 1e-3 and bk[6].abs().max() > 0
+        assert _rel(bk[6], br[6]) <= tol and bk[6].abs().max() > 0
     else:
         assert not bk[6].any()
+    if not split:
+        return
+    sk = hk.backward_sweep_stack(pt, fr[0], cvecf, THR, R)
+    bs = bfb.sweep_backward(pt, store_full=True)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(sk[5][rows], bs[rows])
+    bo, _ = bfb.backward_offsets(sk[0], sk[1])
+    first = hk.expect_sums(pt, fr[0], sk[5], cvecf, bo)
+    again = hk.expect_sums(pt, fr[0], sk[5], cvecf, bo)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(a, b) for a, b in zip(first, bk[5:]))
 
 
 @pytest.mark.parametrize("hdp", [False, True], ids=["gauss", "hdp"])

@@ -362,7 +362,8 @@ def test_site_sums_match_execute_site_marginals(bucket):
 def test_reset_launch_counts_zeroes_every_counter():
     """``reset_launch_counts`` zeroes every launch counter of both
     log-space wrappers, the wide instances' by instance (cluster, scratch)
-    among them, and of the probability-space pair."""
+    among them, of the expectation sums and of the probability-space
+    pair."""
     names = ("launches", "expect_launches", "expect_paths_launches",
              "expect_pair2_launches", "wide_launches", "cluster_launches",
              "wide_scratch_launches")
@@ -370,10 +371,12 @@ def test_reset_launch_counts_zeroes_every_counter():
     for fn in fns:
         for name in names:
             setattr(fn, name, 3)
+    hk.expect_sums.launches = 3
     hk.forward_sweep_prob.launches = 3
     hk.backward_sweep_compact_prob.launches = 3
     hk.reset_launch_counts()
     assert all(getattr(fn, name) == 0 for fn in fns for name in names)
+    assert hk.expect_sums.launches == 0
     assert hk.forward_sweep_prob.launches == 0
     assert hk.backward_sweep_compact_prob.launches == 0
 
